@@ -1,0 +1,104 @@
+"""Model API.
+
+    model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
+    logits = model.forward_logits(batch)
+    logits, cache = model.prefill(batch, pad_to=...)
+    logits, cache = model.decode_step(tokens, cache)     # cache updated in place
+
+``batch`` is a dict with "tokens" (B,S) int64 on the model's device.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import lm
+from .common import dtype_of, require_device
+from .config import ArchConfig
+
+
+def _populate(mod: nn.Module, tree: dict) -> nn.Module:
+    """Register ``tree``'s leaves as parameters of ``mod``, sub-dicts as
+    child modules, so that state-dict keys are the tree's dotted paths."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            mod.add_module(name, _populate(nn.Module(), leaf))
+        else:
+            mod.register_parameter(name, nn.Parameter(leaf,
+                                                      requires_grad=False))
+    return mod
+
+
+def _tree_of(mod: nn.Module) -> dict:
+    tree: dict = dict(mod.named_parameters(recurse=False))
+    for name, child in mod.named_children():
+        tree[name] = _tree_of(child)
+    return tree
+
+
+class Model(nn.Module):
+    """The dense LM as an ``nn.Module``.
+
+    Parameters keep the JAX tree's names and stacked layout (state-dict keys
+    such as ``layers.attn.wq`` of shape (L, D, H, hd)).  A new model holds
+    its parameters on the meta device, without memory; ``init`` draws them
+    and ``load_state`` takes given ones.  Runs on CUDA unless the caller
+    passes another device; raises if CUDA is asked for and absent."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda") -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.device = require_device(device)
+        _populate(self, lm.init_params(cfg, None, "meta"))
+
+    @property
+    def params(self) -> dict:
+        """The parameters as the nested dict ``lm`` takes."""
+        return _tree_of(self)
+
+    def init(self, generator: torch.Generator) -> "Model":
+        """Draw the parameters on the model's device from ``generator``."""
+        self.load_state(flatten(lm.init_params(self.cfg, generator,
+                                                self.device)))
+        return self
+
+    def load_state(self, state: dict) -> "Model":
+        """Take a flat state dict (name -> tensor), moved to the model's
+        device and param dtype; every parameter must be given."""
+        dtype = dtype_of(self.cfg.param_dtype)
+        self.load_state_dict(
+            {k: v.to(device=self.device, dtype=dtype) for k, v in
+             state.items()}, strict=True, assign=True)
+        return self
+
+    @torch.no_grad()
+    def forward_logits(self, batch) -> torch.Tensor:
+        logits, _ = lm.forward(self.params, batch["tokens"], self.cfg)
+        return logits
+
+    @torch.no_grad()
+    def prefill(self, batch, pad_to: int | None = None):
+        return lm.prefill(self.params, batch, self.cfg, pad_to=pad_to)
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache):
+        return lm.decode_step(self.params, tokens, cache, self.cfg)
+
+    def init_decode_cache(self, batch: int, max_len: int,
+                          dtype: torch.dtype | None = None) -> dict:
+        """Zero cache; ``dtype`` defaults to the config's compute dtype."""
+        dtype = dtype_of(self.cfg.compute_dtype) if dtype is None else dtype
+        return lm.init_decode_cache(self.cfg, batch, max_len, dtype,
+                                    self.device)
+
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """A nested dict as {dotted path: leaf}, the state-dict keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out

@@ -1,0 +1,103 @@
+"""GQA attention: full-sequence (prefill), single-token decode with a KV
+cache, optional sliding window (gemma3-style local layers), RoPE.
+
+The causal full-sequence path goes through ``kernels.flash_attention``: the
+hand-written CUDA kernel for CUDA tensors, its plain version on the CPU.
+Decode attention has no kernel in the reference and stays plain torch."""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ref import NEG_INF
+from .common import apply_rope, normal_init
+from .config import ArchConfig
+
+
+def init_attn_params(generator, cfg: ArchConfig, dtype, device,
+                     lead: tuple = ()) -> dict:
+    """``lead`` prepends dims, e.g. (n_layers,) for the stacked layout."""
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    std = d ** -0.5
+    return {
+        "wq": normal_init(generator, (*lead, d, h, hd), std, dtype, device),
+        "wk": normal_init(generator, (*lead, d, k, hd), std, dtype, device),
+        "wv": normal_init(generator, (*lead, d, k, hd), std, dtype, device),
+        "wo": normal_init(generator, (*lead, h, hd, d), (h * hd) ** -0.5,
+                          dtype, device),
+    }
+
+
+def _project(params, x):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    return q, k, v
+
+
+def _qkv(params, x, positions, cfg: ArchConfig):
+    q, k, v = _project(params, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,T,K,hd), mask (B,1,S,T) or (1,1,S,T) bool."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    q = q.reshape(b, s, kh, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float()
+    scores = scores * (hd ** -0.5)
+    scores = scores.masked_fill(~mask[:, :, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def full_attention(params, x, positions, cfg: ArchConfig, window: int = 0,
+                   causal: bool = True):
+    """Self-attention over the whole sequence (causal unless ``causal=False``
+    for encoder stacks).  ``window`` is a Python int, 0 => global.
+
+    Returns (output, (k, v)) so prefill can seed the decode cache."""
+    q, k, v = _qkv(params, x, positions, cfg)
+    if causal:
+        out = flash_attention(q, k, v, causal=True, window=window)
+    else:
+        s = x.shape[1]
+        rows = torch.arange(s, device=x.device)[:, None]
+        cols = torch.arange(s, device=x.device)[None, :]
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
+        if window > 0:
+            mask &= cols > rows - window
+        out = _sdpa(q, k, v, mask[None, None])
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, (k, v)
+
+
+def decode_attention(params, x, cache_k, cache_v, pos, cfg: ArchConfig,
+                     window: int = 0):
+    """One new token per sequence against a cache of static length T.
+
+    x (B,1,D); cache_k/v (B,T,K,hd); pos (B,) int64 -- index of the new
+    token (cache positions < pos are valid).  Returns (y, (cache_k,
+    cache_v)).  The new row is written into cache_k/v **in place** (JAX's
+    ``.at[].set`` returns a copy).  Unlike JAX, which drops an out-of-range
+    write silently, a ``pos >= T`` raises: callers keep pos < T."""
+    b = x.shape[0]
+    t = cache_k.shape[1]
+    q, k, v = _project(params, x)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    cache_k[rows, pos] = k[:, 0]
+    cache_v[rows, pos] = v[:, 0]
+    cols = torch.arange(t, device=x.device)[None, :]            # (1,T)
+    mask = cols <= pos[:, None]
+    if window > 0:
+        mask &= cols > (pos[:, None] - window)
+    out = _sdpa(q, cache_k, cache_v, mask[:, None, None, :])
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, (cache_k, cache_v)

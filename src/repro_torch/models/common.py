@@ -1,0 +1,63 @@
+"""Shared building blocks: device choice, norms, RoPE, init."""
+from __future__ import annotations
+
+import torch
+
+
+def require_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA unless the caller names another.
+
+    Raises when CUDA is asked for and absent, instead of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this machine; pass device='cpu' to run "
+            "the plain PyTorch path on the CPU")
+    return device
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in f32, scaled by ``1 + scale`` (the scales init to zero)."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).
+
+    Rotates the two split halves of hd (not interleaved pairs) with f32
+    angles and casts back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (...,S,hd/2)
+    angles = angles[..., None, :]                            # (...,S,1,hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def normal_init(generator: torch.Generator | None, shape, std: float,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """N(0, std^2) drawn in f32 and cast, one leaf at a time.
+
+    ``device="meta"`` (with no generator) gives the leaf's shape and dtype
+    without memory."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(dtype)

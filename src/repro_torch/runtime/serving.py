@@ -1,0 +1,148 @@
+"""Continuous-batching serving engine.
+
+The WOW idea applied to inference: the *slot* is the resource, the request
+is the task, and prefill is the "COP" that prepares a slot while decode
+steps for other requests keep running.  A fixed pool of B cache slots
+decodes in lock-step; freed slots are refilled from a priority queue
+(shortest-prompt-first by default, mirroring the paper's input-size
+prioritization) without stopping the decode batch.
+
+Host orchestration around the model's prefill and decode steps.  The slot
+cache is allocated in the config's compute dtype and updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+
+import numpy as np
+import torch
+
+from ..launch.steps import make_serve_step
+from ..models import Model
+from ..models.common import require_device
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    prompt: np.ndarray            # (len,) int
+    max_new: int = 16
+    priority: float = 0.0         # smaller = sooner
+
+    def __lt__(self, other: "Request") -> bool:
+        return (self.priority, self.id) < (other.priority, other.id)
+
+
+@dataclasses.dataclass
+class Completion:
+    id: int
+    tokens: list[int]
+
+
+class ServingEngine:
+    """Slot-based continuous batching with greedy decoding.
+
+    Runs where ``model`` lives, which must be ``device`` (CUDA unless the
+    caller names another device)."""
+
+    def __init__(self, model: Model, slots: int = 4, max_len: int = 128,
+                 device="cuda") -> None:
+        device = require_device(device)
+        if model.device != device:
+            raise ValueError(f"model is on {model.device}, engine asked to "
+                             f"run on {device}")
+        self.cfg = model.cfg
+        self.model = model
+        self.device = device
+        self.slots = slots
+        self.max_len = max_len
+        self.cache = model.init_decode_cache(slots, max_len)
+        self._decode = make_serve_step(model)
+        self._queue: list[Request] = []
+        self._active: dict[int, dict] = {}      # slot -> request state
+        self._free = list(range(slots))
+        self._last_tok = np.zeros((slots, 1), np.int64)
+        self._done: list[Completion] = []
+        self._next_id = 0
+
+    # ----------------------------------------------------------------- API
+    def submit(self, prompt: np.ndarray, max_new: int = 16,
+               priority: float | None = None) -> int:
+        """Queue a request.  Raises if it cannot fit the slot cache
+        (``len(prompt) + max_new > max_len``): the JAX engine drops cache
+        writes past the end silently, torch indexing would fail mid-decode."""
+        if len(prompt) + max_new > self.max_len:
+            raise ValueError(f"prompt of {len(prompt)} + max_new {max_new} "
+                             f"exceeds max_len {self.max_len}")
+        rid = self._next_id
+        self._next_id += 1
+        pr = float(len(prompt)) if priority is None else priority
+        heapq.heappush(self._queue,
+                       Request(rid, np.asarray(prompt, np.int64), max_new,
+                               pr))
+        return rid
+
+    def step(self) -> list[Completion]:
+        """Admit waiting requests into free slots (prefill), run one decode
+        step for all active slots, retire finished requests."""
+        self._admit()
+        out: list[Completion] = []
+        if self._active:
+            tok = torch.as_tensor(self._last_tok, device=self.device)
+            next_tok, self.cache = self._decode(tok, self.cache)
+            nxt = next_tok.cpu().numpy()
+            for slot, st in list(self._active.items()):
+                t = int(nxt[slot, 0])
+                st["tokens"].append(t)
+                if len(st["tokens"]) >= st["req"].max_new:
+                    out.append(Completion(st["req"].id, st["tokens"]))
+                    self._retire(slot)
+                else:
+                    self._last_tok[slot, 0] = t
+            # free slots decode too (lock-step batch) and their output is
+            # dropped; rewind them so their cache writes stay inside max_len
+            if self._free:
+                self.cache["pos"][self._free] = 0
+        self._done.extend(out)
+        return out
+
+    def run_until_drained(self, max_steps: int = 10_000) -> list[Completion]:
+        steps = 0
+        while (self._queue or self._active) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self._done
+
+    @property
+    def utilization(self) -> float:
+        return len(self._active) / self.slots
+
+    # ------------------------------------------------------------ internal
+    def _admit(self) -> None:
+        while self._free and self._queue:
+            req = heapq.heappop(self._queue)
+            slot = self._free.pop()
+            # prefill the single request, then splice its cache row into
+            # the batch cache at `slot` (the COP analogue: preparing the
+            # slot overlaps with other slots' decoding at engine level)
+            tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
+            logits, cache1 = self.model.prefill({"tokens": tokens},
+                                                pad_to=self.max_len)
+            self._splice(slot, cache1)
+            first = int(torch.argmax(logits, dim=-1)[0])
+            self._last_tok[slot, 0] = first
+            self._active[slot] = {"req": req, "tokens": [first]}
+            if req.max_new <= 1:
+                self._done.append(Completion(req.id, [first]))
+                self._retire(slot)
+
+    def _splice(self, slot: int, cache1) -> None:
+        """Copy a one-row prefill cache into row ``slot`` (axis 1 of k/v)."""
+        self.cache["k"][:, slot:slot + 1] = cache1["k"]
+        self.cache["v"][:, slot:slot + 1] = cache1["v"]
+        self.cache["pos"][slot] = cache1["pos"][0]
+
+    def _retire(self, slot: int) -> None:
+        self._active.pop(slot, None)
+        self._free.append(slot)

@@ -1,0 +1,86 @@
+"""Port's flash attention (its plain version, on the CPU) vs the JAX Pallas
+kernel in interpret mode, over the cases of tests/test_kernels.py.
+
+Inputs are drawn once with numpy and handed to both frameworks.  The CUDA
+kernel itself runs only on the card: chip_smoke.py holds it against the same
+plain version there."""
+import pytest
+
+np = pytest.importorskip("numpy")
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from test_kernels import FLASH_CASES  # noqa: E402
+
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import \
+    _check_cuda_inputs  # noqa: E402
+
+F32_TOL = dict(atol=3e-5, rtol=1e-4)     # tests/test_kernels.py, f32
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)    # tests/test_kernels.py, bf16
+
+
+def _qkv(b, sq, skv, h, k, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd), np.float32),
+            rng.standard_normal((b, skv, k, hd), np.float32),
+            rng.standard_normal((b, skv, k, hd), np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_port_flash_matches_pallas_interpret(case):
+    b, sq, skv, h, k, hd, causal, window, bq, bk = case
+    q, kk, v = _qkv(b, sq, skv, h, k, hd)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(kk), jnp.asarray(v),
+                     causal=causal, window=window, interpret=True, bq=bq,
+                     bk=bk)
+    before = flash_attention.launches
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(kk),
+                          torch.from_numpy(v), causal=causal, window=window)
+    assert flash_attention.launches == before   # CPU: plain version, no kernel
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_flash_dtypes(dtype):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, seed=1)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    want = jax_flash(jq, jk, jv, interpret=True, bq=32, bk=32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv)
+    assert got.dtype == tdt
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    assert flash_attention.launches == 0
+
+
+def _layout(kind, dtype):
+    shape = (1, 8, 2, 64)
+    if kind == "sliced":            # row stride 65: rows not 16-byte aligned
+        return torch.zeros(1, 8, 2, 65, dtype=dtype)[..., :64]
+    if kind == "offset":            # data pointer 8 bytes past an alignment
+        n = 8 * 2 * 64
+        return torch.zeros(n + 4, dtype=dtype)[4:].view(shape)
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("kind,dtype,ok", [
+    ("plain", torch.bfloat16, True), ("sliced", torch.bfloat16, False),
+    ("offset", torch.bfloat16, False), ("sliced", torch.float32, True),
+    ("offset", torch.float32, True)])
+def test_cuda_inputs_bf16_rows_must_be_aligned(kind, dtype, ok):
+    """The bf16 kernel loads rows 16 bytes at a time; the wrapper refuses
+    rows that do not start 16-byte aligned (f32 stages element by element).
+    The check reads only metadata, so it runs on CPU tensors here."""
+    q = _layout(kind, dtype)
+    kv = torch.zeros(1, 8, 2, 64, dtype=dtype)
+    if ok:
+        _check_cuda_inputs(q, kv, kv)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _check_cuda_inputs(q, kv, kv)
