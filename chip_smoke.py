@@ -10,21 +10,30 @@ result line):
 1. info: card name and power limit, torch and CUDA versions; TF32 off.
 2. build: every CUDA kernel from the sources in the checkout, in parallel.
 3. kernels vs their plain PyTorch versions on the card, at the cases of
-   tests/test_kernels.py, at hd-128 prefill shapes, and at the very shapes
-   that phase 5 serves.
+   tests/test_kernels.py and at the very shapes that phase 5 serves (flash
+   attention: hd-128 prefill shapes and the served prompts of deepseek-7b
+   and llama4-scout; the grouped expert FFN: llama4-scout's prefill of
+   each served prompt and its decode step, a 768-token prefill, and
+   arctic's expert widths).
 4. the port on the card vs the same port code on the CPU (f32 smoke
-   configs of deepseek-7b and gemma3-27b): greedy serving tokens equal,
-   prefill logits within rel 5e-4.
-5. the main path: full-width deepseek-7b (bf16, random weights from a seed)
-   served by ``ServingEngine``, with every kernel launch counted.
-6. kernel timing with CUDA events beside the plain version, one PyTorch
-   library call as a yardstick, and the card's bound for the same work.
+   configs of deepseek-7b, gemma3-27b, arctic-480b and llama4-scout):
+   greedy serving tokens equal, prefill logits within rel 5e-4.
+5. the two main paths, each served by ``ServingEngine`` with random weights
+   from a seed and every kernel launch counted from 0: full-width
+   deepseek-7b (bf16), then llama4-scout at its full widths with 12 of its
+   48 layers (bf16, 57 GB of weights; all 48 do not fit one card).
+6. kernel timing with CUDA events beside the plain version, a PyTorch
+   yardstick, and the card's bound for the same work (the grouped FFN at
+   the longest served prompt's prefill and at decode, in three rounds taken
+   in turns with its yardstick, the card's clocks read before and after).
 
 The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Imports neither JAX nor the JAX package.
+``{"ok": true, "device": {...}}``.  The whole record also goes to
+``chiprun_out/chip_smoke.json``.  Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -39,6 +48,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+LLAMA4 = "llama4-scout-17b-a16e"
+LLAMA4_LAYERS = 12            # of 48: 57 GB of bf16 weights on an 80 GB card
 
 # tests/test_kernels.py:20-28 -- B, Sq, Skv, H, K, hd, causal, window
 FLASH_CASES = [
@@ -62,6 +73,25 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 # rounding error of sound runs on the H100 (PERF.md).
 ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -5}
 MODEL_REL = 5e-4                           # tests/test_models.py:76
+# tests/test_kernels.py:115-150 -- B, E, C, D, F, act, dtype; the last adds
+# the bf16 gelu instantiation, which neither MoE config uses
+GMM_CASES = [(2, 4, 8, 32, 64, "swiglu", torch.float32),
+             (1, 8, 16, 64, 100, "swiglu", torch.float32),
+             (2, 2, 4, 16, 48, "gelu", torch.float32),
+             (1, 2, 8, 128, 256, "swiglu", torch.float32),
+             (1, 2, 4, 32, 64, "swiglu", torch.bfloat16),
+             (2, 2, 4, 16, 48, "gelu", torch.bfloat16)]
+# bf16 full-width shapes beside those phase 5 serves (gmm_served_shapes):
+# a llama4-scout prefill of 768 tokens (capacity 60, the most the traffic's
+# prompt range allows), and arctic's expert widths, 4 of its 128 experts
+# at capacity 16
+GMM_EXTRA = {"llama4 prefill 768": (1, 16, 60, 5120, 8192),
+             "arctic": (1, 4, 16, 7168, 4864)}
+GMM_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+           torch.bfloat16: dict(atol=0.05, rtol=0.05)}
+# Bound on the grouped FFN's row_rel_err (rows of D), set from the sound
+# runs on the H100 (PERF.md): bf16 output and hidden roundings give ~4e-3.
+GMM_ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # the main path's traffic: 8 requests, prompts of 64-768 tokens from a seed
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 32, 4, 1024
 
@@ -70,11 +100,14 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def card_line(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+CLOCKS = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -98,6 +131,52 @@ def serve_prompts(vocab: int) -> list[np.ndarray]:
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 769, size=SERVE_REQUESTS)
     return [rng.integers(0, vocab, size=int(n)) for n in lens]
+
+
+def gmm_served_shapes() -> dict:
+    """label -> (B, E, C, D, F): the grouped FFN's shapes on phase 5's llama4
+    path.  Each request is prefilled alone at its own length, so each
+    served prompt gives its own capacity; decode runs all slots at once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.mlp import moe_capacity
+    cfg = get_config(LLAMA4)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    shapes = {f"llama4 prefill {len(p)}": (1, e, moe_capacity(cfg, len(p)),
+                                           d, f)
+              for p in serve_prompts(cfg.vocab)}
+    shapes["llama4 decode"] = (SERVE_SLOTS, e, moe_capacity(cfg, 1), d, f)
+    return shapes
+
+
+def hold(name: str, cases: list, tols: dict, row_bounds: dict) -> float:
+    """Hold a kernel against its plain version on the card.  Each case is
+    (label, dtype, run, is_main): ``run()`` returns the kernel's output and
+    the plain version's on the same inputs.  They must agree within
+    ``tols[dtype]``, and the worst row's rms error within
+    ``row_bounds[dtype]``.  Returns the largest abs error at the main paths'
+    shapes (``is_main``)."""
+    main_err, worst = 0.0, {}
+    for label, dtype, run, is_main in cases:
+        got, want = run()
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape, label
+        err = float((got.float() - want.float()).abs().max())
+        rel = row_rel_err(got, want)
+        if is_main:
+            main_err = max(main_err, err)
+        worst[dtype] = max(worst.get(dtype, 0.0), rel)
+        tol, bound = tols[dtype], row_bounds[dtype]
+        say(f"[kernels] {name} {label} {str(dtype)[6:]}: max abs err "
+            f"{err:.3e} (atol {tol['atol']}, rtol {tol['rtol']}), row rel err "
+            f"{rel:.3e} (< {bound:.3e})")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert rel < bound, f"{name} {label}: row rel err {rel}"
+        del got, want
+    torch.cuda.empty_cache()
+    say(f"[kernels] {name}: {len(cases)} cases agree; largest row rel err: "
+        + ", ".join(f"{str(dt)[6:]} {r:.3e}" for dt, r in worst.items())
+        + f"; largest abs err at the main paths' shapes {main_err:.3e}")
+    return main_err
 
 
 def qkv(b, s, t, h, k, hd, dtype, gen):
@@ -131,54 +210,75 @@ def phase_build() -> None:
 
 
 def phase_kernels() -> float:
-    """Kernel vs plain version; returns the largest abs error at the
-    main path's shapes (those served in phase 5, and PREFILL_CASES)."""
+    """Flash attention vs its plain version; returns the largest abs error
+    at the main paths' shapes (those served in phase 5, and
+    PREFILL_CASES)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
-    cfg = get_config("deepseek-7b")
-    windows = sorted({0 if cfg.is_global_layer(i) else cfg.sliding_window
-                      for i in range(cfg.n_layers)})
     gen = torch.Generator("cuda").manual_seed(0)
-    dtypes = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
-    cases = [(b, s, t, h, k, hd, c, w, dt, tol)
-             for b, s, t, h, k, hd, c, w in FLASH_CASES for dt, tol in dtypes]
-    cases += [(1, 64, 64, 4, 2, 32, True, 0, dt, tol) for dt, tol in dtypes]
-    main = [(b, s, s, h, k, hd, True, w, torch.bfloat16, BF16_TOL)
-            for b, s, h, k, hd, w in PREFILL_CASES]
-    main += [(1, len(p), len(p), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-              True, w, torch.bfloat16, BF16_TOL)
-             for p in serve_prompts(cfg.vocab) for w in windows]
-    main_err, worst = 0.0, {}
-    for case in cases + main:
-        b, s, t, h, k, hd, causal, window, dtype, tol = case
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(b, s, t, h, k, hd, c, w, dt, False)
+             for b, s, t, h, k, hd, c, w in FLASH_CASES for dt in dtypes]
+    cases += [(1, 64, 64, 4, 2, 32, True, 0, dt, False) for dt in dtypes]
+    cases += [(b, s, s, h, k, hd, True, w, torch.bfloat16, True)
+              for b, s, h, k, hd, w in PREFILL_CASES]
+    for arch in ("deepseek-7b", LLAMA4):
+        cfg = get_config(arch)
+        windows = sorted({0 if cfg.is_global_layer(i) else
+                          cfg.sliding_window for i in range(cfg.n_layers)})
+        cases += [(1, len(p), len(p), cfg.n_heads, cfg.n_kv_heads,
+                   cfg.head_dim, True, w, torch.bfloat16, True)
+                  for p in serve_prompts(cfg.vocab) for w in windows]
+
+    def run(b, s, t, h, k, hd, causal, window, dtype):
         q, kk, v = qkv(b, s, t, h, k, hd, dtype, gen)
-        got = flash_attention(q, kk, v, causal=causal, window=window)
-        want = attention_reference(q, kk, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        assert got.dtype == dtype and got.shape == want.shape
-        err = float((got.float() - want.float()).abs().max())
-        rel = row_rel_err(got, want)
-        if case in main:
-            main_err = max(main_err, err)
-        worst[dtype] = max(worst.get(dtype, 0.0), rel)
-        say(f"[kernels] flash_attn_fwd {tuple(case[:8])} "
-            f"{str(dtype)[6:]}: max abs err {err:.3e} (atol {tol['atol']}, "
-            f"rtol {tol['rtol']}), row rel err {rel:.3e} "
-            f"(< {ROW_REL[dtype]:.3e})")
-        torch.testing.assert_close(got.float(), want.float(), **tol)
-        assert rel < ROW_REL[dtype], f"row rel err {rel} at {case[:8]}"
-    say(f"[kernels] {len(cases + main)} cases agree; largest row rel err: "
-        + ", ".join(f"{str(dt)[6:]} {r:.3e}" for dt, r in worst.items())
-        + f"; largest abs err at the main path's shapes {main_err:.3e}")
-    return main_err
+        return (flash_attention(q, kk, v, causal=causal, window=window),
+                attention_reference(q, kk, v, causal=causal, window=window))
+
+    return hold("flash_attn_fwd",
+                [(tuple(c[:8]), c[8], lambda c=c: run(*c[:9]), c[9])
+                 for c in cases],
+                {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL}, ROW_REL)
+
+
+def gmm_inputs(b, e, c, d, f, dtype, gen):
+    def draw(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(
+            dtype)
+    return (draw(b, e, c, d, std=0.5), draw(e, d, f, std=d ** -0.5),
+            draw(e, d, f, std=d ** -0.5), draw(e, f, d, std=f ** -0.5))
+
+
+def phase_gmm() -> float:
+    """The grouped expert FFN vs its plain version, at the test cases, at
+    every shape phase 5's llama4 path gives it, and at GMM_EXTRA; returns
+    the largest abs error at the served shapes."""
+    from repro_torch.kernels.moe_gmm import grouped_ffn, grouped_ffn_reference
+    gen = torch.Generator("cuda").manual_seed(1)
+    cases = [(f"{tuple(shape)} {act}", shape, act, dt, False)
+             for *shape, act, dt in GMM_CASES]
+    cases += [(f"{label} {shape} swiglu", shape, "swiglu", torch.bfloat16,
+               main)
+              for shapes, main in ((gmm_served_shapes(), True),
+                                   (GMM_EXTRA, False))
+              for label, shape in shapes.items()]
+
+    def run(shape, act, dtype):
+        x = gmm_inputs(*shape, dtype, gen)
+        return grouped_ffn(*x, act=act), grouped_ffn_reference(*x, act=act)
+
+    return hold("moe_gmm",
+                [(label, dt, lambda s=s, a=a, dt=dt: run(s, a, dt), main)
+                 for label, s, a, dt, main in cases],
+                GMM_TOL, GMM_ROW_REL)
 
 
 def phase_card_vs_cpu() -> None:
     from repro_torch.configs import get_smoke
     from repro_torch.models import Model
     from repro_torch.runtime import ServingEngine
-    for arch in ("deepseek-7b", "gemma3-27b"):
+    for arch in ("deepseek-7b", "gemma3-27b", "arctic-480b", LLAMA4):
         cfg = get_smoke(arch)
         cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
         gpu = Model(cfg, device="cuda").load_state(cpu.state_dict())
@@ -202,14 +302,16 @@ def phase_card_vs_cpu() -> None:
             f"(< {MODEL_REL}); {len(done[1])} requests, greedy tokens equal")
 
 
-def phase_serve(card: str) -> dict:
-    """Full-width deepseek-7b through ServingEngine; the main path."""
-    from repro_torch.configs import get_config
+def phase_serve(cfg, card: str) -> dict:
+    """One main path: ``cfg`` at full width through ServingEngine, with the
+    kernels' launch counts set to 0 just before and read just after."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_ffn
     from repro_torch.models import Model
     from repro_torch.runtime import ServingEngine
 
-    cfg = get_config("deepseek-7b")
+    tag = f"[serve {cfg.name}]"
+    gc.collect()                 # an earlier path's model is gone for good
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -217,10 +319,13 @@ def phase_serve(card: str) -> dict:
         torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"[serve] deepseek-7b: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}: {n_params:,} "
-        f"params, init {time.perf_counter() - t0:.1f} s")
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k}, shared expert "
+           f"{cfg.shared_expert_ff}" if cfg.n_experts else "")
+    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff "
+        f"{cfg.d_ff}{moe}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+        f"{n_params:,} params ({model.cfg.param_counts()['total']:.4g} "
+        f"counted), init {time.perf_counter() - t0:.1f} s")
 
     prefill_s, decode_s = [], []
     prefill, decode = model.prefill, model.decode_step
@@ -248,23 +353,28 @@ def phase_serve(card: str) -> dict:
     lens = [len(p) for p in prompts]
     ids = [engine.submit(p, max_new=SERVE_NEW) for p in prompts]
 
-    flash_attention.launches = 0
+    flash_attention.launches = grouped_ffn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = {"flash_attn_fwd": flash_attention.launches,
+                "moe_gmm": grouped_ffn.launches}
 
     assert sorted(c.id for c in done) == sorted(ids), "not all completed"
     assert all(len(c.tokens) == SERVE_NEW for c in done), "wrong token counts"
     assert all(0 <= t < cfg.vocab for c in done for t in c.tokens)
     assert len(prefill_s) == SERVE_REQUESTS
-    assert launches == cfg.n_layers * len(prefill_s), (
-        f"flash launches {launches} != {cfg.n_layers} x {len(prefill_s)}")
+    want = {"flash_attn_fwd": cfg.n_layers * len(prefill_s),
+            "moe_gmm": cfg.n_layers * (len(prefill_s) + len(decode_s))
+            if cfg.n_experts else 0}
+    assert launches == want, f"launches {launches} != {want}"
     n_tok = sum(len(c.tokens) for c in done)
     res = {
         "card": card,
+        "arch": cfg.name,
+        "n_layers": cfg.n_layers,
         "prompt_lens": [int(n) for n in lens],
         "prefill_ms_per_request": 1e3 * sum(prefill_s) / len(prefill_s),
         "prefill_ms": [1e3 * s for s in prefill_s],
@@ -274,22 +384,25 @@ def phase_serve(card: str) -> dict:
         "drain_s": wall,
         "tokens_per_s": n_tok / wall,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "flash_launches": launches,
+        "launches": launches,
     }
-    say(f"[serve] {len(done)} requests (prompts {res['prompt_lens']}, "
+    say(f"{tag} {len(done)} requests (prompts {res['prompt_lens']}, "
         f"{SERVE_NEW} new tokens each), slots {SERVE_SLOTS}, max_len "
         f"{SERVE_MAX_LEN}")
-    say(f"[serve] prefill {res['prefill_ms_per_request']:.2f} ms/request, "
+    say(f"{tag} prefill {res['prefill_ms_per_request']:.2f} ms/request, "
         f"decode {res['decode_ms_per_step']:.2f} ms/step over "
         f"{len(decode_s)} steps, {res['tokens_per_s']:.1f} generated "
         f"tokens/s ({n_tok} in {wall:.2f} s), max memory allocated "
-        f"{res['max_memory_allocated_gb']:.2f} GB, flash launches "
-        f"{launches} = {cfg.n_layers} x {len(prefill_s)} prefills "
-        f"[{card}]")
-    model.prefill, model.decode_step = prefill, decode
+        f"{res['max_memory_allocated_gb']:.2f} GB [{card}]")
+    say(f"{tag} launches {launches}: flash = {cfg.n_layers} layers x "
+        f"{len(prefill_s)} prefills; moe_gmm = {cfg.n_layers} layers x "
+        f"({len(prefill_s)} prefills + {len(decode_s)} decode steps)"
+        if cfg.n_experts else f"{tag} launches {launches}: flash = "
+        f"{cfg.n_layers} layers x {len(prefill_s)} prefills")
+    # back to the class's methods: bound methods stored on the instance
+    # would make a reference cycle that keeps the weights on the card
+    del model.prefill, model.decode_step
     res["profile"] = phase_profile(model, card)
-    del engine, model
-    torch.cuda.empty_cache()
     return res
 
 
@@ -345,8 +458,9 @@ def phase_profile(model, card: str) -> dict:
     return {
         "prefill_512": profile_region(
             lambda: model.prefill({"tokens": prompt}, pad_to=1024),
-            "prefill of 512 tokens", card),
-        "decode_b4": profile_region(decode, "decode step, 4 slots", card),
+            f"{cfg.name}: prefill of 512 tokens", card),
+        "decode_b4": profile_region(decode, f"{cfg.name}: decode step, 4 "
+                                    f"slots", card),
     }
 
 
@@ -397,29 +511,116 @@ def phase_timing(card: str) -> dict:
     return res
 
 
+def phase_timing_gmm(card: str) -> dict:
+    """The grouped expert FFN at the shapes phase 5's llama4 path gives it:
+    the prefill of its longest served prompt, and the decode step."""
+    from repro_torch.kernels.moe_gmm import grouped_ffn, grouped_ffn_reference
+    gen = torch.Generator("cuda").manual_seed(4)
+    served = gmm_served_shapes()
+    prefill = max((lb for lb in served if "prefill" in lb),
+                  key=lambda lb: served[lb][2])
+    saved = grouped_ffn.launches
+    out = {}
+    for key, label in (("prefill", prefill), ("decode", "llama4 decode")):
+        b, e, c, d, f = served[label]
+        buf, wi, wg, wo = gmm_inputs(b, e, c, d, f, torch.bfloat16, gen)
+        # yardstick: the same work as four PyTorch calls (cuBLAS bmm x 3 and
+        # silu * mul) on (E, B*C, D) rows, laid out once outside the timing
+        xe = buf.transpose(0, 1).reshape(e, b * c, d).contiguous()
+
+        def library():
+            h = torch.nn.functional.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
+            return torch.bmm(h, wo)
+
+        # kernel and yardstick in turns, three rounds each; the medians
+        # are kept, and the card's clocks are read before and after
+        say(f"[timing] moe_gmm {label}: clocks before ({CLOCKS}) "
+            f"{card_line(CLOCKS)}")
+        kernel_r, library_r = [], []
+        for _ in range(3):
+            kernel_r.append(time_ms(lambda: grouped_ffn(buf, wi, wg, wo), 20))
+            library_r.append(time_ms(library, 20))
+        say(f"[timing] moe_gmm {label}: clocks after {card_line(CLOCKS)}; "
+            f"kernel rounds {', '.join(f'{t:.4f}' for t in kernel_r)} ms, "
+            f"yardstick rounds {', '.join(f'{t:.4f}' for t in library_r)} ms")
+        kernel_ms = sorted(kernel_r)[1]
+        library_ms = sorted(library_r)[1]
+        plain_ms = time_ms(lambda: grouped_ffn_reference(buf, wi, wg, wo), 5)
+        flops = 3 * 2 * b * e * c * d * f           # three products
+        nbytes = 2 * (3 * e * d * f + 2 * b * e * c * d)   # weights, buf, out
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        res = {"label": label, "shape": [b, e, c, d, f], "ms": kernel_ms,
+               "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes}
+        say(f"[timing] moe_gmm {label} {(b, e, c, d, f)} bf16 swiglu: kernel "
+            f"{kernel_ms:.4f} ms (median), plain {plain_ms:.4f} ms, bmm x 3 + "
+            f"silu*mul (yardstick, 4 calls) {library_ms:.4f} ms; bound "
+            f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.4f} GB); "
+            f"{nbytes / kernel_ms / 1e6:.1f} GB/s achieved, "
+            f"{100 * res['bound_ms'] / kernel_ms:.1f}% of bound [{card}]")
+        out[key] = res
+        del buf, wi, wg, wo, xe
+        torch.cuda.empty_cache()
+    grouped_ffn.launches = saved     # comparisons do not count
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.configs import get_config
 
     card = phase_info()
     phase_build()
-    main_err = phase_kernels()
+    flash_err = phase_kernels()
+    gmm_err = phase_gmm()
     phase_card_vs_cpu()
-    serve = phase_serve(card)
+    paths = [phase_serve(get_config("deepseek-7b"), card),
+             phase_serve(get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS),
+                         card)]
     timing = phase_timing(card)
+    gmm = phase_timing_gmm(card)
 
+    def launches(name):
+        by_path = {f"{p['arch']} x{p['n_layers']}": p["launches"][name]
+                   for p in paths}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
+    dec = gmm["decode"]
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
-        "launches": serve["flash_launches"], "max_abs_err": main_err,
+        **launches("flash_attn_fwd"), "max_abs_err": flash_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }, {
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:24",
+        **launches("moe_gmm"), "max_abs_err": gmm_err,
+        # the decode shape (most launches); the prefill shape beside it
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"], "shape": dec["shape"],
+        "prefill": {k: gmm["prefill"][k] for k in
+                    ("label", "shape", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms")},
     }]
+    record = ROOT / "chiprun_out" / "chip_smoke.json"
+    record.parent.mkdir(exist_ok=True)
+    record.write_text(json.dumps({"card": card, "paths": paths,
+                                  "flash_timing": timing, "moe_gmm_timing": gmm,
+                                  "kernels": kernels}, indent=1))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

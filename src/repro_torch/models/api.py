@@ -37,7 +37,7 @@ def _tree_of(mod: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """The dense LM as an ``nn.Module``.
+    """The decoder LM (dense and MoE families) as an ``nn.Module``.
 
     Parameters keep the JAX tree's names and stacked layout (state-dict keys
     such as ``layers.attn.wq`` of shape (L, D, H, hd)).  A new model holds
@@ -64,11 +64,13 @@ class Model(nn.Module):
 
     def load_state(self, state: dict) -> "Model":
         """Take a flat state dict (name -> tensor), moved to the model's
-        device and param dtype; every parameter must be given."""
-        dtype = dtype_of(self.cfg.param_dtype)
+        device; every parameter must be given.  Each leaf is cast to the
+        dtype of the parameter it replaces, which ``lm.init_params`` set:
+        ``cfg.param_dtype`` for most, f32 for the MoE router."""
+        dtypes = {k: p.dtype for k, p in self.named_parameters()}
         self.load_state_dict(
-            {k: v.to(device=self.device, dtype=dtype) for k, v in
-             state.items()}, strict=True, assign=True)
+            {k: v.to(device=self.device, dtype=dtypes.get(k, v.dtype))
+             for k, v in state.items()}, strict=True, assign=True)
         return self
 
     @torch.no_grad()

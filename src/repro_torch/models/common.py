@@ -52,12 +52,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+_DRAW_CHUNK = 1 << 26     # values drawn in f32 at once, at least one slice
+
+
 def normal_init(generator: torch.Generator | None, shape, std: float,
                 dtype: torch.dtype, device) -> torch.Tensor:
-    """N(0, std^2) drawn in f32 and cast, one leaf at a time.
+    """N(0, std^2), drawn in f32 and cast into a preallocated leaf of
+    ``dtype``, slice by slice of the leading axis: each draw covers whole
+    slices, one or as many as fit 2^26 values.  The f32 buffer is that
+    chunk, not the leaf: a stacked (L, E, D, F) expert leaf never needs an
+    f32 copy of all L layers.
 
     ``device="meta"`` (with no generator) gives the leaf's shape and dtype
     without memory."""
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta or out.numel() == 0:
+        return out
+    rows = max(1, _DRAW_CHUNK // out[0].numel())
+    for i in range(0, out.shape[0], rows):
+        part = out[i:i + rows]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32,
+                               device=out.device).mul_(std))
+    return out

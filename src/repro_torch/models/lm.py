@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family (deepseek, phi4, granite, gemma3).
+"""Decoder-only LM: the dense family (deepseek, phi4, granite, gemma3) and
+the MoE family (arctic, llama4-scout).
 
 One parameter tree with the JAX package's names and its stacked-over-layers
 layout (``layers.attn.wq`` is (L, D, H, hd)); the layer loop is a Python
@@ -10,8 +11,8 @@ loop over views of the stacked leaves.  Entry points:
 
 Cache layout: {"k": (L,B,T,K,hd), "v": ..., "pos": (B,) int64}.
 
-The other families (moe, ssm, hybrid, encdec, vlm) are ported in later
-slices (ROADMAP.md, queue 1).
+The other families (ssm, hybrid, encdec, vlm) are ported in later slices
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -21,19 +22,19 @@ import torch.nn.functional as F
 from .attention import decode_attention, full_attention, init_attn_params
 from .common import dtype_of, normal_init, rms_norm
 from .config import ArchConfig
-from .mlp import init_mlp_params, mlp_forward
+from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 
+FAMILIES = ("dense", "moe")
 _LATER = {
-    "moe": "queue 1, item 2 (MoE)",
-    "ssm": "queue 1, item 3 (SSM and hybrid)",
-    "hybrid": "queue 1, item 3 (SSM and hybrid)",
-    "encdec": "queue 1, item 4 (encoder-decoder and VLM)",
-    "vlm": "queue 1, item 4 (encoder-decoder and VLM)",
+    "ssm": "queue 1, item 1 (SSM)",
+    "hybrid": "queue 1, item 2 (hybrid)",
+    "encdec": "queue 1, item 5 (encoder-decoder and VLM)",
+    "vlm": "queue 1, item 5 (encoder-decoder and VLM)",
 }
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
             f"ROADMAP.md, {_LATER.get(cfg.family, 'queue 1')}")
@@ -43,8 +44,9 @@ def _check_family(cfg: ArchConfig) -> None:
 def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 device) -> dict:
     """Draw the parameter tree leaf by leaf (f32 draws, cast to
-    ``cfg.param_dtype``).  On ``device="meta"`` it only describes shapes.
-    Raises ``NotImplementedError`` for the families not ported yet."""
+    ``cfg.param_dtype``; the MoE router stays f32).  On ``device="meta"`` it
+    only describes shapes.  Raises ``NotImplementedError`` for the families
+    not ported yet."""
     _check_family(cfg)
     dtype = dtype_of(cfg.param_dtype)
     d, n = cfg.d_model, cfg.n_layers
@@ -55,13 +57,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(generator, (d, cfg.vocab), d ** -0.5,
                                         dtype, device)
-    params["layers"] = {
+    layers = params["layers"] = {
         "ln1": torch.zeros((n, d), dtype=dtype, device=device),
         "ln2": torch.zeros((n, d), dtype=dtype, device=device),
         "attn": init_attn_params(generator, cfg, dtype, device, lead=(n,)),
-        "mlp": init_mlp_params(generator, d, cfg.d_ff, cfg.mlp_act, dtype,
-                               device, lead=(n,)),
     }
+    if not cfg.n_experts:
+        layers["mlp"] = init_mlp_params(generator, d, cfg.d_ff, cfg.mlp_act,
+                                        dtype, device, lead=(n,))
+        return params
+    layers["moe"] = init_moe_params(generator, cfg, dtype, device, lead=(n,))
+    if cfg.moe_dense_ff:
+        layers["dense_mlp"] = init_mlp_params(
+            generator, d, cfg.moe_dense_ff, cfg.mlp_act, dtype, device,
+            lead=(n,))
+    if cfg.shared_expert_ff:
+        layers["shared_mlp"] = init_mlp_params(
+            generator, d, cfg.shared_expert_ff, cfg.mlp_act, dtype, device,
+            lead=(n,))
     return params
 
 
@@ -86,13 +99,26 @@ def _embed(params, tokens, cfg: ArchConfig):
     return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
 
 
+def _ffn(lp, m, cfg: ArchConfig):
+    """The block's feed-forward half: the MLP, or the MoE plus arctic's
+    dense residual FFN and llama4's shared expert.  The MoE aux loss is not
+    needed for serving and is dropped."""
+    if not cfg.n_experts:
+        return mlp_forward(lp["mlp"], m, cfg.mlp_act)
+    y, _ = moe_forward(lp["moe"], m, cfg)
+    if cfg.moe_dense_ff:
+        y = y + mlp_forward(lp["dense_mlp"], m, cfg.mlp_act)
+    if cfg.shared_expert_ff:
+        y = y + mlp_forward(lp["shared_mlp"], m, cfg.mlp_act)
+    return y
+
+
 def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
     """One transformer block on a full sequence; window 0 => global."""
     a, kv = full_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
                            positions, cfg, window=window)
     h = h + a
-    m = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + mlp_forward(lp["mlp"], m, cfg.mlp_act), kv
+    return h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg), kv
 
 
 # ------------------------------------------------------------ full forward
@@ -150,8 +176,7 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
                                 cache["k"][i], cache["v"][i], pos, cfg,
                                 window=_window(cfg, i))
         h = h + a
-        m = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + mlp_forward(lp["mlp"], m, cfg.mlp_act)
+        h = h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
     pos += 1
     return _logits(params, h, cfg)[:, 0, :], cache
 

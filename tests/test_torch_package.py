@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS, get_smoke  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.lm import FAMILIES  # noqa: E402
 from repro_torch.runtime import ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -54,7 +55,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if get_smoke(a).family != "dense"])
+                                  if get_smoke(a).family not in FAMILIES])
 def test_later_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Model(get_smoke(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "llama4-scout-17b-a16e"])
+def test_moe_family_builds(arch):
+    cfg = get_smoke(arch)
+    assert cfg.family == "moe" and cfg.family in FAMILIES
+    names = dict(Model(cfg, device="cpu").named_parameters())
+    assert "layers.moe.w_in" in names and "layers.mlp.w_in" not in names
