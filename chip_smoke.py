@@ -14,18 +14,23 @@ result line):
    attention: hd-128 prefill shapes and the served prompts of deepseek-7b
    and llama4-scout; the grouped expert FFN: llama4-scout's prefill of
    each served prompt and its decode step, a 768-token prefill, and
-   arctic's expert widths).
+   arctic's expert widths; the SSD intra-chunk kernel: mamba2-780m's
+   prefill of each served prompt and of 1- and 2-token prompts, x in
+   bf16, with an f64 sum as the yardstick of rounding).
 4. the port on the card vs the same port code on the CPU (f32 smoke
-   configs of deepseek-7b, gemma3-27b, arctic-480b and llama4-scout):
-   greedy serving tokens equal, prefill logits within rel 5e-4.
-5. the two main paths, each served by ``ServingEngine`` with random weights
-   from a seed and every kernel launch counted from 0: full-width
-   deepseek-7b (bf16), then llama4-scout at its full widths with 12 of its
-   48 layers (bf16, 57 GB of weights; all 48 do not fit one card).
+   configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout and
+   mamba2-780m): greedy serving tokens equal, prefill logits within rel
+   5e-4.
+5. the three main paths, each served by ``ServingEngine`` with random
+   weights from a seed and every kernel launch counted from 0: full-width
+   deepseek-7b (bf16), llama4-scout at its full widths with 12 of its 48
+   layers (bf16, 57 GB of weights; all 48 do not fit one card), and
+   mamba2-780m at its full width and depth (bf16).
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (the grouped FFN at
-   the longest served prompt's prefill and at decode, in three rounds taken
-   in turns with its yardstick, the card's clocks read before and after).
+   the longest served prompt's prefill and at decode, and the SSD kernel at
+   mamba2's longest served prefill, each in three rounds taken in turns
+   with its yardstick, the card's clocks read before and after).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -47,9 +52,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32, outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 LLAMA4 = "llama4-scout-17b-a16e"
 LLAMA4_LAYERS = 12            # of 48: 57 GB of bf16 weights on an 80 GB card
+MAMBA2 = "mamba2-780m"        # all 48 layers: 1.56 GB of bf16 weights
 
 # tests/test_kernels.py:20-28 -- B, Sq, Skv, H, K, hd, causal, window
 FLASH_CASES = [
@@ -92,6 +99,24 @@ GMM_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
 # Bound on the grouped FFN's row_rel_err (rows of D), set from the sound
 # runs on the H100 (PERF.md): bf16 output and hidden roundings give ~4e-3.
 GMM_ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+# tests/test_kernels.py:81-83 -- B, NC, L, H, P, N (x f32, cum = cumsum of
+# -0.1 dt)
+SSD_CASES = [(2, 2, 16, 4, 8, 16), (1, 4, 32, 2, 16, 8),
+             (2, 1, 64, 8, 32, 32), (1, 2, 128, 4, 64, 64)]
+# the shapes 1- and 2-token prompts give it (L = S for S < chunk)
+SSD_SHORT = [(1, 1, 1, 48, 64, 128), (1, 1, 2, 48, 64, 128)]
+# x f32 with mild decay, cum = cumsum(-0.01 dt), so that every tile below
+# the diagonal weighs in (the served decay, A in [-16, -1], drowns all but
+# the nearest tiles): mamba2's 768-token prefill, and an odd head count
+# whose last y block holds one head
+SSD_MILD = [(1, 3, 256, 48, 64, 128), (1, 2, 200, 5, 64, 128)]
+SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-3)}  # test_kernels.py:94
+# Bound on the SSD kernel's row_rel_err (rows of P of y and of the states;
+# the outputs are f32 whatever x is), set from the sound runs on the H100
+# (PERF.md): up to 3.3e-5 in rows of y whose rms is ~1% of their terms',
+# where the kernel and the plain version are equally far from an f64 sum.
+SSD_ROW_REL = {torch.float32: 1e-4}
+SSD_TIMED = (1, 3, 256, 48, 64, 128)   # mamba2's 663-token prefill
 # the main path's traffic: 8 requests, prompts of 64-768 tokens from a seed
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 32, 4, 1024
 
@@ -145,6 +170,21 @@ def gmm_served_shapes() -> dict:
                                            d, f)
               for p in serve_prompts(cfg.vocab)}
     shapes["llama4 decode"] = (SERVE_SLOTS, e, moe_capacity(cfg, 1), d, f)
+    return shapes
+
+
+def ssd_served_shapes() -> dict:
+    """label -> (B, NC, L, H, P, N): the SSD kernel's shapes on phase 5's
+    mamba2 path.  Each request is prefilled alone; ``ssd_chunked`` takes
+    L = min(chunk, S) and pads the tail to NC whole chunks."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MAMBA2)
+    shapes = {}
+    for p in serve_prompts(cfg.vocab):
+        s = len(p)
+        l = min(cfg.ssm_chunk, s)
+        shapes[f"mamba2 prefill {s}"] = (1, -(-s // l), l, cfg.ssm_heads,
+                                         cfg.ssm_head_dim, cfg.ssm_state)
     return shapes
 
 
@@ -274,11 +314,73 @@ def phase_gmm() -> float:
                 GMM_TOL, GMM_ROW_REL)
 
 
+def ssd_inputs(b, nc, l, h, p, n, served: bool, gen, decay: float = 0.1):
+    """xc, dtc, cum, bc, cc on the card.  ``served``: as the mamba2 path
+    gives them, x in bf16, B and C f32 carrying bf16 values, and cum =
+    cumsum(dt A) with A = -linspace(1, 16, H); else as tests/test_kernels.py
+    draws them (f32, cum = cumsum(-decay dt))."""
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dtc = torch.nn.functional.softplus(draw(b, nc, l, h))
+    if not served:
+        return (draw(b, nc, l, h, p), dtc, torch.cumsum(-decay * dtc, dim=2),
+                draw(b, nc, l, n), draw(b, nc, l, n))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bf = torch.bfloat16
+    return (draw(b, nc, l, h, p).to(bf), dtc, torch.cumsum(dtc * a, dim=2),
+            draw(b, nc, l, n).to(bf).float(), draw(b, nc, l, n).to(bf).float())
+
+
+def phase_ssd() -> float:
+    """The SSD intra-chunk kernel vs its plain version, at the test cases,
+    at every shape phase 5's mamba2 path gives it, and at the mild-decay
+    cases; returns the largest abs error at the served shapes.  y and the
+    states are held together, as rows of P."""
+    from repro_torch.kernels.ssd import (ssd_intra_chunk,
+                                         ssd_intra_chunk_reference)
+    gen = torch.Generator("cuda").manual_seed(5)
+    served = ssd_served_shapes()
+    cases = [(f"{shape} x f32", shape, False, 0.1, False)
+             for shape in SSD_CASES]
+    cases += [(f"{label} {shape} x bf16", shape, True, 0.0, True)
+              for label, shape in served.items()]
+    cases += [(f"short prompt {shape} x bf16", shape, True, 0.0, False)
+              for shape in SSD_SHORT]
+    cases += [(f"{shape} x f32, mild decay", shape, False, 0.01, False)
+              for shape in SSD_MILD]
+
+    def rows(y, st):
+        p = y.shape[-1]
+        return torch.cat([y.reshape(-1, p), st.reshape(-1, p)])
+
+    def run(shape, served_like, decay):
+        x = ssd_inputs(*shape, served_like, gen, decay)
+        return rows(*ssd_intra_chunk(*x)), rows(*ssd_intra_chunk_reference(*x))
+
+    err = hold("ssd_intra_chunk",
+               [(label, torch.float32,
+                 lambda s=s, sv=sv, d=d: run(s, sv, d), main)
+                for label, s, sv, d, main in cases],
+               SSD_TOL, SSD_ROW_REL)
+    # the rounding floor under SSD_ROW_REL: the kernel and the plain version
+    # each against the plain version summed in f64, at the shortest and the
+    # longest served prompt
+    for label in (min(served, key=lambda lb: served[lb][1] * served[lb][2]),
+                  max(served, key=lambda lb: served[lb][1] * served[lb][2])):
+        x = ssd_inputs(*served[label], True, gen)
+        exact = rows(*ssd_intra_chunk_reference(*(t.double() for t in x)))
+        say(f"[kernels] ssd_intra_chunk {label}: row rel err against an f64 "
+            f"sum: kernel {row_rel_err(rows(*ssd_intra_chunk(*x)), exact):.3e}"
+            f", plain f32 "
+            f"{row_rel_err(rows(*ssd_intra_chunk_reference(*x)), exact):.3e}")
+    return err
+
+
 def phase_card_vs_cpu() -> None:
     from repro_torch.configs import get_smoke
     from repro_torch.models import Model
     from repro_torch.runtime import ServingEngine
-    for arch in ("deepseek-7b", "gemma3-27b", "arctic-480b", LLAMA4):
+    for arch in ("deepseek-7b", "gemma3-27b", "arctic-480b", LLAMA4, MAMBA2):
         cfg = get_smoke(arch)
         cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
         gpu = Model(cfg, device="cuda").load_state(cpu.state_dict())
@@ -307,10 +409,12 @@ def phase_serve(cfg, card: str) -> dict:
     kernels' launch counts set to 0 just before and read just after."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gmm import grouped_ffn
+    from repro_torch.kernels.ssd import ssd_intra_chunk
     from repro_torch.models import Model
     from repro_torch.runtime import ServingEngine
 
     tag = f"[serve {cfg.name}]"
+    ssm = cfg.family == "ssm"
     gc.collect()                 # an earlier path's model is gone for good
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -321,9 +425,13 @@ def phase_serve(cfg, card: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     moe = (f", {cfg.n_experts} experts top-{cfg.top_k}, shared expert "
            f"{cfg.shared_expert_ff}" if cfg.n_experts else "")
-    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff "
-        f"{cfg.d_ff}{moe}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+    widths = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
+              f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
+              f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}" if ssm else
+              f"{cfg.n_heads} heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), "
+              f"d_ff {cfg.d_ff}{moe}")
+    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {widths}, "
+        f"vocab {cfg.vocab}, {cfg.param_dtype}: "
         f"{n_params:,} params ({model.cfg.param_counts()['total']:.4g} "
         f"counted), init {time.perf_counter() - t0:.1f} s")
 
@@ -354,21 +462,25 @@ def phase_serve(cfg, card: str) -> dict:
     ids = [engine.submit(p, max_new=SERVE_NEW) for p in prompts]
 
     flash_attention.launches = grouped_ffn.launches = 0
+    ssd_intra_chunk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = engine.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attn_fwd": flash_attention.launches,
-                "moe_gmm": grouped_ffn.launches}
+                "moe_gmm": grouped_ffn.launches,
+                "ssd_intra_chunk": ssd_intra_chunk.launches}
 
     assert sorted(c.id for c in done) == sorted(ids), "not all completed"
     assert all(len(c.tokens) == SERVE_NEW for c in done), "wrong token counts"
     assert all(0 <= t < cfg.vocab for c in done for t in c.tokens)
     assert len(prefill_s) == SERVE_REQUESTS
-    want = {"flash_attn_fwd": cfg.n_layers * len(prefill_s),
+    per_prefill = cfg.n_layers * len(prefill_s)
+    want = {"flash_attn_fwd": 0 if ssm else per_prefill,
             "moe_gmm": cfg.n_layers * (len(prefill_s) + len(decode_s))
-            if cfg.n_experts else 0}
+            if cfg.n_experts else 0,
+            "ssd_intra_chunk": per_prefill if ssm else 0}
     assert launches == want, f"launches {launches} != {want}"
     n_tok = sum(len(c.tokens) for c in done)
     res = {
@@ -394,11 +506,13 @@ def phase_serve(cfg, card: str) -> dict:
         f"{len(decode_s)} steps, {res['tokens_per_s']:.1f} generated "
         f"tokens/s ({n_tok} in {wall:.2f} s), max memory allocated "
         f"{res['max_memory_allocated_gb']:.2f} GB [{card}]")
-    say(f"{tag} launches {launches}: flash = {cfg.n_layers} layers x "
-        f"{len(prefill_s)} prefills; moe_gmm = {cfg.n_layers} layers x "
-        f"({len(prefill_s)} prefills + {len(decode_s)} decode steps)"
-        if cfg.n_experts else f"{tag} launches {launches}: flash = "
-        f"{cfg.n_layers} layers x {len(prefill_s)} prefills")
+    per_layer = f"{cfg.n_layers} layers x {len(prefill_s)} prefills"
+    say(f"{tag} launches {launches}: "
+        + (f"ssd_intra_chunk = {per_layer}, no attention" if ssm else
+           f"flash = {per_layer}")
+        + (f"; moe_gmm = {cfg.n_layers} layers x ({len(prefill_s)} "
+           f"prefills + {len(decode_s)} decode steps)" if cfg.n_experts
+           else ""))
     # back to the class's methods: bound methods stored on the instance
     # would make a reference cycle that keeps the weights on the card
     del model.prefill, model.decode_step
@@ -569,6 +683,80 @@ def phase_timing_gmm(card: str) -> dict:
     return out
 
 
+def ssd_work(b, nc, l, h, p, n) -> tuple[int, int]:
+    """(flops, bytes) the SSD intra-chunk function needs, x in bf16: the
+    causal half of C B^T (once per chunk, shared by the heads) and of M X,
+    and the state product; each input read once, each output written once."""
+    pairs = l * (l + 1) // 2
+    flops = 2 * b * nc * (pairs * n + h * pairs * p + h * l * n * p)
+    nbytes = (2 * b * nc * l * h * p            # x, bf16
+              + 4 * 2 * b * nc * l * h          # dt, cum
+              + 4 * 2 * b * nc * l * n          # B, C
+              + 4 * b * nc * l * h * p          # y
+              + 4 * b * nc * h * n * p)         # states
+    return flops, nbytes
+
+
+def phase_timing_ssd(card: str) -> dict:
+    """The SSD intra-chunk kernel at mamba2's longest served prefill (663
+    tokens, padded to 3 chunks of 256)."""
+    from repro_torch.kernels.ssd import (ssd_intra_chunk,
+                                         ssd_intra_chunk_reference)
+    shape = SSD_TIMED
+    b, nc, l, h, p, n = shape
+    gen = torch.Generator("cuda").manual_seed(6)
+    xc, dtc, cum, bc, cc = ssd_inputs(*shape, True, gen)
+    # yardstick: the two products alone as cuBLAS f32 bmm (TF32 off), on M
+    # and the state weights built once outside the timing
+    idx = torch.arange(l, device="cuda")
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill(
+        ~(idx[:, None] >= idx[None, :])[None, None, :, :, None], -2.0 ** 30)
+    m = (torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None] * seg.exp()
+         * dtc[:, :, None, :, :])
+    m = m.permute(0, 1, 4, 2, 3).reshape(-1, l, l).contiguous()
+    xs = xc.float().permute(0, 1, 3, 2, 4).reshape(-1, l, p).contiguous()
+    w = (torch.exp(cum[:, :, -1:, :] - cum) * dtc)
+    bw = (bc[:, :, :, None, :] * w[..., None]).permute(0, 1, 3, 4, 2) \
+        .reshape(-1, n, l).contiguous()
+    del seg
+
+    def library():
+        return torch.bmm(m, xs), torch.bmm(bw, xs)
+
+    saved = ssd_intra_chunk.launches
+    say(f"[timing] ssd_intra_chunk {shape}: clocks before ({CLOCKS}) "
+        f"{card_line(CLOCKS)}")
+    kernel_r, library_r = [], []
+    for _ in range(3):
+        kernel_r.append(time_ms(lambda: ssd_intra_chunk(xc, dtc, cum, bc, cc),
+                                20))
+        library_r.append(time_ms(library, 20))
+    say(f"[timing] ssd_intra_chunk {shape}: clocks after {card_line(CLOCKS)}"
+        f"; kernel rounds {', '.join(f'{t:.4f}' for t in kernel_r)} ms, "
+        f"yardstick rounds {', '.join(f'{t:.4f}' for t in library_r)} ms")
+    plain_ms = time_ms(lambda: ssd_intra_chunk_reference(xc, dtc, cum, bc,
+                                                         cc), 5)
+    ssd_intra_chunk.launches = saved     # comparisons do not count
+    kernel_ms, yard_ms = sorted(kernel_r)[1], sorted(library_r)[1]
+    flops, nbytes = ssd_work(*shape)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    res = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": None, "yardstick_ms": yard_ms,
+           "bound_ms": max(t_ops, t_bytes), "bytes_bound_ms": t_bytes,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    say(f"[timing] ssd_intra_chunk {shape} (B, NC, L, H, P, N) x bf16: "
+        f"kernel {kernel_ms:.4f} ms (median), plain {plain_ms:.4f} ms, f32 "
+        f"bmm x 2 on prepared M and state weights (yardstick only; no "
+        f"single PyTorch call computes this) {yard_ms:.4f} ms; bound "
+        f"{res['bound_ms']:.4f} ms by {res['bound_by']} ({flops / 1e9:.4f} "
+        f"GFLOP at the f32 rate; {nbytes / 1e6:.2f} MB, {t_bytes:.4f} ms); "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved, "
+        f"{100 * res['bound_ms'] / kernel_ms:.1f}% of bound [{card}]")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -580,12 +768,15 @@ def main() -> int:
     phase_build()
     flash_err = phase_kernels()
     gmm_err = phase_gmm()
+    ssd_err = phase_ssd()
     phase_card_vs_cpu()
     paths = [phase_serve(get_config("deepseek-7b"), card),
              phase_serve(get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS),
-                         card)]
+                         card),
+             phase_serve(get_config(MAMBA2), card)]
     timing = phase_timing(card)
     gmm = phase_timing_gmm(card)
+    ssd = phase_timing_ssd(card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']}": p["launches"][name]
@@ -615,12 +806,21 @@ def main() -> int:
         "prefill": {k: gmm["prefill"][k] for k in
                     ("label", "shape", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms")},
+    }, {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:25",
+        **launches("ssd_intra_chunk"), "max_abs_err": ssd_err,
+        **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "yardstick_ms",
+                               "bytes_bound_ms", "shape")},
     }]
     record = ROOT / "chiprun_out" / "chip_smoke.json"
     record.parent.mkdir(exist_ok=True)
     record.write_text(json.dumps({"card": card, "paths": paths,
                                   "flash_timing": timing, "moe_gmm_timing": gmm,
-                                  "kernels": kernels}, indent=1))
+                                  "ssd_timing": ssd, "kernels": kernels},
+                                 indent=1))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 SOURCES = {
     "flash_attn_fwd": "flash_attention/csrc/flash_attn_fwd.cu",
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
+    "ssd_intra_chunk": "ssd/csrc/ssd_intra_chunk.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

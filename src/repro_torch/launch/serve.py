@@ -3,9 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         [--smoke] [--batch 4 --prompt-len 32 --gen 16] [--device cuda]
 
-Serves the dense and MoE families (``--arch arctic-480b`` or
+Serves the dense, MoE and SSM families (``--arch arctic-480b`` or
 ``llama4-scout-17b-a16e``; the full MoE configs are larger than one 80 GB
-card, so run those with ``--smoke``).  Runs on CUDA unless ``--device``
+card, so run those with ``--smoke``.  ``--arch mamba2-780m`` fits at its
+full width and depth).  Runs on CUDA unless ``--device``
 names another device.  Weights and prompt tokens are random, drawn from
 seeded ``torch.Generator``s on that device.
 """

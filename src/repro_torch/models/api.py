@@ -5,6 +5,10 @@
     logits, cache = model.prefill(batch, pad_to=...)
     logits, cache = model.decode_step(tokens, cache)     # cache updated in place
 
+The cache holds K/V for the attention families and the conv and ssm states
+for the SSM family (``lm.py``); ``pad_to`` reserves K/V slots and the SSM
+family ignores it.
+
 ``batch`` is a dict with "tokens" (B,S) int64 on the model's device.
 """
 from __future__ import annotations
@@ -37,7 +41,7 @@ def _tree_of(mod: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """The decoder LM (dense and MoE families) as an ``nn.Module``.
+    """The decoder LM (dense, MoE and SSM families) as an ``nn.Module``.
 
     Parameters keep the JAX tree's names and stacked layout (state-dict keys
     such as ``layers.attn.wq`` of shape (L, D, H, hd)).  A new model holds
@@ -66,7 +70,8 @@ class Model(nn.Module):
         """Take a flat state dict (name -> tensor), moved to the model's
         device; every parameter must be given.  Each leaf is cast to the
         dtype of the parameter it replaces, which ``lm.init_params`` set:
-        ``cfg.param_dtype`` for most, f32 for the MoE router."""
+        ``cfg.param_dtype`` for most, f32 for the MoE router and for
+        mamba's ``A_log``, ``D`` and ``dt_bias``."""
         dtypes = {k: p.dtype for k, p in self.named_parameters()}
         self.load_state_dict(
             {k: v.to(device=self.device, dtype=dtypes.get(k, v.dtype))

@@ -138,10 +138,13 @@ class ServingEngine:
                 self._retire(slot)
 
     def _splice(self, slot: int, cache1) -> None:
-        """Copy a one-row prefill cache into row ``slot`` (axis 1 of k/v)."""
-        self.cache["k"][:, slot:slot + 1] = cache1["k"]
-        self.cache["v"][:, slot:slot + 1] = cache1["v"]
-        self.cache["pos"][slot] = cache1["pos"][0]
+        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v, or
+        of the SSM family's conv and ssm states."""
+        for key, big in self.cache.items():
+            if key == "pos":
+                big[slot] = cache1["pos"][0]
+            else:
+                big[:, slot:slot + 1] = cache1[key]
 
     def _retire(self, slot: int) -> None:
         self._active.pop(slot, None)

@@ -67,3 +67,18 @@ def test_moe_family_builds(arch):
     assert cfg.family == "moe" and cfg.family in FAMILIES
     names = dict(Model(cfg, device="cpu").named_parameters())
     assert "layers.moe.w_in" in names and "layers.mlp.w_in" not in names
+
+
+def test_ssm_family_builds():
+    cfg = get_smoke("mamba2-780m").replace(param_dtype="bfloat16",
+                                           compute_dtype="bfloat16")
+    assert cfg.family == "ssm" and cfg.family in FAMILIES
+    params = dict(Model(cfg, device="cpu").named_parameters())
+    assert {n.split(".", 1)[1] for n in params if n.startswith("layers.")} \
+        == {"ln", "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+            "norm", "out_proj"}
+    assert not any("attn" in n for n in params)
+    assert {n for n, p in params.items() if p.dtype == torch.float32} == {
+        "layers.A_log", "layers.D", "layers.dt_bias"}
+    assert all(p.shape[0] == cfg.n_layers for n, p in params.items()
+               if n.startswith("layers."))
