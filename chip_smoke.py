@@ -11,10 +11,13 @@ result line):
 2. build: every CUDA kernel from the sources in the checkout, in parallel.
 3. kernels vs their plain PyTorch versions on the card, at the cases of
    tests/test_kernels.py and at the very shapes that phase 5 serves (flash
-   attention: hd-128 prefill shapes and the served prompts of deepseek-7b
-   and llama4-scout; the grouped expert FFN: llama4-scout's prefill of
-   each served prompt and its decode step, a 768-token prefill, and
-   arctic's expert widths; the SSD intra-chunk kernel: mamba2-780m's
+   attention: hd-128 prefill shapes, the served prompts of deepseek-7b
+   and llama4-scout, and bf16 cases for every branch of the wgmma kernel
+   at hd 64 and 128; the grouped expert FFN: llama4-scout's prefill of
+   each served prompt and its decode step, a 768-token prefill, arctic's
+   expert widths, and buffers with dead experts and dead rows as the MoE
+   dispatch leaves them, whose outputs must be exact zeros; the SSD
+   intra-chunk kernel: mamba2-780m's
    prefill of each served prompt and of 1- and 2-token prompts, x in
    bf16, with an f64 sum as the yardstick of rounding).
 4. the port on the card vs the same port code on the CPU (f32 smoke
@@ -27,10 +30,13 @@ result line):
    layers (bf16, 57 GB of weights; all 48 do not fit one card), and
    mamba2-780m at its full width and depth (bf16).
 6. kernel timing with CUDA events beside the plain version, a PyTorch
-   yardstick, and the card's bound for the same work (the grouped FFN at
-   the longest served prompt's prefill and at decode, and the SSD kernel at
-   mamba2's longest served prefill, each in three rounds taken in turns
-   with its yardstick, the card's clocks read before and after).
+   yardstick, and the card's bound for the same work (flash attention at
+   (1, 2048, 32, 128) and at deepseek's longest served prefill; the grouped
+   FFN at decode with the served occupancy of 4 live experts, at decode
+   with every row filled, and at the longest served prompt's prefill, each
+   bound over the bytes of the live experts; the SSD kernel at mamba2's
+   longest served prefill; each in three rounds taken in turns with its
+   yardstick, the card's clocks read before and after).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -72,6 +78,14 @@ FLASH_CASES = [
 PREFILL_CASES = [(1, 512, 32, 32, 128, 0), (1, 2048, 32, 32, 128, 0),
                  (2, 1024, 32, 8, 128, 256)]
 TIMED = (1, 2048, 32, 32, 128, 0)
+# bf16 cases for every branch of the wgmma kernel (hd 64 and 128): S not a
+# multiple of the 128-row tile, a kv prefix (T > S), GQA with a window of
+# 256, a single partial tile, and no causal mask
+WGMMA_CASES = [(b, s, t, h, k, hd, c, w) for hd in (64, 128)
+               for b, s, t, h, k, c, w in [
+                   (1, 100, 100, 4, 4, True, 0), (1, 663, 663, 8, 8, True, 0),
+                   (2, 32, 128, 4, 1, True, 0), (1, 700, 700, 8, 2, True, 256),
+                   (1, 64, 64, 4, 2, True, 0), (1, 200, 200, 2, 2, False, 0)]]
 F32_TOL = dict(atol=3e-5, rtol=1e-4)       # tests/test_kernels.py
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 # Bound on row_rel_err.  Late rows of a long causal prefill average many
@@ -94,6 +108,17 @@ GMM_CASES = [(2, 4, 8, 32, 64, "swiglu", torch.float32),
 # at capacity 16
 GMM_EXTRA = {"llama4 prefill 768": (1, 16, 60, 5120, 8192),
              "arctic": (1, 4, 16, 7168, 4864)}
+# occupancy, shape, act, dtype: buffers as the MoE dispatch fills them
+# (live_mask), bf16 at llama4's decode shape and widths, f32 at test widths
+GMM_OCCUPANCY = [
+    (occ, shape, "swiglu", dt)
+    for dt, shape in ((torch.bfloat16, (4, 16, 4, 5120, 8192)),
+                      (torch.float32, (4, 16, 4, 64, 96)))
+    for occ in ("decode1", "decode4", "last", "zero")] + [
+    ("routed", (1, 16, 52, 5120, 8192), "swiglu", torch.bfloat16),
+    ("routed", (2, 8, 12, 64, 96), "swiglu", torch.float32),
+    ("routed", (2, 8, 12, 64, 96), "gelu", torch.float32),
+    ("decode4", (2, 2, 4, 16, 48), "gelu", torch.bfloat16)]
 GMM_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
            torch.bfloat16: dict(atol=0.05, rtol=0.05)}
 # Bound on the grouped FFN's row_rel_err (rows of D), set from the sound
@@ -237,16 +262,22 @@ def phase_info() -> str:
     return line
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel; name -> ptxas's lines (entry, registers, spills),
+    which also go into the run's record."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
     say(f"[build] {len(paths)} kernel(s) built in "
         f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
+    report = {}
     for name in paths:
-        for ln in _build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
-                say(f"[build] {name}: {ln.strip()}")
+        report[name] = [ln.strip() for ln in _build.build_log(name)
+                        .splitlines() if "registers" in ln or "spill" in ln
+                        or "entry function" in ln or "Loss" in ln]
+        for ln in report[name]:
+            say(f"[build] {name}: {ln}")
+    return report
 
 
 def phase_kernels() -> float:
@@ -261,6 +292,7 @@ def phase_kernels() -> float:
     cases = [(b, s, t, h, k, hd, c, w, dt, False)
              for b, s, t, h, k, hd, c, w in FLASH_CASES for dt in dtypes]
     cases += [(1, 64, 64, 4, 2, 32, True, 0, dt, False) for dt in dtypes]
+    cases += [(*c, torch.bfloat16, False) for c in WGMMA_CASES]
     cases += [(b, s, s, h, k, hd, True, w, torch.bfloat16, True)
               for b, s, h, k, hd, w in PREFILL_CASES]
     for arch in ("deepseek-7b", LLAMA4):
@@ -290,27 +322,79 @@ def gmm_inputs(b, e, c, d, f, dtype, gen):
             draw(e, d, f, std=d ** -0.5), draw(e, f, d, std=f ** -0.5))
 
 
+def live_mask(shape, occupancy: str, gen) -> torch.Tensor | None:
+    """(B, E, C, 1) 0/1 mask of the rows a buffer of ``occupancy`` holds, as
+    the MoE dispatch fills them (None: every row).  ``decode1`` / ``decode4``:
+    one token in slot 0 of 1 / 4 distinct experts, each batch row one token
+    (a decode step with top-1 routing); ``last``: one expert whose only live
+    row is the last (b, slot) of its (B, C) block; ``routed``: each batch
+    row's C * E // 2 tokens routed top-1 in token order into their experts'
+    next free slots, capacity C, from router weights that leave expert 0
+    dead; ``zero``: no live row."""
+    if occupancy is None:
+        return None
+    b, e, c = shape[:3]
+    m = torch.zeros(b, e, c, 1, device="cuda")
+    if occupancy in ("decode1", "decode4"):
+        n = 1 if occupancy == "decode1" else min(4, e)
+        experts = torch.randperm(e, generator=gen, device="cuda")[:n]
+        for i in range(b):
+            m[i, experts[i % n], 0] = 1
+    elif occupancy == "last":
+        m[b - 1, e // 2, c - 1] = 1
+    elif occupancy == "routed":
+        probs = torch.rand(e, generator=gen, device="cuda") ** 2
+        probs[0] = 0
+        for i in range(b):
+            tok = torch.multinomial(probs, c * e // 2, replacement=True,
+                                    generator=gen)
+            fill = [0] * e
+            for ex in tok.tolist():
+                if fill[ex] < c:
+                    m[i, ex, fill[ex]] = 1
+                    fill[ex] += 1
+    return m
+
+
 def phase_gmm() -> float:
     """The grouped expert FFN vs its plain version, at the test cases, at
-    every shape phase 5's llama4 path gives it, and at GMM_EXTRA; returns
-    the largest abs error at the served shapes."""
+    every shape phase 5's llama4 path gives it, at GMM_EXTRA, and at buffers
+    whose occupancy the main path gives (GMM_OCCUPANCY: dead experts and dead
+    rows, whose outputs must be exact zeros); returns the largest abs error
+    at the served shapes."""
     from repro_torch.kernels.moe_gmm import grouped_ffn, grouped_ffn_reference
     gen = torch.Generator("cuda").manual_seed(1)
-    cases = [(f"{tuple(shape)} {act}", shape, act, dt, False)
+    cases = [(f"{tuple(shape)} {act}", shape, act, dt, None, False)
              for *shape, act, dt in GMM_CASES]
     cases += [(f"{label} {shape} swiglu", shape, "swiglu", torch.bfloat16,
-               main)
+               None, main)
               for shapes, main in ((gmm_served_shapes(), True),
                                    (GMM_EXTRA, False))
               for label, shape in shapes.items()]
+    cases += [(f"{occ} {tuple(shape)} {act}", shape, act, dt, occ, False)
+              for occ, shape, act, dt in GMM_OCCUPANCY]
 
-    def run(shape, act, dtype):
+    def run(shape, act, dtype, occupancy):
         x = gmm_inputs(*shape, dtype, gen)
-        return grouped_ffn(*x, act=act), grouped_ffn_reference(*x, act=act)
+        mask = live_mask(shape, occupancy, gen)
+        if mask is not None:
+            x = (x[0] * mask.to(dtype), *x[1:])
+        got = grouped_ffn(*x, act=act)
+        dead = (x[0] == 0).all(-1)
+        # the skip's identity: dead rows and dead experts give exact zeros
+        assert torch.equal(got[dead], torch.zeros_like(got[dead])), \
+            f"moe_gmm {occupancy} {shape}: a dead row is not exactly zero"
+        live_e = int((~dead).any(-1).any(0).sum())
+        if occupancy:
+                say(f"[kernels] moe_gmm {occupancy} {tuple(shape)}: {live_e} "
+                f"of {shape[1]} experts live, {int((~dead).sum())} of "
+                f"{dead.numel()} rows; every dead row's output exactly 0")
+        return got, grouped_ffn_reference(*x, act=act)
 
     return hold("moe_gmm",
-                [(label, dt, lambda s=s, a=a, dt=dt: run(s, a, dt), main)
-                 for label, s, a, dt, main in cases],
+                [(label, dt, lambda s=s, a=a, dt=dt, o=o: run(s, a, dt, o),
+                  main)
+                 for label, s, a, dt, o, main in cases],
                 GMM_TOL, GMM_ROW_REL)
 
 
@@ -578,6 +662,22 @@ def phase_profile(model, card: str) -> dict:
     }
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Time of ``fn``'s launches replayed from a CUDA graph: the device's
+    time for one call, without the host's cost of issuing it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm: build, allocate
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, iters)
+    del graph
+    return ms
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -592,42 +692,79 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flash_served_shape() -> tuple:
+    """(B, S, H, K, hd, window) of deepseek-7b's longest served prompt."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-7b")
+    s = max(len(p) for p in serve_prompts(cfg.vocab))
+    return (1, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0)
+
+
 def phase_timing(card: str) -> dict:
+    """Flash attention, bf16 causal, at (1, 2048, 32, 128) and at deepseek's
+    longest served prefill: three rounds each, in turns with SDPA, medians
+    kept, the card's clocks read before and after."""
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
-    b, s, h, k, hd, window = TIMED
     gen = torch.Generator("cuda").manual_seed(2)
-    q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
-    # SDPA takes (B, H, S, hd): transposed once, outside the timed call
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
     saved = flash_attention.launches
-    kernel_ms = time_ms(lambda: flash_attention(q, kk, v, causal=True), 20)
-    plain_ms = time_ms(lambda: attention_reference(q, kk, v, causal=True), 5)
-    library_ms = time_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True), 20)
+    out = {}
+    for key, shape in (("timed", TIMED), ("served", flash_served_shape())):
+        b, s, h, k, hd, window = shape
+        q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
+        # SDPA takes (B, H, S, hd): transposed once, outside the timed call
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=h != k)
+
+        say(f"[timing] flash_attn_fwd {shape[:5]}: clocks before ({CLOCKS}) "
+            f"{card_line(CLOCKS)}")
+        kernel_r, library_r = [], []
+        for _ in range(3):
+            kernel_r.append(time_ms(lambda: flash_attention(q, kk, v,
+                                                            causal=True), 20))
+            library_r.append(time_ms(sdpa, 20))
+        say(f"[timing] flash_attn_fwd {shape[:5]}: clocks after "
+            f"{card_line(CLOCKS)}; kernel rounds "
+            f"{', '.join(f'{t:.4f}' for t in kernel_r)} ms, sdpa rounds "
+            f"{', '.join(f'{t:.4f}' for t in library_r)} ms")
+        kernel_ms, library_ms = sorted(kernel_r)[1], sorted(library_r)[1]
+        device_ms = graph_ms(lambda: flash_attention(q, kk, v, causal=True))
+        plain_ms = time_ms(lambda: attention_reference(q, kk, v, causal=True),
+                           5)
+        pairs = s * (s + 1) // 2           # (q, k) pairs the causal mask keeps
+        flops = 4 * b * h * pairs * hd     # q.k and p.v, 2 flops per MAC
+        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * k * hd)  # q, o, k, v
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        res = {"shape": list(shape[:5]), "ms": kernel_ms,
+               "graph_ms": device_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes}
+        say(f"[timing] flash_attn_fwd {shape[:5]} bf16 causal: kernel "
+            f"{kernel_ms:.4f} ms (median; replayed from a CUDA graph "
+            f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+            f"(yardstick) {library_ms:.4f} ms, kernel / sdpa "
+            f"{kernel_ms / library_ms:.3f}; bound {bound_ms:.4f} ms by "
+            f"{res['bound_by']} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+            f"MB); {flops / kernel_ms / 1e9:.2f} TFLOP/s achieved, "
+            f"{100 * bound_ms / kernel_ms:.1f}% of bound [{card}]")
+        out[key] = res
+        del q, kk, v, qt, kt, vt
     flash_attention.launches = saved     # comparisons do not count
-    pairs = s * (s + 1) // 2             # (q, k) pairs the causal mask keeps
-    flops = 4 * b * h * pairs * hd       # q.k and p.v, 2 flops per MAC
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * k * hd)   # q, o, k, v
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    res = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
-    say(f"[timing] flash_attn_fwd {TIMED[:5]} bf16 causal: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (yardstick) "
-        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-        f"{res['bound_by']} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
-        f"MB); {flops / kernel_ms / 1e9:.2f} TFLOP/s achieved [{card}]")
-    return res
+    return out
 
 
 def phase_timing_gmm(card: str) -> dict:
     """The grouped expert FFN at the shapes phase 5's llama4 path gives it:
-    the prefill of its longest served prompt, and the decode step."""
+    the decode step at its served occupancy (4 distinct live experts, one
+    token each at slot 0), the decode step with every row filled, and the
+    prefill of the longest served prompt.  The bound counts the bytes of the
+    experts the buffer makes live."""
     from repro_torch.kernels.moe_gmm import grouped_ffn, grouped_ffn_reference
     gen = torch.Generator("cuda").manual_seed(4)
     served = gmm_served_shapes()
@@ -635,49 +772,68 @@ def phase_timing_gmm(card: str) -> dict:
                   key=lambda lb: served[lb][2])
     saved = grouped_ffn.launches
     out = {}
-    for key, label in (("prefill", prefill), ("decode", "llama4 decode")):
+    for key, label, occupancy in (
+            ("decode_live", "llama4 decode", "decode4"),
+            ("decode", "llama4 decode", None),
+            ("prefill", prefill, None)):
         b, e, c, d, f = served[label]
         buf, wi, wg, wo = gmm_inputs(b, e, c, d, f, torch.bfloat16, gen)
+        mask = live_mask((b, e, c), occupancy, gen)
+        if mask is not None:
+            buf = buf * mask.to(buf.dtype)
+        live_rows = (buf != 0).any(-1)                       # (B, E, C)
+        live = live_rows.any(-1).any(0).nonzero()[:, 0]      # live experts
+        n_live, n_rows = int(live.numel()), int(live_rows.sum())
         # yardstick: the same work as four PyTorch calls (cuBLAS bmm x 3 and
-        # silu * mul) on (E, B*C, D) rows, laid out once outside the timing
-        xe = buf.transpose(0, 1).reshape(e, b * c, d).contiguous()
+        # silu * mul) on the live experts' (B*C, D) rows and weights,
+        # gathered once outside the timing
+        xe = buf.transpose(0, 1)[live].reshape(n_live, b * c, d).contiguous()
+        wgl, wil, wol = (w[live].contiguous() for w in (wg, wi, wo))
 
         def library():
-            h = torch.nn.functional.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
-            return torch.bmm(h, wo)
+            h = torch.nn.functional.silu(torch.bmm(xe, wgl)) * \
+                torch.bmm(xe, wil)
+            return torch.bmm(h, wol)
 
+        tag = f"moe_gmm {label} ({occupancy or 'every row'})"
         # kernel and yardstick in turns, three rounds each; the medians
         # are kept, and the card's clocks are read before and after
-        say(f"[timing] moe_gmm {label}: clocks before ({CLOCKS}) "
-            f"{card_line(CLOCKS)}")
+        say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
         kernel_r, library_r = [], []
         for _ in range(3):
             kernel_r.append(time_ms(lambda: grouped_ffn(buf, wi, wg, wo), 20))
             library_r.append(time_ms(library, 20))
-        say(f"[timing] moe_gmm {label}: clocks after {card_line(CLOCKS)}; "
-            f"kernel rounds {', '.join(f'{t:.4f}' for t in kernel_r)} ms, "
-            f"yardstick rounds {', '.join(f'{t:.4f}' for t in library_r)} ms")
+        say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; kernel rounds "
+            f"{', '.join(f'{t:.4f}' for t in kernel_r)} ms, yardstick rounds "
+            f"{', '.join(f'{t:.4f}' for t in library_r)} ms")
         kernel_ms = sorted(kernel_r)[1]
         library_ms = sorted(library_r)[1]
+        device_ms = graph_ms(lambda: grouped_ffn(buf, wi, wg, wo))
         plain_ms = time_ms(lambda: grouped_ffn_reference(buf, wi, wg, wo), 5)
-        flops = 3 * 2 * b * e * c * d * f           # three products
-        nbytes = 2 * (3 * e * d * f + 2 * b * e * c * d)   # weights, buf, out
+        # three products over the live rows; the live experts' weights, buf
+        # and out
+        flops = 3 * 2 * n_rows * d * f
+        nbytes = 2 * (3 * n_live * d * f + 2 * b * e * c * d)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        res = {"label": label, "shape": [b, e, c, d, f], "ms": kernel_ms,
+        res = {"label": label, "occupancy": occupancy or "every row",
+               "shape": [b, e, c, d, f], "live_experts": n_live,
+               "live_rows": n_rows, "ms": kernel_ms, "graph_ms": device_ms,
                "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "flops": flops, "bytes": nbytes}
-        say(f"[timing] moe_gmm {label} {(b, e, c, d, f)} bf16 swiglu: kernel "
-            f"{kernel_ms:.4f} ms (median), plain {plain_ms:.4f} ms, bmm x 3 + "
-            f"silu*mul (yardstick, 4 calls) {library_ms:.4f} ms; bound "
+        say(f"[timing] {tag} {(b, e, c, d, f)} bf16 swiglu, {n_live} of {e} "
+            f"experts live ({n_rows} rows): kernel {kernel_ms:.4f} ms "
+            f"(median; replayed from a CUDA graph {device_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bmm x 3 + silu*mul over the "
+            f"live experts (yardstick, 4 calls) {library_ms:.4f} ms; bound "
             f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
             f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.4f} GB); "
             f"{nbytes / kernel_ms / 1e6:.1f} GB/s achieved, "
             f"{100 * res['bound_ms'] / kernel_ms:.1f}% of bound [{card}]")
         out[key] = res
-        del buf, wi, wg, wo, xe
+        del buf, wi, wg, wo, xe, wgl, wil, wol
         torch.cuda.empty_cache()
     grouped_ffn.launches = saved     # comparisons do not count
     return out
@@ -765,7 +921,7 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     card = phase_info()
-    phase_build()
+    build = phase_build()
     flash_err = phase_kernels()
     gmm_err = phase_gmm()
     ssd_err = phase_ssd()
@@ -791,21 +947,30 @@ def main() -> int:
                   "flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
         **launches("flash_attn_fwd"), "max_abs_err": flash_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
+        **{k: timing["timed"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "shape")},
+        # deepseek's longest served prefill beside the (1, 2048, 32, 128) one
+        "graph_ms": timing["timed"]["graph_ms"],
+        "served": {k: timing["served"][k] for k in
+                   ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")},
     }, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm/kernel.py:24",
         **launches("moe_gmm"), "max_abs_err": gmm_err,
-        # the decode shape (most launches); the prefill shape beside it
+        # the decode shape with every row filled; the served decode
+        # occupancy (decode_live) and the prefill beside it
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"], "shape": dec["shape"],
-        "prefill": {k: gmm["prefill"][k] for k in
-                    ("label", "shape", "ms", "plain_ms", "bound_ms",
-                     "bound_by", "library_ms")},
+        "graph_ms": dec["graph_ms"],
+        **{key: {k: gmm[key][k] for k in
+                 ("label", "occupancy", "shape", "live_experts", "ms",
+                  "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")}
+           for key in ("prefill", "decode_live")},
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
@@ -817,8 +982,9 @@ def main() -> int:
     }]
     record = ROOT / "chiprun_out" / "chip_smoke.json"
     record.parent.mkdir(exist_ok=True)
-    record.write_text(json.dumps({"card": card, "paths": paths,
-                                  "flash_timing": timing, "moe_gmm_timing": gmm,
+    record.write_text(json.dumps({"card": card, "build": build,
+                                  "paths": paths, "flash_timing": timing,
+                                  "moe_gmm_timing": gmm,
                                   "ssd_timing": ssd, "kernels": kernels},
                                  indent=1))
     say(card)

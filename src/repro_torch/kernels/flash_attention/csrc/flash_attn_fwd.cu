@@ -10,45 +10,59 @@
 //
 // Layout.  q and o are (B, S, H, hd), k and v are (B, T, K, hd), read in
 // place through their strides (the last dim must be contiguous); nothing is
-// padded in memory, the kernel masks the ragged edges itself.
+// padded in memory.
 //
-// Design.  One thread block per (q tile of 64 rows, head, batch).  The TPU
-// walks kv blocks as a sequential grid axis and keeps m, l, acc in VMEM
-// scratch between grid steps; here blocks run in parallel in no order, so
-// the kv walk is a loop inside the block and m, l, acc live in registers.
-// Q is staged once in shared memory, each kv tile of 64 rows after it.  kv
-// tiles wholly outside the causal / window band are never loaded.  Causal q
-// tiles are issued heaviest first so the last wave is not a long tail.
-// Two instantiations of that design:
-//   * bfloat16 (the serving path): four warps, 16 q rows each, run both
-//     products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); Q fragments stay in registers for the whole kv walk, K
-//     and V fragments come from shared memory by ldmatrix, and the score
-//     accumulators are repacked in registers as the A operand of P.V, so P
-//     never touches shared memory.  P is rounded to bf16 for that product,
-//     as the reference casts probs to v's dtype.
+// Design.  The TPU walks kv blocks as a sequential grid axis and keeps m, l,
+// acc in VMEM scratch between grid steps; here blocks run in parallel in no
+// order, so the kv walk is a loop inside the block and m, l, acc live in
+// registers.  kv tiles wholly outside the causal / window band are never
+// loaded.  Causal q tiles are issued heaviest first so the last wave is not
+// a long tail.  The head dim picks one of three bodies at compile time:
+//   * bfloat16, hd 64 and 128 (every served path): one block per (q tile of
+//     128 rows, head, batch) holds two consumer warpgroups of 64 q rows and
+//     one producer warp.  The producer loads Q once and each kv tile of 128
+//     rows through TMA (rank-4 tensor maps over the tensors' own strides,
+//     128-byte swizzle) into a 2-stage ring, each stage with a full and an
+//     empty mbarrier, so the next tile's load overlaps this tile's products.
+//     TMA's zero fill stands in for masked staging at the ragged S and T
+//     edges.  S = Q K^T runs on wgmma m64n128k16 with both operands read
+//     from shared memory through descriptors; the softmax stays in
+//     registers, in log2 units (exp2 with log2(e) folded into the scale);
+//     P is rounded to bf16 in registers, as the reference casts probs to v's
+//     dtype, and is the register A operand of O += P V on wgmma, V read
+//     from shared memory in its transposed (MN-major) form.  Only tiles that
+//     cut the causal diagonal, the window's edge or T are masked; a
+//     warpgroup skips the products of a tile whose every score it would
+//     mask.  Tiles of 128 kv rows: two stages of K and V plus Q are 160 KB of
+//     shared memory at hd 128 (one block an SM either way), and the score
+//     tile (64 f32 a thread), the output (64) and P (32) fit the 168
+//     registers ptxas gives a thread of this 288-thread block, unspilled.
+//   * bfloat16, hd 16 and 32 (test shapes only): four warps of 16 q rows on
+//     mma.sync m16n8k16, K and V staged synchronously in 64-row tiles, every
+//     score masked.
 //   * float32 (the tests' dtype): f32 FMAs, which keep f32 results exact to
 //     the order of sums (TF32 tensor cores would not); each thread keeps a
 //     4 x 4 block of scores and a 4 x hd/16 block of the output.
 //
 // What bounds it on an H100.  Counting each input read once and the output
-// written once: at deepseek-7b prefill, S = 512 bf16 (32 heads, hd 128), the
-// kernel must move 16.8 MB (5.0 us at 3.35 TB/s) against 2.1 GFLOP of the
-// causal half (2.2 us at 989 TFLOP/s): bound by bytes.  At S = 2048 it moves
-// 67 MB (20 us) and does 34 GFLOP (35 us): bound by operations.  What the
-// design does about it: the band skip does only the work the mask leaves;
-// each kv tile is read from memory once per q tile of 64 rows, and the
-// products run on the tensor cores.  mma.sync reaches only part of the
-// 989 TFLOP/s that wgmma can; the tiles are loaded synchronously, without a
-// pipeline.  wgmma with TMA-fed, double-buffered tiles is the next step to
-// the bound.
+// written once: at deepseek-7b's served prefill, S <= 768 bf16 (32 heads,
+// hd 128), the kernel must move at most 25.2 MB (7.5 us at 3.35 TB/s)
+// against 4.8 GFLOP of the causal half (4.9 us at 989 TFLOP/s): bound by
+// bytes.  At S = 2048 it moves 67 MB (20 us) and does 34 GFLOP (35 us):
+// bound by operations.  What the design does about it: the band skip does
+// only the work the mask leaves; each kv tile is read from memory once per
+// q tile of 128 rows; TMA moves tiles without spending threads on
+// addresses, and the ring keeps one tile in flight behind the products;
+// both products run on wgmma, the only path to the tensor cores' full rate.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBlockQ = 64;        // q rows per block
-constexpr int kBlockK = 64;        // kv rows per tile
+constexpr int kBlockQ = 64;        // q rows per block (mma.sync and FMA)
+constexpr int kBlockK = 64;        // kv rows per tile (mma.sync and FMA)
 constexpr float kNegInf = -1073741824.0f;  // -2^30, as in the JAX kernel
 
 struct Params {
@@ -65,20 +79,22 @@ struct Params {
   float scale;
 };
 
-// kv tiles in the causal / window band of the q tile at q0: [*lo, *hi)
+// kv tiles of BK rows in the causal / window band of the q tile of BQ
+// rows at q0: [*lo, *hi)
+template <int BQ = kBlockQ, int BK = kBlockK>
 __device__ __forceinline__ void kv_band(const Params& p, int q0, int* lo,
                                         int* hi) {
   const int diag = p.T - p.S;
-  const int n_kv = (p.T + kBlockK - 1) / kBlockK;
+  const int n_kv = (p.T + BK - 1) / BK;
   *lo = 0;
   *hi = n_kv;
   if (p.causal) {
-    const int k_max = min(q0 + kBlockQ, p.S) - 1 + diag;
-    *hi = k_max < 0 ? 0 : min(n_kv, k_max / kBlockK + 1);
+    const int k_max = min(q0 + BQ, p.S) - 1 + diag;
+    *hi = k_max < 0 ? 0 : min(n_kv, k_max / BK + 1);
   }
   if (p.window > 0) {
     const int k_min = q0 + diag - p.window + 1;
-    *lo = k_min > 0 ? k_min / kBlockK : 0;
+    *lo = k_min > 0 ? k_min / BK : 0;
   }
 }
 
@@ -107,7 +123,7 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// ===================================================== bfloat16: mma.sync
+// ======================================= bfloat16, hd 16 / 32: mma.sync
 namespace bf16 {
 
 constexpr int kThreads = 128;      // 4 warps x 16 q rows
@@ -494,17 +510,490 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace f32
 
+// ======================================== bfloat16, hd 64 / 128: wgmma + TMA
+namespace wg {
+
+constexpr int kBlockQ = 128;       // q rows per block: 2 warpgroups x 64
+constexpr int kBlockKV = 128;      // kv rows per tile
+constexpr int kStages = 2;         // K / V ring depth
+constexpr int kConsumers = 2;      // warpgroups that run the products
+constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
+constexpr int kPanel = 64;         // columns of one 128-byte swizzled panel
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Every tile is kept as hd / 64 panels of (rows, 64) bf16, each row 128
+// bytes, in the layout TMA's 128-byte swizzle writes and wgmma reads.
+template <int HD>
+struct alignas(1024) Smem {
+  static constexpr int kPanels = HD / kPanel;
+  __nv_bfloat16 q[kPanels][kBlockQ * kPanel];
+  __nv_bfloat16 k[kStages][kPanels][kBlockKV * kPanel];
+  __nv_bfloat16 v[kStages][kPanels][kBlockKV * kPanel];
+  uint64_t q_full, full[kStages], empty[kStages];
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one (64, 1, rows, 1) box of a rank-4 (hd, heads, seq, batch) map;
+// out-of-bounds rows arrive as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+      "r"(batch), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc(const void* ptr, unsigned lbo,
+                                         unsigned sbo) {
+  return (uint64_t)((smem_addr(ptr) & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// 2^x on the special-function unit (flush-to-zero: every input here is a
+// score minus the running max, never a denormal that matters)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Registers an asynchronous product reads or writes: the compiler may not
+// move their uses across this point, nor reuse them before it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(unsigned (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 128 f32) += A (64 x 16, shared) * B (16 x 128, shared); both
+// operands K-major and 128-byte swizzled
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16, registers) * B (16 x 128, shared,
+// MN-major: rows of k, 128-byte swizzled)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                           const unsigned (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, shared,
+// MN-major: rows of k, 128-byte swizzled)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const unsigned (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// What a kv tile at k0 asks of the 64 q rows from r0: 0 nothing (every
+// score of every real row is masked), 1 the products without a mask (the
+// tile lies wholly inside the band and inside T), 2 the products and the
+// mask (the diagonal, the window's edge, the ragged last tile).
+__device__ __forceinline__ int tile_mode(const Params& p, int r0, int k0) {
+  if (r0 >= p.S) return 0;
+  const int diag = p.T - p.S;
+  const int r1 = min(r0 + 63, p.S - 1);
+  bool mask = k0 + kBlockKV > p.T;
+  if (p.causal) {
+    if (k0 > r1 + diag) return 0;
+    mask = mask || k0 + kBlockKV - 1 > r0 + diag;
+  }
+  if (p.window > 0) {
+    if (k0 + kBlockKV - 1 <= r0 + diag - p.window) return 0;
+    mask = mask || k0 <= r1 + diag - p.window;
+  }
+  return mask ? 2 : 1;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const Params p) {
+  constexpr int kPanels = HD / kPanel;
+  constexpr int kTileBytes = kBlockKV * kPanel * 2;     // one panel
+  extern __shared__ uint8_t smem_raw[];
+  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (p.H / p.KH);
+  const int q0 = qt * kBlockQ;
+  int j_lo, j_hi;
+  kv_band<kBlockQ, kBlockKV>(p, q0, &j_lo, &j_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers * 4);   // one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers * 128) {
+    // ------------------------------------------------------ producer warp
+    if (threadIdx.x != kConsumers * 128) return;
+    mbar_expect_tx(&sm.q_full, kPanels * kBlockQ * kPanel * 2);
+#pragma unroll
+    for (int c = 0; c < kPanels; ++c)
+      tma_load(sm.q[c], &tq, &sm.q_full, c * kPanel, h, q0, b);
+    for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+      mbar_expect_tx(&sm.full[s], 2 * kPanels * kTileBytes);
+#pragma unroll
+      for (int c = 0; c < kPanels; ++c) {
+        tma_load(sm.k[s][c], &tk, &sm.full[s], c * kPanel, kh, j * kBlockKV,
+                 b);
+        tma_load(sm.v[s][c], &tv, &sm.full[s], c * kPanel, kh, j * kBlockKV,
+                 b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------- consumer warpgroups
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
+  const int r0 = q0 + wgi * 64;                 // this warpgroup's rows
+  const int row0 = r0 + warp * 16 + g;          // this thread's: +0, +8
+  const float scale = p.scale * kLog2e;         // scores in log2 units
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&sm.q_full, 0);
+  for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
+    const int s = it % kStages;
+    const int k0 = j * kBlockKV;
+    const int mode = tile_mode(p, r0, k0);      // warpgroup-uniform
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    if (mode != 0) {
+      // S = Q K^T: hd / 16 steps of k16, both operands from shared memory
+      float sc[kBlockKV / 2];
+#pragma unroll
+      for (int i = 0; i < kBlockKV / 2; ++i) sc[i] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 16;
+        wgmma_ss_n128(sc, desc(sm.q[c] + wgi * 64 * kPanel + off, 16, 1024),
+                      desc(sm.k[s][c] + off, 16, 1024));
+      }
+      wg_commit();
+      wg_wait();
+      pin(sc);
+
+      // mask where the tile needs it, then the online softmax update; the
+      // accumulator layout: sc[4i + e] is row row0 + 8 (e / 2), column
+      // k0 + 8i + 2 tig + e % 2
+#pragma unroll
+      for (int i = 0; i < kBlockKV / 2; ++i) sc[i] *= scale;
+      if (mode == 2) {
+        // each row keeps the keys [lo, hi] (kept() row by row)
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q_pos = row0 + r * 8;
+          hi[r] = q_pos >= p.S ? -1 : p.T - 1;
+          if (p.causal) hi[r] = min(hi[r], q_pos + p.T - p.S);
+          lo[r] = p.window > 0 ? q_pos + p.T - p.S - p.window + 1 : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < kBlockKV / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const int k_pos = k0 + (i / 4) * 8 + tig * 2 + (i & 1);
+          if (k_pos > hi[r] || k_pos < lo[r]) sc[i] = kNegInf;
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < kBlockKV / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], group_max<4>(mx[r]));
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kBlockKV / 2; ++i) {
+        sc[i] = ex2(sc[i] - m[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + group_sum<4>(rs[r]);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: P rounded to bf16 in registers (the A operand: two score
+      // tiles of 8 columns make one k16 step), V from shared memory
+      unsigned pa[kBlockKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockKV / 16; ++kk) {
+        pa[kk][0] = pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      pin(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockKV / 16; ++kk) {
+        // rows 16 kk .. 16 kk + 15 of every panel; panels kTileBytes apart
+        const uint64_t dv = desc(sm.v[s][0] + kk * 16 * kPanel, kTileBytes,
+                                 1024);
+        if constexpr (HD == 128)
+          wgmma_rs_n128(o, pa[kk], dv);
+        else
+          wgmma_rs_n64(o, pa[kk], dv);
+      }
+      wg_commit();
+      wg_wait();
+      pin(o);
+      pin(pa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);   // this warp is done with s
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q_pos = row0 + r * 8;
+    if (q_pos >= p.S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                          h * p.o_sh + q_pos * p.o_ss;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + tig * 2) =
+          __floats2bfloat162_rn(o[4 * n + 2 * r] / denom,
+                                o[4 * n + 2 * r + 1] / denom);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Rank-4 map (hd, heads, seq, batch) over a bf16 tensor read through its
+// element strides, boxes of (64, 1, rows, 1), 128-byte swizzle.  A dim of
+// extent 1 gets a stride that TMA takes (its stride is never stepped).
+cudaError_t make_map(CUtensorMap* map, const void* base, int hd, int heads,
+                     int seq, int batch, long long s_h, long long s_s,
+                     long long s_b, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  long long st[3] = {s_h, s_s, s_b};
+  long long span = hd;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) st[i] = span;
+    span = st[i] * (long long)dims[i + 1];
+  }
+  const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[2] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch(const Params& p, int B, int hd, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, p.q, hd, p.H, p.S, B, p.q_sh, p.q_ss,
+                             p.q_sb, kBlockQ);
+  if (err == cudaSuccess)
+    err = make_map(&tk, p.k, hd, p.KH, p.T, B, p.k_sh, p.k_ss, p.k_sb,
+                   kBlockKV);
+  if (err == cudaSuccess)
+    err = make_map(&tv, p.v, hd, p.KH, p.T, B, p.v_sh, p.v_ss, p.v_sb,
+                   kBlockKV);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(Smem<HD>) + 1024;   // + room to align to 1 KB
+  err = cudaFuncSetAttribute(flash_attn_fwd_wgmma<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + kBlockQ - 1) / kBlockQ, p.H, B);
+  flash_attn_fwd_wgmma<HD><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// The body is chosen by dtype and, at compile time, by hd (see the top).
 template <int HD>
 cudaError_t launch_hd(const Params& p, int dtype, int B, cudaStream_t st) {
   if (dtype == 0) return f32::launch<HD>(p, B, st);
-  if (dtype == 1) return bf16::launch<HD>(p, B, st);
-  return cudaErrorInvalidValue;
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (HD >= 64)
+    return wg::launch<HD>(p, B, HD, st);
+  else
+    return bf16::launch<HD>(p, B, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; for bfloat16
-// every row of q, k, v must start 16-byte aligned (checked by the wrapper).
+// every row of q, k, v must start 16-byte aligned, and at hd 64 and 128
+// every stride must be one TMA takes (both checked by the wrapper).
 // Returns the CUDA error of the launch (0 on success); the kernel runs
 // asynchronously on `stream`.
 extern "C" int flash_attn_fwd(

@@ -13,6 +13,7 @@ from .kernel import flash_attention_cuda
 from .ref import attention_reference
 
 HEAD_DIMS = (16, 32, 64, 128)
+TMA_HEAD_DIMS = (64, 128)       # bf16 on wgmma + TMA; 16, 32 on mma.sync
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -45,6 +46,15 @@ def _check_cuda_inputs(q, k, v) -> None:
             for x in (q, k, v)):
         raise ValueError("bfloat16 q, k, v rows must start 16-byte aligned: "
                          "data pointers on 16 bytes, strides multiples of 8")
+    # at hd 64 and 128 the bf16 kernel loads tiles through TMA tensor maps,
+    # which take strides above 0 and below 2^40 bytes (a dim of extent 1 is
+    # never stepped, so its stride does not matter)
+    if q.dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS and any(
+            n > 1 and not 0 < st < 2 ** 39
+            for x in (q, k, v) for n, st in zip(x.shape[:3], x.stride()[:3])):
+        raise ValueError("bfloat16 q, k, v at hd 64 and 128 are read through "
+                         "TMA: every stride of a dim longer than 1 must be "
+                         "above 0 and below 2^40 bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

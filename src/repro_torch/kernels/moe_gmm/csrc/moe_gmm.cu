@@ -13,39 +13,56 @@
 // contiguous last dim.  Nothing is padded in memory: ragged rows, columns
 // and reductions are masked here (the Pallas wrapper pads F to its block).
 //
+// The skip.  A row of buf whose values are all zero gives an output row of
+// exact zeros for finite weights: X W = 0, silu(0) * 0 = 0, gelu(0) = 0,
+// 0 W_out = 0.  The MoE dispatch fills only the capacity slots that a token
+// took, so at decode (4 slots of one token, top-1, 16 experts) at most 4
+// of the 16 experts hold a live row.  A first launch scans buf on the card
+// and writes, per expert, its number of live rows, and the list of live
+// experts in order with its length; no count comes back to the host.  The
+// products then read the weights of live experts only.  out is zero-filled
+// by the caller, so the rows of dead experts stay exact zeros, and the dead
+// rows of live experts come out as exact zeros from the arithmetic.
+//
 // Design.  The Pallas grid is (B, E, F / bf): it keeps the (C, D) output
-// in VMEM and sums it over a sequential F axis, and it loads each expert's
-// weights once per batch row.  On the card a (C, D) f32 accumulator at
-// D = 5120 does not fit one block, and blocks run in parallel in no order.
-// So one call is two launches of one tiled product:
-//   (a) up:   H[e] = act(X[e] W_in[e], X[e] W_gate[e]), the activation
-//             fused into the epilogue, into an (E, B*C, F) scratch;
-//   (b) down: out[b, e] = H[e] W_out[e].
+// in VMEM and sums it over a sequential F axis.  On the card a (C, D) f32
+// accumulator at D = 5120 does not fit one block, so one call runs
+//   (0) scan:  live rows per expert, and the live-expert list;
+//   (a) up:    H[e] = act(X[e] W_in[e], X[e] W_gate[e]), the activation
+//              fused into the epilogue, into an (E, B*C, F) scratch;
+//   (b) down:  out[b, e] = H[e] W_out[e].
 // X[e] gathers the B*C rows of expert e from every batch row through the
-// strides, so each weight tile is read from memory once per call and
-// shared by all rows of its expert.  One block owns one (expert, tile of
-// 128 output columns); it walks the reduction dim in steps of 64, staging
-// the row tile and the weight tiles in shared memory, and loops over row
-// tiles of 64 when an expert has more rows than that.
-//   * bfloat16 (the serving path): eight warps, each owning 16 output
-//     columns for all 64 rows, run mma.sync m16n8k16 (bf16 in, f32
-//     accumulate) with fragments from ldmatrix; tiles are staged with
-//     16-byte loads in a loop of constant trip count; row tiles of 16 that
-//     hold no row are skipped.  H is rounded to bf16 before (b), as the
-//     JAX ref path's bf16 hidden activation is.
+// strides, so each weight tile is read from memory once per call.
+//   * bfloat16 (the serving path): each product is one persistent grid, one
+//     or two blocks an SM, that walks work units (live expert, row tile of 64, tile
+//     of 128 output columns, k-split) in a fixed order.  When few experts
+//     are live, the reduction dim is split (splits x live experts <= 16) so
+//     that 1 to 4 live experts still give every SM work; each split writes
+//     f32 partials, and a second pass sums them in split order (the same
+//     sum on every run) and applies the epilogue.  Weight and row tiles
+//     stream through a 4-stage cp.async ring, so each SM keeps three steps
+//     (96 KB of weights) in flight; the ring runs on across unit bounds.
+//     Eight warps, each owning 16 output columns for all 64 rows, run
+//     mma.sync m16n8k16 (bf16 in, f32 accumulate) with fragments from
+//     ldmatrix.  H is rounded to bf16 before (b), as the JAX ref path's bf16
+//     hidden activation is.
 //   * float32 (the tests' dtype): f32 FMAs, which keep results exact to the
-//     order of sums (TF32 tensor cores would not); H stays f32.
+//     order of sums (TF32 tensor cores would not); one block per (tile of 64
+//     columns, live-list entry), blocks past the list's length exit; H f32.
 //
 // What bounds it on an H100.  Counting each input read once and each output
-// written once: at llama4-scout (E 16, D 5120, F 8192, bf16) the weights are
-// 3 E D F x 2 bytes = 4.03 GB per call, 1.20 ms at 3.35 TB/s, against
-// 0.24 ms of tensor-core work at prefill (60 rows per expert) and 0.07 ms at
-// decode (16 rows): bound by bytes.  What the design does about it: every
-// weight byte crosses from memory once per call (never once per batch row),
-// H (16 MB at prefill) is the only extra traffic, and the two products
-// give 1024 and 640 blocks to spread the stream over the 132 SMs.  The
-// tiles are loaded synchronously, without a pipeline; cp.async or TMA
-// double buffering is the next step to the bound.
+// written once, over the experts the data makes live: at llama4-scout (E 16,
+// D 5120, F 8192, bf16) an expert's weights are 3 D F x 2 bytes = 252 MB.
+// At the served decode with 4 live experts the call must move 1.012 GB
+// (their weights, buf and out): 0.302 ms at 3.35 TB/s; with all 16 live,
+// 4.032 GB, 1.2035 ms.  The tensor-core work (0.065 ms at decode, 0.212 ms
+// at a 663-token prefill, for all experts) is far below that: bound by
+// bytes.  What the design does about it: no weight byte of a dead expert is
+// read, every weight byte of a live one crosses once, the ring keeps enough
+// bytes in flight per SM to approach the memory rate, and the split keeps
+// all SMs streaming at any live count.  The split partials and H are the
+// only extra traffic: 46 MB written and read back at decode with 4 live
+// experts (4 splits each), under 5 % of the call's bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -53,10 +70,24 @@ namespace {
 
 enum Act { kNone = 0, kSwiglu = 1, kGelu = 2 };
 
-// One grouped product: for each expert e, O[e] = epi(A[e] W0[e], A[e] W1[e])
-// with A[e] (R, K), W (K, N), O[e] (R, N).  Row r of expert e lives at
-// base + e * se + (r / C) * sb + (r % C) * sc, so a (B, E, C, *) tensor and
-// an (E, B*C, *) one are addressed alike.
+constexpr int kThreads = 256;      // 8 warps
+constexpr int kBM = 64;            // rows per row tile
+constexpr int kSlots = 16;         // live experts x splits when split
+
+// Workspace of int32, zeroed by the caller: [0] the scan's ticket, [1] the
+// number of live experts, [2, 2 + E) live rows per expert, [2 + E, 2 + 2E)
+// the live experts in order.
+struct Live {
+  int* ws;
+  int E;
+  __device__ int n_live() const { return ws[1]; }
+  __device__ int expert(int i) const { return ws[2 + E + i]; }
+};
+
+// One grouped product: for each live expert e, O[e] = epi(A[e] W0[e],
+// A[e] W1[e]) with A[e] (R, K), W (K, N), O[e] (R, N).  Row r of expert e
+// lives at base + e * se + (r / C) * sb + (r % C) * sc, so a (B, E, C, *)
+// tensor and an (E, B*C, *) one are addressed alike.
 struct Gemm {
   const void* a;
   long long a_se, a_sb, a_sc;
@@ -67,6 +98,8 @@ struct Gemm {
   void* o;
   long long o_se, o_sb, o_sc;
   int R, C, K, N;
+  float* part;                     // (kSlots, mats, R, N) split partials
+  Live live;
 };
 
 __device__ __forceinline__ long long row_off(int r, int C, long long se,
@@ -84,20 +117,109 @@ __device__ __forceinline__ float epilogue(float x, float gate) {
   return x;
 }
 
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kBM = 64;            // rows per row tile
-constexpr int kBK = 64;            // reduction step
+// ============================================================= (0) scan
+// One warp per row of buf: the row is live if any value is nonzero (the
+// sign bit masked, so -0 counts as zero).  The last block to finish writes
+// the live-expert list in expert order.
+template <typename Word>
+__device__ __forceinline__ unsigned nonzero_bits(const Word& w);
+template <>
+__device__ __forceinline__ unsigned nonzero_bits<uint4>(const uint4& w) {
+  return (w.x | w.y | w.z | w.w) & 0x7fff7fffu;     // 8 bf16
+}
+template <>
+__device__ __forceinline__ unsigned nonzero_bits<unsigned>(const unsigned& w) {
+  return w & 0x7fffffffu;                           // 1 f32
+}
+
+template <typename Word>
+__global__ void __launch_bounds__(kThreads)
+    scan_rows(const void* buf, long long sb, long long se, long long sc,
+              int B, int C, int words, int* ws, int E) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int e = blockIdx.y, r = blockIdx.x * (kThreads / 32) + warp;
+  if (r < B * C) {
+    // strides are in elements: a Word is 8 bf16 or 1 f32
+    constexpr long long kElemBytes = sizeof(Word) == 16 ? 2 : 4;
+    const Word* row = reinterpret_cast<const Word*>(
+        static_cast<const char*>(buf) +
+        row_off(r, C, se, sb, sc, e) * kElemBytes);
+    unsigned bits = 0;
+#pragma unroll 4
+    for (int i = lane; i < words; i += 32) bits |= nonzero_bits(row[i]);
+    if (__any_sync(0xffffffffu, bits != 0) && lane == 0)
+      atomicAdd(ws + 2 + e, 1);
+  }
+  __shared__ bool last;
+  __shared__ int warp_n[kThreads / 32], total;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ws, 1) == (int)(gridDim.x * gridDim.y) - 1;
+    total = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const volatile int* count = ws + 2;
+  for (int base = 0; base < E; base += kThreads) {
+    const int ex = base + threadIdx.x;
+    const bool on = ex < E && count[ex] > 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int at = total + __popc(ballot & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) at += warp_n[w];
+    if (on) ws[2 + E + at] = ex;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int w = 0; w < kThreads / 32; ++w) total += warp_n[w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) ws[1] = total;
+}
 
 // ===================================================== bfloat16: mma.sync
 namespace bf16 {
 
-constexpr int kBN = 128;           // output columns per block: 16 per warp
+constexpr int kBN = 128;           // output columns per unit: 16 per warp
 constexpr int kPad = 8;            // bf16 of padding per shared row (16 B)
-constexpr int kLDA = kBK + kPad;
 constexpr int kLDW = kBN + kPad;
+
+// Tiles of a product with kMats weight matrices (2: the swiglu up product,
+// 1: gelu's and the down product): the reduction step, the depth of the
+// cp.async ring and the most blocks an SM holds.  The one-matrix ring (106
+// KB) leaves room for two blocks an SM, the swiglu product's (172 KB) one.
+template <int kMats>
+struct Tiles {
+  static constexpr int kBK = 64;
+  static constexpr int kStages = 4;
+  static constexpr int kMaxBlocks = kMats == 1 ? 2 : 1;
+  static constexpr int kLDA = kBK + kPad;
+  static constexpr int kAElems = kBM * kLDA;
+  static constexpr int kWElems = kBK * kLDW;
+  static constexpr int kStage = kAElems + kMats * kWElems;   // elements
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
   return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !pred
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(const void* ptr, unsigned (&r)[4]) {
@@ -125,61 +247,205 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage the (kBM, kBK) row tile at (m0, k0) of expert e.  16-byte loads:
-// the wrapper admits only rows that start 16-byte aligned and K % 8 == 0.
-// Constant trip counts, so that the loops unroll and a thread has all of
-// its loads in flight at once.
-__device__ __forceinline__ void stage_a(__nv_bfloat16* dst, const Gemm& p,
-                                        int e, int m0, int k0) {
-  constexpr int kChunks = kBK / 8;
-  const auto* a = static_cast<const __nv_bfloat16*>(p.a);
-#pragma unroll
-  for (int it = 0; it < kBM * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int row = m0 + r, k = k0 + c * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < p.R && k < p.K)
-      val = *reinterpret_cast<const uint4*>(
-          a + row_off(row, p.C, p.a_se, p.a_sb, p.a_sc, e) + k);
-    *reinterpret_cast<uint4*>(dst + r * kLDA + c * 8) = val;
-  }
+// How a product is cut into units; the same on every block and in the
+// reduction pass, from the live count alone.
+struct Plan {
+  int n_live, ks, span, n_mt, n_nt, units;  // span: k-steps per split
+};
+
+template <int kMats>
+__device__ __forceinline__ Plan plan_of(const Gemm& p) {
+  constexpr int kBK = Tiles<kMats>::kBK;
+  Plan pl;
+  pl.n_live = p.live.n_live();
+  pl.n_mt = (p.R + kBM - 1) / kBM;
+  pl.n_nt = (p.N + kBN - 1) / kBN;
+  const int steps = (p.K + kBK - 1) / kBK;
+  // split only when the expert's rows fit one row tile, so the partials
+  // stay small (moe_gmm_partial_floats)
+  int ks = pl.n_mt == 1 && pl.n_live > 0 ? kSlots / pl.n_live : 1;
+  ks = max(1, min(ks, steps));
+  pl.span = (steps + ks - 1) / ks;
+  pl.ks = (steps + pl.span - 1) / pl.span;   // no empty split
+  pl.units = pl.n_live * pl.n_mt * pl.n_nt * pl.ks;
+  return pl;
 }
 
-// Stage the (kBK, kBN) weight tile at (k0, n0) of expert e; N % 8 == 0.
-__device__ __forceinline__ void stage_w(__nv_bfloat16* dst, const void* w,
-                                        long long se, long long sk,
-                                        const Gemm& p, int e, int k0,
-                                        int n0) {
-  constexpr int kChunks = kBN / 8;
-  const auto* wb = static_cast<const __nv_bfloat16*>(w) + e * se;
+struct Unit {
+  int li, e, m0, n0, split, k0, k1, nk;   // [k0, k1), nk reduction steps
+};
+
+template <int kMats>
+__device__ __forceinline__ Unit unit_of(const Gemm& p, const Plan& pl,
+                                        int u) {
+  constexpr int kBK = Tiles<kMats>::kBK;
+  Unit t;
+  t.split = u % pl.ks;
+  int rest = u / pl.ks;
+  t.n0 = (rest % pl.n_nt) * kBN;
+  rest /= pl.n_nt;
+  t.m0 = (rest % pl.n_mt) * kBM;
+  t.li = rest / pl.n_mt;
+  t.e = p.live.expert(t.li);
+  t.k0 = t.split * pl.span * kBK;
+  t.k1 = min(p.K, t.k0 + pl.span * kBK);
+  t.nk = (t.k1 - t.k0 + kBK - 1) / kBK;
+  return t;
+}
+
+// Start the cp.async loads of step `ks` of unit `t` into one ring stage:
+// the (kBM, kBK) row tile and the (kBK, kBN) weight tile(s).  Rows past R,
+// k past the unit's end and columns past N are zero-filled and not read.
+// The wrapper admits only rows that start 16-byte aligned, K % 8 == 0 and
+// N % 8 == 0.  Constant trip counts: all of a thread's copies in flight.
+template <int kMats>
+__device__ __forceinline__ void load_step(__nv_bfloat16* st, const Gemm& p,
+                                          const Unit& t, int ks) {
+  using T = Tiles<kMats>;
+  constexpr int kBK = T::kBK;
+  const int kb = t.k0 + ks * kBK;
+  const auto* a = static_cast<const __nv_bfloat16*>(p.a);
+  constexpr int kAChunks = kBK / 8;
 #pragma unroll
-  for (int it = 0; it < kBK * kChunks / kThreads; ++it) {
+  for (int it = 0; it < kBM * kAChunks / kThreads; ++it) {
     const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int k = k0 + r, n = n0 + c * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (k < p.K && n < p.N)
-      val = *reinterpret_cast<const uint4*>(wb + k * sk + n);
-    *reinterpret_cast<uint4*>(dst + r * kLDW + c * 8) = val;
+    const int r = idx / kAChunks, c = idx % kAChunks;
+    const int row = t.m0 + r, k = kb + c * 8;
+    const bool ok = row < p.R && k < t.k1;
+    const __nv_bfloat16* src =
+        ok ? a + row_off(row, p.C, p.a_se, p.a_sb, p.a_sc, t.e) + k : a;
+    cp16(st + r * T::kLDA + c * 8, src, ok);
+  }
+  constexpr int kWChunks = kBN / 8;
+#pragma unroll
+  for (int m = 0; m < kMats; ++m) {
+    const auto* w = static_cast<const __nv_bfloat16*>(m ? p.w1 : p.w0) +
+                    t.e * (m ? p.w1_se : p.w0_se);
+    const long long sk = m ? p.w1_sk : p.w0_sk;
+    __nv_bfloat16* dst = st + T::kAElems + m * T::kWElems;
+#pragma unroll
+    for (int it = 0; it < kBK * kWChunks / kThreads; ++it) {
+      const int idx = it * kThreads + threadIdx.x;
+      const int r = idx / kWChunks, c = idx % kWChunks;
+      const int k = kb + r, n = t.n0 + c * 8;
+      const bool ok = k < t.k1 && n < p.N;
+      cp16(dst + r * kLDW + c * 8, ok ? w + k * sk + n : w, ok);
+    }
   }
 }
 
 template <int ACT>
-__device__ __forceinline__ void gemm_block(const Gemm& p) {
+__global__ void __launch_bounds__(kThreads,
+                                  Tiles<ACT == kSwiglu ? 2 : 1>::kMaxBlocks)
+    gemm_persistent(const Gemm p) {
   constexpr int kMats = ACT == kSwiglu ? 2 : 1;
+  using T = Tiles<kMats>;
+  constexpr int kBK = T::kBK, kStages = T::kStages, kStage = T::kStage;
+  constexpr int kLDA = T::kLDA, kAElems = T::kAElems, kWElems = T::kWElems;
   constexpr int kMT = kBM / 16;                  // row tiles of 16
-  __shared__ __align__(16) __nv_bfloat16 as[kBM * kLDA];
-  __shared__ __align__(16) __nv_bfloat16 ws[kMats][kBK * kLDW];
+  extern __shared__ uint4 smem_raw[];
+  auto* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
-  const int n0 = blockIdx.x * kBN, e = blockIdx.y;
+  const Plan pl = plan_of<kMats>(p);
+  if ((int)blockIdx.x >= pl.units) return;       // the whole block
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;       // mma fragment row / column
   const int wn = warp * 16;                      // this warp's columns
-  auto* ob = static_cast<__nv_bfloat16*>(p.o);
 
-  for (int m0 = 0; m0 < p.R; m0 += kBM) {
-    float acc[kMats][kMT][2][4];
+  // the load cursor runs kStages - 1 steps ahead of the compute cursor,
+  // across unit bounds; every step commits one group, empty past the end
+  int lu = blockIdx.x, lk = 0;
+  Unit lt = unit_of<kMats>(p, pl, lu);
+  auto fetch = [&](int stage) {
+    if (lu < pl.units) {
+      load_step<kMats>(ring + stage * kStage, p, lt, lk);
+      if (++lk == lt.nk) {
+        lk = 0;
+        lu += gridDim.x;
+        if (lu < pl.units) lt = unit_of<kMats>(p, pl, lu);
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+  int cu = blockIdx.x, ck = 0, cs = 0, ls = kStages - 1;
+  Unit ct = unit_of<kMats>(p, pl, cu);
+  float acc[kMats][kMT][2][4];
+#pragma unroll
+  for (int m = 0; m < kMats; ++m)
+#pragma unroll
+    for (int t = 0; t < kMT; ++t)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        acc[m][t][n][0] = acc[m][t][n][1] = acc[m][t][n][2] =
+            acc[m][t][n][3] = 0.f;
+
+  while (cu < pl.units) {
+    cp_wait<kStages - 2>();    // this step's tiles have landed
+    __syncthreads();           // for all threads; the oldest stage is free
+    fetch(ls);
+    ls = ls + 1 == kStages ? 0 : ls + 1;
+
+    const __nv_bfloat16* as = ring + cs * kStage;
+    const __nv_bfloat16* ws = as + kAElems;
+    const int rows = p.R - ct.m0;                // block-uniform
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      unsigned bw[kMats][4];
+#pragma unroll
+      for (int m = 0; m < kMats; ++m)
+        ldsm_x4_trans(ws + m * kWElems + (ks * 16 + (lane & 15)) * kLDW +
+                          wn + (lane >> 4) * 8,
+                      bw[m]);
+#pragma unroll
+      for (int t = 0; t < kMT; ++t) {
+        if (t * 16 >= rows) break;
+        unsigned af[4];
+        ldsm_x4(as + (t * 16 + (lane & 15)) * kLDA + ks * 16 +
+                    (lane >> 4) * 8,
+                af);
+#pragma unroll
+        for (int m = 0; m < kMats; ++m) {
+          mma(acc[m][t][0], af, bw[m][0], bw[m][1]);
+          mma(acc[m][t][1], af, bw[m][2], bw[m][3]);
+        }
+      }
+    }
+    cs = cs + 1 == kStages ? 0 : cs + 1;
+    if (++ck < ct.nk) continue;
+
+    // the unit is done: its epilogue (global stores only), then the next
+    auto* ob = static_cast<__nv_bfloat16*>(p.o);
+    float* part = p.part + (long long)((ct.li * pl.ks + ct.split) * kMats) *
+                               p.R * p.N;
+#pragma unroll
+    for (int t = 0; t < kMT; ++t)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = ct.m0 + t * 16 + g + h * 8;
+          const int col = ct.n0 + wn + n * 8 + tig * 2;  // even; N % 8 == 0
+          if (row >= p.R || col >= p.N) continue;
+          if (pl.ks == 1) {
+            *reinterpret_cast<__nv_bfloat162*>(
+                ob + row_off(row, p.C, p.o_se, p.o_sb, p.o_sc, ct.e) + col) =
+                __floats2bfloat162_rn(
+                    epilogue<ACT>(acc[0][t][n][2 * h],
+                                  acc[kMats - 1][t][n][2 * h]),
+                    epilogue<ACT>(acc[0][t][n][2 * h + 1],
+                                  acc[kMats - 1][t][n][2 * h + 1]));
+          } else {
+#pragma unroll
+            for (int m = 0; m < kMats; ++m)
+              *reinterpret_cast<float2*>(
+                  part + (long long)m * p.R * p.N + (long long)row * p.N +
+                  col) = make_float2(acc[m][t][n][2 * h],
+                                     acc[m][t][n][2 * h + 1]);
+          }
+        }
 #pragma unroll
     for (int m = 0; m < kMats; ++m)
 #pragma unroll
@@ -188,65 +454,66 @@ __device__ __forceinline__ void gemm_block(const Gemm& p) {
         for (int n = 0; n < 2; ++n)
           acc[m][t][n][0] = acc[m][t][n][1] = acc[m][t][n][2] =
               acc[m][t][n][3] = 0.f;
+    ck = 0;
+    cu += gridDim.x;
+    if (cu < pl.units) ct = unit_of<kMats>(p, pl, cu);
+  }
+  cp_wait<0>();
+}
 
-    for (int k0 = 0; k0 < p.K; k0 += kBK) {
-      __syncthreads();     // the previous step's ldmatrix reads are done
-      stage_a(as, p, e, m0, k0);
-      stage_w(ws[0], p.w0, p.w0_se, p.w0_sk, p, e, k0, n0);
-      if (kMats == 2) stage_w(ws[kMats - 1], p.w1, p.w1_se, p.w1_sk, p, e,
-                              k0, n0);
-      __syncthreads();
+// The second pass of a split product: sum each output pair's partials in
+// split order, apply the epilogue, store in bf16.  Nothing to do unsplit.
+template <int ACT>
+__global__ void __launch_bounds__(kThreads) reduce_splits(const Gemm p) {
+  constexpr int kMats = ACT == kSwiglu ? 2 : 1;
+  const Plan pl = plan_of<kMats>(p);
+  if (pl.ks == 1) return;
+  const int half = p.N / 2;
+  const long long mat = (long long)p.R * p.N;
+  const long long total = (long long)pl.n_live * p.R * half;
+  auto* ob = static_cast<__nv_bfloat16*>(p.o);
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+       i < total; i += (long long)gridDim.x * kThreads) {
+    const int col = (int)(i % half) * 2;
+    const long long rest = i / half;
+    const int row = (int)(rest % p.R), li = (int)(rest / p.R);
+    float2 s[kMats];
 #pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        unsigned bw[kMats][4];
+    for (int m = 0; m < kMats; ++m) s[m] = make_float2(0.f, 0.f);
+    for (int k = 0; k < pl.ks; ++k)
 #pragma unroll
-        for (int m = 0; m < kMats; ++m)
-          ldsm_x4_trans(ws[m] + (ks * 16 + (lane & 15)) * kLDW + wn +
-                            (lane >> 4) * 8,
-                        bw[m]);
-#pragma unroll
-        for (int t = 0; t < kMT; ++t) {
-          if (m0 + t * 16 >= p.R) break;         // block-uniform
-          unsigned af[4];
-          ldsm_x4(as + (t * 16 + (lane & 15)) * kLDA + ks * 16 +
-                      (lane >> 4) * 8,
-                  af);
-#pragma unroll
-          for (int m = 0; m < kMats; ++m) {
-            mma(acc[m][t][0], af, bw[m][0], bw[m][1]);
-            mma(acc[m][t][1], af, bw[m][2], bw[m][3]);
-          }
-        }
+      for (int m = 0; m < kMats; ++m) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            p.part + ((long long)(li * pl.ks + k) * kMats + m) * mat +
+            (long long)row * p.N + col);
+        s[m].x += v.x;
+        s[m].y += v.y;
       }
-    }
-
-#pragma unroll
-    for (int t = 0; t < kMT; ++t)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + t * 16 + g + h * 8;
-          const int col = n0 + wn + n * 8 + tig * 2;   // even; N % 8 == 0
-          if (row >= p.R || col >= p.N) continue;
-          *reinterpret_cast<__nv_bfloat162*>(
-              ob + row_off(row, p.C, p.o_se, p.o_sb, p.o_sc, e) + col) =
-              __floats2bfloat162_rn(
-                  epilogue<ACT>(acc[0][t][n][2 * h],
-                                acc[kMats - 1][t][n][2 * h]),
-                  epilogue<ACT>(acc[0][t][n][2 * h + 1],
-                                acc[kMats - 1][t][n][2 * h + 1]));
-        }
+    const int e = p.live.expert(li);
+    *reinterpret_cast<__nv_bfloat162*>(
+        ob + row_off(row, p.C, p.o_se, p.o_sb, p.o_sc, e) + col) =
+        __floats2bfloat162_rn(epilogue<ACT>(s[0].x, s[kMats - 1].x),
+                              epilogue<ACT>(s[0].y, s[kMats - 1].y));
   }
 }
 
 template <int ACT>
-__global__ void __launch_bounds__(kThreads) moe_up_mma(const Gemm p) {
-  gemm_block<ACT>(p);
-}
-
-__global__ void __launch_bounds__(kThreads) moe_down_mma(const Gemm p) {
-  gemm_block<kNone>(p);
+cudaError_t run(const Gemm& p, int sms, cudaStream_t st) {
+  using T = Tiles<ACT == kSwiglu ? 2 : 1>;
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)T::kStages * T::kStage;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_persistent<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  // Two blocks an SM hide more of the mma latency when an expert has more
+  // than 32 rows (a prefill); at decode's 16 rows one block an SM walks the
+  // units in even rounds (640 units: 5 rounds of 132, against 3 of 264).
+  const int per_sm = p.R > 32 ? T::kMaxBlocks : 1;
+  gemm_persistent<ACT><<<per_sm * sms, kThreads, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_splits<ACT><<<2 * sms, kThreads, 0, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace bf16
@@ -260,12 +527,13 @@ constexpr int kRows = kBM / 16;    // rows per thread
 constexpr int kCols = kBN / 16;    // columns per thread
 
 template <int ACT>
-__device__ __forceinline__ void gemm_block(const Gemm& p) {
+__global__ void __launch_bounds__(kThreads) gemm_block(const Gemm p) {
   constexpr int kMats = ACT == kSwiglu ? 2 : 1;
   __shared__ float as[kBM][kBKf + 1];
   __shared__ float ws[kMats][kBKf][kBN];
 
-  const int n0 = blockIdx.x * kBN, e = blockIdx.y;
+  if ((int)blockIdx.y >= p.live.n_live()) return;   // the whole block
+  const int n0 = blockIdx.x * kBN, e = p.live.expert(blockIdx.y);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* a = static_cast<const float*>(p.a);
   const float* w[2] = {static_cast<const float*>(p.w0) + e * p.w0_se,
@@ -336,70 +604,73 @@ __device__ __forceinline__ void gemm_block(const Gemm& p) {
 }
 
 template <int ACT>
-__global__ void __launch_bounds__(kThreads) moe_up_fma(const Gemm p) {
-  gemm_block<ACT>(p);
-}
-
-__global__ void __launch_bounds__(kThreads) moe_down_fma(const Gemm p) {
-  gemm_block<kNone>(p);
+cudaError_t run(const Gemm& p, int E, cudaStream_t st) {
+  gemm_block<ACT><<<dim3((p.N + kBN - 1) / kBN, E), kThreads, 0, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace f32
 
-dim3 grid_of(const Gemm& p, int bn, int E) {
-  return dim3((p.N + bn - 1) / bn, E);
-}
-
-cudaError_t launch(const Gemm& up, const Gemm& down, int dtype, int act,
-                   int E, cudaStream_t st) {
-  if (dtype == 1) {
-    const int bn = bf16::kBN;
-    if (act == kSwiglu)
-      bf16::moe_up_mma<kSwiglu><<<grid_of(up, bn, E), kThreads, 0, st>>>(up);
-    else
-      bf16::moe_up_mma<kGelu><<<grid_of(up, bn, E), kThreads, 0, st>>>(up);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    bf16::moe_down_mma<<<grid_of(down, bn, E), kThreads, 0, st>>>(down);
-    return cudaGetLastError();
-  }
-  const int bn = f32::kBN;
-  if (act == kSwiglu)
-    f32::moe_up_fma<kSwiglu><<<grid_of(up, bn, E), kThreads, 0, st>>>(up);
-  else
-    f32::moe_up_fma<kGelu><<<grid_of(up, bn, E), kThreads, 0, st>>>(up);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  f32::moe_down_fma<<<grid_of(down, bn, E), kThreads, 0, st>>>(down);
-  return cudaGetLastError();
-}
-
 }  // namespace
+
+// Floats of f32 scratch a call needs for split partials: a split runs only
+// when an expert's B*C rows fit one row tile.
+extern "C" long long moe_gmm_partial_floats(int R, int D, int F) {
+  return R <= kBM ? (long long)kSlots * 2 * R * (D > F ? D : F) : 0;
+}
 
 // dtype: 0 = float32, 1 = bfloat16; act: 1 = swiglu, 2 = gelu (w_gate is
 // then not read).  Strides are in elements.  h is an (E, B*C, F) scratch of
-// buf's dtype.  For bfloat16 every row must start 16-byte aligned and D, F
-// must be multiples of 8 (checked by the wrapper).  Returns the CUDA error
-// of the launches (0 on success); the kernels run asynchronously on
-// `stream`.
+// buf's dtype; part a float scratch of moe_gmm_partial_floats(B*C, D, F);
+// ws an int32 scratch of 2 + 2E and out the (B, E, C, D) output, both
+// zero-filled by the caller.  For bfloat16 every row must start 16-byte
+// aligned and D, F must be multiples of 8 (checked by the wrapper).
+// Returns the CUDA error of the launches (0 on success); the kernels run
+// asynchronously on `stream`.
 extern "C" int moe_gmm_fwd(
     const void* buf, const void* w_in, const void* w_gate, const void* w_out,
-    void* h, void* out, int dtype, int act, int B, int E, int C, int D,
-    int F, long long buf_sb, long long buf_se, long long buf_sc,
-    long long wi_se, long long wi_sk, long long wg_se, long long wg_sk,
-    long long wo_se, long long wo_sk, long long out_sb, long long out_se,
-    long long out_sc, void* stream) {
+    void* h, float* part, int* ws, void* out, int dtype, int act, int B,
+    int E, int C, int D, int F, long long buf_sb, long long buf_se,
+    long long buf_sc, long long wi_se, long long wi_sk, long long wg_se,
+    long long wg_sk, long long wo_se, long long wo_sk, long long out_sb,
+    long long out_se, long long out_sc, void* stream) {
   if ((dtype != 0 && dtype != 1) || (act != kSwiglu && act != kGelu))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int R = B * C;
   const long long h_se = (long long)R * F, h_sb = (long long)C * F;
-  const Gemm up{buf,  buf_se, buf_sb, buf_sc, w_in, wi_se, wi_sk,
-                w_gate, wg_se, wg_sk, h, h_se, h_sb, F, R, C, D, F};
-  const Gemm down{h,    h_se,   h_sb,   F,      w_out,  wo_se, wo_sk,
-                  w_out, wo_se, wo_sk, out, out_se, out_sb, out_sc,
-                  R,    C,      F,      D};
-  return static_cast<int>(
-      launch(up, down, dtype, act, E, static_cast<cudaStream_t>(stream)));
+  const Live live{ws, E};
+  const Gemm up{buf,  buf_se, buf_sb, buf_sc, w_in, wi_se, wi_sk, w_gate,
+                wg_se, wg_sk, h, h_se, h_sb, F, R, C, D, F, part, live};
+  const Gemm down{h,     h_se,   h_sb,   F,      w_out,  wo_se, wo_sk,
+                  w_out, wo_se,  wo_sk,  out,    out_se, out_sb, out_sc,
+                  R,     C,      F,      D,      part,   live};
+
+  const dim3 scan_grid((R + kThreads / 32 - 1) / (kThreads / 32), E);
+  if (dtype == 1)
+    scan_rows<uint4><<<scan_grid, kThreads, 0, st>>>(
+        buf, buf_sb, buf_se, buf_sc, B, C, D / 8, ws, E);
+  else
+    scan_rows<unsigned><<<scan_grid, kThreads, 0, st>>>(
+        buf, buf_sb, buf_se, buf_sc, B, C, D, ws, E);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (dtype == 1) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = act == kSwiglu ? bf16::run<kSwiglu>(up, sms, st)
+                         : bf16::run<kGelu>(up, sms, st);
+    if (err == cudaSuccess) err = bf16::run<kNone>(down, sms, st);
+    return static_cast<int>(err);
+  }
+  err = act == kSwiglu ? f32::run<kSwiglu>(up, E, st)
+                       : f32::run<kGelu>(up, E, st);
+  if (err == cudaSuccess) err = f32::run<kNone>(down, E, st);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

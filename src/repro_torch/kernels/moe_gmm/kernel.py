@@ -14,34 +14,42 @@ NAME = "moe_gmm"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"swiglu": 1, "gelu": 2}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# buf, w_in, w_gate, w_out, h, out | dtype, act, B, E, C, D, F | buf 3
-# strides, 3 x 2 weight strides, out 3 strides | stream
-_ARGTYPES = [_P] * 6 + [_I] * 7 + [_LL] * 12 + [_P]
+# buf, w_in, w_gate, w_out, h, part, ws, out | dtype, act, B, E, C, D, F |
+# buf 3 strides, 3 x 2 weight strides, out 3 strides | stream
+_ARGTYPES = [_P] * 8 + [_I] * 7 + [_LL] * 12 + [_P]
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     lib.moe_gmm_fwd.argtypes = _ARGTYPES
     lib.moe_gmm_fwd.restype = _I
+    lib.moe_gmm_partial_floats.argtypes = [_I, _I, _I]
+    lib.moe_gmm_partial_floats.restype = _LL
     return lib
 
 
 def grouped_ffn_cuda(buf: torch.Tensor, w_in: torch.Tensor,
                      w_gate: torch.Tensor, w_out: torch.Tensor,
                      act: str) -> torch.Tensor:
-    """Launch the up and down products on the current stream; inputs are
-    already checked by ``ops.grouped_ffn``.  Returns (B,E,C,D) in buf's
-    dtype."""
+    """Launch the scan and the up and down products on the current stream;
+    inputs are already checked by ``ops.grouped_ffn``.  Returns (B,E,C,D) in
+    buf's dtype: zero-filled here, so the rows of experts the scan finds
+    dead stay exact zeros."""
     b, e, c, d = buf.shape
     f = w_in.shape[-1]
     lib = _lib()
-    with torch.cuda.device(buf.device):
-        h = torch.empty((e, b * c, f), dtype=buf.dtype, device=buf.device)
-        out = torch.empty((b, e, c, d), dtype=buf.dtype, device=buf.device)
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
+    dev = buf.device
+    with torch.cuda.device(dev):
+        h = torch.empty((e, b * c, f), dtype=buf.dtype, device=dev)
+        part = torch.empty(max(1, lib.moe_gmm_partial_floats(b * c, d, f)),
+                           dtype=torch.float32, device=dev)
+        ws = torch.zeros(2 + 2 * e, dtype=torch.int32, device=dev)
+        out = torch.zeros((b, e, c, d), dtype=buf.dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.moe_gmm_fwd(
             buf.data_ptr(), w_in.data_ptr(), w_gate.data_ptr(),
-            w_out.data_ptr(), h.data_ptr(), out.data_ptr(),
+            w_out.data_ptr(), h.data_ptr(), part.data_ptr(), ws.data_ptr(),
+            out.data_ptr(),
             _DTYPES[buf.dtype], _ACTS[act], b, e, c, d, f,
             buf.stride(0), buf.stride(1), buf.stride(2),
             *w_in.stride()[:2], *w_gate.stride()[:2], *w_out.stride()[:2],

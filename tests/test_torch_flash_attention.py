@@ -84,3 +84,21 @@ def test_cuda_inputs_bf16_rows_must_be_aligned(kind, dtype, ok):
     else:
         with pytest.raises(ValueError, match="16-byte aligned"):
             _check_cuda_inputs(q, kv, kv)
+
+
+@pytest.mark.parametrize("hd,dtype,ok", [
+    (64, torch.bfloat16, False), (128, torch.bfloat16, False),
+    (32, torch.bfloat16, True), (128, torch.float32, True)])
+def test_cuda_inputs_tma_strides(hd, dtype, ok):
+    """At hd 64 and 128 the bf16 kernel reads q, k, v through TMA tensor
+    maps, which take no zero stride: a kv head broadcast by ``expand`` is
+    refused there, and taken by the mma.sync (hd 16, 32) and f32 kernels,
+    which address rows themselves.  Metadata only: CPU tensors."""
+    q = torch.zeros(1, 8, 2, hd, dtype=dtype)
+    kv = torch.zeros(1, 8, 1, hd, dtype=dtype).expand(1, 8, 2, hd)
+    _check_cuda_inputs(q, q, q)
+    if ok:
+        _check_cuda_inputs(q, kv, kv)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            _check_cuda_inputs(q, kv, kv)

@@ -207,3 +207,34 @@ def test_model_init_never_draws_a_whole_stacked_leaf(monkeypatch):
     assert sum(drawn) == sum(
         v.numel() for k, v in flatten(model.params).items()
         if "ln" not in k.split(".")[-1] and k != "final_norm")
+
+
+@pytest.mark.parametrize("n_experts", [None, 16])
+def test_moe_decode_buffer_leaves_experts_dead(monkeypatch, n_experts):
+    """At decode, x (4, 1, D) with top-1 routing fills at most 4 rows of the
+    (4, E, C, D) dispatch buffer, so at least E - 4 experts hold no live row:
+    the rows the grouped FFN kernel skips (moe_gmm.cu).  The block's output
+    agrees with JAX's dispatch all the same."""
+    from repro_torch.models import mlp
+    arch = "llama4-scout-17b-a16e"
+    repl = {} if n_experts is None else {"n_experts": n_experts}
+    jcfg, cfg = jax_smoke(arch).replace(**repl), get_smoke(arch).replace(
+        **repl)
+    jp = jax_init_moe(KEY, jcfg, jnp.float32)
+    params = params_from_jax(jax.device_get(jp))
+    seen = []
+    real = mlp.grouped_ffn
+    monkeypatch.setattr(mlp, "grouped_ffn",
+                        lambda buf, *a: seen.append(buf) or real(buf, *a))
+    x = np.random.default_rng(3).standard_normal(
+        (4, 1, cfg.d_model)).astype(np.float32)
+    y, _ = moe_forward(params, torch.from_numpy(x), cfg)
+    (buf,) = seen
+    e = cfg.n_experts
+    assert buf.shape == (4, e, moe_capacity(cfg, 1), cfg.d_model)
+    live_rows = (buf != 0).any(-1)                       # (B, E, C)
+    live_experts = int(live_rows.any(-1).any(0).sum())
+    assert int(live_rows.sum()) == 4 and 1 <= live_experts <= 4
+    assert e - live_experts >= e - 4
+    jy, _ = _moe_dense_dispatch(jp, jnp.asarray(x), jcfg)
+    assert _rel(y, jy) < JAX_REL

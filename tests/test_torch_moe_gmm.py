@@ -135,3 +135,72 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
         ops.grouped_ffn(arrs[0].to(torch.bfloat16), *arrs[1:])
     assert calls == ["kernel"] and ops.grouped_ffn.launches == before + 1
     ops.grouped_ffn.launches = before
+
+
+def _occupied(b, e, c, d, f, occupancy, seed=0):
+    """Inputs whose buffer is filled as the MoE dispatch fills it: dead
+    experts and dead rows are exact zeros.  ``decode``: one token in slot 0 of
+    2 distinct experts per batch row pair; ``last``: one expert whose only
+    live row is the last (b, slot) of its (B, C) block; ``routed``: tokens
+    in order into their experts' next free slots, expert 0 never chosen;
+    ``zero``: nothing live."""
+    buf, wi, wg, wo = _inputs(b, e, c, d, f, seed)
+    rng = np.random.default_rng(seed + 1)
+    mask = np.zeros((b, e, c, 1), np.float32)
+    if occupancy == "decode":
+        experts = rng.permutation(e)[:2]
+        for i in range(b):
+            mask[i, experts[i % 2], 0] = 1
+    elif occupancy == "last":
+        mask[b - 1, e // 2, c - 1] = 1
+    elif occupancy == "routed":
+        for i in range(b):
+            fill = np.zeros(e, int)
+            for ex in rng.integers(1, e, size=c * e // 2):
+                if fill[ex] < c:
+                    mask[i, ex, fill[ex]] = 1
+                    fill[ex] += 1
+    return buf * mask, wi, wg, wo
+
+
+OCCUPANCY = [("decode", (4, 8, 4, 32, 64), "swiglu"),
+             ("last", (2, 4, 8, 32, 64), "swiglu"),
+             ("routed", (2, 6, 8, 32, 48), "swiglu"),
+             ("routed", (2, 6, 8, 16, 48), "gelu"),
+             ("zero", (1, 4, 4, 32, 64), "swiglu")]
+
+
+@pytest.mark.parametrize("occupancy,shape,act", OCCUPANCY)
+def test_port_gmm_dead_rows_match_jax_and_are_zero(occupancy, shape, act):
+    """Buffers with dead experts and dead rows: the port equals the Pallas
+    kernel in interpret mode and the jnp reference, and every dead row's
+    output is exactly zero (what the CUDA kernel's skip rests on)."""
+    arrs = _occupied(*shape, occupancy)
+    jx = [jnp.asarray(a) for a in arrs]
+    pallas = jax_gffn(*jx, act=act, bf=16, interpret=True)
+    ref = jax_gffn_ref(*jx, act=act)
+    got = grouped_ffn(*(torch.from_numpy(a) for a in arrs), act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+    dead = (arrs[0] == 0).all(-1)
+    assert dead.any()
+    assert np.array_equal(got.numpy()[dead], np.zeros_like(got.numpy()[dead]))
+    assert np.array_equal(np.asarray(pallas)[dead],
+                          np.zeros_like(got.numpy()[dead]))
+
+
+@pytest.mark.parametrize("occupancy", ["decode", "last", "routed"])
+def test_dead_experts_weights_are_never_read(occupancy):
+    """The identity the skip rests on: replacing every dead expert's weights
+    by other finite values leaves the output bit for bit the same."""
+    shape = (4, 8, 4, 32, 64)
+    buf, wi, wg, wo = _occupied(*shape, occupancy, seed=2)
+    dead_e = ~(buf != 0).any(axis=(0, 2, 3))               # (E,)
+    assert dead_e.any()
+    rng = np.random.default_rng(5)
+    other = [np.where(dead_e[:, None, None],
+                      rng.standard_normal(w.shape).astype(np.float32) * 7.0,
+                      w) for w in (wi, wg, wo)]
+    want = grouped_ffn(*(torch.from_numpy(a) for a in (buf, wi, wg, wo)))
+    got = grouped_ffn(*(torch.from_numpy(a) for a in (buf, *other)))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
