@@ -3,6 +3,7 @@
 card, and the numbers of its kernels there.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ssd-only [--src OTHER_CHECKOUT/src]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -17,9 +18,11 @@ result line):
    each served prompt and its decode step, a 768-token prefill, arctic's
    expert widths, and buffers with dead experts and dead rows as the MoE
    dispatch leaves them, whose outputs must be exact zeros; the SSD
-   intra-chunk kernel: mamba2-780m's
-   prefill of each served prompt and of 1- and 2-token prompts, x in
-   bf16, with an f64 sum as the yardstick of rounding).
+   intra-chunk kernel: mamba2-780m's prefill of each served prompt and of
+   1- and 2-token prompts, x in bf16, each one-chunk prompt (ragged L)
+   again under mild decay, B > 1, x as a view of the model's projection,
+   inputs not 16-byte aligned and P < 64; with an f64 sum as the yardstick
+   of rounding).
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout and
    mamba2-780m): greedy serving tokens equal, prefill logits within rel
@@ -35,8 +38,14 @@ result line):
    FFN at decode with the served occupancy of 4 live experts, at decode
    with every row filled, and at the longest served prompt's prefill, each
    bound over the bytes of the live experts; the SSD kernel at mamba2's
-   longest served prefill; each in three rounds taken in turns with its
-   yardstick, the card's clocks read before and after).
+   longest served prefill and at its one-chunk prompts of 254 and 92
+   tokens; each in three rounds taken in turns with its yardstick, the
+   card's clocks read before and after).
+
+``--ssd-only`` runs phases 1 and 2 and the SSD kernel's part of phases 3
+and 6 alone; with ``--src`` it takes ``repro_torch`` from another checkout
+(a ``git archive`` of the parent commit, say), to time two versions of
+the kernel in one call on one card.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -135,6 +144,20 @@ SSD_SHORT = [(1, 1, 1, 48, 64, 128), (1, 1, 2, 48, 64, 128)]
 # the nearest tiles): mamba2's 768-token prefill, and an odd head count
 # whose last y block holds one head
 SSD_MILD = [(1, 3, 256, 48, 64, 128), (1, 2, 200, 5, 64, 128)]
+# the new grid and staging paths: B > 1 with two full chunks (the served
+# decay and mild decay); x as a view of the model's projection (rows of
+# H*P + 2N); x, B and C not 16-byte aligned, and P < 64 (plain loads, not
+# cp.async); each as (label, shape, x_bf16, decay, layout), decay None
+# being the served A = -linspace(1, 16, H)
+SSD_EXTRA = [
+    ("B > 1", (2, 2, 256, 48, 64, 128), True, None, "contiguous"),
+    ("B > 1, mild decay", (2, 2, 256, 48, 64, 128), True, 0.01, "contiguous"),
+    ("projection view", (1, 3, 256, 48, 64, 128), True, None, "view"),
+    ("unaligned", (1, 2, 200, 6, 64, 128), True, 0.01, "unaligned"),
+    ("unaligned", (1, 2, 100, 6, 64, 128), False, 0.01, "unaligned"),
+    ("P 40", (1, 2, 130, 4, 40, 128), True, 0.01, "contiguous"),
+    ("P 36, N 20", (1, 2, 130, 4, 36, 20), True, 0.01, "contiguous"),
+]
 SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-3)}  # test_kernels.py:94
 # Bound on the SSD kernel's row_rel_err (rows of P of y and of the states;
 # the outputs are f32 whatever x is), set from the sound runs on the H100
@@ -142,6 +165,8 @@ SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-3)}  # test_kernels.py:94
 # where the kernel and the plain version are equally far from an f64 sum.
 SSD_ROW_REL = {torch.float32: 1e-4}
 SSD_TIMED = (1, 3, 256, 48, 64, 128)   # mamba2's 663-token prefill
+# one-chunk prompts of 254 and 92 tokens, served as L = S
+SSD_ONE_CHUNK = [(1, 1, 254, 48, 64, 128), (1, 1, 92, 48, 64, 128)]
 # the main path's traffic: 8 requests, prompts of 64-768 tokens from a seed
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 32, 4, 1024
 
@@ -398,65 +423,94 @@ def phase_gmm() -> float:
                 GMM_TOL, GMM_ROW_REL)
 
 
-def ssd_inputs(b, nc, l, h, p, n, served: bool, gen, decay: float = 0.1):
-    """xc, dtc, cum, bc, cc on the card.  ``served``: as the mamba2 path
-    gives them, x in bf16, B and C f32 carrying bf16 values, and cum =
-    cumsum(dt A) with A = -linspace(1, 16, H); else as tests/test_kernels.py
-    draws them (f32, cum = cumsum(-decay dt))."""
+def ssd_inputs(b, nc, l, h, p, n, x_bf16: bool, gen, decay=None,
+               layout: str = "contiguous"):
+    """xc, dtc, cum, bc, cc on the card.  ``x_bf16``: as the mamba2 path
+    gives them, x in bf16 and B, C f32 carrying bf16 values; else f32, as
+    tests/test_kernels.py draws them.  cum = cumsum(dt A), with A =
+    -linspace(1, 16, H) (the served decay) when ``decay`` is None, else
+    A = -decay.  ``layout``: "contiguous"; "view", x a slice of rows of
+    H*P + 2N values as the model's projection hands it in; "unaligned", x,
+    B and C slices that start one element into wider rows."""
     def draw(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     dtc = torch.nn.functional.softplus(draw(b, nc, l, h))
-    if not served:
-        return (draw(b, nc, l, h, p), dtc, torch.cumsum(-decay * dtc, dim=2),
-                draw(b, nc, l, n), draw(b, nc, l, n))
-    a = -torch.linspace(1.0, 16.0, h, device="cuda")
-    bf = torch.bfloat16
-    return (draw(b, nc, l, h, p).to(bf), dtc, torch.cumsum(dtc * a, dim=2),
-            draw(b, nc, l, n).to(bf).float(), draw(b, nc, l, n).to(bf).float())
+    a = (-torch.linspace(1.0, 16.0, h, device="cuda") if decay is None
+         else torch.full((h,), -decay, device="cuda"))
+    cum = torch.cumsum(dtc * a, dim=2)
+    xd = torch.bfloat16 if x_bf16 else torch.float32
+    hp = h * p
+    if layout == "contiguous":
+        xc = draw(b, nc, l, h, p).to(xd)
+    elif layout == "view":
+        xc = draw(b, nc, l, hp + 2 * n).to(xd)[..., :hp].unflatten(-1, (h, p))
+    else:
+        xc = draw(b, nc, l, hp + 1).to(xd)[..., 1:].unflatten(-1, (h, p))
+
+    def bmat():
+        if layout == "unaligned":     # f32 values; a cast would copy
+            return draw(b, nc, l, n + 1)[..., 1:]
+        m = draw(b, nc, l, n)
+        return m.to(torch.bfloat16).float() if x_bf16 else m
+    return xc, dtc, cum, bmat(), bmat()
+
+
+def ssd_rows(y, st):
+    """y and the states as rows of P, held together."""
+    p = y.shape[-1]
+    return torch.cat([y.reshape(-1, p), st.reshape(-1, p)])
 
 
 def phase_ssd() -> float:
     """The SSD intra-chunk kernel vs its plain version, at the test cases,
-    at every shape phase 5's mamba2 path gives it, and at the mild-decay
-    cases; returns the largest abs error at the served shapes.  y and the
-    states are held together, as rows of P."""
+    at every shape phase 5's mamba2 path gives it, at each of those with
+    one chunk (a ragged L) under mild decay, at the mild-decay cases and at
+    SSD_EXTRA; returns the largest abs error at the served shapes.  y and
+    the states are held together, as rows of P."""
     from repro_torch.kernels.ssd import (ssd_intra_chunk,
                                          ssd_intra_chunk_reference)
     gen = torch.Generator("cuda").manual_seed(5)
     served = ssd_served_shapes()
-    cases = [(f"{shape} x f32", shape, False, 0.1, False)
+    cases = [(f"{shape} x f32", shape, False, 0.1, "contiguous", False)
              for shape in SSD_CASES]
-    cases += [(f"{label} {shape} x bf16", shape, True, 0.0, True)
-              for label, shape in served.items()]
-    cases += [(f"short prompt {shape} x bf16", shape, True, 0.0, False)
-              for shape in SSD_SHORT]
-    cases += [(f"{shape} x f32, mild decay", shape, False, 0.01, False)
-              for shape in SSD_MILD]
+    cases += [(f"{label} {shape} x bf16", shape, True, None, "contiguous",
+               True) for label, shape in served.items()]
+    cases += [(f"short prompt {shape} x bf16", shape, True, None,
+               "contiguous", False) for shape in SSD_SHORT]
+    cases += [(f"{label} {shape} x bf16, mild decay", shape, True, 0.01,
+               "contiguous", False)
+              for label, shape in served.items() if shape[1] == 1]
+    cases += [(f"{shape} x f32, mild decay", shape, False, 0.01,
+               "contiguous", False) for shape in SSD_MILD]
+    cases += [(f"{label} {shape} x {'bf16' if bf else 'f32'}", shape, bf,
+               decay, layout, False)
+              for label, shape, bf, decay, layout in SSD_EXTRA]
 
-    def rows(y, st):
-        p = y.shape[-1]
-        return torch.cat([y.reshape(-1, p), st.reshape(-1, p)])
-
-    def run(shape, served_like, decay):
-        x = ssd_inputs(*shape, served_like, gen, decay)
-        return rows(*ssd_intra_chunk(*x)), rows(*ssd_intra_chunk_reference(*x))
+    def run(shape, x_bf16, decay, layout):
+        x = ssd_inputs(*shape, x_bf16, gen, decay, layout)
+        return (ssd_rows(*ssd_intra_chunk(*x)),
+                ssd_rows(*ssd_intra_chunk_reference(*x)))
 
     err = hold("ssd_intra_chunk",
                [(label, torch.float32,
-                 lambda s=s, sv=sv, d=d: run(s, sv, d), main)
-                for label, s, sv, d, main in cases],
+                 lambda s=s, bf=bf, d=d, lay=lay: run(s, bf, d, lay), main)
+                for label, s, bf, d, lay, main in cases],
                SSD_TOL, SSD_ROW_REL)
-    # the rounding floor under SSD_ROW_REL: the kernel and the plain version
+    # the rounding floor under SSD_ROW_REL: the kernel (products on bf16
+    # tensor cores, the f32 operand split in three) and the plain version
     # each against the plain version summed in f64, at the shortest and the
-    # longest served prompt
-    for label in (min(served, key=lambda lb: served[lb][1] * served[lb][2]),
-                  max(served, key=lambda lb: served[lb][1] * served[lb][2])):
-        x = ssd_inputs(*served[label], True, gen)
-        exact = rows(*ssd_intra_chunk_reference(*(t.double() for t in x)))
-        say(f"[kernels] ssd_intra_chunk {label}: row rel err against an f64 "
-            f"sum: kernel {row_rel_err(rows(*ssd_intra_chunk(*x)), exact):.3e}"
-            f", plain f32 "
-            f"{row_rel_err(rows(*ssd_intra_chunk_reference(*x)), exact):.3e}")
+    # longest served prompt and at a long one under mild decay
+    floors = [(label, served[label], None) for label in (
+        min(served, key=lambda lb: served[lb][1] * served[lb][2]),
+        max(served, key=lambda lb: served[lb][1] * served[lb][2]))]
+    floors.append(("mild decay", SSD_TIMED, 0.01))
+    for label, shape, decay in floors:
+        x = ssd_inputs(*shape, True, gen, decay)
+        exact = ssd_rows(*ssd_intra_chunk_reference(*(t.double() for t in x)))
+        kernel = row_rel_err(ssd_rows(*ssd_intra_chunk(*x)), exact)
+        plain = row_rel_err(ssd_rows(*ssd_intra_chunk_reference(*x)), exact)
+        say(f"[kernels] ssd_intra_chunk {label} {shape}: row rel err against "
+            f"an f64 sum: kernel {kernel:.3e}, plain f32 {plain:.3e}")
     return err
 
 
@@ -604,7 +658,7 @@ def phase_serve(cfg, card: str) -> dict:
     return res
 
 
-def profile_region(fn, label: str, card: str, top: int = 8) -> dict:
+def profile_region(fn, label: str, card: str, top: int = 12) -> dict:
     """Run ``fn`` under torch.profiler; device busy share and top kernels."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                     # warm
@@ -853,14 +907,13 @@ def ssd_work(b, nc, l, h, p, n) -> tuple[int, int]:
     return flops, nbytes
 
 
-def phase_timing_ssd(card: str) -> dict:
-    """The SSD intra-chunk kernel at mamba2's longest served prefill (663
-    tokens, padded to 3 chunks of 256)."""
+def ssd_time(shape, card: str, gen) -> dict:
+    """The SSD intra-chunk kernel at ``shape``, x bf16 as served: three
+    rounds in turns with the yardstick, medians kept; a CUDA graph's replay
+    for the device's time alone; the plain version."""
     from repro_torch.kernels.ssd import (ssd_intra_chunk,
                                          ssd_intra_chunk_reference)
-    shape = SSD_TIMED
     b, nc, l, h, p, n = shape
-    gen = torch.Generator("cuda").manual_seed(6)
     xc, dtc, cum, bc, cc = ssd_inputs(*shape, True, gen)
     # yardstick: the two products alone as cuBLAS f32 bmm (TF32 off), on M
     # and the state weights built once outside the timing
@@ -879,48 +932,93 @@ def phase_timing_ssd(card: str) -> dict:
     def library():
         return torch.bmm(m, xs), torch.bmm(bw, xs)
 
-    saved = ssd_intra_chunk.launches
+    def kernel():
+        return ssd_intra_chunk(xc, dtc, cum, bc, cc)
+
     say(f"[timing] ssd_intra_chunk {shape}: clocks before ({CLOCKS}) "
         f"{card_line(CLOCKS)}")
     kernel_r, library_r = [], []
     for _ in range(3):
-        kernel_r.append(time_ms(lambda: ssd_intra_chunk(xc, dtc, cum, bc, cc),
-                                20))
+        kernel_r.append(time_ms(kernel, 20))
         library_r.append(time_ms(library, 20))
     say(f"[timing] ssd_intra_chunk {shape}: clocks after {card_line(CLOCKS)}"
         f"; kernel rounds {', '.join(f'{t:.4f}' for t in kernel_r)} ms, "
         f"yardstick rounds {', '.join(f'{t:.4f}' for t in library_r)} ms")
+    device_ms = graph_ms(kernel)
     plain_ms = time_ms(lambda: ssd_intra_chunk_reference(xc, dtc, cum, bc,
                                                          cc), 5)
-    ssd_intra_chunk.launches = saved     # comparisons do not count
     kernel_ms, yard_ms = sorted(kernel_r)[1], sorted(library_r)[1]
     flops, nbytes = ssd_work(*shape)
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    # the least time for this work: its operations at the bf16 tensor-core
+    # rate (the kernel's products run there at f32 accuracy) or its bytes;
+    # beside it the same work on f32 FMAs
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    res = {"shape": list(shape), "ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": None, "yardstick_ms": yard_ms,
-           "bound_ms": max(t_ops, t_bytes), "bytes_bound_ms": t_bytes,
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_f32 = flops / PEAK_F32_FLOPS * 1e3
+    res = {"shape": list(shape), "ms": kernel_ms, "graph_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": None, "yardstick_ms": yard_ms,
+           "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "f32_fma_bound_ms": max(t_f32, t_bytes), "bytes_bound_ms": t_bytes,
            "flops": flops, "bytes": nbytes}
     say(f"[timing] ssd_intra_chunk {shape} (B, NC, L, H, P, N) x bf16: "
-        f"kernel {kernel_ms:.4f} ms (median), plain {plain_ms:.4f} ms, f32 "
-        f"bmm x 2 on prepared M and state weights (yardstick only; no "
-        f"single PyTorch call computes this) {yard_ms:.4f} ms; bound "
-        f"{res['bound_ms']:.4f} ms by {res['bound_by']} ({flops / 1e9:.4f} "
-        f"GFLOP at the f32 rate; {nbytes / 1e6:.2f} MB, {t_bytes:.4f} ms); "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved, "
-        f"{100 * res['bound_ms'] / kernel_ms:.1f}% of bound [{card}]")
+        f"kernel {kernel_ms:.4f} ms (median; replayed from a CUDA graph "
+        f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, f32 bmm x 2 on "
+        f"prepared M and state weights (yardstick only; no single PyTorch "
+        f"call computes this) {yard_ms:.4f} ms; bound {res['bound_ms']:.4f} "
+        f"ms by {res['bound_by']} ({flops / 1e9:.4f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), on f32 FMAs "
+        f"{res['f32_fma_bound_ms']:.4f} ms; {flops / kernel_ms / 1e9:.2f} "
+        f"TFLOP/s achieved, {100 * res['bound_ms'] / kernel_ms:.1f}% of "
+        f"bound, graph {100 * res['bound_ms'] / device_ms:.1f}% [{card}]")
     return res
 
 
-def main() -> int:
+def phase_timing_ssd(card: str) -> dict:
+    """The SSD intra-chunk kernel at mamba2's longest served prefill (663
+    tokens, padded to 3 chunks of 256) and at the one-chunk prompts of 254
+    and 92 tokens."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    gen = torch.Generator("cuda").manual_seed(6)
+    saved = ssd_intra_chunk.launches
+    out = ssd_time(SSD_TIMED, card, gen)
+    out["one_chunk"] = {str(s[2]): ssd_time(s, card, gen)
+                        for s in SSD_ONE_CHUNK}
+    ssd_intra_chunk.launches = saved     # comparisons do not count
+    return out
+
+
+def ssd_only(card: str) -> int:
+    """``--ssd-only``: the SSD kernel of the tree whose ``src`` is on the
+    path, held against its plain version (phase 3's SSD cases) and timed
+    (phase 6's SSD shapes); one JSON line.  With ``--src`` this times
+    another checkout's kernel, e.g. the parent commit's, in the same call."""
+    import repro_torch
+    from repro_torch.kernels import _build
+    _build.build_all(["ssd_intra_chunk"])
+    for ln in _build.build_log("ssd_intra_chunk").splitlines():
+        if "registers" in ln or "spill" in ln or "entry function" in ln:
+            say(f"[build] ssd_intra_chunk: {ln.strip()}")
+    err = phase_ssd()
+    timing = phase_timing_ssd(card)
+    say(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]),
+                    "max_abs_err": err, "ssd_timing": timing}))
+    return 0
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
         return 1
+    if "--src" in argv:            # another checkout's src, before ours
+        sys.path.insert(0, str(Path(argv[argv.index("--src") + 1])
+                               .resolve()))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.configs import get_config
 
     card = phase_info()
+    if "--ssd-only" in argv:
+        return ssd_only(card)
     build = phase_build()
     flash_err = phase_kernels()
     gmm_err = phase_gmm()
@@ -978,7 +1076,13 @@ def main() -> int:
         **launches("ssd_intra_chunk"), "max_abs_err": ssd_err,
         **{k: ssd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "yardstick_ms",
-                               "bytes_bound_ms", "shape")},
+                               "f32_fma_bound_ms", "bytes_bound_ms",
+                               "graph_ms", "shape")},
+        # the one-chunk prompts of 254 and 92 tokens beside the 3-chunk one
+        "one_chunk": {key: {k: r[k] for k in
+                            ("shape", "ms", "graph_ms", "plain_ms",
+                             "bound_ms", "bound_by", "yardstick_ms")}
+                      for key, r in ssd["one_chunk"].items()},
     }]
     record = ROOT / "chiprun_out" / "chip_smoke.json"
     record.parent.mkdir(exist_ok=True)
@@ -996,4 +1100,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

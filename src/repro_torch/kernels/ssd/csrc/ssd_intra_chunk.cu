@@ -8,58 +8,77 @@
 //     M[i,j]  = CB[i,j] * exp(cum_i - cum_j) * dt_j   for i >= j, else 0
 //     y       = M X                                            (L, P)
 //     state   = (exp(cum_{L-1} - cum) * dt * B)^T X            (N, P)
-// in f32, with x in f32 or bf16 and every other input f32.  Outputs y
+// with f32 sums, x in f32 or bf16 and every other input f32.  Outputs y
 // (B, NC, L, H, P) and states (B, NC, H, N, P) are f32.
 //
 // Layout.  xc (B, NC, L, H, P), dtc and cum (B, NC, L, H), bc and cc
 // (B, NC, L, N) are read in place through their strides (the last dim of x,
 // B and C contiguous): the model hands in views of its projection without a
 // copy.  y and states are written contiguous.  Nothing is padded in memory:
-// L is any length from 1 to 256 and P up to 64, and the kernel masks the
-// ragged edges.
-//
-// Design.  The Pallas grid is (B, NC, H): one cell holds a whole chunk in
-// VMEM, recomputes C B^T for every head and builds the (L, L) decay matrix
-// there.  On the card a chunk of L = 256 with N = 128 needs 128 KB for C and
-// 128 KB for B in f32, more than a block's 227 KB with anything beside.  So
-// the work is two launches:
-//   (a) y: one block per (64-row tile of i, group of heads, (b, c)).  It
-//       builds the rows C[i0:i0+64] B^T once, into shared memory, for the
-//       column tiles j on or below the diagonal only (tiles above it are
-//       exactly 0 and are skipped), and reuses them for every head of its
-//       group: per head and column tile it forms the masked M tile in shared
-//       memory and accumulates M X in registers (each thread 4 rows by
-//       P / 16 columns).  A group is two heads: of 1, 2 and 4, two was the
-//       fastest on the H100 at the three shapes timed, mamba2-780m's
-//       prefills of 3 and 2 chunks of 256 and one chunk of 254 (B 1, H 48,
-//       P 64, N 128).
-//   (b) states: one block per (64-row tile of n, head, (b, c)), summing
-//       (w B)^T X over the chunk in tiles of 64 rows of l.
-// All sums are f32 FMAs, with expf (not __expf) and no TF32, so that the
-// kernel agrees with the plain version to the order of sums.  Staging loops
-// have a constant trip count.
+// L is any length from 1 to 256, P up to 64 and N up to 128; the kernel
+// masks the ragged edges (rows past L, columns past P and N) and nothing
+// else.
 //
 // What bounds it on an H100.  At the longest prefill that mamba2-780m serves
 // (663 tokens, padded to 768: B 1, NC 3, L 256, H 48, P 64, N 128, x bf16),
 // counting each input read once and each output written once, it moves
-// 19.96 MB (6.0 us at 3.35 TB/s) and does 1.236 GFLOP of the causal half
-// (C B^T once per chunk 0.025, M X 0.606, states 0.604), 18.4 us at the
-// 67 TFLOP/s f32 rate: bound by operations.  This kernel recomputes C B^T
-// once per head group, builds M with one exp per (i, j, head), and runs its
-// products on f32 FMAs without a pipeline; a one-chunk prompt gives only
-// 4 x 24 y blocks and 2 x 48 state blocks for 132 SMs.  bf16 tensor cores for C B^T (exact on the
-// bf16 values the model feeds it) and more blocks for one-chunk prompts are
-// the next steps.
+// 19.96 MB, 6.0 us at 3.35 TB/s; its 1.236 GFLOP of the causal half (C B^T
+// once per chunk 0.025, M X 0.606, states 0.604) take 1.25 us at the bf16
+// tensor-core rate.  Bound by bytes, at 0.0060 ms.  (On f32 FMAs the same
+// work would take 18.4 us.)
+//
+// Design: two launches.
+//   (a) C B^T once per chunk, shared by all heads: one block per 32 x 32
+//       tile on or below the diagonal and per (b, c), f32 FMAs summed over
+//       N in order, into an f32 scratch (B*NC, Lp, Lp) with Lp = L rounded
+//       up to 64 (768 KB at the shape above: it stays in L2 for (b)).
+//   (b) One launch of y and state units, 128 threads a block, each block
+//       one unit: y rows [i0, i0+64) of one head, or state rows [n0, n0+64)
+//       of one head.  Each warp owns 16 rows and all 64 columns of P.
+// What each part answers:
+//   - Tensor cores at f32 accuracy.  The products run on bf16 mma.sync
+//     m16n8k16 with f32 accumulation.  Each thread builds its own A
+//     fragment elements of M (one expf each) or of w B in registers, with
+//     no round trip through shared memory, and splits each f32 value v
+//     exactly into three bf16 parts, v = hi + mid + lo (8 + 8 + 8 bits of
+//     its 24-bit significand).  X in bf16 is exact as an operand and each
+//     bf16 x bf16 product is exact in f32, so y = M_lo X + M_mid X +
+//     M_hi X (smallest first) differs from an f32 FMA sum only in how the
+//     sums round.  An f32 X is split the same way and the six products
+//     whose parts weigh down to 2^-16 are summed; no served path has it.
+//   - Even, plentiful blocks.  The units are ordered heaviest first (the
+//     y units of the last i-tile and the state units, which walk every
+//     tile of the chunk, then the lighter i-tiles), so the in-order
+//     dispatch fills the tail with light ones; a one-chunk prompt gives
+//     (ceil(L/64) + ceil(N/64)) x H blocks, 144 or more for mamba2.
+//     Tiles above the diagonal, and k-steps wholly above it or past L,
+//     are skipped.  50 KB of shared memory and at most 170 registers a
+//     thread for bf16 x: three blocks an SM (a build for four, at 128
+//     registers, spilled); 82 KB for f32 x: two.
+//   - Copies beside the products.  Tiles of 64 rows of CB (or of B) and of
+//     X come through a 2-stage cp.async ring, so the next tile's loads run
+//     under this tile's products.  Tiles are swizzled in 16-byte chunks so
+//     that ldmatrix and the fragment reads meet no bank conflict.  Inputs
+//     whose rows are not 16-byte aligned (or P not a multiple of 8, N of
+//     4) are staged by plain loads in the same layout.
+//   - Every tile size and the number of blocks an SM are fixed at compile
+//     time; nothing of the schedule is read at run time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;      // 16 x 16 threads
-constexpr int kT = 64;             // rows of i, j, l or n per tile
-constexpr int kTK = 32;            // step over N of the C B^T product
-constexpr int kMaxL = 256;         // longest chunk
-constexpr int kHeadsPerBlock = 2;  // heads a y block shares C B^T rows with
+constexpr int kThreads = 128;   // 4 warps, 16 rows each
+constexpr int kT = 64;          // rows of i, j, l or n per tile; P padded
+constexpr int kMaxL = 256;      // longest chunk
+constexpr int kCBT = 32;        // C B^T tile, rows and columns
+constexpr int kCBK = 32;        // C B^T step over N
+constexpr int kCBThreads = 256;
 
 struct Args {
   const void* x;
@@ -67,10 +86,10 @@ struct Args {
   const float* cum;
   const float* bm;
   const float* cm;
+  float* cb;  // (B*NC, Lp, Lp) scratch: written by (a), read by (b)
   float* y;
   float* st;
-  int NC, L, H, P, N;
-  int hpb;  // kHeadsPerBlock, read at run time (see ssd_y_kernel)
+  int B, NC, L, H, P, N, Lp;
   long long x_sb, x_sc, x_sl, x_sh;
   long long dt_sb, dt_sc, dt_sl, dt_sh;
   long long cu_sb, cu_sc, cu_sl, cu_sh;
@@ -83,296 +102,490 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Shared memory of the y kernel, in floats: cum and dt of the columns, the
-// C B^T rows (kT x ldcb), then a work area used first for the C and B tiles
-// of C B^T and then for the X and M tiles.
-__host__ __device__ constexpr int y_work_floats(int kp) {
-  return 2 * kT * (kTK + 1) > kT * kp + kT * (kT + 1)
-             ? 2 * kT * (kTK + 1)
-             : kT * kp + kT * (kT + 1);
-}
-
-__host__ __device__ constexpr int y_smem_floats(int ldcb, int kp) {
-  return 2 * kMaxL + kT * ldcb + y_work_floats(kp);
-}
-
-// Stage rows [r0, r0 + kT) of one head's X into xs (kT x kP, f32); rows
-// past L and columns past P are 0.
-template <typename XT, int PC>
-__device__ __forceinline__ void stage_x(float* xs, const XT* xh,
-                                        const Args& a, int r0) {
-  constexpr int kP = 16 * PC;
-#pragma unroll
-  for (int s = 0; s < kT * kP / kThreads; ++s) {
-    const int idx = s * kThreads + threadIdx.x;
-    const int r = idx / kP, p = idx % kP;
-    xs[r * kP + p] = (r0 + r < a.L && p < a.P)
-                         ? to_f32(xh[(r0 + r) * a.x_sl + p])
-                         : 0.f;
-  }
-}
-
-// (a) y = M X for rows [i0, i0 + kT) and heads [h0, h0 + kHeadsPerBlock).
-template <typename XT, int PC>
-__global__ void __launch_bounds__(kThreads)
-    ssd_y_kernel(const Args a, int ldcb) {
-  constexpr int kP = 16 * PC;
-  constexpr int kLDK = kTK + 1;
-  constexpr int kLDM = kT + 1;
-  extern __shared__ float smem[];
-  float* cumj = smem;                      // [kMaxL]
-  float* dtj = cumj + kMaxL;               // [kMaxL]
-  float* cb = dtj + kMaxL;                 // [kT][ldcb]
-  float* work = cb + kT * ldcb;
-  float* cs = work;                        // [kT][kLDK]  (C B^T phase)
-  float* bs = cs + kT * kLDK;              // [kT][kLDK]
-  float* xs = work;                        // [kT][kP]    (head phase)
-  float* ms = xs + kT * kP;                // [kT][kLDM]
-
-  const int i0 = blockIdx.x * kT;
-  const int h0 = blockIdx.y * a.hpb;
-  const int bb = blockIdx.z / a.NC, cz = blockIdx.z % a.NC;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // columns j <= i < min(L, i0 + kT) can be nonzero: skip the tiles above
-  const int njt = (min(a.L, i0 + kT) + kT - 1) / kT;
-
+// ------------------------------------------------------------ (a) C B^T
+__global__ void __launch_bounds__(kCBThreads) ssd_cb_kernel(const Args a) {
+  __shared__ float cs[kCBT][kCBK + 1];
+  __shared__ float bs[kCBT][kCBK + 1];
+  // the block's tile (ti, tj), tj <= ti, from its index in the triangle
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= static_cast<int>(blockIdx.x)) ++ti;
+  const int tj = blockIdx.x - ti * (ti + 1) / 2;
+  const int i0 = ti * kCBT, j0 = tj * kCBT;
+  const int bc = blockIdx.y, bb = bc / a.NC, cz = bc % a.NC;
   const float* cm = a.cm + bb * a.c_sb + cz * a.c_sc;
   const float* bm = a.bm + bb * a.b_sb + cz * a.b_sc;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  // C B^T for rows i0 + ty + 16 r and columns j0 + tx + 16 c, once for all
-  // heads of the block
-  for (int jt = 0; jt < njt; ++jt) {
-    const int j0 = jt * kT;
-    float acc[4][4];
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int k0 = 0; k0 < a.N; k0 += kCBK) {
+    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int k0 = 0; k0 < a.N; k0 += kTK) {
-      __syncthreads();
-#pragma unroll
-      for (int s = 0; s < kT * kTK / kThreads; ++s) {
-        const int idx = s * kThreads + tid;
-        const int r = idx / kTK, k = idx % kTK;
-        const bool kin = k0 + k < a.N;
-        cs[r * kLDK + k] =
-            (i0 + r < a.L && kin) ? cm[(i0 + r) * a.c_sl + k0 + k] : 0.f;
-        bs[r * kLDK + k] =
-            (j0 + r < a.L && kin) ? bm[(j0 + r) * a.b_sl + k0 + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kTK; ++k) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = cs[(ty + 16 * r) * kLDK + k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = bs[(tx + 16 * c) * kLDK + k];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[r][c] = fmaf(cv[r], bv[c], acc[r][c]);
-      }
+    for (int s = 0; s < kCBT * kCBK / kCBThreads; ++s) {
+      const int idx = s * kCBThreads + tid, r = idx / kCBK, k = idx % kCBK;
+      const bool kin = k0 + k < a.N;
+      cs[r][k] = (i0 + r < a.L && kin) ? cm[(i0 + r) * a.c_sl + k0 + k] : 0.f;
+      bs[r][k] = (j0 + r < a.L && kin) ? bm[(j0 + r) * a.b_sl + k0 + k] : 0.f;
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        cb[(ty + 16 * r) * ldcb + j0 + tx + 16 * c] = acc[r][c];
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kCBK; ++k) {
+      const float c0 = cs[ty][k], c1 = cs[ty + 16][k];
+      const float b0 = bs[tx][k], b1 = bs[tx + 16][k];
+      acc[0][0] = fmaf(c0, b0, acc[0][0]);
+      acc[0][1] = fmaf(c0, b1, acc[0][1]);
+      acc[1][0] = fmaf(c1, b0, acc[1][0]);
+      acc[1][1] = fmaf(c1, b1, acc[1][1]);
+    }
   }
+  float* out = a.cb + (long long)bc * a.Lp * a.Lp;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      out[(long long)(i0 + ty + 16 * r) * a.Lp + j0 + tx + 16 * c] =
+          acc[r][c];
+}
 
-  // The group size comes from the kernel's arguments, not the constant:
-  // with the head count known at compile time, nvcc builds a y kernel that
-  // runs about 20 % slower on the H100 (PERF.md).
-  const int hend = min(a.H, h0 + a.hpb);
-  for (int h = h0; h < hend; ++h) {
-    const float* dth = a.dt + bb * a.dt_sb + cz * a.dt_sc + h * a.dt_sh;
-    const float* cuh = a.cum + bb * a.cu_sb + cz * a.cu_sc + h * a.cu_sh;
-    const XT* xh = static_cast<const XT*>(a.x) + bb * a.x_sb +
-                   cz * a.x_sc + h * a.x_sh;
-    __syncthreads();     // the previous head's reads of cumj, dtj are done
-    if (tid < njt * kT) {  // njt * kT <= kMaxL == kThreads
-      cumj[tid] = tid < a.L ? cuh[tid * a.cu_sl] : 0.f;
-      dtj[tid] = tid < a.L ? dth[tid * a.dt_sl] : 0.f;
-    }
-    float acc[4][PC];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < PC; ++q) acc[r][q] = 0.f;
+// ------------------------------------------------- (b) y and state units
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
 
-    for (int jt = 0; jt < njt; ++jt) {
-      const int j0 = jt * kT;
-      __syncthreads();   // cumj, dtj, cb written; last tile's reads done
-      stage_x<XT, PC>(xs, xh, a, j0);
-#pragma unroll
-      for (int s = 0; s < kT * kT / kThreads; ++s) {
-        const int idx = s * kThreads + tid;
-        const int r = idx / kT, c = idx % kT;
-        const int i = i0 + r, j = j0 + c;
-        float m = 0.f;
-        if (i >= j && i < a.L)
-          m = cb[r * ldcb + j] * expf(cumj[i] - cumj[j]) * dtj[j];
-        ms[r * kLDM + c] = m;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kT; ++c) {
-        float mv[4], xv[PC];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) mv[r] = ms[(ty + 16 * r) * kLDM + c];
-#pragma unroll
-        for (int q = 0; q < PC; ++q) xv[q] = xs[c * kP + tx + 16 * q];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < PC; ++q)
-            acc[r][q] = fmaf(mv[r], xv[q], acc[r][q]);
-      }
-    }
+// 16 bytes global -> shared; zero-filled (nothing read) when !pred
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
 
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const void* ptr,
+                                              unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// v0, v1 -> three packed bf16 pairs (hi, mid, lo), v = hi + mid + lo
+// exactly: each difference is exact (Sterbenz), and what is left after two
+// 8-bit parts of a 24-bit significand fits the third.
+__device__ __forceinline__ void split3(float v0, float v1,
+                                       unsigned& hi, unsigned& mid,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = v0 - hf.x, r1 = v1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+// Tile layouts in shared memory, 64 rows each, swizzled in 16-byte chunks:
+//   CB (i, j) f32: chunk j/4 of row i at (j/4) ^ 2(i%8)
+//   B  (l, n) f32: chunk n/4 of row l at (n/4) ^ (l & 14)
+//   X  (r, p) bf16: chunk p/8 of row r at (p/8) ^ (r%8)
+// so that a warp's float2 reads of CB, its scalar reads of B down a column
+// and ldmatrix's eight rows of X each touch 32 distinct banks.
+__device__ __forceinline__ int cb_at(int i, int j) {
+  return i * kT + ((((j >> 2) ^ ((i & 7) << 1))) << 2) + (j & 3);
+}
+__device__ __forceinline__ int b_at(int l, int n) {
+  return l * kT + ((((n >> 2) ^ (l & 14))) << 2) + (n & 3);
+}
+__device__ __forceinline__ int x_at(int r, int p) {
+  return r * kT + ((((p >> 3) ^ (r & 7))) << 3) + (p & 7);
+}
+
+template <typename XT>
+struct Stage {
+  static constexpr int kXParts = std::is_same<XT, float>::value ? 3 : 1;
+  static constexpr int kFloatBytes = kT * kT * 4;
+  static constexpr int kXBytes = kT * kT * 2;
+  static constexpr int kBytes = kFloatBytes + kXParts * kXBytes;
+  static constexpr int kSmem = 2 * kBytes + 2 * kMaxL * 4;  // ring + vectors
+  // blocks an SM: three for bf16 x (50 KB each, at most 170 registers a
+  // thread), two for f32 x (82 KB)
+  static constexpr int kMinBlocks = kXParts == 1 ? 3 : 2;
+};
+
+// X rows [r0, r0 + 64) of one head into xt (kXParts bf16 tiles); rows past
+// L and columns past P are 0.  Async: 16-byte cp.async (bf16, aligned);
+// else plain loads, an f32 value split into its three parts.
+template <typename XT, bool kAsync>
+__device__ __forceinline__ void stage_x(__nv_bfloat16* xt, const XT* xh,
+                                        const Args& a, int r0) {
+  constexpr int kParts = Stage<XT>::kXParts;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty + 16 * r;
-      if (i >= a.L) continue;
-      float* yrow =
-          a.y + (((long long)blockIdx.z * a.L + i) * a.H + h) * a.P;
+  for (int s = 0; s < kT * kT / 8 / kThreads; ++s) {
+    const int idx = s * kThreads + threadIdx.x;
+    const int r = idx >> 3, c = idx & 7;
+    const bool row_in = r0 + r < a.L;
+    const XT* src = xh + (r0 + r) * a.x_sl + 8 * c;
+    __nv_bfloat16* dst = xt + x_at(r, 8 * c);
+    if constexpr (kAsync) {
+      const bool ok = row_in && 8 * c < a.P;
+      cp16(dst, ok ? static_cast<const void*>(src) : xh, ok);
+    } else {
+      float v[8];
 #pragma unroll
-      for (int q = 0; q < PC; ++q) {
-        const int p = tx + 16 * q;
-        if (p < a.P) yrow[p] = acc[r][q];
+      for (int e = 0; e < 8; ++e)
+        v[e] = (row_in && 8 * c + e < a.P) ? to_f32(src[e]) : 0.f;
+      uint4 w[3];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        unsigned hi, mid, lo;
+        split3(v[2 * e], v[2 * e + 1], hi, mid, lo);
+        (&w[0].x)[e] = hi;
+        (&w[1].x)[e] = mid;
+        (&w[2].x)[e] = lo;
       }
+#pragma unroll
+      for (int q = 0; q < kParts; ++q)
+        *reinterpret_cast<uint4*>(dst + q * kT * kT) = w[q];
     }
   }
 }
 
-// (b) states[n0:n0+kT, :] of head h: sum over l of (w_l B[l, n]) X[l, :].
-template <typename XT, int PC>
-__global__ void __launch_bounds__(kThreads) ssd_state_kernel(const Args a) {
-  constexpr int kP = 16 * PC;
-  constexpr int kLDB = kT + 1;
-  __shared__ float w[kMaxL];
-  __shared__ float bs[kT * kLDB];          // [l][n], B scaled by w
-  __shared__ float xs[kT * kP];            // [l][p]
+// CB rows [i0, i0 + 64), columns [j0, j0 + 64) of chunk bc; the scratch is
+// Lp x Lp, so every read is in bounds (entries above the diagonal or past
+// L are never used).
+__device__ __forceinline__ void stage_cb(float* ft, const Args& a, int bc,
+                                         int i0, int j0) {
+  const float* src0 = a.cb + ((long long)bc * a.Lp + i0) * a.Lp + j0;
+#pragma unroll
+  for (int s = 0; s < kT * kT / 4 / kThreads; ++s) {
+    const int idx = s * kThreads + threadIdx.x;
+    const int r = idx >> 4, c = idx & 15;
+    cp16(ft + cb_at(r, 4 * c), src0 + (long long)r * a.Lp + 4 * c, true);
+  }
+}
 
-  const int n0 = blockIdx.x * kT, h = blockIdx.y;
-  const int bb = blockIdx.z / a.NC, cz = blockIdx.z % a.NC;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// B rows [l0, l0 + 64), columns [n0, n0 + 64) of one chunk; 0 past L, N.
+template <bool kAsync>
+__device__ __forceinline__ void stage_b(float* ft, const float* bm,
+                                        const Args& a, int l0, int n0) {
+#pragma unroll
+  for (int s = 0; s < kT * kT / 4 / kThreads; ++s) {
+    const int idx = s * kThreads + threadIdx.x;
+    const int r = idx >> 4, c = idx & 15;
+    const bool row_in = l0 + r < a.L;
+    const float* src = bm + (l0 + r) * a.b_sl + n0 + 4 * c;
+    float* dst = ft + b_at(r, 4 * c);
+    if constexpr (kAsync) {
+      const bool ok = row_in && n0 + 4 * c < a.N;
+      cp16(dst, ok ? src : bm, ok);
+    } else {
+      float4 v;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        (&v.x)[e] = (row_in && n0 + 4 * c + e < a.N) ? src[e] : 0.f;
+      *reinterpret_cast<float4*>(dst) = v;
+    }
+  }
+}
+
+// acc (16 rows x 64 columns of one warp) += A X over one 16-wide k-step,
+// A given as its split parts; X's parts from the tile at row k0.
+template <int kXParts>
+__device__ __forceinline__ void mma_step(float (&acc)[8][4],
+                                         const unsigned (&af)[3][4],
+                                         const __nv_bfloat16* xt, int k0,
+                                         int lane) {
+  const int r = k0 + (lane & 15);
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    unsigned bx[kXParts][4];
+#pragma unroll
+    for (int xp = 0; xp < kXParts; ++xp)
+      ldsm_x4_trans(xt + xp * kT * kT + x_at(r, 16 * np + 8 * (lane >> 4)),
+                    bx[xp]);
+    // the products whose parts weigh the least first: A part q times X
+    // part xp weighs 2^-8(q + xp)
+#pragma unroll
+    for (int s = 2; s >= 0; --s)
+#pragma unroll
+      for (int xp = 0; xp < kXParts; ++xp) {
+        const int q = s - xp;
+        if (q < 0) continue;
+        mma(acc[2 * np], af[q], bx[xp][0], bx[xp][1]);
+        mma(acc[2 * np + 1], af[q], bx[xp][2], bx[xp][3]);
+      }
+  }
+}
+
+template <typename XT, bool kAsync>
+__global__ void __launch_bounds__(kThreads, Stage<XT>::kMinBlocks)
+    ssd_chunk_kernel(const Args a) {
+  using S = Stage<XT>;
+  extern __shared__ uint4 smem_raw[];
+  char* base = reinterpret_cast<char*>(smem_raw);
+  float* vec0 = reinterpret_cast<float*>(base + 2 * S::kBytes);  // cum | w
+  float* vec1 = vec0 + kMaxL;                                     // dt
+
+  // The block's unit, heaviest first: level 0 holds the y units of the
+  // last i-tile and every state unit (all walk nlt tiles), level v > 0 the
+  // y units of i-tile nlt - 1 - v.  Inside a level, heads vary fastest.
+  const int nlt = (a.L + kT - 1) / kT, nnt = (a.N + kT - 1) / kT;
+  const int per = a.H * a.B * a.NC;
+  int u = blockIdx.x, tile;
+  bool state = false;
+  if (u < per * (1 + nnt)) {
+    state = u >= per;
+    tile = state ? (u - per) / per : nlt - 1;
+    u = state ? (u - per) % per : u;
+  } else {
+    u -= per * (1 + nnt);
+    tile = nlt - 2 - u / per;
+    u %= per;
+  }
+  const int h = u % a.H, bc = u / a.H;
+  const int bb = bc / a.NC, cz = bc % a.NC;
   const float* dth = a.dt + bb * a.dt_sb + cz * a.dt_sc + h * a.dt_sh;
   const float* cuh = a.cum + bb * a.cu_sb + cz * a.cu_sc + h * a.cu_sh;
   const float* bm = a.bm + bb * a.b_sb + cz * a.b_sc;
   const XT* xh = static_cast<const XT*>(a.x) + bb * a.x_sb + cz * a.x_sc +
                  h * a.x_sh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int r0 = tile * kT;                   // i0 (y) or n0 (state)
+  const int ntiles = state ? nlt : tile + 1;  // j- or l-tiles to walk
 
-  const float last = cuh[(a.L - 1) * a.cu_sl];
-  if (tid < a.L)       // L <= kMaxL == kThreads
-    w[tid] = expf(last - cuh[tid * a.cu_sl]) * dth[tid * a.dt_sl];
-
-  float acc[4][PC];
+  // cum and dt of the columns j (y), or the state weights w_l
+  if (state) {
+    const float last = cuh[(a.L - 1) * a.cu_sl];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < PC; ++q) acc[r][q] = 0.f;
-
-  for (int l0 = 0; l0 < a.L; l0 += kT) {
-    __syncthreads();     // w written; the last tile's reads are done
-#pragma unroll
-    for (int s = 0; s < kT * kT / kThreads; ++s) {
-      const int idx = s * kThreads + tid;
-      const int r = idx / kT, c = idx % kT;
-      bs[r * kLDB + c] = (l0 + r < a.L && n0 + c < a.N)
-                             ? bm[(l0 + r) * a.b_sl + n0 + c] * w[l0 + r]
-                             : 0.f;
+    for (int s = 0; s < kMaxL / kThreads; ++s) {
+      const int l = s * kThreads + tid;
+      vec0[l] = l < a.L ? expf(last - cuh[l * a.cu_sl]) * dth[l * a.dt_sl]
+                        : 0.f;
     }
-    stage_x<XT, PC>(xs, xh, a, l0);
-    __syncthreads();
-#pragma unroll 8
-    for (int l = 0; l < kT; ++l) {
-      float bv[4], xv[PC];
+  } else {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) bv[r] = bs[l * kLDB + ty + 16 * r];
-#pragma unroll
-      for (int q = 0; q < PC; ++q) xv[q] = xs[l * kP + tx + 16 * q];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < PC; ++q)
-          acc[r][q] = fmaf(bv[r], xv[q], acc[r][q]);
+    for (int s = 0; s < kMaxL / kThreads; ++s) {
+      const int j = s * kThreads + tid;
+      vec0[j] = j < a.L ? cuh[j * a.cu_sl] : 0.f;
+      vec1[j] = j < a.L ? dth[j * a.dt_sl] : 0.f;
     }
   }
 
+  auto load = [&](int t) {
+    char* sb = base + (t & 1) * S::kBytes;
+    float* ft = reinterpret_cast<float*>(sb);
+    auto* xt = reinterpret_cast<__nv_bfloat16*>(sb + S::kFloatBytes);
+    if (state)
+      stage_b<kAsync>(ft, bm, a, t * kT, r0);
+    else
+      stage_cb(ft, a, bc, r0, t * kT);
+    stage_x<XT, kAsync>(xt, xh, a, t * kT);
+    cp_commit();
+  };
+
+  float acc[8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int n = n0 + ty + 16 * r;
-    if (n >= a.N) continue;
-    float* srow =
-        a.st + (((long long)blockIdx.z * a.H + h) * a.N + n) * a.P;
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int rw = r0 + 16 * warp;              // this warp's first row
+  const int rows_of = state ? a.N : a.L;
+  const bool busy = rw < rows_of;             // warp-uniform
+  // y: this thread's rows ia = rw + g and ib = ia + 8; column j of M is
+  // kept while j <= lim (rows past L keep none)
+  const int ia = rw + g, ib = ia + 8;
+  const int lim_a = ia < a.L ? ia : -1, lim_b = ib < a.L ? ib : -1;
+
+  load(0);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles)
+      load(t + 1);
+    else
+      cp_commit();                            // one group per step
+    cp_wait<1>();
+    __syncthreads();
+    const char* sb = base + (t & 1) * S::kBytes;
+    const float* ft = reinterpret_cast<const float*>(sb);
+    const auto* xt =
+        reinterpret_cast<const __nv_bfloat16*>(sb + S::kFloatBytes);
+    const int c0 = t * kT;                    // first column j or row l
+    if (busy) {
+      // k-steps of 16 that hold a kept column (y) or a row l < L (state)
+      const int last = state ? a.L - 1 : min(rw + 15, a.L - 1);
+      const int ks_end = min(4, (last - c0) / 16 + 1);
+      const float cum_a = state ? 0.f : vec0[ia < a.L ? ia : 0];
+      const float cum_b = state ? 0.f : vec0[ib < a.L ? ib : 0];
 #pragma unroll
-    for (int q = 0; q < PC; ++q) {
-      const int p = tx + 16 * q;
-      if (p < a.P) srow[p] = acc[r][q];
+      for (int ks = 0; ks < 4; ++ks) {
+        if (ks >= ks_end) break;
+        unsigned af[3][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int k = 16 * ks + 2 * tig + 8 * half;   // column in tile
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int row = 16 * warp + g + 8 * rr;     // row in tile
+            float v0, v1;
+            if (state) {
+              v0 = ft[b_at(k, row)] * vec0[c0 + k];
+              v1 = ft[b_at(k + 1, row)] * vec0[c0 + k + 1];
+            } else {
+              const int j = c0 + k, lim = rr ? lim_b : lim_a;
+              const float ci = rr ? cum_b : cum_a;
+              const float2 cb =
+                  *reinterpret_cast<const float2*>(ft + cb_at(row, k));
+              v0 = j <= lim ? cb.x * expf(ci - vec0[j]) * vec1[j] : 0.f;
+              v1 = j + 1 <= lim
+                       ? cb.y * expf(ci - vec0[j + 1]) * vec1[j + 1]
+                       : 0.f;
+            }
+            split3(v0, v1, af[0][rr + 2 * half], af[1][rr + 2 * half],
+                   af[2][rr + 2 * half]);
+          }
+        }
+        mma_step<S::kXParts>(acc, af, xt, 16 * ks, lane);
+      }
+    }
+    __syncthreads();                          // the stage may be refilled
+  }
+  cp_wait<0>();
+  if (!busy) return;
+
+  // acc[n] holds rows g (0, 1) and g + 8 (2, 3), columns 8n + 2tig (+1)
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = rw + g + 8 * rr;
+    if (row >= rows_of) continue;
+    float* out = state
+        ? a.st + (((long long)bc * a.H + h) * a.N + row) * a.P
+        : a.y + (((long long)bc * a.L + row) * a.H + h) * a.P;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int p = 8 * n + 2 * tig;
+      if (p >= a.P) continue;
+      const float v0 = acc[n][2 * rr], v1 = acc[n][2 * rr + 1];
+      if ((a.P & 1) == 0) {
+        *reinterpret_cast<float2*>(out + p) = make_float2(v0, v1);
+      } else {
+        out[p] = v0;
+        if (p + 1 < a.P) out[p + 1] = v1;
+      }
     }
   }
 }
 
-template <typename XT, int PC>
-cudaError_t launch(const Args& a, int B, cudaStream_t st) {
-  const int ldcb = (a.L + kT - 1) / kT * kT + 1;
-  const size_t smem = sizeof(float) * y_smem_floats(ldcb, 16 * PC);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_y_kernel<XT, PC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Allow the (b) kernel its dynamic shared memory, once per device.
+template <typename XT, bool kAsync>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};  // a bit per device < 64
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 gy((a.L + kT - 1) / kT,
-                (a.H + kHeadsPerBlock - 1) / kHeadsPerBlock, B * a.NC);
-  ssd_y_kernel<XT, PC><<<gy, kThreads, smem, st>>>(a, ldcb);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(ssd_chunk_kernel<XT, kAsync>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Stage<XT>::kSmem);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <typename XT, bool kAsync>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  cudaError_t err = allow_smem<XT, kAsync>();
+  if (err != cudaSuccess) return err;
+  const int nt = (a.L + kCBT - 1) / kCBT;
+  ssd_cb_kernel<<<dim3(nt * (nt + 1) / 2, a.B * a.NC), kCBThreads, 0, st>>>(
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 gs((a.N + kT - 1) / kT, a.H, B * a.NC);
-  ssd_state_kernel<XT, PC><<<gs, kThreads, 0, st>>>(a);
+  const int smem = Stage<XT>::kSmem;
+  const int nlt = (a.L + kT - 1) / kT, nnt = (a.N + kT - 1) / kT;
+  const long long blocks = (long long)a.B * a.NC * a.H * (nlt + nnt);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  ssd_chunk_kernel<XT, kAsync>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename XT>
-cudaError_t launch_p(const Args& a, int B, cudaStream_t st) {
-  if (a.P <= 16) return launch<XT, 1>(a, B, st);
-  if (a.P <= 32) return launch<XT, 2>(a, B, st);
-  return launch<XT, 4>(a, B, st);
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// dtype of x: 0 = float32, 1 = bfloat16; dt, cum, B and C are float32.
-// Strides are in elements; the last dim of x, B and C is contiguous.  y
-// (B, NC, L, H, P) and st (B, NC, H, N, P) are contiguous float32.
-// Returns the CUDA error of the launches (0 on success); the kernels run
-// asynchronously on `stream`.
-extern "C" int ssd_intra_chunk_fwd(
-    const void* x, const void* dt, const void* cum, const void* bm,
-    const void* cm, void* y, void* st, int dtype, int B, int NC, int L,
-    int H, int P, int N, long long x_sb, long long x_sc,
-    long long x_sl, long long x_sh, long long dt_sb, long long dt_sc,
-    long long dt_sl, long long dt_sh, long long cu_sb, long long cu_sc,
-    long long cu_sl, long long cu_sh, long long b_sb, long long b_sc,
-    long long b_sl, long long c_sb, long long c_sc, long long c_sl,
-    void* stream) {
+// dims: 25 int64 values, the dtype of x (0 = float32, 1 = bfloat16; dt,
+// cum, B and C are float32), B, NC, L, H, P, N, then the strides in
+// elements of x (4: b, c, l, h), dt (4), cum (4), B (3: b, c, l) and C (3);
+// the last dim of x, B and C is contiguous.  (One packed argument, not 25:
+// each argument costs the Python caller its own conversion.)  y
+// (B, NC, L, H, P) and st (B, NC, H, N, P) are contiguous float32; cb is a
+// float32 scratch of B * NC * Lp * Lp, Lp = L rounded up to a multiple of
+// 64.  Returns the CUDA error of the launches (0 on success); the kernels
+// run asynchronously on `stream`.
+extern "C" int ssd_intra_chunk_fwd(const void* x, const void* dt,
+                                   const void* cum, const void* bm,
+                                   const void* cm, void* y, void* st,
+                                   void* cb, const void* dims,
+                                   void* stream) {
+  long long d[25];
+  std::memcpy(d, dims, sizeof(d));
+  const long long dtype = d[0], B = d[1], NC = d[2], L = d[3], H = d[4],
+                  P = d[5], N = d[6];
   if ((dtype != 0 && dtype != 1) || B < 1 || NC < 1 || L < 1 ||
-      L > kMaxL || H < 1 || P < 1 || P > 64 || N < 1)
+      L > kMaxL || H < 1 || P < 1 || P > kT || N < 1 || N > 2 * kT ||
+      B * NC > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x,    static_cast<const float*>(dt),
                static_cast<const float*>(cum),
                static_cast<const float*>(bm),
                static_cast<const float*>(cm),
+               static_cast<float*>(cb),
                static_cast<float*>(y),
                static_cast<float*>(st),
-               NC,   L,     H,     P,     N,     kHeadsPerBlock,
-               x_sb, x_sc,  x_sl,  x_sh,  dt_sb, dt_sc, dt_sl, dt_sh,
-               cu_sb, cu_sc, cu_sl, cu_sh, b_sb, b_sc, b_sl,
-               c_sb, c_sc,  c_sl};
+               static_cast<int>(B), static_cast<int>(NC),
+               static_cast<int>(L), static_cast<int>(H),
+               static_cast<int>(P), static_cast<int>(N),
+               static_cast<int>((L + kT - 1) / kT * kT),
+               d[7],  d[8],  d[9],  d[10], d[11], d[12], d[13], d[14],
+               d[15], d[16], d[17], d[18], d[19], d[20], d[21],
+               d[22], d[23], d[24]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 1 ? launch_p<__nv_bfloat16>(a, B, s)
-                                     : launch_p<float>(a, B, s);
+  // 16-byte cp.async for x and B where every row starts 16-byte aligned
+  const bool async = dtype == 1 && P % 8 == 0 && N % 4 == 0 &&
+                     aligned16(x) && aligned16(bm) &&
+                     (a.x_sb | a.x_sc | a.x_sl | a.x_sh) % 8 == 0 &&
+                     (a.b_sb | a.b_sc | a.b_sl) % 4 == 0;
+  cudaError_t err;
+  if (dtype == 0)
+    err = launch<float, false>(a, s);
+  else if (async)
+    err = launch<__nv_bfloat16, true>(a, s);
+  else
+    err = launch<__nv_bfloat16, false>(a, s);
   return static_cast<int>(err);
 }
 

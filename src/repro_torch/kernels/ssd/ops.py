@@ -3,8 +3,8 @@ version on the CPU.
 
 The tensors' device decides.  CUDA tensors launch the hand-written kernel or
 raise; nothing falls back to the plain version.  ``ssd_intra_chunk.launches``
-counts calls that launched the kernel (one call is one launch of the y
-kernel and one of the state kernel), and nothing else.
+counts calls that launched the kernel (one call is one launch of the C·Bᵀ
+kernel and one of the y and state kernel), and nothing else.
 
 The JAX wrapper's ``interpret`` flag has no counterpart: the device of the
 tensors takes its place."""

@@ -3,7 +3,9 @@
 ``ssd_reference`` is the stepwise recurrence, the definition the chunked
 form must match.  ``ssd_intra_chunk_reference`` is the CPU path of
 ``ops.ssd_intra_chunk`` and the oracle the CUDA kernel is held against on the
-card.  Both do their math in f32 (f64 inputs stay f64)."""
+card.  Both do their math in f32 (f64 inputs stay f64).  ``split3_bf16`` is
+the split of an f32 operand into three bf16 parts that the CUDA kernel runs
+its tensor-core products on; the tests hold the scheme against f64 sums."""
 from __future__ import annotations
 
 import torch
@@ -64,3 +66,16 @@ def ssd_intra_chunk_reference(xc: torch.Tensor, dtc: torch.Tensor,
     w_state = torch.exp(cum[:, :, -1:, :] - cum) * dtc          # (B,NC,L,H)
     states = torch.einsum("bclh,bcln,bclhp->bchnp", w_state, bc, x)
     return y_intra, states
+
+
+def split3_bf16(t: torch.Tensor):
+    """An f32 tensor as three bf16 tensors (hi, mid, lo), each the residue
+    of the one before rounded to bf16, so that hi + mid + lo == t exactly:
+    8 + 8 + 8 bits of the 24-bit significand.  The CUDA kernel splits M and
+    w·B so before its bf16 tensor-core products."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    r = t - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo

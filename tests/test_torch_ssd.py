@@ -2,7 +2,9 @@
 ``ssd_intra_chunk`` against the JAX oracle and the Pallas kernel in
 interpret mode, at the cases of tests/test_kernels.py and one ragged
 full-width case; ``ssd_reference`` and ``ssd_chunked`` against the JAX ones
-and the recurrence; and the wrapper's refusals on CUDA tensors.
+and the recurrence; the CUDA kernel's numerics scheme (M and w·B split into
+three bf16 parts) against f64 sums; and the wrapper's refusals on CUDA
+tensors.
 
 Inputs are drawn once with numpy and handed to both frameworks.  The CUDA
 kernel itself runs only on the card: chip_smoke.py holds it against the same
@@ -24,6 +26,7 @@ from repro_torch.kernels.ssd import (ssd_intra_chunk,  # noqa: E402
                                      ssd_intra_chunk_reference,
                                      ssd_reference)
 from repro_torch.kernels.ssd.ops import _check_cuda_inputs  # noqa: E402
+from repro_torch.kernels.ssd.ref import NEG_INF, split3_bf16  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 KERNEL_TOL = dict(atol=2e-4, rtol=1e-3)      # tests/test_kernels.py:94-97
@@ -31,6 +34,8 @@ CHUNKED_TOL = dict(atol=1e-3, rtol=1e-3)     # tests/test_kernels.py:75-78
 PALLAS_ATOL = 1e-4                           # tests/test_kernels.py:110-111
 # stepwise recurrences in f32 on both sides: only the order of sums differs
 REF_TOL = dict(atol=1e-5, rtol=1e-5)
+# chip_smoke.py's bound on rms(error) / rms(plain) over each row of P
+SSD_ROW_REL = 1e-4
 
 # tests/test_kernels.py:81-83 -- B, NC, L, H, P, N
 SHAPES = [(2, 2, 16, 4, 8, 16), (1, 4, 32, 2, 16, 8), (2, 1, 64, 8, 32, 32),
@@ -94,6 +99,112 @@ def test_intra_chunk_reference_is_the_kernel_function():
     for got, want in zip(ssd_intra_chunk(*tx),
                          ssd_intra_chunk_reference(*tx)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _split_operands(xc, dtc, cum, bc, cc):
+    """The kernel's f32 A operands: M (B,NC,L,L,H) as the plain version
+    builds it, and the state weights w·B (B,NC,L,H,N), B times w as the
+    kernel forms them."""
+    l = xc.shape[2]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    causal = torch.tril(torch.ones(l, l, dtype=torch.bool))
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                  NEG_INF))
+    m = torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None] * decay * \
+        dtc[:, :, None, :, :]
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+    return m, bc[:, :, :, None, :] * w[..., None]
+
+
+def _rows(y, st):
+    p = y.shape[-1]
+    return torch.cat([y.reshape(-1, p), st.reshape(-1, p)]).double()
+
+
+def _row_rel_err(got, want):
+    err = (got - want).pow(2).mean(-1).sqrt()
+    return float((err / want.pow(2).mean(-1).sqrt().clamp_min(1e-30)).max())
+
+
+def _served_inputs(shape, decay=None, seed=11):
+    """As the mamba2 path gives them: x bf16, B and C f32 carrying bf16
+    values, cum = cumsum(dt A) with A = -linspace(1, 16, H), or -decay."""
+    b, nc, l, h, p, n = shape
+    a = -np.linspace(1.0, 16.0, h) if decay is None else np.full(h, -decay)
+    arrs = [torch.from_numpy(t) for t in
+            _intra_inputs(b, nc, l, h, p, n, seed=seed, a=a)]
+    arrs[0] = arrs[0].to(torch.bfloat16)
+    arrs[3:] = [t.to(torch.bfloat16).float() for t in arrs[3:]]
+    return arrs
+
+
+# Below 2^-110 the third part (16 bits under the first) falls among bf16's
+# subnormals, whose spacing is 2^-133: the split is exact above, and off by
+# less than that spacing below (M's decay underflows to such values).
+SPLIT_EXACT_FROM, SUBNORMAL_SPACING = 2.0 ** -110, 2.0 ** -133
+
+
+@pytest.mark.parametrize("source", ["served M", "mild M", "wide range"])
+def test_split3_bf16_gives_back_every_value(source):
+    """hi + mid + lo is every f32 value of M and w·B exactly (those under
+    2^-110 to within bf16's subnormal spacing), summed in f64 or in f32
+    (lo + mid first, as the kernel's products are summed)."""
+    if source == "wide range":
+        rng = np.random.default_rng(3)
+        t = torch.from_numpy((rng.standard_normal(200_000) * 2.0 **
+                              rng.integers(-100, 100, 200_000))
+                             .astype(np.float32))
+    else:
+        decay = None if source == "served M" else 0.01
+        m, wb = _split_operands(*_served_inputs((1, 1, 256, 8, 64, 128),
+                                                decay)[:5])
+        t = torch.cat([m.flatten(), wb.flatten()])
+    hi, mid, lo = split3_bf16(t)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    normal = t.abs() >= SPLIT_EXACT_FROM
+    assert int(normal.sum()) > 10_000
+    back = hi.double() + mid.double() + lo.double()
+    assert torch.equal(back[normal], t.double()[normal])
+    assert float((back - t.double()).abs().max()) < SUBNORMAL_SPACING
+    back32 = (lo.float() + mid.float()) + hi.float()
+    assert torch.equal(back32[normal], t[normal])
+    # each part holds the next 8 bits: |mid| <= ulp(hi) / 2, |lo| likewise
+    assert bool((mid.float().abs() <= hi.float().abs() * 2.0 ** -8).all())
+    assert bool((lo.float().abs() <= mid.float().abs() * 2.0 ** -8).all())
+
+
+@pytest.mark.parametrize("shape,decay", [
+    ((1, 3, 256, 48, 64, 128), None),     # mamba2's 663-token prefill
+    ((1, 3, 256, 48, 64, 128), 0.01),     # chip_smoke.py's mild decay
+    ((1, 2, 200, 5, 64, 128), 0.01),
+])
+def test_split_products_stay_within_row_bound(shape, decay):
+    """y and the states from the three bf16 parts of M and w·B times bf16
+    X, each part's product summed in f32, the smallest first: within
+    SSD_ROW_REL of an f64 sum, and near the plain f32 version's own error
+    (a single bf16 part, at 2^-8, would not be)."""
+    xc, dtc, cum, bc, cc = _served_inputs(shape, decay)
+    exact = _rows(*ssd_intra_chunk_reference(
+        *(t.double() for t in (xc, dtc, cum, bc, cc))))
+    plain = _row_rel_err(_rows(*ssd_intra_chunk_reference(
+        xc, dtc, cum, bc, cc)), exact)
+    m, wb = _split_operands(xc, dtc, cum, bc, cc)
+    x = xc.float()
+    y = st = 0
+    for part in reversed(split3_bf16(m)):
+        y = y + torch.einsum("bcijh,bcjhp->bcihp", part.float(), x)
+    for part in reversed(split3_bf16(wb)):
+        st = st + torch.einsum("bclhn,bclhp->bchnp", part.float(), x)
+    split = _row_rel_err(_rows(y, st), exact)
+    one_part = _row_rel_err(_rows(
+        torch.einsum("bcijh,bcjhp->bcihp", split3_bf16(m)[0].float(), x),
+        torch.einsum("bclhn,bclhp->bchnp", split3_bf16(wb)[0].float(), x)),
+        exact)
+    assert split < SSD_ROW_REL
+    # observed on the CPU: split / plain 0.81-1.00 (3.7e-5 at the served
+    # decay, 3e-7 under mild decay); one part alone 3e-3-4e-3
+    assert split < 2 * plain, (split, plain)
+    assert one_part > SSD_ROW_REL
 
 
 def _ssd_inputs(s, h, seed, b=2, p=8, n=4):
