@@ -12,32 +12,40 @@ result line):
 2. build: every CUDA kernel from the sources in the checkout, in parallel.
 3. kernels vs their plain PyTorch versions on the card, at the cases of
    tests/test_kernels.py and at the very shapes that phase 5 serves (flash
-   attention: hd-128 prefill shapes, the served prompts of deepseek-7b
-   and llama4-scout, and bf16 cases for every branch of the wgmma kernel
-   at hd 64 and 128; the grouped expert FFN: llama4-scout's prefill of
-   each served prompt and its decode step, a 768-token prefill, arctic's
-   expert widths, and buffers with dead experts and dead rows as the MoE
-   dispatch leaves them, whose outputs must be exact zeros; the SSD
-   intra-chunk kernel: mamba2-780m's prefill of each served prompt and of
-   1- and 2-token prompts, x in bf16, each one-chunk prompt (ragged L)
-   again under mild decay, B > 1, x as a view of the model's projection,
-   inputs not 16-byte aligned and P < 64; with an f64 sum as the yardstick
-   of rounding).
+   attention: hd-128 prefill shapes, the served prompts of deepseek-7b,
+   llama4-scout and zamba2-2.7b (hd 80), whisper-medium's decoder and
+   llava-next's 2880 patches + prompt, bf16 cases for every branch of the
+   wgmma kernel at hd 64 and 128, and f32 and bf16 cases at hd 80; the
+   grouped expert FFN: llama4-scout's prefill of each served prompt and its
+   decode step, a 768-token prefill, arctic's expert widths, and buffers
+   with dead experts and dead rows as the MoE dispatch leaves them, whose
+   outputs must be exact zeros; the SSD intra-chunk kernel: mamba2-780m's
+   and zamba2-2.7b's prefill of each served prompt, mamba2's of 1- and
+   2-token prompts, x in bf16, each one-chunk prompt (ragged L) again under
+   mild decay, B > 1, x as a view of the model's projection, inputs not
+   16-byte aligned and P < 64; for flash and SSD, an f64 sum as the
+   yardstick of rounding, which flash's bf16 rows may be no farther from
+   than the plain version's).
 4. the port on the card vs the same port code on the CPU (f32 smoke
-   configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout and
-   mamba2-780m): greedy serving tokens equal, prefill logits within rel
-   5e-4.
-5. the three main paths, each served by ``ServingEngine`` with random
-   weights from a seed and every kernel launch counted from 0: full-width
+   configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
+   mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
+   llava-next through prefill and 8 decode steps): greedy tokens equal,
+   logits within rel 5e-4.
+5. the six main paths, with random weights from a seed and every kernel
+   launch counted from 0.  Served by ``ServingEngine``: full-width
    deepseek-7b (bf16), llama4-scout at its full widths with 12 of its 48
-   layers (bf16, 57 GB of weights; all 48 do not fit one card), and
-   mamba2-780m at its full width and depth (bf16).
+   layers (bf16, 57 GB of weights; all 48 do not fit one card),
+   mamba2-780m and zamba2-2.7b at their full width and depth (bf16).
+   Served by the batched loop of ``launch/serve.py`` (their prefill takes
+   frames or patches besides tokens): whisper-medium and
+   llava-next-mistral-7b at full width and depth (bf16).
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (flash attention at
-   (1, 2048, 32, 128) and at deepseek's longest served prefill; the grouped
-   FFN at decode with the served occupancy of 4 live experts, at decode
-   with every row filled, and at the longest served prompt's prefill, each
-   bound over the bytes of the live experts; the SSD kernel at mamba2's
+   (1, 2048, 32, 128), at deepseek's longest served prefill and at
+   zamba2's (hd 80); the grouped FFN at decode with the served occupancy
+   of 4 live experts, at decode with every row filled, and at the longest
+   served prompt's prefill, each bound over the bytes of the live
+   experts; the SSD kernel at mamba2's
    longest served prefill and at its one-chunk prompts of 254 and 92
    tokens; each in three rounds taken in turns with its yardstick, the
    card's clocks read before and after).
@@ -72,6 +80,9 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 LLAMA4 = "llama4-scout-17b-a16e"
 LLAMA4_LAYERS = 12            # of 48: 57 GB of bf16 weights on an 80 GB card
 MAMBA2 = "mamba2-780m"        # all 48 layers: 1.56 GB of bf16 weights
+ZAMBA2 = "zamba2-2.7b"        # all 54 layers: 5.4 GB of bf16 weights
+WHISPER = "whisper-medium"    # 24 + 24 layers, 1500 frames
+LLAVA = "llava-next-mistral-7b"   # 32 layers, 2880 patches: 14.5 GB
 
 # tests/test_kernels.py:20-28 -- B, Sq, Skv, H, K, hd, causal, window
 FLASH_CASES = [
@@ -95,6 +106,22 @@ WGMMA_CASES = [(b, s, t, h, k, hd, c, w) for hd in (64, 128)
                    (1, 100, 100, 4, 4, True, 0), (1, 663, 663, 8, 8, True, 0),
                    (2, 32, 128, 4, 1, True, 0), (1, 700, 700, 8, 2, True, 256),
                    (1, 64, 64, 4, 2, True, 0), (1, 200, 200, 2, 2, False, 0)]]
+# hd 80 (zamba2; the mma.sync body in bf16, FMAs in f32), in both dtypes:
+# S not a multiple of 64, a kv prefix (T > S) with MQA, GQA with a window
+# of 256, one partial tile, no causal mask, and 663 rows
+HD80_CASES = [(b, s, t, h, k, 80, c, w) for b, s, t, h, k, c, w in [
+    (1, 100, 100, 4, 4, True, 0), (2, 32, 128, 4, 1, True, 0),
+    (1, 700, 700, 8, 2, True, 256), (1, 64, 64, 4, 2, True, 0),
+    (1, 200, 200, 2, 2, False, 0), (1, 663, 663, 8, 8, True, 0)]]
+# bf16 shapes at which the kernel and the plain version are each held
+# against an f64 sum (B, S, H, K, hd; causal, T = S): deepseek's shortest
+# served prompt (one partial tile), the timed shape, zamba2's longest
+# prompt at hd 80, whisper's decoder and llava's prefill
+FLASH_FLOORS = {"deepseek 75": (1, 75, 32, 32, 128),
+                "S 2048": (1, 2048, 32, 32, 128),
+                "zamba2 663": (1, 663, 32, 32, 80),
+                "whisper decoder": (4, 64, 16, 16, 64),
+                "llava prefill": (4, 2944, 32, 8, 128)}
 F32_TOL = dict(atol=3e-5, rtol=1e-4)       # tests/test_kernels.py
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 # Bound on row_rel_err.  Late rows of a long causal prefill average many
@@ -169,6 +196,9 @@ SSD_TIMED = (1, 3, 256, 48, 64, 128)   # mamba2's 663-token prefill
 SSD_ONE_CHUNK = [(1, 1, 254, 48, 64, 128), (1, 1, 92, 48, 64, 128)]
 # the main path's traffic: 8 requests, prompts of 64-768 tokens from a seed
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS, SERVE_MAX_LEN = 8, 32, 4, 1024
+# the batched loop's traffic (whisper, llava): 4 prompts of 64 tokens (after
+# llava's 2880 patches), 32 new tokens each
+BATCH, BATCH_PROMPT = 4, 64
 
 
 def say(msg: str) -> None:
@@ -223,18 +253,19 @@ def gmm_served_shapes() -> dict:
     return shapes
 
 
-def ssd_served_shapes() -> dict:
+def ssd_served_shapes(arch: str = MAMBA2) -> dict:
     """label -> (B, NC, L, H, P, N): the SSD kernel's shapes on phase 5's
-    mamba2 path.  Each request is prefilled alone; ``ssd_chunked`` takes
-    L = min(chunk, S) and pads the tail to NC whole chunks."""
+    mamba2 (or zamba2) path.  Each request is prefilled alone;
+    ``ssd_chunked`` takes L = min(chunk, S) and pads the tail to NC whole
+    chunks."""
     from repro_torch.configs import get_config
-    cfg = get_config(MAMBA2)
+    cfg = get_config(arch)
     shapes = {}
     for p in serve_prompts(cfg.vocab):
         s = len(p)
         l = min(cfg.ssm_chunk, s)
-        shapes[f"mamba2 prefill {s}"] = (1, -(-s // l), l, cfg.ssm_heads,
-                                         cfg.ssm_head_dim, cfg.ssm_state)
+        shapes[f"{arch.split('-')[0]} prefill {s}"] = (
+            1, -(-s // l), l, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     return shapes
 
 
@@ -302,7 +333,35 @@ def phase_build() -> dict:
                         or "entry function" in ln or "Loss" in ln]
         for ln in report[name]:
             say(f"[build] {name}: {ln}")
+        say(f"[build] {name} by instantiation: "
+            + "; ".join(f"{k}: {v}" for k, v in
+                        instantiations(report[name]).items()))
     return report
+
+
+def instantiations(lines: list[str]) -> dict:
+    """ptxas's report as {"kernel<template arg>": "R registers, S bytes
+    spilled"}, the kernel named from its mangled entry (``..._mmaILi80EE``
+    is ``flash_attn_fwd_mma<80>``)."""
+    import re
+    out, label, spill = {}, None, "?"
+    for ln in lines:
+        if "entry function" in ln:
+            mangled = ln.split("'")[1]
+            name = re.findall(r"\d+([a-z_]+)I", mangled)
+            arg = re.search(r"ILi(\d+)E", mangled)
+            label = ((name[-1] if name else mangled)
+                     + (f"<{arg.group(1)}>" if arg else ""))
+            if label in out:                   # another type argument
+                label += f" #{sum(k.startswith(label) for k in out) + 1}"
+        elif "spill stores" in ln and label:
+            spill = ln.split(",")[1].split("bytes")[0].strip()
+        elif "registers" in ln and label:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out[label] = (f"{regs.group(1) if regs else '?'} registers, "
+                          f"{spill} bytes spilled")
+            label = None
+    return out
 
 
 def phase_kernels() -> float:
@@ -320,23 +379,48 @@ def phase_kernels() -> float:
     cases += [(*c, torch.bfloat16, False) for c in WGMMA_CASES]
     cases += [(b, s, s, h, k, hd, True, w, torch.bfloat16, True)
               for b, s, h, k, hd, w in PREFILL_CASES]
-    for arch in ("deepseek-7b", LLAMA4):
+    for arch in ("deepseek-7b", LLAMA4, ZAMBA2):
         cfg = get_config(arch)
         windows = sorted({0 if cfg.is_global_layer(i) else
                           cfg.sliding_window for i in range(cfg.n_layers)})
         cases += [(1, len(p), len(p), cfg.n_heads, cfg.n_kv_heads,
                    cfg.head_dim, True, w, torch.bfloat16, True)
                   for p in serve_prompts(cfg.vocab) for w in windows]
+    cases += [(*c, dt, False) for c in HD80_CASES for dt in dtypes]
+    # the batched paths' prefills: whisper's decoder self-attention, and
+    # llava's 2880 patches + prompt
+    for arch in (WHISPER, LLAVA):
+        cfg = get_config(arch)
+        s = BATCH_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+        cases.append((BATCH, s, s, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, True, 0, torch.bfloat16, True))
 
     def run(b, s, t, h, k, hd, causal, window, dtype):
         q, kk, v = qkv(b, s, t, h, k, hd, dtype, gen)
         return (flash_attention(q, kk, v, causal=causal, window=window),
                 attention_reference(q, kk, v, causal=causal, window=window))
 
-    return hold("flash_attn_fwd",
-                [(tuple(c[:8]), c[8], lambda c=c: run(*c[:9]), c[9])
-                 for c in cases],
-                {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL}, ROW_REL)
+    err = hold("flash_attn_fwd",
+               [(tuple(c[:8]), c[8], lambda c=c: run(*c[:9]), c[9])
+                for c in cases],
+               {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL}, ROW_REL)
+    # the rounding floor under BF16_TOL: the kernel (f32 scores) and the
+    # plain version (bf16 scores, as the reference's einsum gives them) each
+    # against the plain version summed in f64 on the same bf16 inputs; the
+    # kernel's worst row may be no farther from it than the plain one's
+    fgen = torch.Generator("cuda").manual_seed(7)
+    for label, (b, s, h, k, hd) in FLASH_FLOORS.items():
+        q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, fgen)
+        exact = attention_reference(q.double(), kk.double(), v.double())
+        kernel = row_rel_err(flash_attention(q, kk, v), exact)
+        plain = row_rel_err(attention_reference(q, kk, v), exact)
+        say(f"[kernels] flash_attn_fwd {label} {(b, s, h, k, hd)} bf16: row "
+            f"rel err against an f64 sum: kernel {kernel:.3e}, plain "
+            f"{plain:.3e}")
+        assert kernel <= plain, f"flash {label}: kernel farther from f64"
+        del q, kk, v, exact
+    torch.cuda.empty_cache()
+    return err
 
 
 def gmm_inputs(b, e, c, d, f, dtype, gen):
@@ -463,7 +547,8 @@ def ssd_rows(y, st):
 
 def phase_ssd() -> float:
     """The SSD intra-chunk kernel vs its plain version, at the test cases,
-    at every shape phase 5's mamba2 path gives it, at each of those with
+    at every shape phase 5's mamba2 and zamba2 paths give it, at each of
+    mamba2's with
     one chunk (a ragged L) under mild decay, at the mild-decay cases and at
     SSD_EXTRA; returns the largest abs error at the served shapes.  y and
     the states are held together, as rows of P."""
@@ -474,7 +559,8 @@ def phase_ssd() -> float:
     cases = [(f"{shape} x f32", shape, False, 0.1, "contiguous", False)
              for shape in SSD_CASES]
     cases += [(f"{label} {shape} x bf16", shape, True, None, "contiguous",
-               True) for label, shape in served.items()]
+               True) for label, shape in (*served.items(),
+                                          *ssd_served_shapes(ZAMBA2).items())]
     cases += [(f"short prompt {shape} x bf16", shape, True, None,
                "contiguous", False) for shape in SSD_SHORT]
     cases += [(f"{label} {shape} x bf16, mild decay", shape, True, 0.01,
@@ -515,10 +601,16 @@ def phase_ssd() -> float:
 
 
 def phase_card_vs_cpu() -> None:
+    """The port on the card against itself on the CPU, f32 smoke configs:
+    the engine's families through ``ServingEngine``, whisper and llava
+    through prefill and 8 decode steps of the batched loop."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import Model
     from repro_torch.runtime import ServingEngine
-    for arch in ("deepseek-7b", "gemma3-27b", "arctic-480b", LLAMA4, MAMBA2):
+    for arch in (WHISPER, LLAVA):
+        batched_card_vs_cpu(arch)
+    for arch in ("deepseek-7b", "gemma3-27b", "arctic-480b", LLAMA4, MAMBA2,
+                 ZAMBA2):
         cfg = get_smoke(arch)
         cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
         gpu = Model(cfg, device="cuda").load_state(cpu.state_dict())
@@ -542,17 +634,50 @@ def phase_card_vs_cpu() -> None:
             f"(< {MODEL_REL}); {len(done[1])} requests, greedy tokens equal")
 
 
-def phase_serve(cfg, card: str) -> dict:
-    """One main path: ``cfg`` at full width through ServingEngine, with the
-    kernels' launch counts set to 0 just before and read just after."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gmm import grouped_ffn
-    from repro_torch.kernels.ssd import ssd_intra_chunk
+def batched_card_vs_cpu(arch: str, steps: int = 8) -> None:
+    """One smoke config through prefill and ``steps`` greedy decode steps
+    on the CPU and on the card, from the same weights and batch
+    (``serve.make_batch`` on the CPU, copied): the tokens must be equal and
+    every step's logits within MODEL_REL."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
     from repro_torch.models import Model
-    from repro_torch.runtime import ServingEngine
+    cfg = get_smoke(arch)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device="cuda").load_state(cpu.state_dict())
+    batch = serve.make_batch(cfg, 2, 24, "cpu")
+    pad_to = serve.pad_len(cfg, 24, steps + 1)
+    runs = []
+    for model in (cpu, gpu):
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        logits, cache = model.prefill(b, pad_to=pad_to)
+        out = [logits.cpu()]
+        for _ in range(steps):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            logits, cache = model.decode_step(tok, cache)
+            out.append(logits.cpu())
+        runs.append(out)
+    rel = max(rel_err(g, c) for c, g in zip(*runs))
+    toks = [[torch.argmax(x, -1).tolist() for x in run] for run in runs]
+    assert rel < MODEL_REL, f"{arch}: logits rel {rel}"
+    assert toks[0] == toks[1], f"{arch}: tokens differ {toks}"
+    say(f"[card-vs-cpu] {arch} smoke f32: prefill and {steps} decode steps, "
+        f"batch 2, logits rel {rel:.2e} (< {MODEL_REL}), greedy tokens "
+        f"equal")
 
-    tag = f"[serve {cfg.name}]"
-    ssm = cfg.family == "ssm"
+
+def attention_layers(cfg) -> int:
+    """The layers whose prefill runs flash attention: every layer, none
+    (ssm), the shared block once per ``attn_every`` layers (hybrid), or the
+    decoder's (encdec; the encoder's attention is not causal)."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)
+            }.get(cfg.family, cfg.n_layers)
+
+
+def build_model(cfg, tag: str):
+    """``cfg`` at full width on the card, weights drawn from seed 0; says
+    its widths and size."""
+    from repro_torch.models import Model
     gc.collect()                 # an earlier path's model is gone for good
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -563,16 +688,33 @@ def phase_serve(cfg, card: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     moe = (f", {cfg.n_experts} experts top-{cfg.top_k}, shared expert "
            f"{cfg.shared_expert_ff}" if cfg.n_experts else "")
-    widths = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
-              f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
-              f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}" if ssm else
-              f"{cfg.n_heads} heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), "
-              f"d_ff {cfg.d_ff}{moe}")
+    widths = ", ".join(
+        ([f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
+          f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}"]
+         if cfg.family in ("ssm", "hybrid") else [])
+        + ([f"{cfg.n_heads} heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), "
+            f"d_ff {cfg.d_ff} {cfg.mlp_act}{moe}"]
+           if attention_layers(cfg) else [])
+        + ([f"shared attention + MLP block every {cfg.attn_every} layers"]
+           if cfg.family == "hybrid" else [])
+        + ([f"{cfg.enc_layers} encoder layers over {cfg.enc_len} frames"]
+           if cfg.family == "encdec" else [])
+        + ([f"{cfg.n_patches} image patches"] if cfg.family == "vlm"
+           else []))
     say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {widths}, "
         f"vocab {cfg.vocab}, {cfg.param_dtype}: "
         f"{n_params:,} params ({model.cfg.param_counts()['total']:.4g} "
         f"counted), init {time.perf_counter() - t0:.1f} s")
+    return model
 
+
+def time_calls(model) -> tuple[list, list]:
+    """Time each of the model's prefill and decode_step calls (host clock,
+    synchronised before and after) into the two lists returned; prefill
+    logits must be finite.  ``del model.prefill, model.decode_step`` goes
+    back to the class's methods: bound methods stored on the instance
+    would make a reference cycle that keeps the weights on the card."""
     prefill_s, decode_s = [], []
     prefill, decode = model.prefill, model.decode_step
 
@@ -594,38 +736,33 @@ def phase_serve(cfg, card: str) -> dict:
         return out
 
     model.prefill, model.decode_step = timed_prefill, timed_decode
-    engine = ServingEngine(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
-    prompts = serve_prompts(cfg.vocab)
-    lens = [len(p) for p in prompts]
-    ids = [engine.submit(p, max_new=SERVE_NEW) for p in prompts]
+    return prefill_s, decode_s
 
+
+def zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_ffn
+    from repro_torch.kernels.ssd import ssd_intra_chunk
     flash_attention.launches = grouped_ffn.launches = 0
     ssd_intra_chunk.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attn_fwd": flash_attention.launches,
-                "moe_gmm": grouped_ffn.launches,
-                "ssd_intra_chunk": ssd_intra_chunk.launches}
 
-    assert sorted(c.id for c in done) == sorted(ids), "not all completed"
-    assert all(len(c.tokens) == SERVE_NEW for c in done), "wrong token counts"
-    assert all(0 <= t < cfg.vocab for c in done for t in c.tokens)
-    assert len(prefill_s) == SERVE_REQUESTS
-    per_prefill = cfg.n_layers * len(prefill_s)
-    want = {"flash_attn_fwd": 0 if ssm else per_prefill,
-            "moe_gmm": cfg.n_layers * (len(prefill_s) + len(decode_s))
-            if cfg.n_experts else 0,
-            "ssd_intra_chunk": per_prefill if ssm else 0}
-    assert launches == want, f"launches {launches} != {want}"
-    n_tok = sum(len(c.tokens) for c in done)
-    res = {
+
+def read_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_ffn
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    return {"flash_attn_fwd": flash_attention.launches,
+            "moe_gmm": grouped_ffn.launches,
+            "ssd_intra_chunk": ssd_intra_chunk.launches}
+
+
+def serve_record(cfg, card, prompt_lens, prefill_s, decode_s, n_tok, wall,
+                 launches) -> dict:
+    return {
         "card": card,
         "arch": cfg.name,
         "n_layers": cfg.n_layers,
-        "prompt_lens": [int(n) for n in lens],
+        "prompt_lens": [int(n) for n in prompt_lens],
         "prefill_ms_per_request": 1e3 * sum(prefill_s) / len(prefill_s),
         "prefill_ms": [1e3 * s for s in prefill_s],
         "decode_steps": len(decode_s),
@@ -636,6 +773,43 @@ def phase_serve(cfg, card: str) -> dict:
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
+
+
+def phase_serve(cfg, card: str) -> dict:
+    """One main path: ``cfg`` at full width through ServingEngine, with the
+    kernels' launch counts set to 0 just before and read just after."""
+    from repro_torch.runtime import ServingEngine
+
+    tag = f"[serve {cfg.name}]"
+    mamba = cfg.family in ("ssm", "hybrid")
+    n_attn = attention_layers(cfg)
+    model = build_model(cfg, tag)
+    prefill_s, decode_s = time_calls(model)
+    engine = ServingEngine(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    prompts = serve_prompts(cfg.vocab)
+    ids = [engine.submit(p, max_new=SERVE_NEW) for p in prompts]
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+
+    assert sorted(c.id for c in done) == sorted(ids), "not all completed"
+    assert all(len(c.tokens) == SERVE_NEW for c in done), "wrong token counts"
+    assert all(0 <= t < cfg.vocab for c in done for t in c.tokens)
+    assert len(prefill_s) == SERVE_REQUESTS
+    n_pre = len(prefill_s)
+    want = {"flash_attn_fwd": n_attn * n_pre,
+            "moe_gmm": cfg.n_layers * (n_pre + len(decode_s))
+            if cfg.n_experts else 0,
+            "ssd_intra_chunk": cfg.n_layers * n_pre if mamba else 0}
+    assert launches == want, f"launches {launches} != {want}"
+    n_tok = sum(len(c.tokens) for c in done)
+    res = serve_record(cfg, card, [len(p) for p in prompts], prefill_s,
+                       decode_s, n_tok, wall, launches)
     say(f"{tag} {len(done)} requests (prompts {res['prompt_lens']}, "
         f"{SERVE_NEW} new tokens each), slots {SERVE_SLOTS}, max_len "
         f"{SERVE_MAX_LEN}")
@@ -644,17 +818,60 @@ def phase_serve(cfg, card: str) -> dict:
         f"{len(decode_s)} steps, {res['tokens_per_s']:.1f} generated "
         f"tokens/s ({n_tok} in {wall:.2f} s), max memory allocated "
         f"{res['max_memory_allocated_gb']:.2f} GB [{card}]")
-    per_layer = f"{cfg.n_layers} layers x {len(prefill_s)} prefills"
     say(f"{tag} launches {launches}: "
-        + (f"ssd_intra_chunk = {per_layer}, no attention" if ssm else
-           f"flash = {per_layer}")
-        + (f"; moe_gmm = {cfg.n_layers} layers x ({len(prefill_s)} "
+        + "; ".join(([f"flash = {n_attn} attention layers x {n_pre} "
+                      f"prefills"] if n_attn else ["no attention"])
+                    + ([f"ssd_intra_chunk = {cfg.n_layers} mamba layers x "
+                        f"{n_pre} prefills"] if mamba else []))
+        + (f"; moe_gmm = {cfg.n_layers} layers x ({n_pre} "
            f"prefills + {len(decode_s)} decode steps)" if cfg.n_experts
            else ""))
-    # back to the class's methods: bound methods stored on the instance
-    # would make a reference cycle that keeps the weights on the card
     del model.prefill, model.decode_step
     res["profile"] = phase_profile(model, card)
+    return res
+
+
+def phase_serve_batched(cfg, card: str) -> dict:
+    """One main path that the engine does not serve (its prefill takes
+    frames or patches besides tokens): ``cfg`` at full width through the
+    batched loop of ``launch/serve.py`` (``make_batch``, ``generate``):
+    BATCH prompts of BATCH_PROMPT tokens, SERVE_NEW new tokens each, with
+    the kernels' launch counts set to 0 just before and read just after."""
+    from repro_torch.launch import serve
+
+    tag = f"[serve {cfg.name}]"
+    model = build_model(cfg, tag)
+    prefill_s, decode_s = time_calls(model)
+    batch = serve.make_batch(cfg, BATCH, BATCH_PROMPT, "cuda")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = serve.generate(model, batch, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+
+    assert toks.shape == (BATCH, SERVE_NEW), toks.shape
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+    assert len(prefill_s) == 1 and len(decode_s) == SERVE_NEW - 1
+    want = {"flash_attn_fwd": attention_layers(cfg), "moe_gmm": 0,
+            "ssd_intra_chunk": 0}
+    assert launches == want, f"launches {launches} != {want}"
+    res = serve_record(cfg, card, [BATCH_PROMPT] * BATCH, prefill_s,
+                       decode_s, toks.numel(), wall, launches)
+    extra = (f"{cfg.enc_len} frames each" if cfg.family == "encdec" else
+             f"after {cfg.n_patches} patches each")
+    say(f"{tag} one batch of {BATCH} prompts of {BATCH_PROMPT} tokens "
+        f"({extra}), {SERVE_NEW} new tokens each, through launch/serve.py")
+    say(f"{tag} prefill {res['prefill_ms'][0]:.2f} ms (the batch), decode "
+        f"{res['decode_ms_per_step']:.2f} ms/step over {len(decode_s)} "
+        f"steps, {res['tokens_per_s']:.1f} generated tokens/s "
+        f"({toks.numel()} in {wall:.2f} s), max memory allocated "
+        f"{res['max_memory_allocated_gb']:.2f} GB [{card}]")
+    say(f"{tag} launches {launches}: flash = {attention_layers(cfg)} "
+        f"{'decoder ' if cfg.family == 'encdec' else ''}layers x 1 prefill")
+    del model.prefill, model.decode_step
     return res
 
 
@@ -746,24 +963,26 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_served_shape() -> tuple:
-    """(B, S, H, K, hd, window) of deepseek-7b's longest served prompt."""
+def flash_served_shape(arch: str = "deepseek-7b") -> tuple:
+    """(B, S, H, K, hd, window) of ``arch``'s longest served prompt."""
     from repro_torch.configs import get_config
-    cfg = get_config("deepseek-7b")
+    cfg = get_config(arch)
     s = max(len(p) for p in serve_prompts(cfg.vocab))
     return (1, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0)
 
 
 def phase_timing(card: str) -> dict:
-    """Flash attention, bf16 causal, at (1, 2048, 32, 128) and at deepseek's
-    longest served prefill: three rounds each, in turns with SDPA, medians
-    kept, the card's clocks read before and after."""
+    """Flash attention, bf16 causal, at (1, 2048, 32, 128), at deepseek's
+    longest served prefill and at zamba2's (hd 80, the mma.sync body):
+    three rounds each, in turns with SDPA, medians kept, the card's clocks
+    read before and after."""
     from repro_torch.kernels.flash_attention import (attention_reference,
                                                      flash_attention)
     gen = torch.Generator("cuda").manual_seed(2)
     saved = flash_attention.launches
     out = {}
-    for key, shape in (("timed", TIMED), ("served", flash_served_shape())):
+    for key, shape in (("timed", TIMED), ("served", flash_served_shape()),
+                       ("served_hd80", flash_served_shape(ZAMBA2))):
         b, s, h, k, hd, window = shape
         q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
         # SDPA takes (B, H, S, hd): transposed once, outside the timed call
@@ -1027,7 +1246,10 @@ def main(argv: list[str]) -> int:
     paths = [phase_serve(get_config("deepseek-7b"), card),
              phase_serve(get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS),
                          card),
-             phase_serve(get_config(MAMBA2), card)]
+             phase_serve(get_config(MAMBA2), card),
+             phase_serve(get_config(ZAMBA2), card),
+             phase_serve_batched(get_config(WHISPER), card),
+             phase_serve_batched(get_config(LLAVA), card)]
     timing = phase_timing(card)
     gmm = phase_timing_gmm(card)
     ssd = phase_timing_ssd(card)
@@ -1048,11 +1270,13 @@ def main(argv: list[str]) -> int:
         **{k: timing["timed"][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms",
                                            "shape")},
-        # deepseek's longest served prefill beside the (1, 2048, 32, 128) one
+        # deepseek's and zamba2's (hd 80) longest served prefills beside
+        # the (1, 2048, 32, 128) one
         "graph_ms": timing["timed"]["graph_ms"],
-        "served": {k: timing["served"][k] for k in
-                   ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")},
+        **{key: {k: timing[key][k] for k in
+                 ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms")}
+           for key in ("served", "served_hd80")},
     }, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

@@ -18,9 +18,9 @@
 // registers.  kv tiles wholly outside the causal / window band are never
 // loaded.  Causal q tiles are issued heaviest first so the last wave is not
 // a long tail.  The head dim picks one of three bodies at compile time:
-//   * bfloat16, hd 64 and 128 (every served path): one block per (q tile of
-//     128 rows, head, batch) holds two consumer warpgroups of 64 q rows and
-//     one producer warp.  The producer loads Q once and each kv tile of 128
+//   * bfloat16, hd 64 and 128 (every served path but zamba2's): one block
+//     per (q tile of 128 rows, head, batch) holds two consumer warpgroups of
+//     64 q rows and one producer warp.  The producer loads Q once and each kv tile of 128
 //     rows through TMA (rank-4 tensor maps over the tensors' own strides,
 //     128-byte swizzle) into a 2-stage ring, each stage with a full and an
 //     empty mbarrier, so the next tile's load overlaps this tile's products.
@@ -37,9 +37,14 @@
 //     shared memory at hd 128 (one block an SM either way), and the score
 //     tile (64 f32 a thread), the output (64) and P (32) fit the 168
 //     registers ptxas gives a thread of this 288-thread block, unspilled.
-//   * bfloat16, hd 16 and 32 (test shapes only): four warps of 16 q rows on
-//     mma.sync m16n8k16, K and V staged synchronously in 64-row tiles, every
-//     score masked.
+//   * bfloat16, hd 16, 32 and 80: four warps of 16 q rows on mma.sync
+//     m16n8k16, K and V staged synchronously in 64-row tiles, every score
+//     masked.  hd 80 is zamba2's served width: 5 k-steps of 16, 10 output
+//     tiles of 8, and 5 staging loads of 16 bytes a thread per 64-row tile.
+//     It takes no wgmma body, whose 64-column panels of 128-byte swizzled
+//     rows do not divide 80 (a TMA box of 160 bytes takes no 128-byte
+//     swizzle); padding to 128 would copy q, k, v on every call and spend
+//     37.5 % of the products on zero columns.
 //   * float32 (the tests' dtype): f32 FMAs, which keep f32 results exact to
 //     the order of sums (TF32 tensor cores would not); each thread keeps a
 //     4 x 4 block of scores and a 4 x hd/16 block of the output.
@@ -49,7 +54,9 @@
 // hd 128), the kernel must move at most 25.2 MB (7.5 us at 3.35 TB/s)
 // against 4.8 GFLOP of the causal half (4.9 us at 989 TFLOP/s): bound by
 // bytes.  At S = 2048 it moves 67 MB (20 us) and does 34 GFLOP (35 us):
-// bound by operations.  What the design does about it: the band skip does
+// bound by operations.  At zamba2's longest served prefill, (1, 663, 32, 80)
+// on the mma.sync body, it moves 13.6 MB (4.1 us) against 2.3 GFLOP (2.3
+// us): bound by bytes.  What the design does about it: the band skip does
 // only the work the mask leaves; each kv tile is read from memory once per
 // q tile of 128 rows; TMA moves tiles without spending threads on
 // addresses, and the ring keeps one tile in flight behind the products;
@@ -123,7 +130,7 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-// ======================================= bfloat16, hd 16 / 32: mma.sync
+// =================================== bfloat16, hd 16 / 32 / 80: mma.sync
 namespace bf16 {
 
 constexpr int kThreads = 128;      // 4 warps x 16 q rows
@@ -194,6 +201,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kKS = HD / 16;         // k-steps of q.k over hd
   constexpr int kNT = kBlockK / 8;     // 8-column score tiles per kv tile
   constexpr int kON = HD / 8;          // 8-column output tiles
+  static_assert(HD % 16 == 0, "k-steps and output tile pairs of 16 columns");
   extern __shared__ uint4 smem_bf16[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
   __nv_bfloat16* ks = qs + kBlockQ * LD;
@@ -983,7 +991,7 @@ template <int HD>
 cudaError_t launch_hd(const Params& p, int dtype, int B, cudaStream_t st) {
   if (dtype == 0) return f32::launch<HD>(p, B, st);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (HD >= 64)
+  if constexpr (HD % wg::kPanel == 0)   // whole 64-column panels
     return wg::launch<HD>(p, B, HD, st);
   else
     return bf16::launch<HD>(p, B, st);
@@ -1012,6 +1020,7 @@ extern "C" int flash_attn_fwd(
     case 16: err = launch_hd<16>(p, dtype, B, st); break;
     case 32: err = launch_hd<32>(p, dtype, B, st); break;
     case 64: err = launch_hd<64>(p, dtype, B, st); break;
+    case 80: err = launch_hd<80>(p, dtype, B, st); break;
     case 128: err = launch_hd<128>(p, dtype, B, st); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -12,8 +12,8 @@ import torch
 from .kernel import flash_attention_cuda
 from .ref import attention_reference
 
-HEAD_DIMS = (16, 32, 64, 128)
-TMA_HEAD_DIMS = (64, 128)       # bf16 on wgmma + TMA; 16, 32 on mma.sync
+HEAD_DIMS = (16, 32, 64, 80, 128)
+TMA_HEAD_DIMS = (64, 128)       # bf16 on wgmma + TMA; 16, 32, 80 on mma.sync
 DTYPES = (torch.float32, torch.bfloat16)
 
 

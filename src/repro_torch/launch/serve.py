@@ -3,12 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         [--smoke] [--batch 4 --prompt-len 32 --gen 16] [--device cuda]
 
-Serves the dense, MoE and SSM families (``--arch arctic-480b`` or
-``llama4-scout-17b-a16e``; the full MoE configs are larger than one 80 GB
-card, so run those with ``--smoke``.  ``--arch mamba2-780m`` fits at its
-full width and depth).  Runs on CUDA unless ``--device``
-names another device.  Weights and prompt tokens are random, drawn from
-seeded ``torch.Generator``s on that device.
+Serves every family.  At full width one 80 GB card holds deepseek-7b,
+mamba2-780m, zamba2-2.7b (hybrid), whisper-medium (encoder-decoder: 1500
+audio frames) and llava-next-mistral-7b (VLM: 2880 image patches before the
+prompt); the full MoE configs (``--arch arctic-480b`` or
+``llama4-scout-17b-a16e``) are larger than the card, so run those with
+``--smoke``.  The encoder-decoder and the VLM are served here and not by
+``runtime.ServingEngine``, whose requests are token prompts alone.  Runs on
+CUDA unless ``--device`` names another device.  Weights, prompt tokens,
+frames and patches are random, drawn from seeded ``torch.Generator``s on
+that device.
 """
 from __future__ import annotations
 
@@ -20,6 +24,44 @@ import torch
 from ..configs import ARCHS, get_config, get_smoke
 from ..models import Model
 from ..models.common import require_device
+from ..models.config import ArchConfig
+from ..models.lm import PATCH_DIM
+
+
+def make_batch(cfg: ArchConfig, b: int, s: int, device) -> dict:
+    """Random prompt tokens (B,S) and, for the encoder-decoder, frames
+    (B, enc_len, d_model), for the VLM patches (B, n_patches, 1024), each
+    0.1 N(0, 1), drawn from generators seeded 1 on ``device``."""
+    gen = torch.Generator(device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), device=device,
+                                     generator=gen)}
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn(
+            (b, cfg.enc_len, cfg.d_model), device=device, generator=gen)
+    if cfg.family == "vlm":
+        batch["patches"] = 0.1 * torch.randn(
+            (b, cfg.n_patches, PATCH_DIM), device=device, generator=gen)
+    return batch
+
+
+def pad_len(cfg: ArchConfig, s: int, gen: int) -> int:
+    """The K/V length a prompt of ``s`` tokens and ``gen`` new ones need:
+    the VLM's patches come first."""
+    return s + gen + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+
+def generate(model: Model, batch: dict, gen: int) -> torch.Tensor:
+    """Prefill the batch, then ``gen - 1`` greedy decode steps; (B, gen)
+    tokens on the model's device."""
+    pad_to = pad_len(model.cfg, batch["tokens"].shape[1], gen)
+    logits, cache = model.prefill(batch, pad_to=pad_to)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out = [tok]
+    for _ in range(gen - 1):
+        logits, cache = model.decode_step(tok, cache)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
 
 
 def main(argv: list[str] | None = None) -> torch.Tensor:
@@ -36,22 +78,14 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, device=device).init(
         torch.Generator(device).manual_seed(0))
-    b, s = args.batch, args.prompt_len
-    tokens = torch.randint(0, cfg.vocab, (b, s), device=device,
-                           generator=torch.Generator(device).manual_seed(1))
+    batch = make_batch(cfg, args.batch, args.prompt_len, device)
 
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": tokens}, pad_to=s + args.gen)
-    tok = torch.argmax(logits, dim=-1)[:, None]
-    out = [tok]
-    for _ in range(args.gen - 1):
-        logits, cache = model.decode_step(tok, cache)
-        tok = torch.argmax(logits, dim=-1)[:, None]
-        out.append(tok)
-    toks = torch.cat(out, dim=1).cpu()     # waits for the device
+    toks = generate(model, batch, args.gen).cpu()     # waits for the device
     dt = time.perf_counter() - t0
     print(f"generated {tuple(toks.shape)} on {device} in {dt:.2f}s "
-          f"({b * args.gen / dt:.1f} tok/s incl. first-call set-up)")
+          f"({args.batch * args.gen / dt:.1f} tok/s incl. first-call "
+          f"set-up)")
     print("sample:", toks[0, :16].tolist())
     return toks
 

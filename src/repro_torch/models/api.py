@@ -5,18 +5,23 @@
     logits, cache = model.prefill(batch, pad_to=...)
     logits, cache = model.decode_step(tokens, cache)     # cache updated in place
 
-The cache holds K/V for the attention families and the conv and ssm states
-for the SSM family (``lm.py``); ``pad_to`` reserves K/V slots and the SSM
-family ignores it.
+The model dispatches by family, as the reference does: ``encdec.py`` for
+the encoder-decoder (whisper), ``lm.py`` for the rest.  The cache holds K/V
+for the attention families, the conv and ssm states for the SSM family,
+both for the hybrid, and the cross-attention K/V besides for the
+encoder-decoder; ``pad_to`` reserves K/V slots and the mamba states ignore
+it.
 
-``batch`` is a dict with "tokens" (B,S) int64 on the model's device.
+``batch`` is a dict with "tokens" (B,S) int64 on the model's device, and
+"frames" (B, enc_len, d_model) for the encoder-decoder or "patches" (B,
+n_patches, 1024) for the VLM.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from . import lm
+from . import encdec, lm
 from .common import dtype_of, require_device
 from .config import ArchConfig
 
@@ -41,7 +46,8 @@ def _tree_of(mod: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """The decoder LM (dense, MoE and SSM families) as an ``nn.Module``.
+    """Every family of the repo (dense, MoE, SSM, hybrid, VLM through
+    ``lm``; encoder-decoder through ``encdec``) as an ``nn.Module``.
 
     Parameters keep the JAX tree's names and stacked layout (state-dict keys
     such as ``layers.attn.wq`` of shape (L, D, H, hd)).  A new model holds
@@ -53,7 +59,8 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = require_device(device)
-        _populate(self, lm.init_params(cfg, None, "meta"))
+        self._mod = encdec if cfg.family == "encdec" else lm
+        _populate(self, self._mod.init_params(cfg, None, "meta"))
 
     @property
     def params(self) -> dict:
@@ -62,14 +69,14 @@ class Model(nn.Module):
 
     def init(self, generator: torch.Generator) -> "Model":
         """Draw the parameters on the model's device from ``generator``."""
-        self.load_state(flatten(lm.init_params(self.cfg, generator,
-                                                self.device)))
+        self.load_state(flatten(self._mod.init_params(self.cfg, generator,
+                                                       self.device)))
         return self
 
     def load_state(self, state: dict) -> "Model":
         """Take a flat state dict (name -> tensor), moved to the model's
         device; every parameter must be given.  Each leaf is cast to the
-        dtype of the parameter it replaces, which ``lm.init_params`` set:
+        dtype of the parameter it replaces, which ``init_params`` set:
         ``cfg.param_dtype`` for most, f32 for the MoE router and for
         mamba's ``A_log``, ``D`` and ``dt_bias``."""
         dtypes = {k: p.dtype for k, p in self.named_parameters()}
@@ -80,23 +87,30 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def forward_logits(self, batch) -> torch.Tensor:
-        logits, _ = lm.forward(self.params, batch["tokens"], self.cfg)
+        params = self.params
+        if self.cfg.family == "encdec":
+            enc_out = encdec.encode(params, batch["frames"], self.cfg)
+            logits, _ = encdec.dec_forward(params, batch["tokens"], enc_out,
+                                           self.cfg)
+            return logits
+        logits, _ = lm.forward(params, batch["tokens"], self.cfg,
+                               patches=batch.get("patches"))
         return logits
 
     @torch.no_grad()
     def prefill(self, batch, pad_to: int | None = None):
-        return lm.prefill(self.params, batch, self.cfg, pad_to=pad_to)
+        return self._mod.prefill(self.params, batch, self.cfg, pad_to=pad_to)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache):
-        return lm.decode_step(self.params, tokens, cache, self.cfg)
+        return self._mod.decode_step(self.params, tokens, cache, self.cfg)
 
     def init_decode_cache(self, batch: int, max_len: int,
                           dtype: torch.dtype | None = None) -> dict:
         """Zero cache; ``dtype`` defaults to the config's compute dtype."""
         dtype = dtype_of(self.cfg.compute_dtype) if dtype is None else dtype
-        return lm.init_decode_cache(self.cfg, batch, max_len, dtype,
-                                    self.device)
+        return self._mod.init_decode_cache(self.cfg, batch, max_len, dtype,
+                                           self.device)
 
 
 

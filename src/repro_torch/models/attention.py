@@ -1,9 +1,11 @@
 """GQA attention: full-sequence (prefill), single-token decode with a KV
-cache, optional sliding window (gemma3-style local layers), RoPE.
+cache, optional sliding window (gemma3-style local layers), RoPE; and the
+encoder-decoder's cross-attention.
 
 The causal full-sequence path goes through ``kernels.flash_attention``: the
 hand-written CUDA kernel for CUDA tensors, its plain version on the CPU.
-Decode attention has no kernel in the reference and stays plain torch."""
+Decode attention, the encoder's non-causal attention and cross-attention
+have no kernel in the reference and stay plain torch."""
 from __future__ import annotations
 
 import torch
@@ -101,3 +103,21 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg: ArchConfig,
     out = _sdpa(q, cache_k, cache_v, mask[:, None, None, :])
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, (cache_k, cache_v)
+
+
+def cross_attention(params, x, enc_k, enc_v, cfg: ArchConfig) -> torch.Tensor:
+    """Decoder -> encoder attention over every encoder position, no RoPE;
+    enc_k/v (B,T,K,hd) precomputed by ``encode_kv``.  Plain torch, as in
+    the reference (no Pallas kernel there)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    mask = torch.ones((1, 1, x.shape[1], enc_k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, enc_k, enc_v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def encode_kv(params, enc_out) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of the encoder output (B,T,D)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"])
+    return k, v

@@ -1,0 +1,169 @@
+"""Encoder-decoder backbone (whisper-medium).
+
+The audio conv frontend is a stub, as in the JAX package: the caller hands
+in frame embeddings (B, enc_len, d_model).  The encoder is a non-causal
+transformer over the frames; the decoder a causal one with per-layer
+cross-attention to the encoder output.  The parameter tree keeps the JAX
+package's names and stacked layout (``enc_layers.attn.wq`` is (E,D,H,hd),
+``dec_layers.xattn.wq`` (L,D,H,hd)).
+
+    encode(params, frames, cfg)                  -> encoder output (B,T,D)
+    dec_forward(params, tokens, enc_out, cfg)    -> logits, cache|None
+    prefill(params, batch, cfg)                  -> last-token logits, cache
+    decode_step(params, tokens, cache, cfg)      -> logits (cache in place)
+
+Cache: {"k", "v": (L,B,T,K,hd) self-attention, padded to ``pad_to``;
+"xk", "xv": (L,B,enc_len,K,hd) cross-attention; "pos": (B,) int64}.
+
+The decoder's causal self-attention goes through ``kernels.flash_attention``
+(the hand-written CUDA kernel on the card); the encoder's attention and the
+cross-attention stay plain torch, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .attention import (cross_attention, decode_attention, encode_kv,
+                        full_attention, init_attn_params)
+from .common import dtype_of, normal_init, rms_norm
+from .config import ArchConfig
+from .lm import _layer, _logits
+from .mlp import init_mlp_params, mlp_forward
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | None,
+                device) -> dict:
+    """Draw the parameter tree (f32 draws cast to ``cfg.param_dtype``); on
+    ``device="meta"`` it only describes shapes."""
+    if cfg.family != "encdec":
+        raise ValueError(f"{cfg.name}: encdec takes the family 'encdec', not "
+                         f"{cfg.family!r}")
+    dtype = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+
+    def norms(lead, *names):
+        return {n: torch.zeros((*lead, d), dtype=dtype, device=device)
+                for n in names}
+
+    def mlp(lead):
+        return init_mlp_params(generator, d, cfg.d_ff, cfg.mlp_act, dtype,
+                               device, lead=lead)
+
+    enc, dec = (cfg.enc_layers,), (cfg.n_layers,)
+    return {
+        "embed": normal_init(generator, (cfg.vocab, d), 0.02, dtype, device),
+        "enc_pos": normal_init(generator, (cfg.enc_len, d), 0.02, dtype,
+                               device),
+        "enc_layers": {
+            **norms(enc, "ln1", "ln2"),
+            "attn": init_attn_params(generator, cfg, dtype, device, lead=enc),
+            "mlp": mlp(enc),
+        },
+        "enc_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "dec_layers": {
+            **norms(dec, "ln1", "ln2", "ln3"),
+            "attn": init_attn_params(generator, cfg, dtype, device, lead=dec),
+            "xattn": init_attn_params(generator, cfg, dtype, device,
+                                      lead=dec),
+            "mlp": mlp(dec),
+        },
+        "final_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "lm_head": normal_init(generator, (d, cfg.vocab), d ** -0.5, dtype,
+                               device),
+    }
+
+
+def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
+    """frames (B,T,D) stub embeddings -> encoder output (B,T,D)."""
+    t = frames.shape[1]
+    h = frames.to(dtype_of(cfg.compute_dtype)) + params["enc_pos"][None, :t]
+    positions = torch.arange(t, device=frames.device)[None, :]
+    for i in range(cfg.enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        a, _ = full_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
+                              positions, cfg, window=0, causal=False)
+        h = h + a
+        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                            cfg.mlp_act)
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
+                collect_cache: bool = False, last_only: bool = False):
+    """The decoder over the whole token sequence.  Returns (logits,
+    cache|None); ``last_only``: logits of the final position only."""
+    h = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    per_layer: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
+    for i in range(cfg.n_layers):
+        lp = _layer(params["dec_layers"], i)
+        a, (k, v) = full_attention(lp["attn"],
+                                   rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                   positions, cfg, window=0)
+        h = h + a
+        xk, xv = encode_kv(lp["xattn"], enc_out)
+        h = h + cross_attention(lp["xattn"],
+                                rms_norm(h, lp["ln2"], cfg.norm_eps), xk, xv,
+                                cfg)
+        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
+                            cfg.mlp_act)
+        if collect_cache:
+            for key, x in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+                per_layer[key].append(x)
+    cache = ({key: torch.stack(xs) for key, xs in per_layer.items()}
+             if collect_cache else None)
+    if last_only:
+        h = h[:, -1:, :]
+    return _logits(params, h, cfg), cache
+
+
+def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
+    """Encode ``batch["frames"]``, run the decoder over ``batch["tokens"]``;
+    return (last_logits, cache).  ``pad_to`` reserves decode slots on axis
+    2 of ``k``/``v`` (``xk``/``xv`` keep the encoder's length)."""
+    enc_out = encode(params, batch["frames"], cfg)
+    logits, cache = dec_forward(params, batch["tokens"], enc_out, cfg,
+                                collect_cache=True, last_only=True)
+    b, s = batch["tokens"].shape
+    if pad_to and pad_to > s:
+        pad = (0, 0, 0, 0, 0, pad_to - s)     # last dims first: hd, K, T
+        cache["k"] = F.pad(cache["k"], pad)
+        cache["v"] = F.pad(cache["v"], pad)
+    cache["pos"] = torch.full((b,), s, dtype=torch.int64,
+                              device=batch["tokens"].device)
+    return logits[:, -1, :], cache
+
+
+def decode_step(params, tokens, cache, cfg: ArchConfig):
+    """One decode step.  tokens (B,1) int.  Returns (logits, cache): each
+    layer's new k/v row is written into ``cache["k"]``/``cache["v"]`` **in
+    place** and ``cache["pos"]`` is incremented (the JAX version returns a
+    new cache)."""
+    h = params["embed"][tokens[:, :1]].to(dtype_of(cfg.compute_dtype))
+    pos = cache["pos"]
+    for i in range(cfg.n_layers):
+        lp = _layer(params["dec_layers"], i)
+        a, _ = decode_attention(lp["attn"],
+                                rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                cache["k"][i], cache["v"][i], pos, cfg,
+                                window=0)
+        h = h + a
+        h = h + cross_attention(lp["xattn"],
+                                rms_norm(h, lp["ln2"], cfg.norm_eps),
+                                cache["xk"][i], cache["xv"][i], cfg)
+        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
+                            cfg.mlp_act)
+    pos += 1
+    return _logits(params, h, cfg)[:, 0, :], cache
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype: torch.dtype, device) -> dict:
+    """Fresh (zero) decode cache."""
+    def zeros(t):
+        return torch.zeros((cfg.n_layers, batch, t, cfg.n_kv_heads,
+                            cfg.head_dim), dtype=dtype, device=device)
+    return {"k": zeros(max_len), "v": zeros(max_len),
+            "xk": zeros(cfg.enc_len), "xv": zeros(cfg.enc_len),
+            "pos": torch.zeros((batch,), dtype=torch.int64, device=device)}

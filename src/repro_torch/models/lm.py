@@ -1,22 +1,29 @@
 """Decoder-only LM: the dense family (deepseek, phi4, granite, gemma3), the
-MoE family (arctic, llama4-scout) and the SSM family (mamba2).
+MoE family (arctic, llama4-scout), the SSM family (mamba2), the hybrid
+(zamba2) and the VLM (llava-next).  The encoder-decoder (whisper) is
+``encdec.py``.
 
 One parameter tree with the JAX package's names and its stacked-over-layers
 layout (``layers.attn.wq`` is (L, D, H, hd)); the layer loop is a Python
 loop over views of the stacked leaves.  Entry points:
 
-    forward(params, tokens, cfg)              -> logits, cache|None
-    prefill(params, batch, cfg)               -> last-token logits, cache
-    decode_step(params, tokens, cache, cfg)   -> logits (cache updated in place)
+    forward(params, tokens, cfg, patches=None) -> logits, cache|None
+    prefill(params, batch, cfg)                -> last-token logits, cache
+    decode_step(params, tokens, cache, cfg)    -> logits (cache in place)
 
 Cache layouts (each with "pos": (B,) int64):
     attention families: {"k": (L,B,T,K,hd), "v": ...}
     ssm:                {"conv": (L,B,ck-1,di+2N), "ssm": (L,B,H,N,P)}
+    hybrid:             mamba states (nb,pb,B,...) + shared-block KV
+                        (nb,B,T,K,hd), nb = L // attn_every, pb = attn_every
 
-The other families (hybrid, encdec, vlm) are ported in later slices
-(ROADMAP.md, queue 1).
+The hybrid's stacked leaves are (nb, pb, ...): block ``b`` runs its pb mamba
+layers, then the one ``shared`` attention + MLP block.  The VLM prepends its
+projected patches to the token embeddings and then runs the dense stack.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -27,19 +34,14 @@ from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
 
-FAMILIES = ("dense", "moe", "ssm")
-_LATER = {
-    "hybrid": "queue 1, item 2 (hybrid)",
-    "encdec": "queue 1, item 4 (encoder-decoder and VLM)",
-    "vlm": "queue 1, item 4 (encoder-decoder and VLM)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: encdec.py
+PATCH_DIM = 1024          # the stub vision tower's patch features
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; see "
-            f"ROADMAP.md, {_LATER.get(cfg.family, 'queue 1')}")
+        raise ValueError(f"{cfg.name}: lm takes the families {FAMILIES}, not "
+                         f"{cfg.family!r}")
 
 
 # --------------------------------------------------------------------- init
@@ -48,8 +50,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
     """Draw the parameter tree leaf by leaf (f32 draws, cast to
     ``cfg.param_dtype``; the MoE router and mamba's ``A_log``, ``D`` and
     ``dt_bias`` stay f32).  On ``device="meta"`` it
-    only describes shapes.  Raises ``NotImplementedError`` for the families
-    not ported yet."""
+    only describes shapes."""
     _check_family(cfg)
     dtype = dtype_of(cfg.param_dtype)
     d, n = cfg.d_model, cfg.n_layers
@@ -60,37 +61,61 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(generator, (d, cfg.vocab), d ** -0.5,
                                         dtype, device)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
+        lead = _mamba_lead(cfg)
         params["layers"] = init_mamba_params(generator, cfg, dtype, device,
-                                             lead=(n,))
-        params["layers"]["ln"] = torch.zeros((n, d), dtype=dtype,
+                                             lead=lead)
+        params["layers"]["ln"] = torch.zeros((*lead, d), dtype=dtype,
                                              device=device)
+        if cfg.family == "hybrid":
+            params["shared"] = _init_block(generator, cfg, dtype, device)
         return params
-    layers = params["layers"] = {
-        "ln1": torch.zeros((n, d), dtype=dtype, device=device),
-        "ln2": torch.zeros((n, d), dtype=dtype, device=device),
-        "attn": init_attn_params(generator, cfg, dtype, device, lead=(n,)),
-    }
-    if not cfg.n_experts:
-        layers["mlp"] = init_mlp_params(generator, d, cfg.d_ff, cfg.mlp_act,
-                                        dtype, device, lead=(n,))
-        return params
-    layers["moe"] = init_moe_params(generator, cfg, dtype, device, lead=(n,))
-    if cfg.moe_dense_ff:
-        layers["dense_mlp"] = init_mlp_params(
-            generator, d, cfg.moe_dense_ff, cfg.mlp_act, dtype, device,
-            lead=(n,))
-    if cfg.shared_expert_ff:
-        layers["shared_mlp"] = init_mlp_params(
-            generator, d, cfg.shared_expert_ff, cfg.mlp_act, dtype, device,
-            lead=(n,))
+    params["layers"] = _init_block(generator, cfg, dtype, device,
+                                   lead=(n,))
+    if cfg.family == "vlm":
+        params["projector"] = normal_init(generator, (PATCH_DIM, d),
+                                          PATCH_DIM ** -0.5, dtype, device)
     return params
 
 
+def _init_block(generator, cfg: ArchConfig, dtype, device,
+                lead: tuple = ()) -> dict:
+    """Transformer blocks (attention + MLP or MoE), stacked over ``lead``."""
+    d = cfg.d_model
+    block = {
+        "ln1": torch.zeros((*lead, d), dtype=dtype, device=device),
+        "ln2": torch.zeros((*lead, d), dtype=dtype, device=device),
+        "attn": init_attn_params(generator, cfg, dtype, device, lead=lead),
+    }
+    if not cfg.n_experts:
+        block["mlp"] = init_mlp_params(generator, d, cfg.d_ff, cfg.mlp_act,
+                                       dtype, device, lead=lead)
+        return block
+    block["moe"] = init_moe_params(generator, cfg, dtype, device, lead=lead)
+    if cfg.moe_dense_ff:
+        block["dense_mlp"] = init_mlp_params(
+            generator, d, cfg.moe_dense_ff, cfg.mlp_act, dtype, device,
+            lead=lead)
+    if cfg.shared_expert_ff:
+        block["shared_mlp"] = init_mlp_params(
+            generator, d, cfg.shared_expert_ff, cfg.mlp_act, dtype, device,
+            lead=lead)
+    return block
+
+
+def _mamba_lead(cfg: ArchConfig) -> tuple:
+    """The stacked axes of the mamba layers: (L,), or (nb, pb) for the
+    hybrid."""
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+    return (cfg.n_layers,)
+
+
 # ----------------------------------------------------------------- helpers
-def _layer(tree: dict, i: int) -> dict:
-    """Views of layer ``i`` of the stacked leaves."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def _layer(tree: dict, *idx: int) -> dict:
+    """Views of layer ``idx`` of the stacked leaves: ``(i,)``, or ``(b, j)``
+    over the hybrid's two stacked axes."""
+    return {k: _layer(v, *idx) if isinstance(v, dict) else v[idx]
             for k, v in tree.items()}
 
 
@@ -104,8 +129,17 @@ def _logits(params, h, cfg: ArchConfig):
     return torch.einsum("bsd,dv->bsv", h, head)
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    return params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+def _embed(params, tokens, cfg: ArchConfig, patches=None):
+    """Token embeddings; the VLM prepends its ``patches`` (B,P,1024) through
+    the projector, in the parameters' dtype."""
+    h = params["embed"][tokens]
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError("vlm needs patch embeddings")
+        pe = torch.einsum("bpv,vd->bpd", patches.to(h.dtype),
+                          params["projector"])
+        h = torch.cat([pe, h], dim=1)
+    return h.to(dtype_of(cfg.compute_dtype))
 
 
 def _ffn(lp, m, cfg: ArchConfig):
@@ -132,41 +166,44 @@ def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
 
 # ------------------------------------------------------------ full forward
 def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
-            last_only: bool = False):
+            last_only: bool = False, patches=None):
     """Full-sequence forward.  Returns (logits, cache|None).
 
-    ``last_only``: compute logits for the final position only (prefill)."""
-    h = _embed(params, tokens, cfg)
-    if cfg.family == "ssm":
-        return _ssm_forward(params, h, cfg, collect_cache, last_only)
+    ``last_only``: compute logits for the final position only (prefill).
+    ``patches``: the VLM's (B,P,1024) patch features, prepended."""
+    h = _embed(params, tokens, cfg, patches)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        h, (k, v) = _block_forward(_layer(params["layers"], i), h, positions,
-                                   _window(cfg, i), cfg)
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache \
-        else None
-    if last_only:
-        h = h[:, -1:, :]
-    return _logits(params, h, cfg), cache
+    per_layer: dict[str, list] = {}
 
-
-def _ssm_forward(params, h, cfg: ArchConfig, collect_cache: bool,
-                 last_only: bool):
-    convs, ssms = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        y, st = mamba_forward(lp, rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
-                              return_state=collect_cache)
-        h = h + y
+    def keep(**states):
         if collect_cache:
-            convs.append(st[0])
-            ssms.append(st[1])
-    cache = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)} \
-        if collect_cache else None
+            for key, x in states.items():
+                per_layer.setdefault(key, []).append(x)
+
+    if cfg.family in ("ssm", "hybrid"):
+        lead = _mamba_lead(cfg)
+        for idx in itertools.product(*map(range, lead)):
+            lp = _layer(params["layers"], *idx)
+            y, st = mamba_forward(lp, rms_norm(h, lp["ln"], cfg.norm_eps),
+                                  cfg, return_state=collect_cache)
+            h = h + y
+            if collect_cache:
+                keep(conv=st[0], ssm=st[1])
+            if cfg.family == "hybrid" and idx[1] == cfg.attn_every - 1:
+                h, (k, v) = _block_forward(params["shared"], h, positions, 0,
+                                           cfg)
+                keep(k=k, v=v)
+    else:
+        for i in range(cfg.n_layers):
+            h, (k, v) = _block_forward(_layer(params["layers"], i), h,
+                                       positions, _window(cfg, i), cfg)
+            keep(k=k, v=v)
+    cache = None
+    if collect_cache:
+        cache = {key: torch.stack(xs) for key, xs in per_layer.items()}
+        for key in ("conv", "ssm"):
+            if key in cache:      # (nb * pb, ...) -> (nb, pb, ...)
+                cache[key] = cache[key].unflatten(0, _mamba_lead(cfg))
     if last_only:
         h = h[:, -1:, :]
     return _logits(params, h, cfg), cache
@@ -174,14 +211,18 @@ def _ssm_forward(params, h, cfg: ArchConfig, collect_cache: bool,
 
 # ----------------------------------------------------------------- serving
 def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
-    """Process the prompt; return (last_logits, cache).
+    """Process the prompt (the VLM's patches first); return (last_logits,
+    cache).
 
-    ``pad_to`` reserves decode slots on axis 2 of the (L,B,T,K,hd) cache;
-    the ssm cache has a fixed size and ignores it."""
+    ``pad_to`` reserves decode slots on axis 2 of the (L,B,T,K,hd) or
+    (nb,B,T,K,hd) cache; the mamba states have a fixed size and ignore it."""
     tokens = batch["tokens"]
+    patches = batch.get("patches")
     logits, cache = forward(params, tokens, cfg, collect_cache=True,
-                            last_only=True)
+                            last_only=True, patches=patches)
     b, seqlen = tokens.shape
+    if cfg.family == "vlm":
+        seqlen += patches.shape[1]
     if "k" in cache and pad_to and pad_to > seqlen:
         pad = (0, 0, 0, 0, 0, pad_to - seqlen)   # last dims first: hd, K, T
         cache["k"] = F.pad(cache["k"], pad)
@@ -191,53 +232,62 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     return logits[:, -1, :], cache
 
 
+def _block_decode(lp, h, cache_k, cache_v, pos, window: int,
+                  cfg: ArchConfig):
+    """One transformer block on one new token; k/v rows written in place."""
+    a, _ = decode_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
+                            cache_k, cache_v, pos, cfg, window=window)
+    h = h + a
+    return h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+
+
 def decode_step(params, tokens, cache, cfg: ArchConfig):
     """One decode step.  tokens (B,1) int.  Returns (logits, cache).
 
     The cache is updated **in place** -- each layer's new k/v row is written
-    into ``cache["k"]``/``cache["v"]`` (or its new conv and ssm states into
-    ``cache["conv"]``/``cache["ssm"]``) and ``cache["pos"]`` is incremented
-    -- and the same dict is returned (the JAX version returns a new one)."""
+    into ``cache["k"]``/``cache["v"]`` (and each mamba layer's new conv and
+    ssm states into ``cache["conv"]``/``cache["ssm"]``) and ``cache["pos"]``
+    is incremented -- and the same dict is returned (the JAX version returns
+    a new one)."""
     h = params["embed"][tokens[:, :1]].to(dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
-    if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+    if cfg.family in ("ssm", "hybrid"):
+        for idx in itertools.product(*map(range, _mamba_lead(cfg))):
+            lp = _layer(params["layers"], *idx)
             y, (conv, ssm) = mamba_decode(
-                lp, rms_norm(h, lp["ln"], cfg.norm_eps), cache["conv"][i],
-                cache["ssm"][i], cfg)
-            cache["conv"][i].copy_(conv)
-            cache["ssm"][i].copy_(ssm)
+                lp, rms_norm(h, lp["ln"], cfg.norm_eps), cache["conv"][idx],
+                cache["ssm"][idx], cfg)
+            cache["conv"][idx].copy_(conv)
+            cache["ssm"][idx].copy_(ssm)
             h = h + y
-        pos += 1
-        return _logits(params, h, cfg)[:, 0, :], cache
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        a, _ = decode_attention(lp["attn"],
-                                rms_norm(h, lp["ln1"], cfg.norm_eps),
-                                cache["k"][i], cache["v"][i], pos, cfg,
-                                window=_window(cfg, i))
-        h = h + a
-        h = h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+            if cfg.family == "hybrid" and idx[1] == cfg.attn_every - 1:
+                h = _block_decode(params["shared"], h, cache["k"][idx[0]],
+                                  cache["v"][idx[0]], pos, 0, cfg)
+    else:
+        for i in range(cfg.n_layers):
+            h = _block_decode(_layer(params["layers"], i), h, cache["k"][i],
+                              cache["v"][i], pos, _window(cfg, i), cfg)
     pos += 1
     return _logits(params, h, cfg)[:, 0, :], cache
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
-    """Fresh (zero) decode cache; the ssm cache does not depend on
+    """Fresh (zero) decode cache; the mamba states do not depend on
     ``max_len``."""
-    pos = torch.zeros((batch,), dtype=torch.int64, device=device)
-    if cfg.family == "ssm":
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
+    if cfg.family in ("ssm", "hybrid"):
+        lead = _mamba_lead(cfg)
         c = cfg.d_inner + 2 * cfg.ssm_state
-        return {
-            "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, c),
-                                dtype=dtype, device=device),
-            "ssm": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
-                                cfg.ssm_state, cfg.ssm_head_dim),
-                               dtype=dtype, device=device),
-            "pos": pos}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": pos}
+        cache["conv"] = torch.zeros((*lead, batch, cfg.ssm_conv - 1, c),
+                                    dtype=dtype, device=device)
+        cache["ssm"] = torch.zeros((*lead, batch, cfg.ssm_heads,
+                                    cfg.ssm_state, cfg.ssm_head_dim),
+                                   dtype=dtype, device=device)
+    if cfg.family != "ssm":
+        n_attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                  else cfg.n_layers)
+        shape = (n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache

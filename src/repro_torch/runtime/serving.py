@@ -9,6 +9,11 @@ prioritization) without stopping the decode batch.
 
 Host orchestration around the model's prefill and decode steps.  The slot
 cache is allocated in the config's compute dtype and updated in place.
+
+A request is a token prompt, so the engine serves the families whose prefill
+takes only tokens: dense, MoE, SSM and hybrid.  The encoder-decoder (audio
+frames) and the VLM (image patches) are served by the batched loop of
+``launch/serve.py``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ import torch
 from ..launch.steps import make_serve_step
 from ..models import Model
 from ..models.common import require_device
+
+# families whose prefill takes more than a token prompt
+PREFILL_NEEDS = {"encdec": "audio frames", "vlm": "image patches"}
 
 
 @dataclasses.dataclass
@@ -48,6 +56,11 @@ class ServingEngine:
 
     def __init__(self, model: Model, slots: int = 4, max_len: int = 128,
                  device="cuda") -> None:
+        if model.cfg.family in PREFILL_NEEDS:
+            raise ValueError(
+                f"{model.cfg.name}: a {model.cfg.family} prefill needs "
+                f"{PREFILL_NEEDS[model.cfg.family]} besides tokens; serve it "
+                f"with repro_torch.launch.serve (the batched loop)")
         device = require_device(device)
         if model.device != device:
             raise ValueError(f"model is on {model.device}, engine asked to "
@@ -138,11 +151,15 @@ class ServingEngine:
                 self._retire(slot)
 
     def _splice(self, slot: int, cache1) -> None:
-        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v, or
-        of the SSM family's conv and ssm states."""
+        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v and
+        of the SSM family's conv and ssm states, axis 2 of the hybrid's
+        (nb, pb, B, ...) conv and ssm states."""
+        hybrid = self.cfg.family == "hybrid"
         for key, big in self.cache.items():
             if key == "pos":
                 big[slot] = cache1["pos"][0]
+            elif hybrid and key in ("conv", "ssm"):
+                big[:, :, slot:slot + 1] = cache1[key]
             else:
                 big[:, slot:slot + 1] = cache1[key]
 

@@ -9,9 +9,12 @@ np = pytest.importorskip("numpy")
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+from repro.configs import get_smoke as jax_smoke  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
 from repro_torch.configs import ARCHS, get_smoke  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.api import flatten  # noqa: E402
 from repro_torch.models.lm import FAMILIES  # noqa: E402
 from repro_torch.runtime import ServingEngine  # noqa: E402
 
@@ -37,6 +40,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    assert ROOT / "src" / "repro_torch" / "models" / "encdec.py" in files
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files if _imported_roots(f) & FORBIDDEN}
     assert not bad, bad
@@ -54,11 +58,34 @@ def test_entry_points_default_to_cuda(monkeypatch):
         serve.main(["--smoke"])
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if get_smoke(a).family not in FAMILIES])
-def test_later_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(get_smoke(arch), device="cpu")
+# a parameter name that only its family's tree has
+FAMILY_MARK = {"dense": "layers.mlp.w_in", "moe": "layers.moe.w_in",
+               "ssm": "layers.in_proj", "hybrid": "shared.attn.wq",
+               "encdec": "dec_layers.xattn.wq", "vlm": "projector"}
+BUILT_ON = {"hybrid": {"ssm"}, "vlm": {"dense"}}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_family_builds(arch):
+    """Every arch builds (on the meta device) with the state-dict names and
+    shapes of the JAX package's parameter tree."""
+    cfg = get_smoke(arch)
+    assert cfg.family == "encdec" or cfg.family in FAMILIES
+    got = {n: tuple(p.shape)
+           for n, p in Model(cfg, device="cpu").named_parameters()}
+    tree = jax.eval_shape(JaxModel(jax_smoke(arch)).init,
+                          jax.random.PRNGKey(0))
+    assert got == {n: tuple(x.shape) for n, x in flatten(tree).items()}
+    marks = {f for f, name in FAMILY_MARK.items() if name in got}
+    # the hybrid's mamba layers are the ssm family's, the VLM's stack the
+    # dense one
+    assert marks == {cfg.family} | BUILT_ON.get(cfg.family, set())
+
+
+def test_unknown_family_raises():
+    cfg = get_smoke("deepseek-7b").replace(family="diffusion")
+    with pytest.raises(ValueError, match="diffusion"):
+        Model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "llama4-scout-17b-a16e"])
