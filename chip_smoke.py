@@ -25,12 +25,26 @@ result line):
    mild decay, B > 1, x as a view of the model's projection, inputs not
    16-byte aligned and P < 64; for flash and SSD, an f64 sum as the
    yardstick of rounding, which flash's bf16 rows may be no farther from
-   than the plain version's).
+   than the plain version's).  Then the flash backward and the forward's
+   row logsumexp against their plain versions (the backward in f32 from the
+   same bf16 inputs), called as training calls them, through
+   ``flash_attention``'s autograd Function (o, the saved lse, dq, dk, dv,
+   one backward call counted each): tests/test_kernels.py's flash cases,
+   deepseek-7b's training shape (2, 2048, 32, 128), GQA with a window of
+   256, a kv prefix (T > S), hd 80, f32 at the smoke configs' hd 16 and one
+   partial tile; with an f64 sum at two shapes as the yardstick of
+   rounding.
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
    mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
    llava-next through prefill and 8 decode steps): greedy tokens equal,
-   logits within rel 5e-4.
+   logits within rel 5e-4.  Training, from one initial state (f32 smoke
+   deepseek-7b, phi4-mini-3.8b (GQA) and gemma3-27b (window)): the step-1
+   gradients leaf by leaf within 1e-4, 3 trainer steps' losses within rel
+   1e-4, and the card's checkpoint restored on the CPU.  And deepseek-7b at
+   full width cut to 2 layers, bf16 against f32 on the card from one state
+   at the training shape: the step-1 loss and gradients and 3 steps'
+   losses (the bf16 kernels through the model, the f32 ones as yardstick).
 5. the six main paths, with random weights from a seed and every kernel
    launch counted from 0.  Served by ``ServingEngine``: full-width
    deepseek-7b (bf16), llama4-scout at its full widths with 12 of its 48
@@ -39,6 +53,12 @@ result line):
    Served by the batched loop of ``launch/serve.py`` (their prefill takes
    frames or patches besides tokens): whisper-medium and
    llava-next-mistral-7b at full width and depth (bf16).
+5b. the training path: ``Trainer`` on deepseek-7b at its full width and
+   depth (30 layers, bf16, remat "full", AdamW with bf16 moments), 6 steps
+   of 2 x 2048 tokens, every launch counted from 0 (60 flash forwards and
+   30 backwards a step); ms per step, tokens/s, losses, grad norms, peak
+   memory, a profiled step (by kind: matrix products, flash forward and
+   backward, the rest), and AdamW's update alone.
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (flash attention at
    (1, 2048, 32, 128), at deepseek's longest served prefill and at
@@ -47,8 +67,9 @@ result line):
    served prompt's prefill, each bound over the bytes of the live
    experts; the SSD kernel at mamba2's
    longest served prefill and at its one-chunk prompts of 254 and 92
-   tokens; each in three rounds taken in turns with its yardstick, the
-   card's clocks read before and after).
+   tokens; the flash backward at the training shape beside autograd's
+   backward of SDPA; each in three rounds taken in turns with its
+   yardstick, the card's clocks read before and after).
 
 ``--ssd-only`` runs phases 1 and 2 and the SSD kernel's part of phases 3
 and 6 alone; with ``--src`` it takes ``repro_torch`` from another checkout
@@ -63,8 +84,10 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -130,6 +153,44 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 # rounding error of sound runs on the H100 (PERF.md).
 ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -5}
 MODEL_REL = 5e-4                           # tests/test_models.py:76
+# the flash backward's cases: B, S, T, H, K, hd, causal, window, dtype.
+# tests/test_kernels.py's flash cases in both dtypes; deepseek-7b's training
+# shape; GQA (K 8) with a window of 256; a kv prefix (T > S) at hd 128; hd
+# 80 in both dtypes; f32 at the smoke configs' hd 16 (MHA, and GQA with a
+# window); one partial tile
+TRAIN_SHAPE = (2, 2048, 32, 32, 128)       # B, S, H, K, hd
+BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
+             for b, s, t, h, k, hd, c, w in FLASH_CASES
+             for dt in (torch.float32, torch.bfloat16)] + [
+    (2, 2048, 2048, 32, 32, 128, True, 0, torch.bfloat16),
+    (2, 1024, 1024, 32, 8, 128, True, 256, torch.bfloat16),
+    (1, 200, 328, 8, 2, 128, True, 0, torch.bfloat16),
+    (1, 663, 663, 32, 32, 80, True, 0, torch.bfloat16),
+    (1, 300, 300, 8, 2, 80, True, 64, torch.float32),
+    (2, 32, 32, 4, 4, 16, True, 0, torch.float32),
+    (2, 32, 32, 4, 2, 16, True, 8, torch.float32),
+    (1, 20, 20, 4, 2, 64, True, 0, torch.bfloat16)]
+# bf16 shapes at which the backward and the plain one (f32) are each held
+# against the plain backward summed in f64 (B, S, H, K, hd; causal)
+BWD_FLOORS = {"S 2048": (1, 2048, 32, 32, 128), "hd 80": (1, 663, 32, 32, 80)}
+# A gradient row's rms error is taken over the larger of its rms and this
+# share of the whole tensor's: rows whose exact gradient vanishes (dq's
+# first causal row, where P = 1 and dP - D = 0) hold only rounding
+GRAD_ROW_FLOOR = 0.1
+# the training path: deepseek-7b at full width and depth, 6 steps of batch
+# 2 x 2048 tokens; AdamW's moments in bf16 (f32 moments need 82.9 GB)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "deepseek-7b", 6, 2, 2048
+TRAIN_SMOKE = ("deepseek-7b", "phi4-mini-3.8b", "gemma3-27b")
+TRAIN_REL = 1e-4                           # card vs CPU, grads and losses
+# deepseek-7b at full width cut to 2 of its 30 layers, trained in bf16 (the
+# training path's kernels: the wgmma forward keeping lse, the mma.sync
+# backward) against the same weights in f32 (the FMA kernels, held to rows
+# of 1e-5 in phase 3) on the card.  Bounds on the step-1 gradients' worst
+# leaf (||bf16 - f32|| / ||f32||, 1.4e-2 in sound runs: bf16 activations
+# rounded at every op) and on the losses of 3 steps (1.4e-3), about twice
+# what sound runs on the H100 gave (PERF.md)
+WIDE_LAYERS = 2
+WIDE_GRAD_REL, WIDE_LOSS_REL = 3e-2, 3e-3
 # tests/test_kernels.py:115-150 -- B, E, C, D, F, act, dtype; the last adds
 # the bf16 gelu instantiation, which neither MoE config uses
 GMM_CASES = [(2, 4, 8, 32, 64, "swiglu", torch.float32),
@@ -229,6 +290,23 @@ def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     err = (got - want).pow(2).mean(-1).sqrt()
     rms = want.pow(2).mean(-1).sqrt().clamp_min(1e-30)
     return float((err / rms).max())
+
+
+def grad_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``row_rel_err`` for a gradient, each row's rms error over the larger
+    of its rms and GRAD_ROW_FLOOR times the tensor's."""
+    got, want = got.float(), want.float()
+    err = (got - want).pow(2).mean(-1).sqrt()
+    floor = GRAD_ROW_FLOOR * float(want.pow(2).mean().sqrt())
+    rms = want.pow(2).mean(-1).sqrt().clamp_min(max(floor, 1e-30))
+    return float((err / rms).max())
+
+
+def leaf_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in f64 on ``want``'s device."""
+    want = want.detach().double()
+    got = got.detach().to(want.device, torch.float64)
+    return float((got - want).norm() / (want.norm() + 1e-30))
 
 
 def serve_prompts(vocab: int) -> list[np.ndarray]:
@@ -421,6 +499,115 @@ def phase_kernels() -> float:
         del q, kk, v, exact
     torch.cuda.empty_cache()
     return err
+
+
+def wrapper_grads(q, k, v, do, causal: bool, window: int):
+    """``flash_attention`` as training calls it, on copies of q, k, v that
+    require grad: the autograd Function's forward kernel (keeping the row
+    logsumexp), then ``o.backward(do)`` through the backward kernel, which
+    must count one backward call.  Returns o, the lse the Function saved
+    for its backward, and (dq, dk, dv)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = flash_attention.backward_launches
+    o = flash_attention(*leaves, causal=causal, window=window)
+    assert "FlashAttention" in type(o.grad_fn).__name__
+    lse = o.grad_fn.saved_tensors[4]
+    o.backward(do)
+    assert flash_attention.backward_launches == before + 1
+    return o.detach(), lse, tuple(x.grad for x in leaves)
+
+
+def phase_flash_backward() -> float:
+    """The flash backward and the forward's row logsumexp through the
+    wrapper that training calls (``wrapper_grads``) against their plain
+    versions on the card, at BWD_CASES: o against ``attention_reference``
+    with the forward's tolerances and row bounds; the saved lse against its
+    ``return_lse`` in f32; dq, dk, dv against ``attention_backward_reference``
+    run in f32 from the same bf16 inputs, o and lse, with the forward's
+    elementwise tolerances (atol scaled to each gradient's max |value|) and
+    row bounds (``grad_row_rel_err``).  Returns the largest abs error of a
+    gradient at the training shape."""
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_reference, attention_reference, flash_attention)
+    saved = flash_attention.launches, flash_attention.backward_launches
+    gen = torch.Generator("cuda").manual_seed(8)
+    main_err, worst, lse_worst = 0.0, {}, 0.0
+    for b, s, t, h, k, hd, causal, window, dt in BWD_CASES:
+        q, kk, v = qkv(b, s, t, h, k, hd, dt, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        o, lse, got = wrapper_grads(q, kk, v, do, causal, window)
+        with torch.no_grad():
+            want_o = attention_reference(q, kk, v, causal=causal,
+                                         window=window)
+            _, want_lse = attention_reference(
+                q.float(), kk.float(), v.float(), causal=causal,
+                window=window, return_lse=True)
+            want = attention_backward_reference(
+                q.float(), kk.float(), v.float(), o.float(), lse,
+                do.float(), causal=causal, window=window)
+        torch.cuda.synchronize()
+        label = f"{(b, s, t, h, k, hd, causal, window)} {str(dt)[6:]}"
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        o_err = float((o.float() - want_o.float()).abs().max())
+        o_rel = row_rel_err(o, want_o)
+        assert o.dtype == dt and o.shape == want_o.shape, label
+        torch.testing.assert_close(o.float(), want_o.float(), **tol)
+        assert o_rel < ROW_REL[dt], f"flash fwd (lse) {label}: row {o_rel}"
+        lse_err = float((lse - want_lse).abs().max())
+        lse_worst = max(lse_worst, lse_err)
+        torch.testing.assert_close(lse, want_lse, **F32_TOL)
+        parts = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dt and g.shape == w.shape, (label, name)
+            top = float(w.abs().max())
+            err = float((g.float() - w).abs().max())
+            rel = grad_row_rel_err(g, w)
+            worst[dt] = max(worst.get(dt, 0.0), rel)
+            if (b, s, h, k, hd) == TRAIN_SHAPE:
+                main_err = max(main_err, err)
+            parts.append(f"{name} {err:.3e} of max {top:.3e}, row {rel:.3e}")
+            torch.testing.assert_close(g.float(), w,
+                                       atol=tol["atol"] * top,
+                                       rtol=tol["rtol"])
+            assert rel < ROW_REL[dt], f"flash bwd {label} {name}: row {rel}"
+        say(f"[kernels] flash_attn_bwd {label}: o max abs err {o_err:.3e}, "
+            f"row {o_rel:.3e}; lse max abs err {lse_err:.3e}; "
+            + "; ".join(parts) + f" (atol {tol['atol']} x max, rtol "
+            f"{tol['rtol']}; row < {ROW_REL[dt]:.3e})")
+        del q, kk, v, do, o, lse, got, want, want_o, want_lse
+    torch.cuda.empty_cache()
+    say(f"[kernels] flash_attn_bwd: {len(BWD_CASES)} cases through "
+        f"flash_attention's autograd Function agree (one backward call "
+        f"each); largest row rel err: " + ", ".join(
+            f"{str(dt)[6:]} {r:.3e}" for dt, r in worst.items())
+        + f"; lse largest abs err {lse_worst:.3e}; largest abs err at the "
+        f"training shape {main_err:.3e}")
+    # the rounding floor: the kernel (P and dS rounded to bf16 for the
+    # second products) and the plain backward in f32, each against the plain
+    # function in f64 on the same bf16 inputs
+    fgen = torch.Generator("cuda").manual_seed(9)
+    for label, (b, s, h, k, hd) in BWD_FLOORS.items():
+        q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, fgen)
+        do = torch.randn(q.shape, generator=fgen, device="cuda").to(q.dtype)
+        o, lse, kernel = wrapper_grads(q, kk, v, do, True, 0)
+        with torch.no_grad():
+            x64 = [x.double() for x in (q, kk, v)]
+            o64, lse64 = attention_reference(*x64, return_lse=True)
+            exact = attention_backward_reference(*x64, o64, lse64,
+                                                 do.double())
+            plain = attention_backward_reference(
+                q.float(), kk.float(), v.float(), o.float(), lse, do.float())
+        say(f"[kernels] flash_attn_bwd {label} {(b, s, h, k, hd)} bf16: row "
+            f"rel err against an f64 sum: " + "; ".join(
+                f"{n} kernel {grad_row_rel_err(g, e):.3e}, plain f32 "
+                f"{grad_row_rel_err(p, e):.3e}"
+                for n, g, p, e in zip(("dq", "dk", "dv"), kernel, plain,
+                                      exact)))
+        del q, kk, v, do, o, lse, x64, o64, lse64, exact, kernel, plain
+    torch.cuda.empty_cache()
+    flash_attention.launches, flash_attention.backward_launches = saved
+    return main_err
 
 
 def gmm_inputs(b, e, c, d, f, dtype, gen):
@@ -666,6 +853,113 @@ def batched_card_vs_cpu(arch: str, steps: int = 8) -> None:
         f"equal")
 
 
+def train_card_vs_cpu() -> None:
+    """Training on the card against the same code on the CPU, f32 smoke
+    configs from one initial state: the step-1 gradients leaf by leaf, the
+    losses of 3 trainer steps, and the card's checkpoint restored on the
+    CPU equal to the card's state."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.runtime import CheckpointManager, TrainConfig, Trainer
+    from repro_torch.runtime.checkpoint import flatten_state
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke(arch)
+        state = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0)).state_dict()
+        toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 33))
+        grads, bwd = [], flash_attention.backward_launches
+        for dev in ("cpu", "cuda"):
+            model = Model(cfg, device=dev).load_state(
+                {n: x.clone() for n, x in state.items()})
+            loss, _ = model.train_loss(
+                {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)})
+            loss.backward()
+            grads.append({n: p.grad for n, p in model.named_parameters()})
+        assert flash_attention.backward_launches == bwd + cfg.n_layers
+        g_rel = max(leaf_rel(grads[1][n], g) for n, g in grads[0].items())
+        assert g_rel <= TRAIN_REL, f"{arch}: step-1 gradients {g_rel}"
+        tcfg = dict(batch=2, seq_len=32, steps=3, ckpt_every=3, log_every=0)
+        with tempfile.TemporaryDirectory() as d:
+            runs = {dev: Trainer(cfg, TrainConfig(
+                **tcfg, ckpt_dir=os.path.join(d, dev)), device=dev,
+                params=state).run() for dev in ("cpu", "cuda")}
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(runs["cuda"][1], runs["cpu"][1]))
+            assert rel <= TRAIN_REL, f"{arch}: losses {runs}"
+            like = Trainer(cfg, TrainConfig(**tcfg), device="cpu",
+                           params=state).init_state()
+            _, step = CheckpointManager(os.path.join(d, "cuda")).restore(like)
+            card, back = flatten_state(runs["cuda"][0]), flatten_state(like)
+            assert step == 2 and list(card) == list(back)
+            assert all(torch.equal(back[n], card[n].detach().cpu())
+                       for n in card), f"{arch}: checkpoint differs"
+        say(f"[card-vs-cpu] {arch} smoke f32 training: step-1 gradients "
+            f"{len(grads[0])} leaves, largest ||card - cpu|| / ||cpu|| "
+            f"{g_rel:.2e} (<= {TRAIN_REL}); 3 steps, losses "
+            f"{[round(x, 6) for x in runs['cuda'][1]]}, largest rel "
+            f"{rel:.2e} (<= {TRAIN_REL}); the card's checkpoint "
+            f"({len(card)} leaves) restored on the CPU, equal")
+
+
+def train_wide_bf16_vs_f32() -> dict:
+    """deepseek-7b at full width, cut to WIDE_LAYERS layers, from one bf16
+    initial state on the card, in bf16 and in f32 on one batch of
+    TRAIN_BATCH x TRAIN_SEQ tokens (the training shape): the step-1 loss
+    and every gradient leaf, then 3 ``Trainer`` steps whose losses must
+    agree (the schedule puts the peak lr in step 1, as in phase 5b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=WIDE_LAYERS)
+    cfgs = {"bf16": cfg, "f32": cfg.replace(param_dtype="float32",
+                                           compute_dtype="float32")}
+    state = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0)).state_dict()
+    gen = torch.Generator("cuda").manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grads, loss1, losses = {}, {}, {}
+    for name, c in cfgs.items():
+        model = Model(c, device="cuda").load_state(state)
+        loss, _ = model.train_loss(batch)
+        loss.backward()
+        grads[name] = {n: p.grad for n, p in model.named_parameters()}
+        loss1[name] = float(loss.detach())
+        del model, loss
+    rels = {n: leaf_rel(grads["bf16"][n], g) for n, g in grads["f32"].items()}
+    worst = max(rels, key=rels.get)
+    del grads
+    tcfg = TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=3,
+                       log_every=0)
+    for name, c in cfgs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses[name] = Trainer(c, tcfg, device="cuda", params=state).run()[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["bf16"], losses["f32"]))
+    res = {"n_layers": WIDE_LAYERS, "step1_loss": loss1,
+           "grad_rel": rels, "worst_leaf": worst, "losses": losses,
+           "loss_rel": loss_rel}
+    say(f"[card-vs-cpu] {TRAIN_ARCH} full width, {WIDE_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16 (mma.sync backward, "
+        f"wgmma forward with lse) against f32 (FMA kernels) on the card: "
+        f"step-1 loss {loss1['bf16']:.6f} vs {loss1['f32']:.6f}; gradients "
+        f"{len(rels)} leaves, worst ||bf16 - f32|| / ||f32|| {rels[worst]:.3e}"
+        f" ({worst}; <= {WIDE_GRAD_REL}), median "
+        f"{float(np.median(list(rels.values()))):.3e}; 3 steps' losses bf16 "
+        + ", ".join(f"{x:.4f}" for x in losses["bf16"]) + ", f32 "
+        + ", ".join(f"{x:.4f}" for x in losses["f32"])
+        + f", largest rel {loss_rel:.3e} (<= {WIDE_LOSS_REL})")
+    assert rels[worst] <= WIDE_GRAD_REL, f"bf16 vs f32 gradients {rels}"
+    assert loss_rel <= WIDE_LOSS_REL, f"bf16 vs f32 losses {losses}"
+    return res
+
+
 def attention_layers(cfg) -> int:
     """The layers whose prefill runs flash attention: every layer, none
     (ssm), the shared block once per ``attn_every`` layers (hybrid), or the
@@ -744,7 +1038,7 @@ def zero_counts() -> None:
     from repro_torch.kernels.moe_gmm import grouped_ffn
     from repro_torch.kernels.ssd import ssd_intra_chunk
     flash_attention.launches = grouped_ffn.launches = 0
-    ssd_intra_chunk.launches = 0
+    flash_attention.backward_launches = ssd_intra_chunk.launches = 0
 
 
 def read_counts() -> dict:
@@ -752,6 +1046,7 @@ def read_counts() -> dict:
     from repro_torch.kernels.moe_gmm import grouped_ffn
     from repro_torch.kernels.ssd import ssd_intra_chunk
     return {"flash_attn_fwd": flash_attention.launches,
+            "flash_attn_bwd": flash_attention.backward_launches,
             "moe_gmm": grouped_ffn.launches,
             "ssd_intra_chunk": ssd_intra_chunk.launches}
 
@@ -802,7 +1097,7 @@ def phase_serve(cfg, card: str) -> dict:
     assert all(0 <= t < cfg.vocab for c in done for t in c.tokens)
     assert len(prefill_s) == SERVE_REQUESTS
     n_pre = len(prefill_s)
-    want = {"flash_attn_fwd": n_attn * n_pre,
+    want = {"flash_attn_fwd": n_attn * n_pre, "flash_attn_bwd": 0,
             "moe_gmm": cfg.n_layers * (n_pre + len(decode_s))
             if cfg.n_experts else 0,
             "ssd_intra_chunk": cfg.n_layers * n_pre if mamba else 0}
@@ -855,8 +1150,8 @@ def phase_serve_batched(cfg, card: str) -> dict:
     assert toks.shape == (BATCH, SERVE_NEW), toks.shape
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
     assert len(prefill_s) == 1 and len(decode_s) == SERVE_NEW - 1
-    want = {"flash_attn_fwd": attention_layers(cfg), "moe_gmm": 0,
-            "ssd_intra_chunk": 0}
+    want = {"flash_attn_fwd": attention_layers(cfg), "flash_attn_bwd": 0,
+            "moe_gmm": 0, "ssd_intra_chunk": 0}
     assert launches == want, f"launches {launches} != {want}"
     res = serve_record(cfg, card, [BATCH_PROMPT] * BATCH, prefill_s,
                        decode_s, toks.numel(), wall, launches)
@@ -875,8 +1170,12 @@ def phase_serve_batched(cfg, card: str) -> dict:
     return res
 
 
-def profile_region(fn, label: str, card: str, top: int = 12) -> dict:
-    """Run ``fn`` under torch.profiler; device busy share and top kernels."""
+def profile_region(fn, label: str, card: str, top: int = 12,
+                   groups: dict | None = None) -> dict:
+    """Run ``fn`` under torch.profiler; device busy share and top kernels,
+    and the device time of each of ``groups`` (label -> kernel name
+    substrings; the first that matches takes a kernel, the rest is
+    "other")."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                     # warm
     torch.cuda.synchronize()
@@ -896,6 +1195,12 @@ def profile_region(fn, label: str, card: str, top: int = 12) -> dict:
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "busy_share": busy_us / wall_us if wall_us else 0.0,
            "top": [(name[:90], us / 1e3) for name, us in ranked[:top]]}
+    if groups:
+        out["groups"] = dict.fromkeys([*groups, "other"], 0.0)
+        for name, us in ranked:
+            key = next((g for g, subs in groups.items()
+                        if any(x in name for x in subs)), "other")
+            out["groups"][key] += us / 1e3
     if busy_us == 0:
         say(f"[profile] {label}: the profiler saw no device time; "
             f"device share not measured")
@@ -906,6 +1211,10 @@ def profile_region(fn, label: str, card: str, top: int = 12) -> dict:
     for name, ms in out["top"]:
         say(f"[profile]   {ms:9.3f} ms  {100 * ms * 1e3 / busy_us:5.1f}%  "
             f"{name}")
+    if groups:
+        say(f"[profile]   {label}, by kind: " + "; ".join(
+            f"{g} {ms:.3f} ms ({100 * ms * 1e3 / busy_us:.1f}%)"
+            for g, ms in out["groups"].items()))
     return out
 
 
@@ -931,6 +1240,94 @@ def phase_profile(model, card: str) -> dict:
         "decode_b4": profile_region(decode, f"{cfg.name}: decode step, 4 "
                                     f"slots", card),
     }
+
+
+def phase_train(card: str) -> dict:
+    """The training path: ``Trainer`` on deepseek-7b at full width and depth
+    (bf16, remat "full"; AdamW with bf16 moments, the one departure from
+    the reference's defaults), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    tokens from the synthetic corpus, with every kernel's launch count set
+    to 0 just before and read just after; then one profiled step, and the
+    optimizer's update alone, timed with CUDA events."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    tag = f"[train {TRAIN_ARCH}]"
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()                 # the serving paths' models are gone
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                       steps=TRAIN_STEPS, log_every=0),
+                      AdamWConfig(warmup_steps=max(TRAIN_STEPS // 10, 1),
+                                  total_steps=TRAIN_STEPS,
+                                  moment_dtype="bfloat16"))
+    zero_counts()
+    t0 = time.perf_counter()
+    state, losses = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in state["params"].values())
+    want = {"flash_attn_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attn_bwd": cfg.n_layers * TRAIN_STEPS,
+            "moe_gmm": 0, "ssd_intra_chunk": 0}
+    assert launches == want, f"launches {launches} != {want}"
+    norms = [m["grad_norm"] for m in trainer.metrics]
+    assert len(losses) == TRAIN_STEPS and all(
+        np.isfinite(x) for x in losses + norms), (losses, norms)
+    assert peak_gb * 1e9 < torch.cuda.get_device_properties(0).total_memory
+    step_s = trainer.step_seconds
+    ms = 1e3 * float(np.median(step_s[-5:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "path": "train", "params": n_params, "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "remat": cfg.remat,
+           "moment_dtype": "bfloat16", "steps": TRAIN_STEPS,
+           "step_ms": [1e3 * x for x in step_s],
+           "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "losses": losses, "grad_norms": norms,
+           "lr": [m["lr"] for m in trainer.metrics], "run_s": wall,
+           "max_memory_allocated_gb": peak_gb, "launches": launches}
+    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}, remat {cfg.remat}: {n_params:,} params; AdamW "
+        f"moments bf16; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens")
+    say(f"{tag} {ms:.2f} ms/step (median of the last 5; steps "
+        + ", ".join(f"{x:.1f}" for x in res["step_ms"]) + f" ms), "
+        f"{res['tokens_per_s']:.1f} tokens/s, run {wall:.1f} s with init, "
+        f"max memory allocated {peak_gb:.2f} GB [{card}]")
+    say(f"{tag} losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad norms " + ", ".join(f"{x:.4f}" for x in norms)
+        + "; lr " + ", ".join(f"{x:.3e}" for x in res["lr"]))
+    say(f"{tag} launches {launches}: flash forward = {cfg.n_layers} layers x "
+        f"2 (the forward and remat's recompute) x {TRAIN_STEPS} steps, "
+        f"backward = {cfg.n_layers} x {TRAIN_STEPS}")
+    gen = torch.Generator("cuda").manual_seed(10)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    res["profile"] = profile_region(
+        lambda: trainer.step_fn(state, batch), f"{cfg.name}: one training "
+        f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens", card,
+        groups={"matrix products": ("nvjet", "gemm", "xmma", "cutlass"),
+                "flash forward": ("flash_attn_fwd",),
+                "flash backward": ("flash_attn_bwd",)})
+    # the optimizer layer alone: one update of every leaf (its time does not
+    # depend on the gradients' values)
+    params = state["params"]
+    grads = {n: torch.zeros_like(p) for n, p in params.items()}
+    res["adamw_ms"] = time_ms(
+        lambda: trainer.opt.update(grads, state["opt"], params), 2, warmup=1)
+    say(f"{tag} AdamW's update of all {n_params:,} parameters alone: "
+        f"{res['adamw_ms']:.2f} ms, {100 * res['adamw_ms'] / ms:.1f}% of the "
+        f"step's {ms:.2f} ms [{card}]")
+    del trainer, state, batch, toks, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -1030,6 +1427,76 @@ def phase_timing(card: str) -> dict:
         del q, kk, v, qt, kt, vt
     flash_attention.launches = saved     # comparisons do not count
     return out
+
+
+def phase_timing_bwd(card: str) -> dict:
+    """The flash backward at deepseek-7b's training shape, bf16 causal: a
+    call of its binding (three kernels; the checks of ``FlashAttention``
+    stay outside the timed call) in three rounds in turns with
+    autograd's backward of SDPA (the yardstick, never called by the port),
+    medians kept; the call replayed from a CUDA graph; the plain backward."""
+    from repro_torch.kernels.flash_attention import \
+        attention_backward_reference
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    gen = torch.Generator("cuda").manual_seed(11)
+    b, s, h, k, hd = TRAIN_SHAPE
+    scale = hd ** -0.5
+    q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    o, lse = flash_attention_cuda(q, kk, v, True, 0, scale, with_lse=True)
+
+    def kernel():
+        return flash_attention_bwd_cuda(q, kk, v, o, lse, do, True, 0, scale)
+
+    # SDPA takes (B, H, S, hd): transposed once, outside the timed call
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, kk, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=h != k)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    tag = f"flash_attn_bwd {TRAIN_SHAPE}"
+    for _ in range(5):       # SDPA's backward ran slow in its first rounds
+        kernel()
+        library()
+    say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
+    kernel_r, library_r = [], []
+    for _ in range(3):
+        kernel_r.append(time_ms(kernel, 10))
+        library_r.append(time_ms(library, 10))
+    say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; kernel rounds "
+        f"{', '.join(f'{t:.4f}' for t in kernel_r)} ms, sdpa backward rounds "
+        f"{', '.join(f'{t:.4f}' for t in library_r)} ms")
+    kernel_ms, library_ms = sorted(kernel_r)[1], sorted(library_r)[1]
+    device_ms = graph_ms(kernel)
+    plain_ms = time_ms(lambda: attention_backward_reference(
+        q, kk, v, o, lse, do), 3)
+    pairs = s * (s + 1) // 2           # (q, k) pairs the causal mask keeps
+    flops = 5 * 2 * b * h * pairs * hd          # five products
+    # q, o, do, dq (B,S,H,hd) and k, v, dk, dv (B,S,K,hd) in bf16; lse f32
+    nbytes = 2 * 4 * b * s * (h + k) * hd + 4 * b * h * s
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    res = {"shape": list(TRAIN_SHAPE), "ms": kernel_ms, "graph_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    say(f"[timing] {tag} bf16 causal: kernel {kernel_ms:.4f} ms (median; "
+        f"replayed from a CUDA graph {device_ms:.4f} ms), plain {plain_ms:.4f}"
+        f" ms, sdpa backward (yardstick) {library_ms:.4f} ms, kernel / sdpa "
+        f"{kernel_ms / library_ms:.3f}; bound {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
+        f"the other bound {min(t_ops, t_bytes):.4f} ms); "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved, "
+        f"{100 * res['bound_ms'] / kernel_ms:.1f}% of bound [{card}]")
+    del q, kk, v, do, o, lse, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_timing_gmm(card: str) -> dict:
@@ -1240,9 +1707,12 @@ def main(argv: list[str]) -> int:
         return ssd_only(card)
     build = phase_build()
     flash_err = phase_kernels()
+    bwd_err = phase_flash_backward()
     gmm_err = phase_gmm()
     ssd_err = phase_ssd()
     phase_card_vs_cpu()
+    train_card_vs_cpu()
+    wide = train_wide_bf16_vs_f32()
     paths = [phase_serve(get_config("deepseek-7b"), card),
              phase_serve(get_config(LLAMA4).replace(n_layers=LLAMA4_LAYERS),
                          card),
@@ -1250,13 +1720,16 @@ def main(argv: list[str]) -> int:
              phase_serve(get_config(ZAMBA2), card),
              phase_serve_batched(get_config(WHISPER), card),
              phase_serve_batched(get_config(LLAVA), card)]
+    train = phase_train(card)
+    paths.append(train)
     timing = phase_timing(card)
+    bwd = phase_timing_bwd(card)
     gmm = phase_timing_gmm(card)
     ssd = phase_timing_ssd(card)
 
     def launches(name):
-        by_path = {f"{p['arch']} x{p['n_layers']}": p["launches"][name]
-                   for p in paths}
+        by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
+                   p["launches"][name] for p in paths}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -1277,6 +1750,15 @@ def main(argv: list[str]) -> int:
                  ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms")}
            for key in ("served", "served_hd80")},
+    }, {
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attn_bwd.cu",
+        # no TPU kernel: the backward of the function of this one
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
+        **launches("flash_attn_bwd"), "max_abs_err": bwd_err,
+        **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "graph_ms", "shape")},
     }, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
@@ -1311,7 +1793,10 @@ def main(argv: list[str]) -> int:
     record = ROOT / "chiprun_out" / "chip_smoke.json"
     record.parent.mkdir(exist_ok=True)
     record.write_text(json.dumps({"card": card, "build": build,
-                                  "paths": paths, "flash_timing": timing,
+                                  "paths": paths, "train": train,
+                                  "train_bf16_vs_f32": wide,
+                                  "flash_timing": timing,
+                                  "flash_bwd_timing": bwd,
                                   "moe_gmm_timing": gmm,
                                   "ssd_timing": ssd, "kernels": kernels},
                                  indent=1))

@@ -1,6 +1,6 @@
 """PyTorch / CUDA port of the repo's accelerator half, for one NVIDIA Hopper
-card.  It serves the dense and MoE LM families; its TPU kernels become
-hand-written CUDA kernels under ``kernels/``.
+card.  It serves every family of the repo and trains the dense one; its
+TPU kernels become hand-written CUDA kernels under ``kernels/``.
 
 The JAX package ``repro`` is the reference: this package imports nothing of
 it, nor JAX.  Entry points run on CUDA unless the caller passes another

@@ -1,8 +1,9 @@
-"""Weight bridge: the JAX package's parameter tree, as numpy arrays, into
-this package's state dict.
+"""Weight bridge: the JAX package's parameter tree (and its optimizer
+state), as numpy arrays, into this package's state dicts.
 
     state = params_from_jax(jax.device_get(jax_model.init(key)))
     model = Model(cfg, device="cpu").load_state(state)
+    opt_state = opt_state_from_jax(jax.device_get(jax_opt.init(params)))
 
 Leaf by leaf: the nested dict's paths become dotted state-dict keys
 (``layers.attn.wq``) and the stacked-over-layers layout is kept, so each
@@ -29,3 +30,13 @@ def _to_torch(arr) -> torch.Tensor:
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """Flatten a nested dict of numpy arrays into {dotted name: tensor}."""
     return {name: _to_torch(leaf) for name, leaf in flatten(tree).items()}
+
+
+def opt_state_from_jax(state: dict) -> dict:
+    """The JAX ``AdamW`` state, as numpy arrays, in this package's layout:
+    {"m": {dotted name: tensor}, "v": ..., "count": 0-d int32, and "ef"
+    with bf16 gradient compression}."""
+    out = {k: params_from_jax(v) for k, v in state.items()
+           if isinstance(v, dict)}
+    out["count"] = _to_torch(state["count"]).to(torch.int32)
+    return out

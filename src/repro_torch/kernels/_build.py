@@ -27,6 +27,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 # kernel name -> source, relative to this directory
 SOURCES = {
     "flash_attn_fwd": "flash_attention/csrc/flash_attn_fwd.cu",
+    "flash_attn_bwd": "flash_attention/csrc/flash_attn_bwd.cu",
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
     "ssd_intra_chunk": "ssd/csrc/ssd_intra_chunk.cu",
 }

@@ -1,3 +1,5 @@
-from .ops import attention_reference, flash_attention
+from .ops import (FlashAttention, attention_backward_reference,
+                  attention_reference, flash_attention)
 
-__all__ = ["attention_reference", "flash_attention"]
+__all__ = ["FlashAttention", "attention_backward_reference",
+           "attention_reference", "flash_attention"]

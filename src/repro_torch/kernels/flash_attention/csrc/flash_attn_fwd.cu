@@ -77,6 +77,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;        // (B, H, S) row logsumexp, or null (serving)
   int S, T, H, KH;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -322,6 +323,8 @@ __global__ void __launch_bounds__(kThreads)
     const int q_pos = row0 + r * 8;
     if (q_pos >= p.S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && tig == 0)   // m is in natural-log units here
+      p.lse[((long long)b * p.H + h) * p.S + q_pos] = m[r] + logf(denom);
     __nv_bfloat16* orow = ob + q_pos * p.o_ss;
 #pragma unroll
     for (int n = 0; n < kON; ++n)
@@ -497,6 +500,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int q_pos = q0 + ty * kRows + i;
     if (q_pos >= p.S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && tx == 0)    // m is in natural-log units here
+      p.lse[((long long)b * p.H + h) * p.S + q_pos] = m[i] + logf(denom);
     float* orow = ob + q_pos * p.o_ss;
 #pragma unroll
     for (int c = 0; c < kOut; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
@@ -528,6 +533,7 @@ constexpr int kConsumers = 2;      // warpgroups that run the products
 constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
 constexpr int kPanel = 64;         // columns of one 128-byte swizzled panel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Every tile is kept as hd / 64 panels of (rows, 64) bf16, each row 128
 // bytes, in the layout TMA's 128-byte swizzle writes and wgmma reads.
@@ -897,6 +903,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q_pos = row0 + r * 8;
     if (q_pos >= p.S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && tig == 0)   // m is in log2 units: back to ln
+      p.lse[((long long)b * p.H + h) * p.S + q_pos] =
+          (m[r] + log2f(denom)) * kLn2;
     __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                           h * p.o_sh + q_pos * p.o_ss;
 #pragma unroll
@@ -999,21 +1008,24 @@ cudaError_t launch_hd(const Params& p, int dtype, int B, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; for bfloat16
+// dtype: 0 = float32, 1 = bfloat16.  `lse`, when not null, receives each
+// row's logsumexp of the scaled, masked scores (f32 (B, H, S), natural log),
+// which the backward (flash_attn_bwd.cu) reads.  Strides are in elements; for bfloat16
 // every row of q, k, v must start 16-byte aligned, and at hd 64 and 128
 // every stride must be one TMA takes (both checked by the wrapper).
 // Returns the CUDA error of the launch (0 on success); the kernel runs
 // asynchronously on `stream`.
 extern "C" int flash_attn_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B,
     int S, int T, int H, int KH, int hd, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float scale,
     void* stream) {
-  const Params p{q,    k,    v,    o,    S,    T,      H,      KH,
-                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,
-                 v_sh, o_sb, o_ss, o_sh, causal, window, scale};
+  const Params p{q,    k,    v,    o,    lse,  S,      T,      H,
+                 KH,   q_sb, q_ss, q_sh, k_sb, k_ss,   k_sh,   v_sb,
+                 v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (hd) {

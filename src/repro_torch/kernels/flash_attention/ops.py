@@ -1,23 +1,28 @@
-"""Public flash-attention entry: the CUDA kernel on the card, the plain
-version on the CPU.
+"""Public flash-attention entry: the CUDA kernels on the card, the plain
+versions on the CPU.
 
 The tensor's device decides.  A CUDA tensor launches the hand-written kernel
-or raises; nothing falls back to the plain version.  ``flash_attention.
-launches`` counts kernel launches (and nothing else), so a run can show that
-its path went through the kernel."""
+or raises; nothing falls back to the plain version.  When grad is enabled
+and an input requires grad, the call goes through ``FlashAttention``, whose
+forward also keeps each row's logsumexp and whose backward is the
+hand-written backward kernel on the card (its plain version on the CPU);
+otherwise the forward launches without the logsumexp, as serving does.
+``flash_attention.launches`` counts forward launches and
+``flash_attention.backward_launches`` backward calls (and nothing else), so
+a run can show that its path went through the kernels."""
 from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
-from .ref import attention_reference
+from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .ref import attention_backward_reference, attention_reference
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
 TMA_HEAD_DIMS = (64, 128)       # bf16 on wgmma + TMA; 16, 32, 80 on mma.sync
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_cuda_inputs(q, k, v) -> None:
+def _check_cuda_inputs(q, k, v, do=None) -> None:
     if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -38,15 +43,22 @@ def _check_cuda_inputs(q, k, v) -> None:
         raise ValueError("empty sequence")
     if h > 65535 or b > 65535:
         raise ValueError("more than 65535 heads or batch rows")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("the last dim of q, k, v must be contiguous")
-    # the bf16 kernel loads rows 16 bytes (8 values) at a time
+    if do is not None and (do.shape != q.shape or do.dtype != q.dtype
+                           or do.device != q.device):
+        raise ValueError(f"the output's cotangent must match q: got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}, q "
+                         f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    rows = (q, k, v) if do is None else (q, k, v, do)
+    if any(x.stride(-1) != 1 for x in rows):
+        raise ValueError("the last dim of q, k, v and do must be contiguous")
+    # the bf16 kernels load rows 16 bytes (8 values) at a time
     if q.dtype == torch.bfloat16 and any(
             x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3])
-            for x in (q, k, v)):
-        raise ValueError("bfloat16 q, k, v rows must start 16-byte aligned: "
-                         "data pointers on 16 bytes, strides multiples of 8")
-    # at hd 64 and 128 the bf16 kernel loads tiles through TMA tensor maps,
+            for x in rows):
+        raise ValueError("bfloat16 q, k, v and do rows must start 16-byte "
+                         "aligned: data pointers on 16 bytes, strides "
+                         "multiples of 8")
+    # at hd 64 and 128 the bf16 forward loads tiles through TMA tensor maps,
     # which take strides above 0 and below 2^40 bytes (a dim of extent 1 is
     # never stepped, so its stride does not matter)
     if q.dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS and any(
@@ -55,6 +67,56 @@ def _check_cuda_inputs(q, k, v) -> None:
         raise ValueError("bfloat16 q, k, v at hd 64 and 128 are read through "
                          "TMA: every stride of a dim longer than 1 must be "
                          "above 0 and below 2^40 bytes")
+
+
+def _launch_fwd(q, k, v, causal: bool, window: int, scale: float,
+                with_lse: bool = False):
+    """Check CUDA inputs, launch the forward kernel and count the launch."""
+    _check_cuda_inputs(q, k, v)
+    out = flash_attention_cuda(q, k, v, causal, window, scale,
+                               with_lse=with_lse)
+    flash_attention.launches += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward keeps q, k, v, o and the
+    row logsumexp; the backward is the hand-written kernel on the card and
+    ``attention_backward_reference`` on the CPU.  Causal attention with
+    fewer keys than queries is refused on both devices: rows without a key
+    have no gradient that the kernel and the plain version agree on."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        if causal and k.shape[1] < q.shape[1]:
+            raise ValueError("causal attention with fewer keys than queries "
+                             "leaves rows without a key")
+        if q.device.type == "cuda":
+            o, lse = _launch_fwd(q, k, v, causal, window, scale,
+                                 with_lse=True)
+        else:
+            o, lse = attention_reference(q, k, v, causal=causal,
+                                         window=window, scale=scale,
+                                         return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attn = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attn
+        if q.device.type == "cuda":
+            do = do.contiguous()
+            _check_cuda_inputs(q, k, v, do)
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
+                                                  window, scale)
+            flash_attention.backward_launches += 1
+        else:
+            dq, dk, dv = attention_backward_reference(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,16 +131,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"q, k, v must lie on the CPU or on one CUDA "
                          f"device; got {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    _check_cuda_inputs(q, k, v)
-    out = flash_attention_cuda(q, k, v, causal, window, scale)
-    flash_attention.launches += 1
-    return out
+    return _launch_fwd(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0
 
 
-__all__ = ["flash_attention", "attention_reference"]
+__all__ = ["FlashAttention", "attention_backward_reference",
+           "attention_reference", "flash_attention"]

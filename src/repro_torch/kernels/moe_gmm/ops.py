@@ -7,11 +7,15 @@ launches`` counts calls that launched the kernel (one call is one launch of
 the up product and one of the down product), and nothing else.
 
 The JAX wrapper's ``bf`` (the TPU's F block) has no counterpart: the CUDA
-kernel picks its own tiles and masks the ragged edge."""
+kernel picks its own tiles and masks the ragged edge.
+
+The kernel has no backward yet: a CUDA input that needs a gradient raises,
+where autograd would otherwise leave every parameter upstream without one."""
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .kernel import grouped_ffn_cuda
 from .ref import ACTS, grouped_ffn_reference
 
@@ -57,6 +61,11 @@ def _check_cuda_inputs(buf, w_in, w_gate, w_out, act: str) -> None:
                          "multiples of 8")
 
 
+NO_GRAD = ("grouped_ffn on the card has no backward yet; it comes with MoE "
+           "training, a moe_gmm backward (ROADMAP.md, queue 1). Call it "
+           "under torch.no_grad() or on inputs that need no gradient")
+
+
 def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
                 w_out: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
     """buf (B,E,C,D); w_in/w_gate (E,D,F); w_out (E,F,D) -> (B,E,C,D).
@@ -73,6 +82,7 @@ def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
                          f"CUDA device; got {[str(x.device) for x in mats]}")
     if buf.device.type == "cpu":
         return grouped_ffn_reference(buf, w_in, w_gate, w_out, act)
+    refuse_grad(NO_GRAD, *mats)
     _check_cuda_inputs(buf, w_in, w_gate, w_out, act)
     out = grouped_ffn_cuda(buf, w_in, w_gate if act == "swiglu" else w_in,
                            w_out, act)

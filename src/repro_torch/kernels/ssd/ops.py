@@ -7,11 +7,15 @@ counts calls that launched the kernel (one call is one launch of the C·Bᵀ
 kernel and one of the y and state kernel), and nothing else.
 
 The JAX wrapper's ``interpret`` flag has no counterpart: the device of the
-tensors takes its place."""
+tensors takes its place.
+
+The kernel has no backward yet: a CUDA input that needs a gradient raises,
+where autograd would otherwise leave every parameter upstream without one."""
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .kernel import ssd_intra_chunk_cuda
 from .ref import ssd_intra_chunk_reference, ssd_reference
 
@@ -47,6 +51,12 @@ def _check_cuda_inputs(xc, dtc, cum, bc, cc) -> None:
         raise ValueError("the last dim of xc, bc and cc must be contiguous")
 
 
+NO_GRAD = ("ssd_intra_chunk on the card has no backward yet; it comes with "
+           "SSM and hybrid training, an SSD backward (ROADMAP.md, queue 1). "
+           "Call it under torch.no_grad() or on inputs that need no "
+           "gradient")
+
+
 def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
                     bc: torch.Tensor, cc: torch.Tensor):
     """xc (B,NC,L,H,P), dtc/cum (B,NC,L,H), bc/cc (B,NC,L,N) ->
@@ -59,6 +69,7 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
                          f"device; got {[str(t.device) for t in ts]}")
     if xc.device.type == "cpu":
         return ssd_intra_chunk_reference(*ts)
+    refuse_grad(NO_GRAD, *ts)
     _check_cuda_inputs(*ts)
     out = ssd_intra_chunk_cuda(*ts)
     ssd_intra_chunk.launches += 1

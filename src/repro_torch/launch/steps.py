@@ -1,12 +1,37 @@
-"""Step functions run by the serving engine.
+"""Step functions run by the trainer and the serving engine.
 
-The train step comes with the training slice, the prefill step with the
-dry-run that calls it (ROADMAP.md, queue 1)."""
+The prefill step comes with the dry-run that calls it (ROADMAP.md, queue
+1)."""
 from __future__ import annotations
 
 import torch
 
 from ..models import Model
+from ..optim import AdamW
+
+
+def make_train_step(model: Model, opt: AdamW):
+    """One optimizer step on one batch, as the reference's
+    ``make_train_step`` (``repro/launch/steps.py:11-25``).  ``state`` is
+    {"params": {name: parameter}, "opt": the optimizer's state}; both are
+    updated in place and returned with the metrics "loss", "ce", "aux",
+    "lr" and "grad_norm" (0-d tensors)."""
+    def train_step(state, batch):
+        params = state["params"]
+        for p in params.values():
+            p.grad = None
+        loss, metrics = model.train_loss(batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        om = opt.update(grads, state["opt"], params)
+        for p in params.values():
+            p.grad = None
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(om)
+        metrics["loss"] = loss.detach()
+        return state, metrics
+
+    return train_step
 
 
 def make_serve_step(model: Model):

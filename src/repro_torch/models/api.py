@@ -1,6 +1,7 @@
 """Model API.
 
     model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
+    loss, metrics = model.train_loss(batch)      # with autograd
     logits = model.forward_logits(batch)
     logits, cache = model.prefill(batch, pad_to=...)
     logits, cache = model.decode_step(tokens, cache)     # cache updated in place
@@ -14,7 +15,9 @@ it.
 
 ``batch`` is a dict with "tokens" (B,S) int64 on the model's device, and
 "frames" (B, enc_len, d_model) for the encoder-decoder or "patches" (B,
-n_patches, 1024) for the VLM.
+n_patches, 1024) for the VLM; ``train_loss`` takes "labels" (B,S) besides.
+The parameters require grad: ``train_loss`` builds the autograd graph, the
+serving methods run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -27,14 +30,14 @@ from .config import ArchConfig
 
 
 def _populate(mod: nn.Module, tree: dict) -> nn.Module:
-    """Register ``tree``'s leaves as parameters of ``mod``, sub-dicts as
-    child modules, so that state-dict keys are the tree's dotted paths."""
+    """Register ``tree``'s leaves as trainable parameters of ``mod``,
+    sub-dicts as child modules, so that state-dict keys are the tree's
+    dotted paths."""
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
             mod.add_module(name, _populate(nn.Module(), leaf))
         else:
-            mod.register_parameter(name, nn.Parameter(leaf,
-                                                      requires_grad=False))
+            mod.register_parameter(name, nn.Parameter(leaf))
     return mod
 
 
@@ -84,6 +87,12 @@ class Model(nn.Module):
             {k: v.to(device=self.device, dtype=dtypes.get(k, v.dtype))
              for k, v in state.items()}, strict=True, assign=True)
         return self
+
+    def train_loss(self, batch):
+        """(total loss, {"ce", "aux"}) of ``batch["tokens"]`` against
+        ``batch["labels"]``, with autograd; the dense family only
+        (``lm.train_loss``)."""
+        return lm.train_loss(self.params, batch, self.cfg)
 
     @torch.no_grad()
     def forward_logits(self, batch) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Shared building blocks: device choice, norms, RoPE, init."""
+"""Shared building blocks: device choice, norms, RoPE, init, the loss."""
 from __future__ import annotations
 
 import torch
@@ -75,3 +75,16 @@ def normal_init(generator: torch.Generator | None, shape, std: float,
                                dtype=torch.float32,
                                device=out.device).mul_(std))
     return out
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Mean CE over all positions; logits (B,S,V), labels (B,S) int.  f32
+    logits, logsumexp minus the gold logit, plus ``z_loss * lse^2``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss.mean()

@@ -8,8 +8,12 @@ layout (``layers.attn.wq`` is (L, D, H, hd)); the layer loop is a Python
 loop over views of the stacked leaves.  Entry points:
 
     forward(params, tokens, cfg, patches=None) -> logits, cache|None
+    train_loss(params, batch, cfg)             -> loss, {"ce", "aux"}
     prefill(params, batch, cfg)                -> last-token logits, cache
     decode_step(params, tokens, cache, cfg)    -> logits (cache in place)
+
+Training (``train_loss``, with autograd) takes the dense family; the other
+families wait for their kernels' backwards (ROADMAP.md, queue 1).
 
 Cache layouts (each with "pos": (B,) int64):
     attention families: {"k": (L,B,T,K,hd), "v": ...}
@@ -23,19 +27,34 @@ projected patches to the token embeddings and then runs the dense stack.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import decode_attention, full_attention, init_attn_params
-from .common import dtype_of, normal_init, rms_norm
+from .common import cross_entropy_loss, dtype_of, normal_init, rms_norm
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: encdec.py
 PATCH_DIM = 1024          # the stub vision tower's patch features
+# what training each other family waits for (ROADMAP.md, queue 1)
+TRAIN_LATER = {
+    "moe": "MoE training (a moe_gmm backward)",
+    "ssm": "SSM and hybrid training (an SSD backward)",
+    "hybrid": "SSM and hybrid training (an SSD backward)",
+    "encdec": "whisper and llava training",
+    "vlm": "whisper and llava training",
+}
+# "dots" remat keeps the outputs of the matrix products (einsum lowers to
+# these), as jax.checkpoint_policies.checkpoint_dots keeps dot_general's
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -112,6 +131,17 @@ def _mamba_lead(cfg: ArchConfig) -> tuple:
 
 
 # ----------------------------------------------------------------- helpers
+def _unbind(tree: dict) -> list[dict]:
+    """The per-layer trees of the stacked leaves, each leaf unbound once.
+    Under autograd the unbind's backward stacks the layers' gradients once,
+    where indexing each layer would add a zero gradient of the whole leaf
+    per layer."""
+    parts = {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _layer(tree: dict, *idx: int) -> dict:
     """Views of layer ``idx`` of the stacked leaves: ``(i,)``, or ``(b, j)``
     over the hybrid's two stacked axes."""
@@ -156,6 +186,24 @@ def _ffn(lp, m, cfg: ArchConfig):
     return y
 
 
+def _maybe_ckpt(fn, cfg: ArchConfig):
+    """``cfg.remat`` under autograd, as the reference's ``_maybe_ckpt``
+    (``repro/models/lm.py:105-111``): "full" keeps only each block's inputs
+    and recomputes the block in the backward, "dots" also keeps its matrix
+    products' outputs.  Without grad nothing is kept, and ``fn`` runs as
+    is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _DOTS))
+    raise ValueError(f"remat {cfg.remat!r}: want none, full or dots")
+
+
 def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
     """One transformer block on a full sequence; window 0 => global."""
     a, kv = full_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
@@ -194,9 +242,9 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
                                            cfg)
                 keep(k=k, v=v)
     else:
-        for i in range(cfg.n_layers):
-            h, (k, v) = _block_forward(_layer(params["layers"], i), h,
-                                       positions, _window(cfg, i), cfg)
+        block = _maybe_ckpt(_block_forward, cfg)
+        for i, lp in enumerate(_unbind(params["layers"])):
+            h, (k, v) = block(lp, h, positions, _window(cfg, i), cfg)
             keep(k=k, v=v)
     cache = None
     if collect_cache:
@@ -207,6 +255,25 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
     if last_only:
         h = h[:, -1:, :]
     return _logits(params, h, cfg), cache
+
+
+# ------------------------------------------------------------------- train
+def train_loss(params, batch, cfg: ArchConfig):
+    """Mean CE of the logits of ``batch["tokens"]`` against
+    ``batch["labels"]`` plus 0.01 * the MoE aux loss (0 for the dense
+    family), as the reference's ``train_loss`` (``repro/models/lm.py:
+    224-232``).  Returns (total, {"ce", "aux"}); differentiate ``total``.
+    Takes the dense family; the others raise ``NotImplementedError``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains the dense family; training the "
+            f"{cfg.family} family waits for "
+            f"{TRAIN_LATER[cfg.family]} (ROADMAP.md, "
+            f"queue 1)")
+    logits, _ = forward(params, batch["tokens"], cfg)
+    loss = cross_entropy_loss(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 # ----------------------------------------------------------------- serving

@@ -30,6 +30,8 @@ KEY = jax.random.PRNGKey(0)
 
 
 def _rel(got, want) -> float:
+    if isinstance(got, torch.Tensor):    # the parameters require grad
+        got = got.detach()
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
 

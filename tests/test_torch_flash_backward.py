@@ -1,0 +1,200 @@
+"""The port's flash-attention backward on the CPU: the plain backward
+(``attention_backward_reference``) against torch autograd of the plain
+forward and against ``jax.grad`` of the JAX reference, the forward's row
+logsumexp, the autograd Function, and the input checks of the CUDA path.
+
+Inputs and cotangents are drawn once with numpy and handed to both
+frameworks.  The CUDA backward kernel runs only on the card: chip_smoke.py
+holds it against the same plain backward there."""
+import types
+
+import pytest
+
+np = pytest.importorskip("numpy")
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.ref import \
+    attention_reference as jax_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention, attention_backward_reference, attention_reference,
+    flash_attention)
+from repro_torch.kernels.flash_attention.ops import \
+    _check_cuda_inputs  # noqa: E402
+from repro_torch.kernels import refuse_grad  # noqa: E402
+from repro_torch.kernels.moe_gmm.ops import \
+    NO_GRAD as GMM_NO_GRAD  # noqa: E402
+from repro_torch.kernels.ssd.ops import NO_GRAD as SSD_NO_GRAD  # noqa: E402
+
+# f32 on both sides; only the order of sums differs (observed <= 1e-6)
+REL = 1e-5
+# B, S, T, H, K, hd, causal, window
+CASES = {
+    "mha": (2, 24, 24, 4, 4, 16, True, 0),
+    "gqa": (1, 20, 20, 8, 2, 32, True, 0),
+    "window": (1, 33, 33, 4, 2, 16, True, 7),
+    "kv prefix": (2, 12, 30, 4, 1, 16, True, 0),
+    "non-causal": (1, 18, 18, 2, 2, 32, False, 0),
+    "hd 80": (1, 16, 16, 4, 2, 80, True, 5),
+}
+
+
+def _draw(b, s, t, h, k, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, hd), np.float32),
+            rng.standard_normal((b, t, k, hd), np.float32),
+            rng.standard_normal((b, t, k, hd), np.float32),
+            rng.standard_normal((b, s, h, hd), np.float32))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-30))
+
+
+def _plain_backward(q, k, v, do, causal, window):
+    tq, tk, tv = (torch.as_tensor(x) for x in (q, k, v))
+    o, lse = attention_reference(tq, tk, tv, causal=causal, window=window,
+                                 return_lse=True)
+    return attention_backward_reference(tq, tk, tv, o, lse,
+                                        torch.as_tensor(do), causal=causal,
+                                        window=window)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_reference_matches_autograd(case):
+    b, s, t, h, k, hd, causal, window = CASES[case]
+    q, kk, v, do = _draw(b, s, t, h, k, hd)
+    got = _plain_backward(q, kk, v, do, causal, window)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, kk, v))
+    out = attention_reference(tq, tk, tv, causal=causal, window=window)
+    want = torch.autograd.grad(out, (tq, tk, tv), torch.as_tensor(do))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) < REL
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_backward_reference_matches_jax_grad(case):
+    b, s, t, h, k, hd, causal, window = CASES[case]
+    q, kk, v, do = _draw(b, s, t, h, k, hd, seed=1)
+    got = _plain_backward(q, kk, v, do, causal, window)
+
+    @jax.jit
+    def jax_grads(a, b_, c, cot):
+        _, vjp = jax.vjp(lambda x, y, z: jax_attention(
+            x, y, z, causal=causal, window=window), a, b_, c)
+        return vjp(cot)
+
+    want = jax_grads(*(jnp.asarray(x) for x in (q, kk, v, do)))
+    for g, w in zip(got, want):
+        assert _rel(g, w) < REL
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_lse_matches_jax_logsumexp(case):
+    b, s, t, h, k, hd, causal, window = CASES[case]
+    q, kk, _, _ = _draw(b, s, t, h, k, hd, seed=2)
+    _, lse = attention_reference(*(torch.as_tensor(x) for x in (q, kk, kk)),
+                                 causal=causal, window=window,
+                                 return_lse=True)
+    rows, cols = np.arange(s)[:, None], np.arange(t)[None, :]
+    mask = np.ones((s, t), bool)
+    if causal:
+        mask &= cols <= rows + (t - s)
+    if window > 0:
+        mask &= cols > rows + (t - s) - window
+
+    @jax.jit
+    def jax_lse(a, b_):
+        scores = jnp.einsum("bskgd,btkd->bkgst",
+                            a.reshape(b, s, k, h // k, hd), b_) * hd ** -0.5
+        scores = jnp.where(mask, scores, -2.0 ** 30)
+        return jax.nn.logsumexp(scores, axis=-1).reshape(b, h, s)
+
+    want = jax_lse(jnp.asarray(q), jnp.asarray(kk))
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    assert _rel(lse, want) < REL
+
+
+@pytest.mark.parametrize("case", ["gqa", "window", "kv prefix"])
+def test_function_matches_autograd_on_cpu(case):
+    """FlashAttention.apply on the CPU (the plain forward keeping lse, the
+    plain backward) against autograd of the plain forward; flash_attention
+    routes through it when an input requires grad, and not otherwise."""
+    b, s, t, h, k, hd, causal, window = CASES[case]
+    q, kk, v, do = _draw(b, s, t, h, k, hd, seed=3)
+    args = [torch.tensor(x, requires_grad=True) for x in (q, kk, v)]
+    out = FlashAttention.apply(*args, causal, window, hd ** -0.5)
+    assert out.grad_fn is not None and "FlashAttention" in \
+        type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, args, torch.as_tensor(do))
+    ref_args = [torch.tensor(x, requires_grad=True) for x in (q, kk, v)]
+    ref = attention_reference(*ref_args, causal=causal, window=window)
+    want = torch.autograd.grad(ref, ref_args, torch.as_tensor(do))
+    assert _rel(out.detach(), ref.detach()) < REL
+    for g, w in zip(got, want):
+        assert _rel(g, w) < REL
+    routed = flash_attention(*args, causal=causal, window=window)
+    assert "FlashAttention" in type(routed.grad_fn).__name__
+    with torch.no_grad():
+        assert flash_attention(*args, causal=causal,
+                               window=window).grad_fn is None
+
+
+def test_function_refuses_causal_with_fewer_keys():
+    """Causal attention with T < S leaves rows without a key, whose gradient
+    the kernel and the plain version would give differently: the Function
+    refuses it on the CPU as on the card, and the no-grad forward (serving)
+    still takes it."""
+    q, kk, v, _ = _draw(1, 12, 8, 2, 2, 16, seed=4)
+    args = [torch.tensor(x, requires_grad=True) for x in (q, kk, v)]
+    with pytest.raises(ValueError, match="fewer keys than queries"):
+        FlashAttention.apply(*args, True, 0, 0.25)
+    with pytest.raises(ValueError, match="fewer keys than queries"):
+        flash_attention(*args, causal=True)
+    assert flash_attention(*args, causal=False).shape == args[0].shape
+    with torch.no_grad():
+        assert flash_attention(*args, causal=True).shape == args[0].shape
+
+
+def test_check_cuda_inputs_checks_do():
+    q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    _check_cuda_inputs(q, k, k, torch.zeros_like(q))
+    with pytest.raises(ValueError, match="cotangent must match q"):
+        _check_cuda_inputs(q, k, k, torch.zeros(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="cotangent must match q"):
+        _check_cuda_inputs(q, k, k, torch.zeros(1, 7, 2, 16,
+                                                dtype=torch.bfloat16))
+    strided = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        _check_cuda_inputs(q, k, k, strided)
+    # a row that starts 8 bytes in: not 16-byte aligned
+    unaligned = torch.zeros(1 * 8 * 2 * 16 + 4,
+                            dtype=torch.bfloat16)[4:].view(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_cuda_inputs(q, k, k, unaligned)
+
+
+@pytest.mark.parametrize("message", [GMM_NO_GRAD, SSD_NO_GRAD],
+                         ids=["moe_gmm", "ssd"])
+def test_kernels_without_backward_refuse_grad_on_cuda(message):
+    """moe_gmm and SSD have no backward on the card: a CUDA input that
+    needs a gradient raises, so that no parameter is left silently without
+    one.  CPU inputs (the plain versions, differentiated by autograd) and
+    calls without grad pass."""
+    cuda = torch.device("cuda")
+    needs = types.SimpleNamespace(requires_grad=True, device=cuda)
+    frozen = types.SimpleNamespace(requires_grad=False, device=cuda)
+    cpu = types.SimpleNamespace(requires_grad=True,
+                                device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+        refuse_grad(message, frozen, needs)
+    assert str(err.value) == message
+    refuse_grad(message, frozen, frozen)
+    refuse_grad(message, cpu, cpu)
+    with torch.no_grad():
+        refuse_grad(message, needs)

@@ -1,0 +1,308 @@
+"""The port's training path on the CPU against the JAX package: the loss
+and every gradient leaf, one train step, the data loader's token stream,
+the trainer (the tests of tests/test_runtime.py and tests/test_system.py
+ported), and checkpoints that cross between the two packages.
+
+Weights come from the JAX init through ``bridge.params_from_jax``; batches
+are numpy arrays handed to both."""
+import tempfile
+
+import pytest
+
+np = pytest.importorskip("numpy")
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke as jax_smoke  # noqa: E402
+from repro.data import PrefetchingLoader as JaxLoader  # noqa: E402
+from repro.data import SyntheticCorpus as JaxCorpus  # noqa: E402
+from repro.launch.steps import make_train_step as jax_train_step  # noqa
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.optim import AdamW as JaxAdamW  # noqa: E402
+from repro.optim import AdamWConfig as JaxAdamWConfig  # noqa: E402
+from repro.runtime import CheckpointManager as JaxCheckpoints  # noqa: E402
+from repro.runtime import TrainConfig as JaxTrainConfig  # noqa: E402
+from repro.runtime import Trainer as JaxTrainer  # noqa: E402
+from repro_torch.bridge import opt_state_from_jax, params_from_jax  # noqa
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.data import PrefetchingLoader, SyntheticCorpus  # noqa
+from repro_torch.kernels.flash_attention import flash_attention  # noqa
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.api import flatten  # noqa: E402
+from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
+from repro_torch.runtime import (CheckpointManager, TrainConfig,  # noqa
+                                 Trainer)
+from repro_torch.runtime.checkpoint import flatten_state  # noqa: E402
+
+DENSE = ["deepseek-7b", "phi4-mini-3.8b", "gemma3-27b"]
+# f32 on both sides, only the order of sums differs (observed <= 1e-7 for
+# the loss, <= 1.4e-6 for a gradient leaf)
+LOSS_REL = 1e-5
+GRAD_REL = 1e-4
+KEY = jax.random.PRNGKey(0)
+
+
+def _batch(cfg, b=2, s=16, seed=0):
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                size=(b, s + 1))
+    return ({"tokens": jnp.asarray(toks[:, :-1]),
+             "labels": jnp.asarray(toks[:, 1:])},
+            {"tokens": torch.as_tensor(toks[:, :-1]),
+             "labels": torch.as_tensor(toks[:, 1:])})
+
+
+def _leaf_rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-30))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_loss_and_every_gradient_match_jax(arch):
+    """Model.train_loss and every gradient leaf against jax.grad of the JAX
+    Model.train_loss; remat none, full and dots give the port the same
+    gradients (gemma3 runs its sliding-window layers through flash)."""
+    jm = JaxModel(jax_smoke(arch))
+    jp = jm.init(KEY)
+    jb, tb = _batch(jm.cfg)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.train_loss(p, jb), has_aux=True))(jp)
+    jgrads = flatten(jax.device_get(jgrads))
+    state = params_from_jax(jax.device_get(jp))
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        model = Model(get_smoke(arch).replace(remat=remat),
+                      device="cpu").load_state(state)
+        loss, met = model.train_loss(tb)
+        for got, want in ((loss, jloss), (met["ce"], jmet["ce"])):
+            got, want = float(got.detach()), float(want)
+            assert abs(got - want) <= LOSS_REL * abs(want)
+        assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+        loss.backward()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+        assert set(grads[remat]) == set(jgrads)
+        for name, g in grads[remat].items():
+            assert g is not None and g.shape == jgrads[name].shape, name
+            assert _leaf_rel(g, jgrads[name]) <= GRAD_REL, (remat, name)
+    for remat in ("full", "dots"):
+        for name, g in grads["none"].items():
+            assert _leaf_rel(grads[remat][name], g) <= GRAD_REL
+
+
+def test_train_loss_refuses_families_without_backward():
+    for arch, what in (("llama4-scout-17b-a16e", "moe_gmm backward"),
+                       ("mamba2-780m", "SSD backward"),
+                       ("whisper-medium", "whisper and llava")):
+        model = Model(get_smoke(arch), device="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            model.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.long),
+                              "labels": torch.zeros(1, 4, dtype=torch.long)})
+
+
+def test_train_step_matches_jax():
+    """One make_train_step on the same parameters, optimizer state and
+    batch: the metrics and every updated parameter and moment agree."""
+    cfg = jax_smoke("deepseek-7b")
+    jm = JaxModel(cfg)
+    jp = jm.init(KEY)
+    ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    jopt = JaxAdamW(JaxAdamWConfig(**ocfg))
+    jstate = {"params": jp, "opt": jopt.init(jp)}
+    jb, tb = _batch(cfg, seed=3)
+    jstate, jmet = jax.jit(jax_train_step(jm, jopt))(jstate, jb)
+
+    model = Model(get_smoke("deepseek-7b"), device="cpu").load_state(
+        params_from_jax(jax.device_get(jp)))
+    opt = AdamW(AdamWConfig(**ocfg))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    state, met = make_train_step(model, opt)(state, tb)
+    assert set(met) == {"loss", "ce", "aux", "lr", "grad_norm"}
+    for key in met:
+        np.testing.assert_allclose(float(met[key]), float(jmet[key]),
+                                   rtol=1e-5)
+    want = flatten(jax.device_get(jstate["params"]))
+    for name, p in params.items():
+        assert p.grad is None
+        assert _leaf_rel(p.detach(), want[name]) <= 1e-6, name
+    for key in ("m", "v"):
+        mom = flatten(jax.device_get(jstate["opt"][key]))
+        for name, m in state["opt"][key].items():
+            assert _leaf_rel(m, mom[name]) <= GRAD_REL, (key, name)
+    assert int(state["opt"]["count"]) == int(jstate["opt"]["count"]) == 1
+
+
+def test_loader_token_stream_matches_reference():
+    ours = PrefetchingLoader(SyntheticCorpus(vocab=300, seq_len=24, seed=5),
+                             batch=3, seq_len=24, start_step=2)
+    ref = JaxLoader(JaxCorpus(vocab=300, seq_len=24, seed=5), batch=3,
+                    seq_len=24, start_step=2)
+    try:
+        for _ in range(3):
+            a, b = next(ours), next(ref)
+            for key in ("tokens", "labels"):
+                np.testing.assert_array_equal(a[key], b[key])
+                assert a[key].shape == (3, 24)
+    finally:
+        ours.close()
+        ref.close()
+
+
+def test_loader_moves_batches_with_to_device():
+    loader = PrefetchingLoader(SyntheticCorpus(100, 8, seed=1), 2, 8,
+                               to_device=lambda x: torch.as_tensor(
+                                   x, dtype=torch.int64))
+    try:
+        batch = next(loader)
+        assert batch["tokens"].dtype == torch.int64
+        assert torch.equal(batch["tokens"][:, 1:], batch["labels"][:, :-1])
+    finally:
+        loader.close()
+
+
+# ------------------------------------------------- tests/test_runtime.py
+def test_checkpoint_roundtrip():
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        state = {"a": torch.arange(6.0).reshape(2, 3),
+                 "b": {"c": torch.ones(4, dtype=torch.bfloat16)}}
+        mgr.save(7, state)
+        like = {"a": torch.zeros(2, 3),
+                "b": {"c": torch.zeros(4, dtype=torch.bfloat16)}}
+        restored, step = mgr.restore(like)
+        assert step == 7 and restored is like
+        assert torch.equal(like["a"], state["a"])
+        assert like["b"]["c"].dtype == torch.bfloat16
+        with pytest.raises(ValueError, match="float32"):
+            mgr.restore({"a": torch.zeros(2, 3, dtype=torch.bfloat16),
+                         "b": {"c": torch.zeros(4, dtype=torch.bfloat16)}})
+
+
+def test_checkpoint_gc_keeps_latest():
+    import os
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=2)
+        for s in range(5):
+            mgr.save(s, {"x": torch.zeros(1)})
+        assert mgr.latest_step() == 4
+        assert sorted(int(p.split("_")[1]) for p in os.listdir(d)) == [3, 4]
+
+
+def test_crash_resume_matches_uninterrupted():
+    cfg = get_smoke("deepseek-7b")
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=6)   # shared LR schedule
+    with tempfile.TemporaryDirectory() as d:
+        _, straight = Trainer(cfg, TrainConfig(
+            batch=2, seq_len=16, steps=6, log_every=0), ocfg,
+            device="cpu").run()
+        Trainer(cfg, TrainConfig(batch=2, seq_len=16, steps=3, ckpt_every=3,
+                                 ckpt_dir=d, log_every=0), ocfg,
+                device="cpu").run()
+        _, resumed = Trainer(cfg, TrainConfig(
+            batch=2, seq_len=16, steps=6, ckpt_every=3, ckpt_dir=d,
+            log_every=0), ocfg, device="cpu").run(resume=True)
+        # the resumed tail must equal the uninterrupted run step for step
+        np.testing.assert_allclose(straight[3:], resumed, rtol=1e-4)
+
+
+def test_training_reduces_loss():
+    t = Trainer(get_smoke("deepseek-7b"),
+                TrainConfig(batch=4, seq_len=32, steps=30, log_every=0),
+                device="cpu")
+    _, losses = t.run()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    assert last < first - 0.1, f"no learning: {first:.3f} -> {last:.3f}"
+    assert all(np.isfinite(m["grad_norm"]) for m in t.metrics)
+
+
+def test_grad_accumulation_matches_large_batch():
+    cfg = get_smoke("deepseek-7b")
+    runs = [Trainer(cfg, TrainConfig(batch=4, seq_len=16, steps=3,
+                                     microbatches=n, log_every=0),
+                    device="cpu").run()[1] for n in (1, 2)]
+    # same data, same init: losses must track closely (order of sums)
+    np.testing.assert_allclose(runs[0], runs[1], rtol=2e-2, atol=2e-2)
+
+
+# --------------------------------------------- tests/test_system.py:54
+def test_e2e_trained_model_improves():
+    t = Trainer(get_smoke("phi4-mini-3.8b"),
+                TrainConfig(batch=4, seq_len=32, steps=25, log_every=0),
+                device="cpu")
+    _, losses = t.run()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+
+
+def test_trainer_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(get_smoke("deepseek-7b"), TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--smoke", "--steps", "1"])
+
+
+def test_train_cli_on_cpu(capsys):
+    flash_attention.launches = flash_attention.backward_launches = 0
+    train_cli.main(["--arch", "gemma3-27b", "--smoke", "--device", "cpu",
+                    "--steps", "3", "--batch", "2", "--seq", "16"])
+    assert "final loss" in capsys.readouterr().out
+    # the CPU runs the plain versions: no kernel is launched
+    assert flash_attention.launches == flash_attention.backward_launches == 0
+
+
+# ------------------------------------------ checkpoints across packages
+def test_jax_checkpoint_resumes_in_the_port():
+    """A JAX Trainer's checkpoint at step 3 restores into the port, whose
+    steps 4-6 then match the uninterrupted JAX run."""
+    ocfg = dict(warmup_steps=1, total_steps=6)
+    cfg = get_smoke("deepseek-7b")
+    with tempfile.TemporaryDirectory() as d:
+        _, straight = JaxTrainer(jax_smoke("deepseek-7b"), JaxTrainConfig(
+            batch=2, seq_len=16, steps=6, log_every=0),
+            JaxAdamWConfig(**ocfg)).run()
+        JaxTrainer(jax_smoke("deepseek-7b"), JaxTrainConfig(
+            batch=2, seq_len=16, steps=3, ckpt_every=3, ckpt_dir=d,
+            log_every=0), JaxAdamWConfig(**ocfg)).run()
+        port = Trainer(cfg, TrainConfig(batch=2, seq_len=16, steps=6,
+                                        ckpt_every=3, ckpt_dir=d,
+                                        log_every=0),
+                       AdamWConfig(**ocfg), device="cpu")
+        _, resumed = port.run(resume=True)
+    assert len(resumed) == 3
+    np.testing.assert_allclose(resumed, straight[3:], rtol=1e-4)
+
+
+def test_port_checkpoint_restores_in_jax():
+    """The port's checkpoint, written in the JAX leaf order, restores
+    through the JAX CheckpointManager (which matches leaves by position)
+    into the JAX state: every leaf, the step count included, equal."""
+    cfg = get_smoke("deepseek-7b").replace(param_dtype="bfloat16",
+                                           compute_dtype="bfloat16")
+    jcfg = jax_smoke("deepseek-7b").replace(param_dtype="bfloat16",
+                                            compute_dtype="bfloat16")
+    jtrainer = JaxTrainer(jcfg, JaxTrainConfig(steps=2))
+    like = jtrainer.init_state()
+    port = Trainer(cfg, TrainConfig(batch=2, seq_len=16, steps=2,
+                                    log_every=0), device="cpu",
+                   params=params_from_jax(jax.device_get(like["params"])),
+                   opt_state=opt_state_from_jax(jax.device_get(like["opt"])))
+    state, _ = port.run()
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointManager(d).save(1, state)
+        restored, step = JaxCheckpoints(d).restore(like)
+    assert step == 1
+    ours = flatten_state(state)
+    names = ["/".join(str(getattr(k, "key", k)) for k in path)
+             for path, _ in jax.tree_util.tree_flatten_with_path(restored)[0]]
+    assert names == list(ours)
+    for name, leaf in zip(names, jax.tree_util.tree_leaves(restored)):
+        want = ours[name]
+        assert str(leaf.dtype) == str(want.dtype)[6:], name
+        np.testing.assert_array_equal(
+            np.asarray(leaf.astype(jnp.float32)),
+            want.detach().float().numpy())
+    assert int(restored["opt"]["count"]) == 2
