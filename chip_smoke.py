@@ -4,12 +4,15 @@ card, and the numbers of its kernels there.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ssd-only [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --flash-bwd-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
 1. info: card name and power limit, torch and CUDA versions; TF32 off.
-2. build: every CUDA kernel from the sources in the checkout, in parallel.
+2. build: every CUDA kernel from the sources in the checkout, in parallel;
+   ptxas's registers and spills by instantiation, and none allowed in the
+   flash backward's wgmma body.
 3. kernels vs their plain PyTorch versions on the card, at the cases of
    tests/test_kernels.py and at the very shapes that phase 5 serves (flash
    attention: hd-128 prefill shapes, the served prompts of deepseek-7b,
@@ -31,9 +34,11 @@ result line):
    ``flash_attention``'s autograd Function (o, the saved lse, dq, dk, dv,
    one backward call counted each): tests/test_kernels.py's flash cases,
    deepseek-7b's training shape (2, 2048, 32, 128), GQA with a window of
-   256, a kv prefix (T > S), hd 80, f32 at the smoke configs' hd 16 and one
-   partial tile; with an f64 sum at two shapes as the yardstick of
-   rounding.
+   256, a kv prefix (T > S), hd 80, f32 at the smoke configs' hd 16, one
+   partial tile, GQA at hd 64 with a window over several tiles and
+   granite-34b's MQA (48:1) at hd 128; with an f64 sum at two shapes as
+   the yardstick of rounding; and a second call at the training shape and
+   the windowed GQA cases, which must give bit-identical dq, dk, dv.
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
    mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
@@ -67,14 +72,19 @@ result line):
    served prompt's prefill, each bound over the bytes of the live
    experts; the SSD kernel at mamba2's
    longest served prefill and at its one-chunk prompts of 254 and 92
-   tokens; the flash backward at the training shape beside autograd's
-   backward of SDPA; each in three rounds taken in turns with its
-   yardstick, the card's clocks read before and after).
+   tokens; the flash backward's wgmma body at the training shape and at
+   phi4-mini's GQA (2, 2048, 24, 8, 128), each beside the mma.sync body
+   (asked for by name) and autograd's backward of SDPA; each in three
+   rounds taken in turns with its yardstick, the card's clocks read before
+   and after).
 
-``--ssd-only`` runs phases 1 and 2 and the SSD kernel's part of phases 3
-and 6 alone; with ``--src`` it takes ``repro_torch`` from another checkout
-(a ``git archive`` of the parent commit, say), to time two versions of
-the kernel in one call on one card.
+``--flash-bwd-only`` builds the flash kernels, prints the wgmma
+backward's registers and spills (none allowed), and runs the backward's
+part of phases 3 and 6 alone.  ``--ssd-only`` runs phases 1 and 2 and the
+SSD kernel's part of phases 3 and 6 alone; with ``--src`` it takes
+``repro_torch`` from another checkout (a ``git archive`` of the parent
+commit, say), to time two versions of the kernel in one call on one
+card.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -157,7 +167,8 @@ MODEL_REL = 5e-4                           # tests/test_models.py:76
 # tests/test_kernels.py's flash cases in both dtypes; deepseek-7b's training
 # shape; GQA (K 8) with a window of 256; a kv prefix (T > S) at hd 128; hd
 # 80 in both dtypes; f32 at the smoke configs' hd 16 (MHA, and GQA with a
-# window); one partial tile
+# window); one partial tile; GQA (K 4) at hd 64 with a window of 256 over
+# several tiles; granite-34b's MQA (48:1) at hd 128
 TRAIN_SHAPE = (2, 2048, 32, 32, 128)       # B, S, H, K, hd
 BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
              for b, s, t, h, k, hd, c, w in FLASH_CASES
@@ -169,7 +180,17 @@ BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
     (1, 300, 300, 8, 2, 80, True, 64, torch.float32),
     (2, 32, 32, 4, 4, 16, True, 0, torch.float32),
     (2, 32, 32, 4, 2, 16, True, 8, torch.float32),
-    (1, 20, 20, 4, 2, 64, True, 0, torch.bfloat16)]
+    (1, 20, 20, 4, 2, 64, True, 0, torch.bfloat16),
+    (1, 1024, 1024, 16, 4, 64, True, 256, torch.bfloat16),
+    (1, 512, 512, 48, 1, 128, True, 0, torch.bfloat16)]
+# cases whose backward runs twice and must give bit-identical dq, dk, dv:
+# the training shape and the two windowed GQA cases
+BWD_REPEAT = [(2, 2048, 2048, 32, 32, 128, True, 0),
+              (2, 1024, 1024, 32, 8, 128, True, 256),
+              (1, 1024, 1024, 16, 4, 64, True, 256)]
+# the backward's timed shapes (B, S, H, K, hd; bf16 causal): deepseek-7b's
+# training shape and phi4-mini's GQA at the same length
+BWD_TIMED = {"train": TRAIN_SHAPE, "phi4 gqa": (2, 2048, 24, 8, 128)}
 # bf16 shapes at which the backward and the plain one (f32) are each held
 # against the plain backward summed in f64 (B, S, H, K, hd; causal)
 BWD_FLOORS = {"S 2048": (1, 2048, 32, 32, 128), "hd 80": (1, 663, 32, 32, 80)}
@@ -183,7 +204,7 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "deepseek-7b", 6, 2, 2048
 TRAIN_SMOKE = ("deepseek-7b", "phi4-mini-3.8b", "gemma3-27b")
 TRAIN_REL = 1e-4                           # card vs CPU, grads and losses
 # deepseek-7b at full width cut to 2 of its 30 layers, trained in bf16 (the
-# training path's kernels: the wgmma forward keeping lse, the mma.sync
+# training path's kernels: the wgmma forward keeping lse, the wgmma
 # backward) against the same weights in f32 (the FMA kernels, held to rows
 # of 1e-5 in phase 3) on the card.  Bounds on the step-1 gradients' worst
 # leaf (||bf16 - f32|| / ||f32||, 1.4e-2 in sound runs: bf16 activations
@@ -408,13 +429,25 @@ def phase_build() -> dict:
     for name in paths:
         report[name] = [ln.strip() for ln in _build.build_log(name)
                         .splitlines() if "registers" in ln or "spill" in ln
-                        or "entry function" in ln or "Loss" in ln]
+                        or "entry function" in ln or "Loss" in ln
+                        or "warning" in ln]
         for ln in report[name]:
             say(f"[build] {name}: {ln}")
         say(f"[build] {name} by instantiation: "
             + "; ".join(f"{k}: {v}" for k, v in
                         instantiations(report[name]).items()))
+    wgmma_bwd_report(report["flash_attn_bwd"])
     return report
+
+
+def wgmma_bwd_report(lines: list[str]) -> None:
+    """The wgmma backward's registers and spills, which must be none."""
+    new = {k: v for k, v in instantiations(lines).items()
+           if k.startswith("flash_attn_bwd_wgmma")}
+    say(f"[build] flash_attn_bwd wgmma body: {new}")
+    assert len(new) == 2, f"want the hd 64 and 128 wgmma bodies, got {new}"
+    for k, v in new.items():
+        assert v.endswith(" 0 bytes spilled"), f"{k} spills: {v}"
 
 
 def instantiations(lines: list[str]) -> dict:
@@ -575,6 +608,13 @@ def phase_flash_backward() -> float:
             f"row {o_rel:.3e}; lse max abs err {lse_err:.3e}; "
             + "; ".join(parts) + f" (atol {tol['atol']} x max, rtol "
             f"{tol['rtol']}; row < {ROW_REL[dt]:.3e})")
+        if (b, s, t, h, k, hd, causal, window) in BWD_REPEAT:
+            _, _, again = wrapper_grads(q, kk, v, do, causal, window)
+            same = [torch.equal(g, a) for g, a in zip(got, again)]
+            say(f"[kernels] flash_attn_bwd {label}: a second call gives "
+                f"bit-identical dq, dk, dv: {same}")
+            assert all(same), f"flash bwd {label}: not deterministic"
+            del again
         del q, kk, v, do, o, lse, got, want, want_o, want_lse
     torch.cuda.empty_cache()
     say(f"[kernels] flash_attn_bwd: {len(BWD_CASES)} cases through "
@@ -946,7 +986,7 @@ def train_wide_bf16_vs_f32() -> dict:
            "grad_rel": rels, "worst_leaf": worst, "losses": losses,
            "loss_rel": loss_rel}
     say(f"[card-vs-cpu] {TRAIN_ARCH} full width, {WIDE_LAYERS} layers, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16 (mma.sync backward, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16 (wgmma backward, "
         f"wgmma forward with lse) against f32 (FMA kernels) on the card: "
         f"step-1 loss {loss1['bf16']:.6f} vs {loss1['f32']:.6f}; gradients "
         f"{len(rels)} leaves, worst ||bf16 - f32|| / ||f32|| {rels[worst]:.3e}"
@@ -1430,73 +1470,116 @@ def phase_timing(card: str) -> dict:
 
 
 def phase_timing_bwd(card: str) -> dict:
-    """The flash backward at deepseek-7b's training shape, bf16 causal: a
-    call of its binding (three kernels; the checks of ``FlashAttention``
-    stay outside the timed call) in three rounds in turns with
-    autograd's backward of SDPA (the yardstick, never called by the port),
-    medians kept; the call replayed from a CUDA graph; the plain backward."""
+    """The flash backward at BWD_TIMED, bf16 causal: a call of its binding
+    (its launches; the checks of ``FlashAttention`` stay outside the timed
+    call) with the wgmma body, with the mma.sync body (asked for by name,
+    as no other phase does) and autograd's backward of SDPA (the
+    yardstick, never called by the port), in three rounds in turns, medians
+    kept; each body's call replayed from a CUDA graph; the plain backward
+    at the training shape.  Returns the training shape's wgmma numbers,
+    with the mma.sync body's and the other shapes' beside them."""
     from repro_torch.kernels.flash_attention import \
         attention_backward_reference
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     gen = torch.Generator("cuda").manual_seed(11)
-    b, s, h, k, hd = TRAIN_SHAPE
-    scale = hd ** -0.5
-    q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    o, lse = flash_attention_cuda(q, kk, v, True, 0, scale, with_lse=True)
+    out = {}
+    for key, shape in BWD_TIMED.items():
+        b, s, h, k, hd = shape
+        scale = hd ** -0.5
+        q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        o, lse = flash_attention_cuda(q, kk, v, True, 0, scale,
+                                      with_lse=True)
 
-    def kernel():
-        return flash_attention_bwd_cuda(q, kk, v, o, lse, do, True, 0, scale)
+        def kernel(body=None):
+            return flash_attention_bwd_cuda(q, kk, v, o, lse, do, True, 0,
+                                            scale, body=body)
 
-    # SDPA takes (B, H, S, hd): transposed once, outside the timed call
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, kk, v))
-    ot = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=h != k)
-    dot = do.transpose(1, 2).contiguous()
+        # SDPA takes (B, H, S, hd): transposed once, outside the timed call
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, kk, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=h != k)
+        dot = do.transpose(1, 2).contiguous()
 
-    def library():
-        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
-    tag = f"flash_attn_bwd {TRAIN_SHAPE}"
-    for _ in range(5):       # SDPA's backward ran slow in its first rounds
-        kernel()
-        library()
-    say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
-    kernel_r, library_r = [], []
-    for _ in range(3):
-        kernel_r.append(time_ms(kernel, 10))
-        library_r.append(time_ms(library, 10))
-    say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; kernel rounds "
-        f"{', '.join(f'{t:.4f}' for t in kernel_r)} ms, sdpa backward rounds "
-        f"{', '.join(f'{t:.4f}' for t in library_r)} ms")
-    kernel_ms, library_ms = sorted(kernel_r)[1], sorted(library_r)[1]
-    device_ms = graph_ms(kernel)
-    plain_ms = time_ms(lambda: attention_backward_reference(
-        q, kk, v, o, lse, do), 3)
-    pairs = s * (s + 1) // 2           # (q, k) pairs the causal mask keeps
-    flops = 5 * 2 * b * h * pairs * hd          # five products
-    # q, o, do, dq (B,S,H,hd) and k, v, dk, dv (B,S,K,hd) in bf16; lse f32
-    nbytes = 2 * 4 * b * s * (h + k) * hd + 4 * b * h * s
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    res = {"shape": list(TRAIN_SHAPE), "ms": kernel_ms, "graph_ms": device_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
-    say(f"[timing] {tag} bf16 causal: kernel {kernel_ms:.4f} ms (median; "
-        f"replayed from a CUDA graph {device_ms:.4f} ms), plain {plain_ms:.4f}"
-        f" ms, sdpa backward (yardstick) {library_ms:.4f} ms, kernel / sdpa "
-        f"{kernel_ms / library_ms:.3f}; bound {res['bound_ms']:.4f} ms by "
-        f"{res['bound_by']} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; "
-        f"the other bound {min(t_ops, t_bytes):.4f} ms); "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved, "
-        f"{100 * res['bound_ms'] / kernel_ms:.1f}% of bound [{card}]")
-    del q, kk, v, do, o, lse, qt, kt, vt, ot, dot
-    torch.cuda.empty_cache()
+        tag = f"flash_attn_bwd {shape}"
+        for _ in range(5):   # SDPA's backward ran slow in its first rounds
+            kernel()
+            kernel("mma")
+            library()
+        say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
+        rounds = {"wgmma": [], "mma": [], "sdpa": []}
+        for _ in range(3):
+            rounds["wgmma"].append(time_ms(kernel, 10))
+            rounds["mma"].append(time_ms(lambda: kernel("mma"), 10))
+            rounds["sdpa"].append(time_ms(library, 10))
+        say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; rounds "
+            + "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in r) + " ms"
+                        for n, r in rounds.items()))
+        med = {n: sorted(r)[1] for n, r in rounds.items()}
+        graph = {"wgmma": graph_ms(kernel),
+                 "mma": graph_ms(lambda: kernel("mma"))}
+        pairs = s * (s + 1) // 2         # (q, k) pairs the causal mask keeps
+        flops = 5 * 2 * b * h * pairs * hd          # five products
+        # q, o, do, dq (B,S,H,hd) and k, v, dk, dv (B,S,K,hd) in bf16; lse
+        nbytes = 2 * 4 * b * s * (h + k) * hd + 4 * b * h * s
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        res = {"shape": list(shape), "ms": med["wgmma"],
+               "graph_ms": graph["wgmma"], "library_ms": med["sdpa"],
+               "bound_ms": bound,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes,
+               "mma": {"ms": med["mma"], "graph_ms": graph["mma"]}}
+        if key == "train":
+            res["plain_ms"] = time_ms(lambda: attention_backward_reference(
+                q, kk, v, o, lse, do), 3)
+        for body in ("wgmma", "mma"):
+            say(f"[timing] {tag} bf16 causal, {body} body: "
+                f"{med[body]:.4f} ms (median; replayed from a CUDA graph "
+                f"{graph[body]:.4f} ms), sdpa backward (yardstick) "
+                f"{med['sdpa']:.4f} ms, {body} / sdpa "
+                f"{med[body] / med['sdpa']:.3f} (graph "
+                f"{graph[body] / med['sdpa']:.3f}); bound {bound:.4f} ms by "
+                f"{res['bound_by']} ({flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB; the other bound "
+                f"{min(t_ops, t_bytes):.4f} ms); "
+                f"{flops / graph[body] / 1e9:.2f} TFLOP/s from the graph, "
+                f"{100 * bound / graph[body]:.1f}% "
+                f"of bound [{card}]")
+        if "plain_ms" in res:
+            say(f"[timing] {tag}: plain backward {res['plain_ms']:.4f} ms")
+        out[key] = res
+        del q, kk, v, do, o, lse, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    res = dict(out["train"])
+    res["by_shape"] = out
     return res
+
+
+def flash_bwd_only(card: str) -> int:
+    """``--flash-bwd-only``: the flash kernels built, the backward's
+    registers and spills, its checks (phase 3's backward part) and its
+    timings (phase 6's backward part); one JSON line."""
+    from repro_torch.kernels import _build
+    names = ["flash_attn_fwd", "flash_attn_bwd"]
+    _build.build_all(names)
+    lines = [ln.strip() for ln in _build.build_log("flash_attn_bwd")
+             .splitlines() if "registers" in ln or "spill" in ln
+             or "entry function" in ln or "warning" in ln or "Loss" in ln]
+    for ln in lines:
+        say(f"[build] flash_attn_bwd: {ln}")
+    wgmma_bwd_report(lines)
+    err = phase_flash_backward()
+    timing = phase_timing_bwd(card)
+    say(json.dumps({"max_abs_err": err, "flash_bwd_timing": timing}))
+    return 0
 
 
 def phase_timing_gmm(card: str) -> dict:
@@ -1705,6 +1788,8 @@ def main(argv: list[str]) -> int:
     card = phase_info()
     if "--ssd-only" in argv:
         return ssd_only(card)
+    if "--flash-bwd-only" in argv:
+        return flash_bwd_only(card)
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
@@ -1759,6 +1844,11 @@ def main(argv: list[str]) -> int:
         **launches("flash_attn_bwd"), "max_abs_err": bwd_err,
         **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "graph_ms", "shape")},
+        # the mma.sync body at the same shape, and phi4-mini's GQA shape
+        "mma_body": bwd["mma"],
+        "phi4_gqa": {k: bwd["by_shape"]["phi4 gqa"][k] for k in
+                     ("shape", "ms", "graph_ms", "bound_ms", "bound_by",
+                      "library_ms", "mma")},
     }, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

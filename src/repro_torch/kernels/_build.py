@@ -8,8 +8,9 @@ unchanged source is built once.  Nothing is built at import: the first call
 of a kernel builds it, and ``build_all`` builds every kernel at once, one
 ``nvcc`` process per source, all started together.
 
-The compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
-kept beside each library as ``<name>-<hash>.log``.
+A source may include the headers (``*.cuh``) beside it, which enter the
+hash too.  The compiler's report (``-Xptxas -v``: registers, shared memory,
+spills) is kept beside each library as ``<name>-<hash>.log``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = _PKG / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):   # what it may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -98,7 +101,8 @@ def build_all(names=None) -> dict[str, Path]:
 
 
 def build_log(name: str) -> str:
-    """The compiler's report for the current build of ``name``, or ''."""
+    """A source may include the headers (``*.cuh``) beside it, which enter the
+hash too.  The compiler's report for the current build of ``name``, or ''."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 

@@ -14,11 +14,11 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .kernel import (TMA_HEAD_DIMS, flash_attention_bwd_cuda,
+                     flash_attention_cuda)
 from .ref import attention_backward_reference, attention_reference
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
-TMA_HEAD_DIMS = (64, 128)       # bf16 on wgmma + TMA; 16, 32, 80 on mma.sync
+HEAD_DIMS = (16, 32, 64, 80, 128)   # bf16 at 16, 32, 80 on mma.sync
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -58,15 +58,15 @@ def _check_cuda_inputs(q, k, v, do=None) -> None:
         raise ValueError("bfloat16 q, k, v and do rows must start 16-byte "
                          "aligned: data pointers on 16 bytes, strides "
                          "multiples of 8")
-    # at hd 64 and 128 the bf16 forward loads tiles through TMA tensor maps,
-    # which take strides above 0 and below 2^40 bytes (a dim of extent 1 is
-    # never stepped, so its stride does not matter)
+    # at hd 64 and 128 the bf16 forward and backward load tiles through TMA
+    # tensor maps, which take strides above 0 and below 2^40 bytes (a dim of
+    # extent 1 is never stepped, so its stride does not matter)
     if q.dtype == torch.bfloat16 and hd in TMA_HEAD_DIMS and any(
             n > 1 and not 0 < st < 2 ** 39
-            for x in (q, k, v) for n, st in zip(x.shape[:3], x.stride()[:3])):
-        raise ValueError("bfloat16 q, k, v at hd 64 and 128 are read through "
-                         "TMA: every stride of a dim longer than 1 must be "
-                         "above 0 and below 2^40 bytes")
+            for x in rows for n, st in zip(x.shape[:3], x.stride()[:3])):
+        raise ValueError("bfloat16 q, k, v and do at hd 64 and 128 are read "
+                         "through TMA: every stride of a dim longer than 1 "
+                         "must be above 0 and below 2^40 bytes")
 
 
 def _launch_fwd(q, k, v, causal: bool, window: int, scale: float,

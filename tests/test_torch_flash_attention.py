@@ -143,3 +143,19 @@ def test_cuda_inputs_tma_strides(hd, dtype, ok):
     else:
         with pytest.raises(ValueError, match="TMA"):
             _check_cuda_inputs(q, kv, kv)
+
+
+@pytest.mark.parametrize("hd,ok", [(64, False), (128, False), (80, True)])
+def test_cuda_inputs_do_tma_strides(hd, ok):
+    """The wgmma backward (bf16, hd 64 and 128) reads do through a TMA
+    tensor map too: a do with a zero stride is refused there, and taken by
+    the mma.sync (hd 80) body, which addresses rows itself."""
+    q = torch.zeros(1, 8, 2, hd, dtype=torch.bfloat16)
+    broadcast = torch.zeros(1, 8, 1, hd, dtype=torch.bfloat16).expand(
+        1, 8, 2, hd)
+    _check_cuda_inputs(q, q, q, torch.zeros_like(q))
+    if ok:
+        _check_cuda_inputs(q, q, q, broadcast)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            _check_cuda_inputs(q, q, q, broadcast)

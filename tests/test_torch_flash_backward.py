@@ -21,6 +21,8 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention, attention_backward_reference, attention_reference,
     flash_attention)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    BWD_TILE_KV, BWD_TILE_Q, band_schedule, bwd_body, workspace_words)
 from repro_torch.kernels.flash_attention.ops import \
     _check_cuda_inputs  # noqa: E402
 from repro_torch.kernels import refuse_grad  # noqa: E402
@@ -198,3 +200,93 @@ def test_kernels_without_backward_refuse_grad_on_cuda(message):
     refuse_grad(message, cpu, cpu)
     with torch.no_grad():
         refuse_grad(message, needs)
+
+
+# chip_smoke.py's BWD_CASES (B, S, T, H, K, hd, causal, window; the tests'
+# flash cases, the training shape, GQA with a window, a kv prefix, hd 80,
+# the smoke configs' hd 16, one partial tile, hd-64 GQA with a window over
+# several tiles, MQA at hd 128), phi4-mini's GQA and granite-34b's 48:1 MQA
+# at their training length
+SCHEDULE_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0), (1, 100, 100, 4, 4, 64, True, 0),
+    (2, 32, 128, 4, 1, 16, True, 0), (1, 128, 128, 8, 2, 64, True, 24),
+    (1, 96, 96, 2, 2, 32, False, 0), (1, 64, 64, 2, 2, 128, True, 0),
+    (2, 2048, 2048, 32, 32, 128, True, 0),
+    (2, 1024, 1024, 32, 8, 128, True, 256),
+    (1, 200, 328, 8, 2, 128, True, 0), (1, 663, 663, 32, 32, 80, True, 0),
+    (1, 300, 300, 8, 2, 80, True, 64), (2, 32, 32, 4, 4, 16, True, 0),
+    (2, 32, 32, 4, 2, 16, True, 8), (1, 20, 20, 4, 2, 64, True, 0),
+    (1, 1024, 1024, 16, 4, 64, True, 256), (1, 512, 512, 48, 1, 128, True, 0),
+    (2, 2048, 2048, 24, 8, 128, True, 0),
+    (1, 2048, 2048, 48, 1, 128, True, 0),
+    (1, 300, 700, 4, 2, 64, True, 100), (1, 300, 200, 4, 2, 64, False, 50)]
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=str)
+def test_band_schedule_matches_the_mask(case):
+    """The wgmma backward's schedule against the dense mask of
+    attention_reference: each (q tile, kv tile) pair with a kept element is
+    walked exactly once per (batch, kv head, query head of the group); the
+    per-tile counts and first adders match; every item that an item waits
+    on (a lower kv tile of its (b, kh) that sees the same q tile) holds a
+    lower ticket."""
+    b, s, t, h, k, hd, causal, window = case
+    sched = band_schedule(b, s, t, k, causal, window)
+    n_kv, n_q = -(-t // BWD_TILE_KV), -(-s // BWD_TILE_Q)
+    n_items = n_kv * b * k
+    assert sched.dtype == np.int32
+    assert sched.shape == (n_items + 2 * n_kv + 2 * n_q,)
+    items = sched[:n_items]
+    q_lo, q_hi = sched[n_items:n_items + n_kv], sched[n_items + n_kv:
+                                                      n_items + 2 * n_kv]
+    first = sched[n_items + 2 * n_kv:n_items + 2 * n_kv + n_q]
+    count = sched[n_items + 2 * n_kv + n_q:]
+    _, mask = _scores_mask(s, t, causal, window)
+    pad = np.zeros((n_q * BWD_TILE_Q, n_kv * BWD_TILE_KV), bool)
+    pad[:s, :t] = mask
+    seen = pad.reshape(n_q, BWD_TILE_Q, n_kv, BWD_TILE_KV).any((1, 3)).T
+    assert sorted(items.tolist()) == list(range(n_items))
+    ticket = np.empty(n_items, np.int64)
+    ticket[items] = np.arange(n_items)
+    walked = np.zeros((b, k, n_kv, n_q), np.int64)
+    for item in items.tolist():
+        kh, bb, n = item % k, item // k % b, item // (k * b)
+        for tt in range(q_lo[n], q_hi[n]):
+            walked[bb, kh, n, tt] += 1
+            rank = n - first[tt]
+            assert 0 <= rank < count[tt]
+            for m in range(first[tt], n):      # the adds it waits on
+                assert ticket[(m * b + bb) * k + kh] < ticket[item]
+    assert (walked == seen[None, None].astype(np.int64)).all()
+    np.testing.assert_array_equal(count, seen.sum(0))
+    np.testing.assert_array_equal(first, np.argmax(seen, axis=0))
+    # the kv tiles that see a q tile are contiguous, so ranks are dense
+    for tt in range(n_q):
+        assert seen[first[tt]:first[tt] + count[tt], tt].all()
+
+
+def _scores_mask(s, t, causal, window):
+    q = torch.zeros(1, s, 1, 1)
+    k = torch.zeros(1, t, 1, 1)
+    from repro_torch.kernels.flash_attention.ref import _scores
+    scores, mask = _scores(q, k, causal, window, 1.0)
+    return scores, mask.numpy()
+
+
+def test_backward_body_and_workspace():
+    """The wrapper's choice of body (wgmma for bf16 at hd 64 and 128,
+    mma.sync at 16, 32 and 80, FMAs in f32; mma.sync at hd 128 only when
+    asked by name) and the workspace it allocates for each."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert [bwd_body(bf, hd) for hd in (16, 32, 64, 80, 128)] == [
+        "mma", "mma", "wgmma", "mma", "wgmma"]
+    assert bwd_body(f32, 128) == "fma" and bwd_body(bf, 128, "mma") == "mma"
+    for dt, hd, body in ((bf, 64, "mma"), (f32, 128, "mma"),
+                         (bf, 128, "fma")):
+        with pytest.raises(ValueError, match="no .* body"):
+            bwd_body(dt, hd, body)
+    # D padded to whole 64-row tiles; the wgmma body adds lse * log2 e, the
+    # dq sums and one counter per (b, h, q tile) plus the ticket
+    assert workspace_words(2, 100, 4, 128, "mma") == 2 * 4 * 128
+    assert workspace_words(2, 100, 4, 128, "wgmma") == (
+        2 * 2 * 4 * 128 + 2 * 4 * 100 * 128 + 2 * 4 * 2 + 1)
