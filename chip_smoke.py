@@ -5,6 +5,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py
     python3 chip_smoke.py --ssd-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --flash-bwd-only
+    python3 chip_smoke.py --moe-bwd-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -35,16 +36,24 @@ result line):
    one backward call counted each): tests/test_kernels.py's flash cases,
    deepseek-7b's training shape (2, 2048, 32, 128), GQA with a window of
    256, a kv prefix (T > S), hd 80, f32 at the smoke configs' hd 16, one
-   partial tile, GQA at hd 64 with a window over several tiles and
-   granite-34b's MQA (48:1) at hd 128; with an f64 sum at two shapes as
-   the yardstick of rounding; and a second call at the training shape and
-   the windowed GQA cases, which must give bit-identical dq, dk, dv.
+   partial tile, GQA at hd 64 with a window over several tiles,
+   granite-34b's MQA (48:1) at hd 128 and llama4-scout's training shape
+   (GQA 5:1); with an f64 sum at two shapes as the yardstick of rounding;
+   and a second call at the training shape and the windowed GQA cases,
+   which must give bit-identical dq, dk, dv.  The grouped FFN's backward
+   through ``GroupedFFN`` against its plain version in f32 (llama4-scout's
+   training shape, arctic's expert widths, dead experts and rows as the
+   dispatch leaves them, gelu with zero X rows under nonzero dY rows,
+   ragged D and F, f32 at the smoke widths): dead rows' dX and dead
+   experts' weight gradients exact zeros, a second call at the training
+   shape bit-identical.
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
    mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
    llava-next through prefill and 8 decode steps): greedy tokens equal,
    logits within rel 5e-4.  Training, from one initial state (f32 smoke
-   deepseek-7b, phi4-mini-3.8b (GQA) and gemma3-27b (window)): the step-1
+   deepseek-7b, phi4-mini-3.8b (GQA), gemma3-27b (window), llama4-scout and
+   arctic-480b (MoE, the grouped FFN's backward kernel)): the step-1
    gradients leaf by leaf within 1e-4, 3 trainer steps' losses within rel
    1e-4, and the card's checkpoint restored on the CPU.  And deepseek-7b at
    full width cut to 2 layers, bf16 against f32 on the card from one state
@@ -64,6 +73,11 @@ result line):
    30 backwards a step); ms per step, tokens/s, losses, grad norms, peak
    memory, a profiled step (by kind: matrix products, flash forward and
    backward, the rest), and AdamW's update alone.
+5c. the MoE training path: the same on llama4-scout at its full widths,
+   cut to 2 of its 48 layers (6.47 G parameters), every launch counted
+   from 0 (a step: 4 grouped-FFN forwards, 2 backwards, 4 flash forwards,
+   2 backwards); its profiled step also splits out the grouped FFN's
+   forward and backward.
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (flash attention at
    (1, 2048, 32, 128), at deepseek's longest served prefill and at
@@ -74,13 +88,16 @@ result line):
    longest served prefill and at its one-chunk prompts of 254 and 92
    tokens; the flash backward's wgmma body at the training shape and at
    phi4-mini's GQA (2, 2048, 24, 8, 128), each beside the mma.sync body
-   (asked for by name) and autograd's backward of SDPA; each in three
-   rounds taken in turns with its yardstick, the card's clocks read before
-   and after).
+   (asked for by name) and autograd's backward of SDPA; the grouped FFN's
+   backward and forward at llama4-scout's training shape with every row
+   live, beside autograd's backward of the bmm yardstick and the yardstick;
+   each in three rounds taken in turns with its yardstick, the card's
+   clocks read before and after).
 
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma
 backward's registers and spills (none allowed), and runs the backward's
-part of phases 3 and 6 alone.  ``--ssd-only`` runs phases 1 and 2 and the
+part of phases 3 and 6 alone; ``--moe-bwd-only`` does the same for the
+grouped FFN's backward.  ``--ssd-only`` runs phases 1 and 2 and the
 SSD kernel's part of phases 3 and 6 alone; with ``--src`` it takes
 ``repro_torch`` from another checkout (a ``git archive`` of the parent
 commit, say), to time two versions of the kernel in one call on one
@@ -168,7 +185,8 @@ MODEL_REL = 5e-4                           # tests/test_models.py:76
 # shape; GQA (K 8) with a window of 256; a kv prefix (T > S) at hd 128; hd
 # 80 in both dtypes; f32 at the smoke configs' hd 16 (MHA, and GQA with a
 # window); one partial tile; GQA (K 4) at hd 64 with a window of 256 over
-# several tiles; granite-34b's MQA (48:1) at hd 128
+# several tiles; granite-34b's MQA (48:1) at hd 128; llama4-scout's training
+# shape, GQA 5:1
 TRAIN_SHAPE = (2, 2048, 32, 32, 128)       # B, S, H, K, hd
 BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
              for b, s, t, h, k, hd, c, w in FLASH_CASES
@@ -182,7 +200,8 @@ BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
     (2, 32, 32, 4, 2, 16, True, 8, torch.float32),
     (1, 20, 20, 4, 2, 64, True, 0, torch.bfloat16),
     (1, 1024, 1024, 16, 4, 64, True, 256, torch.bfloat16),
-    (1, 512, 512, 48, 1, 128, True, 0, torch.bfloat16)]
+    (1, 512, 512, 48, 1, 128, True, 0, torch.bfloat16),
+    (2, 2048, 2048, 40, 8, 128, True, 0, torch.bfloat16)]
 # cases whose backward runs twice and must give bit-identical dq, dk, dv:
 # the training shape and the two windowed GQA cases
 BWD_REPEAT = [(2, 2048, 2048, 32, 32, 128, True, 0),
@@ -201,7 +220,12 @@ GRAD_ROW_FLOOR = 0.1
 # the training path: deepseek-7b at full width and depth, 6 steps of batch
 # 2 x 2048 tokens; AdamW's moments in bf16 (f32 moments need 82.9 GB)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "deepseek-7b", 6, 2, 2048
-TRAIN_SMOKE = ("deepseek-7b", "phi4-mini-3.8b", "gemma3-27b")
+TRAIN_SMOKE = ("deepseek-7b", "phi4-mini-3.8b", "gemma3-27b", LLAMA4,
+               "arctic-480b")
+# the MoE training path: llama4-scout at its full widths, cut to 2 of its 48
+# layers (6.47 G parameters: with gradients and two bf16 moments 51.8 GB; a
+# third layer brings that to 69 GB, which leaves no room for activations)
+MOE_TRAIN_LAYERS = 2
 TRAIN_REL = 1e-4                           # card vs CPU, grads and losses
 # deepseek-7b at full width cut to 2 of its 30 layers, trained in bf16 (the
 # training path's kernels: the wgmma forward keeping lse, the wgmma
@@ -239,6 +263,29 @@ GMM_OCCUPANCY = [
     ("decode4", (2, 2, 4, 16, 48), "gelu", torch.bfloat16)]
 GMM_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
            torch.bfloat16: dict(atol=0.05, rtol=0.05)}
+# the grouped FFN's backward: llama4-scout's training shape (2 x 2048 tokens
+# top-1 over 16 experts at capacity 160; every row filled, so all 16 experts
+# are live with 320 rows each)
+GMM_BWD_TRAIN = (2, 16, 160, 5120, 8192)
+# its cases: label, (B, E, C, D, F), act, dtype, occupancy (live_mask's, or
+# "zero x": X zero on every other slot under a dense dY).  The training
+# shape; arctic's expert widths with 4 experts; llama4's widths with buffers
+# as the dispatch leaves them (dead experts and rows, dY zero there); gelu
+# with zero X rows under nonzero dY rows, in both dtypes; ragged D, F and
+# rows; f32 at the smoke configs' widths
+GMM_BWD_CASES = [
+    ("llama4 train", GMM_BWD_TRAIN, "swiglu", torch.bfloat16, None),
+    ("arctic", (2, 4, 32, 7168, 4864), "swiglu", torch.bfloat16, None),
+    ("routed", (2, 16, 40, 5120, 8192), "swiglu", torch.bfloat16, "routed"),
+    ("gelu zero x", (2, 4, 16, 256, 512), "gelu", torch.bfloat16, "zero x"),
+    ("gelu zero x", (2, 3, 4, 16, 32), "gelu", torch.float32, "zero x"),
+    ("ragged", (1, 3, 70, 200, 328), "swiglu", torch.bfloat16, None),
+    ("ragged routed", (2, 3, 35, 200, 328), "gelu", torch.bfloat16,
+     "routed"),
+    ("llama4 smoke", (2, 4, 8, 64, 128), "swiglu", torch.float32, None),
+    ("arctic smoke", (2, 4, 8, 64, 96), "swiglu", torch.float32, "routed"),
+    ("gelu", (2, 2, 4, 16, 48), "gelu", torch.float32, None),
+]
 # Bound on the grouped FFN's row_rel_err (rows of D), set from the sound
 # runs on the H100 (PERF.md): bf16 output and hidden roundings give ~4e-3.
 GMM_ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
@@ -734,6 +781,106 @@ def phase_gmm() -> float:
                 GMM_TOL, GMM_ROW_REL)
 
 
+def gmm_bwd_inputs(shape, act: str, dtype, occupancy, gen):
+    """buf, w_in, w_gate, w_out and the output's cotangent dy on the card.
+    ``occupancy``: None (every row), a ``live_mask`` occupancy (buf and dy
+    zero on its dead rows, as the dispatch leaves them) or "zero x" (X zero
+    on every other slot, dy dense: the rows gelu must keep live)."""
+    b, e, c, d, f = shape
+    buf, wi, wg, wo = gmm_inputs(b, e, c, d, f, dtype, gen)
+    dy = torch.randn((b, e, c, d), generator=gen, device="cuda").to(dtype)
+    if occupancy == "zero x":
+        buf[:, :, ::2] = 0
+    elif occupancy is not None:
+        mask = live_mask((b, e, c), occupancy, gen).to(dtype)
+        buf, dy = buf * mask, dy * mask
+    return buf, wi, wg, wo, dy
+
+
+def gmm_grads(buf, wi, wg, wo, dy, act: str):
+    """``grouped_ffn`` as training calls it, on copies that require grad:
+    ``GroupedFFN``'s forward kernel, then ``out.backward(dy)`` through the
+    backward kernel, which must count one backward launch.  Returns (dbuf,
+    dw_in, dw_gate, dw_out)."""
+    from repro_torch.kernels.moe_gmm import grouped_ffn
+    leaves = [x.detach().clone().requires_grad_() for x in (buf, wi, wg, wo)]
+    before = grouped_ffn.backward_launches
+    out = grouped_ffn(*leaves, act=act)
+    assert "GroupedFFN" in type(out.grad_fn).__name__
+    out.backward(dy)
+    assert grouped_ffn.backward_launches == before + 1
+    return tuple(x.grad for x in leaves)
+
+
+def phase_gmm_backward() -> float:
+    """The grouped FFN's backward through ``GroupedFFN`` (``gmm_grads``)
+    against ``grouped_ffn_backward_reference`` run in f32 on the card from
+    the same inputs, at GMM_BWD_CASES: each gradient within GMM_TOL (atol
+    scaled to its max |value|) and its worst row within GMM_ROW_REL
+    (``grad_row_rel_err``); dX rows of dead rows and every weight gradient
+    of a dead expert exactly zero; a second call at the training shape bit
+    for bit the same.  Returns the largest abs error at the training
+    shape."""
+    from repro_torch.kernels.moe_gmm import (grouped_ffn,
+                                             grouped_ffn_backward_reference)
+    saved = grouped_ffn.launches, grouped_ffn.backward_launches
+    gen = torch.Generator("cuda").manual_seed(13)
+    main_err, worst = 0.0, {}
+    for label, shape, act, dt, occupancy in GMM_BWD_CASES:
+        x = gmm_bwd_inputs(shape, act, dt, occupancy, gen)
+        got = gmm_grads(*x, act)
+        with torch.no_grad():
+            want = grouped_ffn_backward_reference(*(t.float() for t in x),
+                                                  act=act)
+        torch.cuda.synchronize()
+        tag = f"{label} {shape} {act} {str(dt)[6:]}"
+        tol, bound = GMM_TOL[dt], GMM_ROW_REL[dt]
+        parts = []
+        for name, g, w in zip(("dbuf", "dw_in", "dw_gate", "dw_out"), got,
+                              want):
+            assert g.dtype == dt and g.shape == w.shape, (tag, name)
+            top = float(w.abs().max())
+            err = float((g.float() - w).abs().max())
+            rel = grad_row_rel_err(g, w) if top > 0 else 0.0
+            worst[dt] = max(worst.get(dt, 0.0), rel)
+            if shape == GMM_BWD_TRAIN:
+                main_err = max(main_err, err)
+            parts.append(f"{name} {err:.3e} of max {top:.3e}, row {rel:.3e}")
+            torch.testing.assert_close(g.float(), w, atol=tol["atol"] * top,
+                                       rtol=tol["rtol"])
+            assert rel < bound, f"moe_gmm_bwd {tag} {name}: row {rel}"
+        # the skip's identities: dead rows' dX and dead experts' weight
+        # gradients are exact zeros (gelu keeps rows with a nonzero dY live)
+        dead = (x[0] == 0).all(-1)
+        if act == "gelu":
+            dead &= (x[4] == 0).all(-1)
+        dead_e = dead.all(-1).all(0)
+        assert not got[0][dead].any(), f"moe_gmm_bwd {tag}: dead dX row"
+        assert all(not g[dead_e].any() for g in got[1:]), \
+            f"moe_gmm_bwd {tag}: a dead expert's weight gradient"
+        say(f"[kernels] moe_gmm_bwd {tag}: "
+            + (f"{int((~dead_e).sum())} of {shape[1]} experts live, "
+               f"{int((~dead).sum())} of {dead.numel()} rows, dead ones "
+               f"exactly 0; " if occupancy else "")
+            + "; ".join(parts) + f" (atol {tol['atol']} x max, rtol "
+            f"{tol['rtol']}; row < {bound:.3e})")
+        if shape == GMM_BWD_TRAIN:
+            again = gmm_grads(*x, act)
+            same = [torch.equal(g, a) for g, a in zip(got, again)]
+            say(f"[kernels] moe_gmm_bwd {tag}: a second call gives "
+                f"bit-identical dbuf, dw_in, dw_gate, dw_out: {same}")
+            assert all(same), f"moe_gmm_bwd {tag}: not deterministic"
+            del again
+        del x, got, want
+        torch.cuda.empty_cache()
+    say(f"[kernels] moe_gmm_bwd: {len(GMM_BWD_CASES)} cases through "
+        f"GroupedFFN agree (one backward launch each); largest row rel err: "
+        + ", ".join(f"{str(dt)[6:]} {r:.3e}" for dt, r in worst.items())
+        + f"; largest abs err at the training shape {main_err:.3e}")
+    grouped_ffn.launches, grouped_ffn.backward_launches = saved
+    return main_err
+
+
 def ssd_inputs(b, nc, l, h, p, n, x_bf16: bool, gen, decay=None,
                layout: str = "contiguous"):
     """xc, dtc, cum, bc, cc on the card.  ``x_bf16``: as the mamba2 path
@@ -900,6 +1047,7 @@ def train_card_vs_cpu() -> None:
     CPU equal to the card's state."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_ffn
     from repro_torch.models import Model
     from repro_torch.runtime import CheckpointManager, TrainConfig, Trainer
     from repro_torch.runtime.checkpoint import flatten_state
@@ -908,7 +1056,8 @@ def train_card_vs_cpu() -> None:
         state = Model(cfg, device="cpu").init(
             torch.Generator().manual_seed(0)).state_dict()
         toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 33))
-        grads, bwd = [], flash_attention.backward_launches
+        grads = []
+        bwd = flash_attention.backward_launches, grouped_ffn.backward_launches
         for dev in ("cpu", "cuda"):
             model = Model(cfg, device=dev).load_state(
                 {n: x.clone() for n, x in state.items()})
@@ -917,7 +1066,10 @@ def train_card_vs_cpu() -> None:
                  "labels": torch.as_tensor(toks[:, 1:], device=dev)})
             loss.backward()
             grads.append({n: p.grad for n, p in model.named_parameters()})
-        assert flash_attention.backward_launches == bwd + cfg.n_layers
+        moe_layers = cfg.n_layers if cfg.n_experts else 0
+        assert (flash_attention.backward_launches,
+                grouped_ffn.backward_launches) == (bwd[0] + cfg.n_layers,
+                                                   bwd[1] + moe_layers)
         g_rel = max(leaf_rel(grads[1][n], g) for n, g in grads[0].items())
         assert g_rel <= TRAIN_REL, f"{arch}: step-1 gradients {g_rel}"
         tcfg = dict(batch=2, seq_len=32, steps=3, ckpt_every=3, log_every=0)
@@ -1079,6 +1231,7 @@ def zero_counts() -> None:
     from repro_torch.kernels.ssd import ssd_intra_chunk
     flash_attention.launches = grouped_ffn.launches = 0
     flash_attention.backward_launches = ssd_intra_chunk.launches = 0
+    grouped_ffn.backward_launches = 0
 
 
 def read_counts() -> dict:
@@ -1088,6 +1241,7 @@ def read_counts() -> dict:
     return {"flash_attn_fwd": flash_attention.launches,
             "flash_attn_bwd": flash_attention.backward_launches,
             "moe_gmm": grouped_ffn.launches,
+            "moe_gmm_bwd": grouped_ffn.backward_launches,
             "ssd_intra_chunk": ssd_intra_chunk.launches}
 
 
@@ -1139,7 +1293,7 @@ def phase_serve(cfg, card: str) -> dict:
     n_pre = len(prefill_s)
     want = {"flash_attn_fwd": n_attn * n_pre, "flash_attn_bwd": 0,
             "moe_gmm": cfg.n_layers * (n_pre + len(decode_s))
-            if cfg.n_experts else 0,
+            if cfg.n_experts else 0, "moe_gmm_bwd": 0,
             "ssd_intra_chunk": cfg.n_layers * n_pre if mamba else 0}
     assert launches == want, f"launches {launches} != {want}"
     n_tok = sum(len(c.tokens) for c in done)
@@ -1191,7 +1345,7 @@ def phase_serve_batched(cfg, card: str) -> dict:
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
     assert len(prefill_s) == 1 and len(decode_s) == SERVE_NEW - 1
     want = {"flash_attn_fwd": attention_layers(cfg), "flash_attn_bwd": 0,
-            "moe_gmm": 0, "ssd_intra_chunk": 0}
+            "moe_gmm": 0, "moe_gmm_bwd": 0, "ssd_intra_chunk": 0}
     assert launches == want, f"launches {launches} != {want}"
     res = serve_record(cfg, card, [BATCH_PROMPT] * BATCH, prefill_s,
                        decode_s, toks.numel(), wall, launches)
@@ -1282,19 +1436,19 @@ def phase_profile(model, card: str) -> dict:
     }
 
 
-def phase_train(card: str) -> dict:
-    """The training path: ``Trainer`` on deepseek-7b at full width and depth
-    (bf16, remat "full"; AdamW with bf16 moments, the one departure from
-    the reference's defaults), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
-    tokens from the synthetic corpus, with every kernel's launch count set
-    to 0 just before and read just after; then one profiled step, and the
-    optimizer's update alone, timed with CUDA events."""
-    from repro_torch.configs import get_config
+def phase_train(card: str, cfg) -> dict:
+    """A training path: ``Trainer`` on ``cfg`` (bf16, remat "full"; AdamW
+    with bf16 moments, the one departure from the reference's defaults),
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens from the synthetic
+    corpus, with every kernel's launch count set to 0 just before and read
+    just after; then one profiled step, and the optimizer's update alone,
+    timed with CUDA events.  5b runs deepseek-7b at full width and depth,
+    5c llama4-scout at its full widths cut to MOE_TRAIN_LAYERS layers."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import TrainConfig, Trainer
-    tag = f"[train {TRAIN_ARCH}]"
-    cfg = get_config(TRAIN_ARCH)
-    gc.collect()                 # the serving paths' models are gone
+    tag = f"[train {cfg.name}]"
+    moe = bool(cfg.n_experts)
+    gc.collect()                 # the earlier paths' models are gone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, TrainConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
@@ -1310,9 +1464,12 @@ def phase_train(card: str) -> dict:
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(p.numel() for p in state["params"].values())
+    # the forward and remat's recompute launch the forwards twice a layer
     want = {"flash_attn_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attn_bwd": cfg.n_layers * TRAIN_STEPS,
-            "moe_gmm": 0, "ssd_intra_chunk": 0}
+            "moe_gmm": 2 * cfg.n_layers * TRAIN_STEPS if moe else 0,
+            "moe_gmm_bwd": cfg.n_layers * TRAIN_STEPS if moe else 0,
+            "ssd_intra_chunk": 0}
     assert launches == want, f"launches {launches} != {want}"
     norms = [m["grad_norm"] for m in trainer.metrics]
     assert len(losses) == TRAIN_STEPS and all(
@@ -1328,31 +1485,44 @@ def phase_train(card: str) -> dict:
            "step_ms": [1e3 * x for x in step_s],
            "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
            "losses": losses, "grad_norms": norms,
+           "aux": [m["aux"] for m in trainer.metrics],
            "lr": [m["lr"] for m in trainer.metrics], "run_s": wall,
            "max_memory_allocated_gb": peak_gb, "launches": launches}
+    experts = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+               f"{cfg.d_ff}, shared expert {cfg.shared_expert_ff}"
+               if moe else "")
     say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-        f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-        f"{cfg.param_dtype}, remat {cfg.remat}: {n_params:,} params; AdamW "
-        f"moments bf16; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-        f"tokens")
+        f"heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}"
+        f"{experts}, vocab {cfg.vocab}, {cfg.param_dtype}, remat "
+        f"{cfg.remat}: {n_params:,} params; AdamW moments bf16; "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
     say(f"{tag} {ms:.2f} ms/step (median of the last 5; steps "
         + ", ".join(f"{x:.1f}" for x in res["step_ms"]) + f" ms), "
         f"{res['tokens_per_s']:.1f} tokens/s, run {wall:.1f} s with init, "
         f"max memory allocated {peak_gb:.2f} GB [{card}]")
     say(f"{tag} losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + (("; aux " + ", ".join(f"{x:.4f}" for x in res["aux"]))
+           if moe else "")
         + "; grad norms " + ", ".join(f"{x:.4f}" for x in norms)
         + "; lr " + ", ".join(f"{x:.3e}" for x in res["lr"]))
     say(f"{tag} launches {launches}: flash forward = {cfg.n_layers} layers x "
         f"2 (the forward and remat's recompute) x {TRAIN_STEPS} steps, "
-        f"backward = {cfg.n_layers} x {TRAIN_STEPS}")
+        f"backward = {cfg.n_layers} x {TRAIN_STEPS}"
+        + ("; moe_gmm the same, moe_gmm_bwd as flash's backward" if moe
+           else ""))
     gen = torch.Generator("cuda").manual_seed(10)
     toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
                          device="cuda", generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    # the grouped FFN's kernels first: "gemm" of the matrix products would
+    # take its forward's gemm_persistent; its scan counts with the forward
     res["profile"] = profile_region(
         lambda: trainer.step_fn(state, batch), f"{cfg.name}: one training "
         f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens", card,
-        groups={"matrix products": ("nvjet", "gemm", "xmma", "cutlass"),
+        groups={"moe_gmm forward": ("gemm_persistent", "reduce_splits",
+                                    "scan_rows"),
+                "moe_gmm backward": ("hidden_pass", "dx_pass", "dw_pass"),
+                "matrix products": ("nvjet", "gemm", "xmma", "cutlass"),
                 "flash forward": ("flash_attn_fwd",),
                 "flash backward": ("flash_attn_bwd",)})
     # the optimizer layer alone: one update of every leaf (its time does not
@@ -1582,6 +1752,22 @@ def flash_bwd_only(card: str) -> int:
     return 0
 
 
+def moe_bwd_only(card: str) -> int:
+    """``--moe-bwd-only``: the grouped FFN's kernels built, the backward's
+    registers and spills, its checks (phase 3's backward part) and its
+    timings (phase 6's); one JSON line."""
+    from repro_torch.kernels import _build
+    _build.build_all(["moe_gmm", "moe_gmm_bwd"])
+    for ln in _build.build_log("moe_gmm_bwd").splitlines():
+        if "registers" in ln or "spill" in ln or "entry function" in ln \
+                or "warning" in ln:
+            say(f"[build] moe_gmm_bwd: {ln.strip()}")
+    err = phase_gmm_backward()
+    timing = phase_timing_gmm_bwd(card)
+    say(json.dumps({"max_abs_err": err, "moe_gmm_bwd_timing": timing}))
+    return 0
+
+
 def phase_timing_gmm(card: str) -> dict:
     """The grouped expert FFN at the shapes phase 5's llama4 path gives it:
     the decode step at its served occupancy (4 distinct live experts, one
@@ -1643,7 +1829,8 @@ def phase_timing_gmm(card: str) -> dict:
                "shape": [b, e, c, d, f], "live_experts": n_live,
                "live_rows": n_rows, "ms": kernel_ms, "graph_ms": device_ms,
                "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+               "library_ms": None, "yardstick_ms": library_ms,
+               "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "flops": flops, "bytes": nbytes}
         say(f"[timing] {tag} {(b, e, c, d, f)} bf16 swiglu, {n_live} of {e} "
@@ -1660,6 +1847,104 @@ def phase_timing_gmm(card: str) -> dict:
         torch.cuda.empty_cache()
     grouped_ffn.launches = saved     # comparisons do not count
     return out
+
+
+def phase_timing_gmm_bwd(card: str) -> dict:
+    """The grouped FFN at llama4-scout's training shape (GMM_BWD_TRAIN,
+    every row filled: 16 live experts of 320 rows), bf16 swiglu.  The
+    backward: a call of its binding (the checks of ``GroupedFFN`` stay
+    outside the timed call), in three rounds taken in turns with its
+    yardstick, autograd's backward of the forward's yardstick (``bmm`` x 3
+    and silu * mul over the live experts, never called by the port); its
+    call replayed from a CUDA graph; the plain backward.  The forward at the
+    same shape beside its own yardstick the same way."""
+    from repro_torch.kernels.moe_gmm import (grouped_ffn,
+                                             grouped_ffn_backward_reference,
+                                             grouped_ffn_reference)
+    from repro_torch.kernels.moe_gmm.kernel import grouped_ffn_bwd_cuda
+    gen = torch.Generator("cuda").manual_seed(14)
+    saved = grouped_ffn.launches, grouped_ffn.backward_launches
+    b, e, c, d, f = GMM_BWD_TRAIN
+    buf, wi, wg, wo = gmm_inputs(b, e, c, d, f, torch.bfloat16, gen)
+    dy = torch.randn(buf.shape, generator=gen, device="cuda").to(buf.dtype)
+    rows = b * c                                       # per expert, all live
+    # the yardstick's operands: the experts' (B*C, D) rows gathered once
+    xe = buf.transpose(0, 1).reshape(e, rows, d).contiguous()
+    dye = dy.transpose(0, 1).reshape(e, rows, d).contiguous()
+    yard = [t.detach().clone().requires_grad_() for t in (xe, wi, wg, wo)]
+
+    def forward_yard(xx, wii, wgg, woo):
+        h = torch.nn.functional.silu(torch.bmm(xx, wgg)) * torch.bmm(xx, wii)
+        return torch.bmm(h, woo)
+
+    out_y = forward_yard(*yard)
+
+    def kernel():
+        return grouped_ffn_bwd_cuda(buf, wi, wg, wo, dy, "swiglu")
+
+    def library():
+        return torch.autograd.grad(out_y, yard, dye, retain_graph=True)
+
+    def fwd_kernel():
+        return grouped_ffn(buf, wi, wg, wo)
+
+    def fwd_library():
+        return forward_yard(xe, wi, wg, wo)
+
+    out = {}
+    for key, kern, lib in (("backward", kernel, library),
+                           ("forward", fwd_kernel, fwd_library)):
+        tag = f"moe_gmm {key} {GMM_BWD_TRAIN} (every row live)"
+        for _ in range(2):
+            kern()
+            lib()
+        say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
+        kernel_r, library_r = [], []
+        for _ in range(3):
+            kernel_r.append(time_ms(kern, 5, warmup=1))
+            library_r.append(time_ms(lib, 5, warmup=1))
+        say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; kernel "
+            f"rounds {', '.join(f'{t:.4f}' for t in kernel_r)} ms, yardstick "
+            f"rounds {', '.join(f'{t:.4f}' for t in library_r)} ms")
+        n_prod = 6 if key == "backward" else 3
+        flops = n_prod * 2 * e * rows * d * f
+        # the weights read (and, backward, their gradients written); buf and
+        # out (backward: buf, dy and dbuf)
+        nbytes = 2 * ((n_prod * e * d * f)
+                      + (3 if key == "backward" else 2) * b * e * c * d)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        res = {"shape": list(GMM_BWD_TRAIN), "live_experts": e,
+               "live_rows": e * rows, "ms": sorted(kernel_r)[1],
+               "graph_ms": graph_ms(kern, 5), "library_ms": None,
+               "yardstick_ms": sorted(library_r)[1],
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes}
+        if key == "backward":
+            res["plain_ms"] = time_ms(lambda: grouped_ffn_backward_reference(
+                buf, wi, wg, wo, dy), 2, warmup=1)
+        else:
+            res["plain_ms"] = time_ms(lambda: grouped_ffn_reference(
+                buf, wi, wg, wo), 2, warmup=1)
+        say(f"[timing] {tag} bf16 swiglu: kernel {res['ms']:.4f} ms (median; "
+            f"replayed from a CUDA graph {res['graph_ms']:.4f} ms), plain "
+            f"{res['plain_ms']:.4f} ms, yardstick ("
+            + ("autograd's backward of " if key == "backward" else "")
+            + f"bmm x 3 + silu*mul) {res['yardstick_ms']:.4f} ms, kernel / "
+            f"yardstick {res['ms'] / res['yardstick_ms']:.3f}; bound "
+            f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+            f"({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB; the other "
+            f"bound {min(t_ops, t_bytes):.4f} ms); "
+            f"{flops / res['ms'] / 1e9:.2f} TFLOP/s achieved, "
+            f"{100 * res['bound_ms'] / res['ms']:.1f}% of bound [{card}]")
+        out[key] = res
+    del buf, wi, wg, wo, dy, xe, dye, yard, out_y
+    torch.cuda.empty_cache()
+    grouped_ffn.launches, grouped_ffn.backward_launches = saved
+    res = dict(out["backward"])
+    res["forward"] = out["forward"]
+    return res
 
 
 def ssd_work(b, nc, l, h, p, n) -> tuple[int, int]:
@@ -1790,10 +2075,13 @@ def main(argv: list[str]) -> int:
         return ssd_only(card)
     if "--flash-bwd-only" in argv:
         return flash_bwd_only(card)
+    if "--moe-bwd-only" in argv:
+        return moe_bwd_only(card)
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
     gmm_err = phase_gmm()
+    gmm_bwd_err = phase_gmm_backward()
     ssd_err = phase_ssd()
     phase_card_vs_cpu()
     train_card_vs_cpu()
@@ -1805,11 +2093,14 @@ def main(argv: list[str]) -> int:
              phase_serve(get_config(ZAMBA2), card),
              phase_serve_batched(get_config(WHISPER), card),
              phase_serve_batched(get_config(LLAVA), card)]
-    train = phase_train(card)
-    paths.append(train)
+    train = phase_train(card, get_config(TRAIN_ARCH))
+    moe_train = phase_train(card, get_config(LLAMA4).replace(
+        n_layers=MOE_TRAIN_LAYERS))
+    paths += [train, moe_train]
     timing = phase_timing(card)
     bwd = phase_timing_bwd(card)
     gmm = phase_timing_gmm(card)
+    gmm_bwd = phase_timing_gmm_bwd(card)
     ssd = phase_timing_ssd(card)
 
     def launches(name):
@@ -1858,13 +2149,26 @@ def main(argv: list[str]) -> int:
         # occupancy (decode_live) and the prefill beside it
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "shape": dec["shape"],
-        "graph_ms": dec["graph_ms"],
+        "library_ms": None, "yardstick_ms": dec["yardstick_ms"],
+        "shape": dec["shape"], "graph_ms": dec["graph_ms"],
         **{key: {k: gmm[key][k] for k in
                  ("label", "occupancy", "shape", "live_experts", "ms",
                   "graph_ms", "plain_ms", "bound_ms", "bound_by",
-                  "library_ms")}
+                  "yardstick_ms")}
            for key in ("prefill", "decode_live")},
+        # llama4's training shape, every row live
+        "train": {k: gmm_bwd["forward"][k] for k in
+                  ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                   "bound_by", "yardstick_ms")},
+    }, {
+        "name": "moe_gmm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm_bwd.cu",
+        # no TPU kernel: the backward of the function of this one
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:24",
+        **launches("moe_gmm_bwd"), "max_abs_err": gmm_bwd_err,
+        **{k: gmm_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "yardstick_ms", "graph_ms",
+                                   "shape")},
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
@@ -1888,6 +2192,8 @@ def main(argv: list[str]) -> int:
                                   "flash_timing": timing,
                                   "flash_bwd_timing": bwd,
                                   "moe_gmm_timing": gmm,
+                                  "moe_gmm_bwd_timing": gmm_bwd,
+                                  "train_moe": moe_train,
                                   "ssd_timing": ssd, "kernels": kernels},
                                  indent=1))
     say(card)

@@ -30,6 +30,7 @@ SOURCES = {
     "flash_attn_fwd": "flash_attention/csrc/flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attention/csrc/flash_attn_bwd.cu",
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
+    "moe_gmm_bwd": "moe_gmm/csrc/moe_gmm_bwd.cu",
     "ssd_intra_chunk": "ssd/csrc/ssd_intra_chunk.cu",
 }
 

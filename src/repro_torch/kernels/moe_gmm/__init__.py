@@ -1,3 +1,5 @@
-from .ops import grouped_ffn, grouped_ffn_reference
+from .ops import (GroupedFFN, grouped_ffn, grouped_ffn_backward_reference,
+                  grouped_ffn_reference)
 
-__all__ = ["grouped_ffn", "grouped_ffn_reference"]
+__all__ = ["GroupedFFN", "grouped_ffn", "grouped_ffn_backward_reference",
+           "grouped_ffn_reference"]

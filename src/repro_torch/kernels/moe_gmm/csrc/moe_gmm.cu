@@ -63,26 +63,11 @@
 // all SMs streaming at any live count.  The split partials and H are the
 // only extra traffic: 46 MB written and read back at decode with 4 live
 // experts (4 splits each), under 5 % of the call's bytes.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "gmm_common.cuh"
 
 namespace {
 
-enum Act { kNone = 0, kSwiglu = 1, kGelu = 2 };
-
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kBM = 64;            // rows per row tile
 constexpr int kSlots = 16;         // live experts x splits when split
-
-// Workspace of int32, zeroed by the caller: [0] the scan's ticket, [1] the
-// number of live experts, [2, 2 + E) live rows per expert, [2 + E, 2 + 2E)
-// the live experts in order.
-struct Live {
-  int* ws;
-  int E;
-  __device__ int n_live() const { return ws[1]; }
-  __device__ int expert(int i) const { return ws[2 + E + i]; }
-};
 
 // One grouped product: for each live expert e, O[e] = epi(A[e] W0[e],
 // A[e] W1[e]) with A[e] (R, K), W (K, N), O[e] (R, N).  Row r of expert e
@@ -102,88 +87,10 @@ struct Gemm {
   Live live;
 };
 
-__device__ __forceinline__ long long row_off(int r, int C, long long se,
-                                             long long sb, long long sc,
-                                             int e) {
-  return e * se + (long long)(r / C) * sb + (long long)(r % C) * sc;
-}
-
-template <int ACT>
-__device__ __forceinline__ float epilogue(float x, float gate) {
-  if (ACT == kSwiglu) return gate / (1.f + expf(-gate)) * x;
-  if (ACT == kGelu)   // jax.nn.gelu's default (tanh) form
-    return 0.5f * x *
-           (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
-  return x;
-}
-
-// ============================================================= (0) scan
-// One warp per row of buf: the row is live if any value is nonzero (the
-// sign bit masked, so -0 counts as zero).  The last block to finish writes
-// the live-expert list in expert order.
-template <typename Word>
-__device__ __forceinline__ unsigned nonzero_bits(const Word& w);
-template <>
-__device__ __forceinline__ unsigned nonzero_bits<uint4>(const uint4& w) {
-  return (w.x | w.y | w.z | w.w) & 0x7fff7fffu;     // 8 bf16
-}
-template <>
-__device__ __forceinline__ unsigned nonzero_bits<unsigned>(const unsigned& w) {
-  return w & 0x7fffffffu;                           // 1 f32
-}
-
-template <typename Word>
-__global__ void __launch_bounds__(kThreads)
-    scan_rows(const void* buf, long long sb, long long se, long long sc,
-              int B, int C, int words, int* ws, int E) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int e = blockIdx.y, r = blockIdx.x * (kThreads / 32) + warp;
-  if (r < B * C) {
-    // strides are in elements: a Word is 8 bf16 or 1 f32
-    constexpr long long kElemBytes = sizeof(Word) == 16 ? 2 : 4;
-    const Word* row = reinterpret_cast<const Word*>(
-        static_cast<const char*>(buf) +
-        row_off(r, C, se, sb, sc, e) * kElemBytes);
-    unsigned bits = 0;
-#pragma unroll 4
-    for (int i = lane; i < words; i += 32) bits |= nonzero_bits(row[i]);
-    if (__any_sync(0xffffffffu, bits != 0) && lane == 0)
-      atomicAdd(ws + 2 + e, 1);
-  }
-  __shared__ bool last;
-  __shared__ int warp_n[kThreads / 32], total;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(ws, 1) == (int)(gridDim.x * gridDim.y) - 1;
-    total = 0;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const volatile int* count = ws + 2;
-  for (int base = 0; base < E; base += kThreads) {
-    const int ex = base + threadIdx.x;
-    const bool on = ex < E && count[ex] > 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) warp_n[warp] = __popc(ballot);
-    __syncthreads();
-    int at = total + __popc(ballot & ((1u << lane) - 1u));
-    for (int w = 0; w < warp; ++w) at += warp_n[w];
-    if (on) ws[2 + E + at] = ex;
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int w = 0; w < kThreads / 32; ++w) total += warp_n[w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) ws[1] = total;
-}
-
 // ===================================================== bfloat16: mma.sync
 namespace bf16 {
 
 constexpr int kBN = 128;           // output columns per unit: 16 per warp
-constexpr int kPad = 8;            // bf16 of padding per shared row (16 B)
 constexpr int kLDW = kBN + kPad;
 
 // Tiles of a product with kMats weight matrices (2: the swiglu up product,
@@ -200,52 +107,6 @@ struct Tiles {
   static constexpr int kWElems = kBK * kLDW;
   static constexpr int kStage = kAElems + kMats * kWElems;   // elements
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !pred
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(const void* ptr, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const void* ptr,
-                                              unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // How a product is cut into units; the same on every block and in the
 // reduction pass, from the live count alone.
@@ -646,14 +507,8 @@ extern "C" int moe_gmm_fwd(
                   w_out, wo_se,  wo_sk,  out,    out_se, out_sb, out_sc,
                   R,     C,      F,      D,      part,   live};
 
-  const dim3 scan_grid((R + kThreads / 32 - 1) / (kThreads / 32), E);
-  if (dtype == 1)
-    scan_rows<uint4><<<scan_grid, kThreads, 0, st>>>(
-        buf, buf_sb, buf_se, buf_sc, B, C, D / 8, ws, E);
-  else
-    scan_rows<unsigned><<<scan_grid, kThreads, 0, st>>>(
-        buf, buf_sb, buf_se, buf_sc, B, C, D, ws, E);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_scan(dtype, buf, buf_sb, buf_se, buf_sc, nullptr,
+                                0, 0, 0, B, E, C, D, ws, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (dtype == 1) {

@@ -1,22 +1,30 @@
-"""ctypes binding of the CUDA grouped expert FFN (``csrc/moe_gmm.cu``).
+"""ctypes bindings of the CUDA grouped expert FFN (``csrc/moe_gmm.cu``) and
+of its backward (``csrc/moe_gmm_bwd.cu``).
 
-The library is built at the first call (``kernels/_build.py``); importing
+The libraries are built at the first call (``kernels/_build.py``); importing
 this module needs neither ``nvcc`` nor a card."""
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
 from .. import _build
 
 NAME = "moe_gmm"
+BWD_NAME = "moe_gmm_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"swiglu": 1, "gelu": 2}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # buf, w_in, w_gate, w_out, h, part, ws, out | dtype, act, B, E, C, D, F |
 # buf 3 strides, 3 x 2 weight strides, out 3 strides | stream
 _ARGTYPES = [_P] * 8 + [_I] * 7 + [_LL] * 12 + [_P]
+# buf, w_in, w_gate, w_out, dy, h, da, dg, ws, dbuf, dw_in, dw_gate, dw_out |
+# dims: dtype, act, B, E, C, D, F, strides of buf, dy (3 each), w_in,
+# w_gate, w_out (2 each), dbuf (3), packed as int64 | stream
+_BWD_ARGTYPES = [_P] * 13 + [ctypes.c_char_p, _P]
+_BWD_DIMS = struct.Struct("<22q")
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,3 +64,50 @@ def grouped_ffn_cuda(buf: torch.Tensor, w_in: torch.Tensor,
             out.stride(0), out.stride(1), out.stride(2), stream)
     _build.check(lib, NAME, err)
     return out
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_NAME)
+    lib.moe_gmm_bwd.argtypes = _BWD_ARGTYPES
+    lib.moe_gmm_bwd.restype = _I
+    return lib
+
+
+def grouped_ffn_bwd_cuda(buf: torch.Tensor, w_in: torch.Tensor,
+                         w_gate: torch.Tensor, w_out: torch.Tensor,
+                         dy: torch.Tensor, act: str):
+    """Launch the scan and the hidden, dX and weight-gradient passes on the
+    current stream; inputs are already checked by ``ops``.  Returns (dbuf,
+    dw_in, dw_gate, dw_out) in buf's dtype.  dbuf is zero-filled here, so
+    the rows of experts the scan finds dead stay exact zeros; the kernel
+    writes every tile of the weight gradients, dead experts' as zeros.  For
+    gelu ``w_gate`` is not read (pass any (E, D, F) tensor, such as w_in)
+    and dw_gate is None."""
+    b, e, c, d = buf.shape
+    f = w_in.shape[-1]
+    lib = _bwd_lib()
+    dev = buf.device
+    with torch.cuda.device(dev):
+        scratch = [torch.empty((e, b * c, f), dtype=buf.dtype, device=dev)
+                   for _ in range(3 if act == "swiglu" else 2)]
+        ws = torch.zeros(2 + 2 * e, dtype=torch.int32, device=dev)
+        dbuf = torch.zeros((b, e, c, d), dtype=buf.dtype, device=dev)
+        dw_in = torch.empty((e, d, f), dtype=buf.dtype, device=dev)
+        dw_out = torch.empty((e, f, d), dtype=buf.dtype, device=dev)
+        dw_gate = (torch.empty((e, d, f), dtype=buf.dtype, device=dev)
+                   if act == "swiglu" else None)
+        dims = _BWD_DIMS.pack(_DTYPES[buf.dtype], _ACTS[act], b, e, c, d, f,
+                              *buf.stride()[:3], *dy.stride()[:3],
+                              *w_in.stride()[:2], *w_gate.stride()[:2],
+                              *w_out.stride()[:2], *dbuf.stride()[:3])
+        h, da = scratch[:2]
+        dg = scratch[2] if act == "swiglu" else h
+        err = lib.moe_gmm_bwd(
+            buf.data_ptr(), w_in.data_ptr(), w_gate.data_ptr(),
+            w_out.data_ptr(), dy.data_ptr(), h.data_ptr(), da.data_ptr(),
+            dg.data_ptr(), ws.data_ptr(), dbuf.data_ptr(), dw_in.data_ptr(),
+            dw_in.data_ptr() if dw_gate is None else dw_gate.data_ptr(),
+            dw_out.data_ptr(), dims,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, BWD_NAME, err)
+    return dbuf, dw_in, dw_gate, dw_out

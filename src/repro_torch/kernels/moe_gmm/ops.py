@@ -1,23 +1,25 @@
-"""Public grouped expert FFN: the CUDA kernel on the card, the plain version
-on the CPU.
+"""Public grouped expert FFN: the CUDA kernels on the card, the plain
+versions on the CPU.
 
 The tensor's device decides.  A CUDA tensor launches the hand-written kernel
-or raises; nothing falls back to the plain version.  ``grouped_ffn.
-launches`` counts calls that launched the kernel (one call is one launch of
-the up product and one of the down product), and nothing else.
+or raises; nothing falls back to the plain version.  When grad is enabled
+and an operand requires grad, the call goes through ``GroupedFFN``, whose
+forward saves the operands (no activation: the backward kernel recomputes
+the up products) and whose backward is the hand-written backward kernel on
+the card (``grouped_ffn_backward_reference`` on the CPU).
+``grouped_ffn.launches`` counts forward calls that launched the kernel (one
+call is one launch of the up product and one of the down product),
+``grouped_ffn.backward_launches`` backward calls that launched the backward
+kernel, and nothing else.
 
 The JAX wrapper's ``bf`` (the TPU's F block) has no counterpart: the CUDA
-kernel picks its own tiles and masks the ragged edge.
-
-The kernel has no backward yet: a CUDA input that needs a gradient raises,
-where autograd would otherwise leave every parameter upstream without one."""
+kernels pick their own tiles and mask the ragged edge."""
 from __future__ import annotations
 
 import torch
 
-from .. import refuse_grad
-from .kernel import grouped_ffn_cuda
-from .ref import ACTS, grouped_ffn_reference
+from .kernel import grouped_ffn_bwd_cuda, grouped_ffn_cuda
+from .ref import ACTS, grouped_ffn_backward_reference, grouped_ffn_reference
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -28,8 +30,19 @@ def _operands(buf, w_in, w_gate, w_out, act: str) -> tuple:
         (buf, w_in, w_out)
 
 
-def _check_cuda_inputs(buf, w_in, w_gate, w_out, act: str) -> None:
+def _check_cuda_inputs(buf, w_in, w_gate, w_out, act: str,
+                       dy=None) -> None:
+    """What the CUDA kernels take; ``dy``, the output's cotangent, for the
+    backward."""
     mats = _operands(buf, w_in, w_gate, w_out, act)
+    if dy is not None:
+        if dy.shape != buf.shape or dy.dtype != buf.dtype or \
+                dy.device != buf.device:
+            raise ValueError(f"the output's cotangent must match buf: got "
+                             f"{tuple(dy.shape)} {dy.dtype} on {dy.device}, "
+                             f"buf {tuple(buf.shape)} {buf.dtype} on "
+                             f"{buf.device}")
+        mats = (*mats, dy)
     if buf.dtype not in DTYPES or any(x.dtype != buf.dtype for x in mats):
         raise TypeError(f"grouped_ffn takes float32 or bfloat16 tensors of "
                         f"one dtype; got {[x.dtype for x in mats]}")
@@ -61,9 +74,47 @@ def _check_cuda_inputs(buf, w_in, w_gate, w_out, act: str) -> None:
                          "multiples of 8")
 
 
-NO_GRAD = ("grouped_ffn on the card has no backward yet; it comes with MoE "
-           "training, a moe_gmm backward (ROADMAP.md, queue 1). Call it "
-           "under torch.no_grad() or on inputs that need no gradient")
+def _forward(buf, w_in, w_gate, w_out, act: str) -> torch.Tensor:
+    """The forward without a graph: the kernel on the card, counted, or the
+    plain version on the CPU."""
+    if buf.device.type == "cpu":
+        return grouped_ffn_reference(buf, w_in, w_gate, w_out, act)
+    _check_cuda_inputs(buf, w_in, w_gate, w_out, act)
+    out = grouped_ffn_cuda(buf, w_in, w_gate if act == "swiglu" else w_in,
+                           w_out, act)
+    grouped_ffn.launches += 1
+    return out
+
+
+class GroupedFFN(torch.autograd.Function):
+    """The grouped expert FFN with a gradient: the forward keeps buf and the
+    three weights; the backward is the hand-written kernel on the card
+    (deterministic: every sum in a fixed order) and
+    ``grouped_ffn_backward_reference`` on the CPU.  For gelu the gradient of
+    ``w_gate``, which is not read, is zeros."""
+
+    @staticmethod
+    def forward(ctx, buf, w_in, w_gate, w_out, act: str):
+        ctx.save_for_backward(buf, w_in, w_gate, w_out)
+        ctx.act = act
+        return _forward(buf, w_in, w_gate, w_out, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        buf, w_in, w_gate, w_out = ctx.saved_tensors
+        act = ctx.act
+        if buf.device.type == "cpu":
+            grads = grouped_ffn_backward_reference(buf, w_in, w_gate, w_out,
+                                                   dy, act)
+            return (*grads, None)
+        dy = dy.contiguous()
+        _check_cuda_inputs(buf, w_in, w_gate, w_out, act, dy)
+        dbuf, dw_in, dw_gate, dw_out = grouped_ffn_bwd_cuda(
+            buf, w_in, w_gate if act == "swiglu" else w_in, w_out, dy, act)
+        grouped_ffn.backward_launches += 1
+        if dw_gate is None:
+            dw_gate = torch.zeros_like(w_gate)
+        return dbuf, dw_in, dw_gate, dw_out, None
 
 
 def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
@@ -80,17 +131,15 @@ def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
             buf.device.type not in ("cpu", "cuda"):
         raise ValueError(f"buf and the weights must lie on the CPU or on one "
                          f"CUDA device; got {[str(x.device) for x in mats]}")
-    if buf.device.type == "cpu":
-        return grouped_ffn_reference(buf, w_in, w_gate, w_out, act)
-    refuse_grad(NO_GRAD, *mats)
-    _check_cuda_inputs(buf, w_in, w_gate, w_out, act)
-    out = grouped_ffn_cuda(buf, w_in, w_gate if act == "swiglu" else w_in,
-                           w_out, act)
-    grouped_ffn.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (buf, w_in, w_gate, w_out)):
+        return GroupedFFN.apply(buf, w_in, w_gate, w_out, act)
+    return _forward(buf, w_in, w_gate, w_out, act)
 
 
 grouped_ffn.launches = 0
+grouped_ffn.backward_launches = 0
 
 
-__all__ = ["grouped_ffn", "grouped_ffn_reference"]
+__all__ = ["GroupedFFN", "grouped_ffn", "grouped_ffn_backward_reference",
+           "grouped_ffn_reference"]

@@ -90,7 +90,7 @@ class Model(nn.Module):
 
     def train_loss(self, batch):
         """(total loss, {"ce", "aux"}) of ``batch["tokens"]`` against
-        ``batch["labels"]``, with autograd; the dense family only
+        ``batch["labels"]``, with autograd; the dense and MoE families
         (``lm.train_loss``)."""
         return lm.train_loss(self.params, batch, self.cfg)
 
@@ -102,7 +102,7 @@ class Model(nn.Module):
             logits, _ = encdec.dec_forward(params, batch["tokens"], enc_out,
                                            self.cfg)
             return logits
-        logits, _ = lm.forward(params, batch["tokens"], self.cfg,
+        logits, _, _ = lm.forward(params, batch["tokens"], self.cfg,
                                patches=batch.get("patches"))
         return logits
 

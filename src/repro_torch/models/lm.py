@@ -7,13 +7,13 @@ One parameter tree with the JAX package's names and its stacked-over-layers
 layout (``layers.attn.wq`` is (L, D, H, hd)); the layer loop is a Python
 loop over views of the stacked leaves.  Entry points:
 
-    forward(params, tokens, cfg, patches=None) -> logits, cache|None
+    forward(params, tokens, cfg, patches=None) -> logits, aux, cache|None
     train_loss(params, batch, cfg)             -> loss, {"ce", "aux"}
     prefill(params, batch, cfg)                -> last-token logits, cache
     decode_step(params, tokens, cache, cfg)    -> logits (cache in place)
 
-Training (``train_loss``, with autograd) takes the dense family; the other
-families wait for their kernels' backwards (ROADMAP.md, queue 1).
+Training (``train_loss``, with autograd) takes the dense and MoE families;
+the other families wait for their kernels' backwards (ROADMAP.md, queue 1).
 
 Cache layouts (each with "pos": (B,) int64):
     attention families: {"k": (L,B,T,K,hd), "v": ...}
@@ -45,7 +45,6 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: encdec.py
 PATCH_DIM = 1024          # the stub vision tower's patch features
 # what training each other family waits for (ROADMAP.md, queue 1)
 TRAIN_LATER = {
-    "moe": "MoE training (a moe_gmm backward)",
     "ssm": "SSM and hybrid training (an SSD backward)",
     "hybrid": "SSM and hybrid training (an SSD backward)",
     "encdec": "whisper and llava training",
@@ -174,16 +173,16 @@ def _embed(params, tokens, cfg: ArchConfig, patches=None):
 
 def _ffn(lp, m, cfg: ArchConfig):
     """The block's feed-forward half: the MLP, or the MoE plus arctic's
-    dense residual FFN and llama4's shared expert.  The MoE aux loss is not
-    needed for serving and is dropped."""
+    dense residual FFN and llama4's shared expert.  Returns (y, aux): the
+    MoE's load-balancing loss, an f32 scalar, or None for the MLP."""
     if not cfg.n_experts:
-        return mlp_forward(lp["mlp"], m, cfg.mlp_act)
-    y, _ = moe_forward(lp["moe"], m, cfg)
+        return mlp_forward(lp["mlp"], m, cfg.mlp_act), None
+    y, aux = moe_forward(lp["moe"], m, cfg)
     if cfg.moe_dense_ff:
         y = y + mlp_forward(lp["dense_mlp"], m, cfg.mlp_act)
     if cfg.shared_expert_ff:
         y = y + mlp_forward(lp["shared_mlp"], m, cfg.mlp_act)
-    return y
+    return y, aux
 
 
 def _maybe_ckpt(fn, cfg: ArchConfig):
@@ -205,22 +204,27 @@ def _maybe_ckpt(fn, cfg: ArchConfig):
 
 
 def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
-    """One transformer block on a full sequence; window 0 => global."""
+    """One transformer block on a full sequence; window 0 => global.
+    Returns (h, aux or None, (k, v))."""
     a, kv = full_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
                            positions, cfg, window=window)
     h = h + a
-    return h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg), kv
+    y, aux = _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+    return h + y, aux, kv
 
 
 # ------------------------------------------------------------ full forward
 def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
             last_only: bool = False, patches=None):
-    """Full-sequence forward.  Returns (logits, cache|None).
+    """Full-sequence forward.  Returns (logits, aux, cache|None); aux is the
+    MoE load-balancing loss summed over the layers in layer order, in f32
+    (0 for the other families), as the reference's scan carry sums it.
 
     ``last_only``: compute logits for the final position only (prefill).
     ``patches``: the VLM's (B,P,1024) patch features, prepended."""
     h = _embed(params, tokens, cfg, patches)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     per_layer: dict[str, list] = {}
 
     def keep(**states):
@@ -238,13 +242,15 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
             if collect_cache:
                 keep(conv=st[0], ssm=st[1])
             if cfg.family == "hybrid" and idx[1] == cfg.attn_every - 1:
-                h, (k, v) = _block_forward(params["shared"], h, positions, 0,
-                                           cfg)
+                h, _, (k, v) = _block_forward(params["shared"], h,
+                                              positions, 0, cfg)
                 keep(k=k, v=v)
     else:
         block = _maybe_ckpt(_block_forward, cfg)
         for i, lp in enumerate(_unbind(params["layers"])):
-            h, (k, v) = block(lp, h, positions, _window(cfg, i), cfg)
+            h, a, (k, v) = block(lp, h, positions, _window(cfg, i), cfg)
+            if a is not None:
+                aux = aux + a
             keep(k=k, v=v)
     cache = None
     if collect_cache:
@@ -254,7 +260,7 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
                 cache[key] = cache[key].unflatten(0, _mamba_lead(cfg))
     if last_only:
         h = h[:, -1:, :]
-    return _logits(params, h, cfg), cache
+    return _logits(params, h, cfg), aux, cache
 
 
 # ------------------------------------------------------------------- train
@@ -263,16 +269,16 @@ def train_loss(params, batch, cfg: ArchConfig):
     ``batch["labels"]`` plus 0.01 * the MoE aux loss (0 for the dense
     family), as the reference's ``train_loss`` (``repro/models/lm.py:
     224-232``).  Returns (total, {"ce", "aux"}); differentiate ``total``.
-    Takes the dense family; the others raise ``NotImplementedError``."""
-    if cfg.family != "dense":
+    Takes the dense and MoE families; the others raise
+    ``NotImplementedError``."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense family; training the "
-            f"{cfg.family} family waits for "
+            f"{cfg.name}: the port trains the dense and MoE families; "
+            f"training the {cfg.family} family waits for "
             f"{TRAIN_LATER[cfg.family]} (ROADMAP.md, "
             f"queue 1)")
-    logits, _ = forward(params, batch["tokens"], cfg)
+    logits, aux, _ = forward(params, batch["tokens"], cfg)
     loss = cross_entropy_loss(logits, batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -285,8 +291,8 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     (nb,B,T,K,hd) cache; the mamba states have a fixed size and ignore it."""
     tokens = batch["tokens"]
     patches = batch.get("patches")
-    logits, cache = forward(params, tokens, cfg, collect_cache=True,
-                            last_only=True, patches=patches)
+    logits, _, cache = forward(params, tokens, cfg, collect_cache=True,
+                               last_only=True, patches=patches)
     b, seqlen = tokens.shape
     if cfg.family == "vlm":
         seqlen += patches.shape[1]
@@ -305,7 +311,7 @@ def _block_decode(lp, h, cache_k, cache_v, pos, window: int,
     a, _ = decode_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
                             cache_k, cache_v, pos, cfg, window=window)
     h = h + a
-    return h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+    return h + _ffn(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)[0]
 
 
 def decode_step(params, tokens, cache, cfg: ArchConfig):

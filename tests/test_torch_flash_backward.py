@@ -26,8 +26,7 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
     _check_cuda_inputs  # noqa: E402
 from repro_torch.kernels import refuse_grad  # noqa: E402
-from repro_torch.kernels.moe_gmm.ops import \
-    NO_GRAD as GMM_NO_GRAD  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.ssd.ops import NO_GRAD as SSD_NO_GRAD  # noqa: E402
 
 # f32 on both sides; only the order of sums differs (observed <= 1e-6)
@@ -181,13 +180,23 @@ def test_check_cuda_inputs_checks_do():
         _check_cuda_inputs(q, k, k, unaligned)
 
 
-@pytest.mark.parametrize("message", [GMM_NO_GRAD, SSD_NO_GRAD],
+@pytest.mark.parametrize("message", ["moe_gmm", SSD_NO_GRAD],
                          ids=["moe_gmm", "ssd"])
 def test_kernels_without_backward_refuse_grad_on_cuda(message):
-    """moe_gmm and SSD have no backward on the card: a CUDA input that
-    needs a gradient raises, so that no parameter is left silently without
-    one.  CPU inputs (the plain versions, differentiated by autograd) and
-    calls without grad pass."""
+    """SSD has no backward on the card: a CUDA input that needs a gradient
+    raises, so that no parameter is left silently without one.  CPU inputs
+    (the plain versions, differentiated by autograd) and calls without grad
+    pass.  moe_gmm has its backward (``GroupedFFN``): its wrapper refuses
+    nothing, and an input that needs a gradient goes through the
+    Function."""
+    if message == "moe_gmm":
+        assert not hasattr(gmm_ops, "NO_GRAD")
+        assert not hasattr(gmm_ops, "refuse_grad")
+        w = torch.zeros(2, 8, 16, requires_grad=True)
+        out = gmm_ops.grouped_ffn(torch.ones(1, 2, 4, 8), w, w,
+                                  torch.zeros(2, 16, 8))
+        assert type(out.grad_fn).__name__ == "GroupedFFNBackward"
+        return
     cuda = torch.device("cuda")
     needs = types.SimpleNamespace(requires_grad=True, device=cuda)
     frozen = types.SimpleNamespace(requires_grad=False, device=cuda)
