@@ -5,7 +5,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py
     python3 chip_smoke.py --ssd-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --flash-bwd-only
-    python3 chip_smoke.py --moe-bwd-only
+    python3 chip_smoke.py --moe-bwd-only [--src OTHER_CHECKOUT/src]
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -13,7 +13,8 @@ result line):
 1. info: card name and power limit, torch and CUDA versions; TF32 off.
 2. build: every CUDA kernel from the sources in the checkout, in parallel;
    ptxas's registers and spills by instantiation, and none allowed in the
-   flash backward's wgmma body.
+   wgmma bodies of flash's backward and of the grouped FFN's backward
+   (whose products ptxas must not serialize either: no C7520 note).
 3. kernels vs their plain PyTorch versions on the card, at the cases of
    tests/test_kernels.py and at the very shapes that phase 5 serves (flash
    attention: hd-128 prefill shapes, the served prompts of deepseek-7b,
@@ -44,9 +45,9 @@ result line):
    through ``GroupedFFN`` against its plain version in f32 (llama4-scout's
    training shape, arctic's expert widths, dead experts and rows as the
    dispatch leaves them, gelu with zero X rows under nonzero dY rows,
-   ragged D and F, f32 at the smoke widths): dead rows' dX and dead
-   experts' weight gradients exact zeros, a second call at the training
-   shape bit-identical.
+   ragged D and F, f32 at the smoke widths, B = 3 with C = 100, gelu on
+   full tiles): dead rows' dX and dead experts' weight gradients exact
+   zeros, a second call at the training shape bit-identical.
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
    mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
@@ -76,8 +77,8 @@ result line):
 5c. the MoE training path: the same on llama4-scout at its full widths,
    cut to 2 of its 48 layers (6.47 G parameters), every launch counted
    from 0 (a step: 4 grouped-FFN forwards, 2 backwards, 4 flash forwards,
-   2 backwards); its profiled step also splits out the grouped FFN's
-   forward and backward.
+   2 backwards), every backward on the wgmma body; its profiled step also
+   splits out the grouped FFN's forward and backward.
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (flash attention at
    (1, 2048, 32, 128), at deepseek's longest served prefill and at
@@ -89,19 +90,21 @@ result line):
    tokens; the flash backward's wgmma body at the training shape and at
    phi4-mini's GQA (2, 2048, 24, 8, 128), each beside the mma.sync body
    (asked for by name) and autograd's backward of SDPA; the grouped FFN's
-   backward and forward at llama4-scout's training shape with every row
-   live, beside autograd's backward of the bmm yardstick and the yardstick;
+   backward (with each pass's device time) and forward at llama4-scout's
+   training shape with every row live, beside autograd's backward of the
+   bmm yardstick and the yardstick;
    each in three rounds taken in turns with its yardstick, the card's
    clocks read before and after).
 
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma
 backward's registers and spills (none allowed), and runs the backward's
 part of phases 3 and 6 alone; ``--moe-bwd-only`` does the same for the
-grouped FFN's backward.  ``--ssd-only`` runs phases 1 and 2 and the
-SSD kernel's part of phases 3 and 6 alone; with ``--src`` it takes
+grouped FFN's backward.  ``--ssd-only`` runs phases 1 and 2 and the SSD
+kernel's part of phases 3 and 6 alone.  With ``--src``, these two take
 ``repro_torch`` from another checkout (a ``git archive`` of the parent
-commit, say), to time two versions of the kernel in one call on one
-card.
+commit, say), to check and time two versions of a kernel in one call on
+one card; another checkout's build is reported but not held to this
+one's register rules.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -285,6 +288,11 @@ GMM_BWD_CASES = [
     ("llama4 smoke", (2, 4, 8, 64, 128), "swiglu", torch.float32, None),
     ("arctic smoke", (2, 4, 8, 64, 96), "swiglu", torch.float32, "routed"),
     ("gelu", (2, 2, 4, 16, 48), "gelu", torch.float32, None),
+    # B > 2 with C a multiple of neither 32 nor 64 (rows past C in every
+    # box); the wgmma body's gelu instantiation on full tiles
+    ("routed B 3", (3, 16, 100, 5120, 8192), "swiglu", torch.bfloat16,
+     "routed"),
+    ("gelu full", (2, 4, 64, 1024, 2048), "gelu", torch.bfloat16, None),
 ]
 # Bound on the grouped FFN's row_rel_err (rows of D), set from the sound
 # runs on the H100 (PERF.md): bf16 output and hidden roundings give ~4e-3.
@@ -484,6 +492,7 @@ def phase_build() -> dict:
             + "; ".join(f"{k}: {v}" for k, v in
                         instantiations(report[name]).items()))
     wgmma_bwd_report(report["flash_attn_bwd"])
+    wgmma_gmm_bwd_report(report["moe_gmm_bwd"])
     return report
 
 
@@ -497,6 +506,20 @@ def wgmma_bwd_report(lines: list[str]) -> None:
         assert v.endswith(" 0 bytes spilled"), f"{k} spills: {v}"
 
 
+def wgmma_gmm_bwd_report(lines: list[str]) -> None:
+    """The grouped FFN backward's wgmma body: its six instantiations (three
+    passes, swiglu and gelu) with their registers; no spill, and no ptxas
+    note that it serialized the wgmma products (C7520)."""
+    new = {k: v for k, v in instantiations(lines).items()
+           if "Pass<" in k}
+    say(f"[build] moe_gmm_bwd wgmma body: {new}")
+    assert len(new) == 6, f"want six wgmma instantiations, got {new}"
+    for k, v in new.items():
+        assert v.endswith(" 0 bytes spilled"), f"{k} spills: {v}"
+    serial = [ln for ln in lines if "C7520" in ln or "serialized" in ln]
+    assert not serial, f"moe_gmm_bwd: wgmma serialized: {serial}"
+
+
 def instantiations(lines: list[str]) -> dict:
     """ptxas's report as {"kernel<template arg>": "R registers, S bytes
     spilled"}, the kernel named from its mangled entry (``..._mmaILi80EE``
@@ -508,7 +531,10 @@ def instantiations(lines: list[str]) -> dict:
             mangled = ln.split("'")[1]
             name = re.findall(r"\d+([a-z_]+)I", mangled)
             arg = re.search(r"ILi(\d+)E", mangled)
-            label = ((name[-1] if name else mangled)
+            # a kernel templated on a pass (moe_gmm_bwd's wg::pass<P>)
+            policy = re.search(r"\d+([A-Za-z]+Pass)ILi(\d+)E", mangled)
+            label = (f"{policy.group(1)}<{policy.group(2)}>" if policy else
+                     (name[-1] if name else mangled)
                      + (f"<{arg.group(1)}>" if arg else ""))
             if label in out:                   # another type argument
                 label += f" #{sum(k.startswith(label) for k in out) + 1}"
@@ -1228,10 +1254,12 @@ def time_calls(model) -> tuple[list, list]:
 def zero_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gmm import grouped_ffn
+    from repro_torch.kernels.moe_gmm.kernel import grouped_ffn_bwd_cuda
     from repro_torch.kernels.ssd import ssd_intra_chunk
     flash_attention.launches = grouped_ffn.launches = 0
     flash_attention.backward_launches = ssd_intra_chunk.launches = 0
     grouped_ffn.backward_launches = 0
+    grouped_ffn_bwd_cuda.bodies = {}
 
 
 def read_counts() -> dict:
@@ -1471,6 +1499,11 @@ def phase_train(card: str, cfg) -> dict:
             "moe_gmm_bwd": cfg.n_layers * TRAIN_STEPS if moe else 0,
             "ssd_intra_chunk": 0}
     assert launches == want, f"launches {launches} != {want}"
+    from repro_torch.kernels.moe_gmm.kernel import grouped_ffn_bwd_cuda
+    # the body each launch named to the kernel, which runs it or fails
+    bodies = dict(grouped_ffn_bwd_cuda.bodies)
+    if moe:      # bf16 training: every backward launch on the wgmma body
+        assert bodies == {"wgmma": want["moe_gmm_bwd"]}, bodies
     norms = [m["grad_norm"] for m in trainer.metrics]
     assert len(losses) == TRAIN_STEPS and all(
         np.isfinite(x) for x in losses + norms), (losses, norms)
@@ -1488,6 +1521,8 @@ def phase_train(card: str, cfg) -> dict:
            "aux": [m["aux"] for m in trainer.metrics],
            "lr": [m["lr"] for m in trainer.metrics], "run_s": wall,
            "max_memory_allocated_gb": peak_gb, "launches": launches}
+    if moe:
+        res["moe_gmm_bwd_bodies"] = bodies
     experts = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
                f"{cfg.d_ff}, shared expert {cfg.shared_expert_ff}"
                if moe else "")
@@ -1508,8 +1543,8 @@ def phase_train(card: str, cfg) -> dict:
     say(f"{tag} launches {launches}: flash forward = {cfg.n_layers} layers x "
         f"2 (the forward and remat's recompute) x {TRAIN_STEPS} steps, "
         f"backward = {cfg.n_layers} x {TRAIN_STEPS}"
-        + ("; moe_gmm the same, moe_gmm_bwd as flash's backward" if moe
-           else ""))
+        + ("; moe_gmm the same, moe_gmm_bwd as flash's backward, by body "
+           f"{bodies}" if moe else ""))
     gen = torch.Generator("cuda").manual_seed(10)
     toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
                          device="cuda", generator=gen)
@@ -1521,10 +1556,16 @@ def phase_train(card: str, cfg) -> dict:
         f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens", card,
         groups={"moe_gmm forward": ("gemm_persistent", "reduce_splits",
                                     "scan_rows"),
-                "moe_gmm backward": ("hidden_pass", "dx_pass", "dw_pass"),
+                "moe_gmm backward": ("HiddenPass", "DxPass", "WeightPass"),
+                "moe_gmm backward, fma body": ("hidden_pass", "dx_pass",
+                                               "dw_pass"),
                 "matrix products": ("nvjet", "gemm", "xmma", "cutlass"),
                 "flash forward": ("flash_attn_fwd",),
                 "flash backward": ("flash_attn_bwd",)})
+    # bf16 training: the profile sees only the wgmma body's kernels
+    fma_ms = res["profile"].get("groups", {}).get(
+        "moe_gmm backward, fma body", 0.0)
+    assert fma_ms == 0.0, f"{tag} the fma body ran for {fma_ms} ms"
     # the optimizer layer alone: one update of every leaf (its time does not
     # depend on the gradients' values)
     params = state["params"]
@@ -1752,19 +1793,25 @@ def flash_bwd_only(card: str) -> int:
     return 0
 
 
-def moe_bwd_only(card: str) -> int:
+def moe_bwd_only(card: str, other: bool) -> int:
     """``--moe-bwd-only``: the grouped FFN's kernels built, the backward's
     registers and spills, its checks (phase 3's backward part) and its
-    timings (phase 6's); one JSON line."""
+    timings (phase 6's); one JSON line.  ``other``: the kernels are another
+    checkout's (``--src``), whose wgmma body, if any, is not checked."""
+    import repro_torch
     from repro_torch.kernels import _build
     _build.build_all(["moe_gmm", "moe_gmm_bwd"])
-    for ln in _build.build_log("moe_gmm_bwd").splitlines():
-        if "registers" in ln or "spill" in ln or "entry function" in ln \
-                or "warning" in ln:
-            say(f"[build] moe_gmm_bwd: {ln.strip()}")
+    lines = [ln.strip() for ln in _build.build_log("moe_gmm_bwd")
+             .splitlines() if "registers" in ln or "spill" in ln
+             or "entry function" in ln or "warning" in ln or "Loss" in ln]
+    for ln in lines:
+        say(f"[build] moe_gmm_bwd: {ln}")
+    if not other:
+        wgmma_gmm_bwd_report(lines)
     err = phase_gmm_backward()
     timing = phase_timing_gmm_bwd(card)
-    say(json.dumps({"max_abs_err": err, "moe_gmm_bwd_timing": timing}))
+    say(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]),
+                    "max_abs_err": err, "moe_gmm_bwd_timing": timing}))
     return 0
 
 
@@ -1849,15 +1896,34 @@ def phase_timing_gmm(card: str) -> dict:
     return out
 
 
+# the bf16 backward's launches by pass (moe_gmm_bwd.cu): the wgmma body's
+# kernels, and the names of the mma.sync body's in a checkout that has one
+# (the parent commit's, timed through --moe-bwd-only --src)
+GMM_BWD_PASSES = {"scan": ("scan_rows",), "hidden": ("HiddenPass",
+                                                     "hidden_pass"),
+                  "dx": ("DxPass", "dx_pass"),
+                  "weights": ("WeightPass", "dw_pass")}
+
+
+def pass_ms(fn, card: str) -> dict:
+    """The device time of each of the grouped-FFN backward's passes in one
+    profiled bf16 call of ``fn`` (``profile_region``, GMM_BWD_PASSES); None
+    for a pass whose kernels the profiler did not see (not measured)."""
+    out = profile_region(fn, "moe_gmm backward", card, top=6,
+                         groups=GMM_BWD_PASSES).get("groups", {})
+    return {k: (out[k] if out.get(k) else None) for k in GMM_BWD_PASSES}
+
+
 def phase_timing_gmm_bwd(card: str) -> dict:
     """The grouped FFN at llama4-scout's training shape (GMM_BWD_TRAIN,
     every row filled: 16 live experts of 320 rows), bf16 swiglu.  The
     backward: a call of its binding (the checks of ``GroupedFFN`` stay
     outside the timed call), in three rounds taken in turns with its
     yardstick, autograd's backward of the forward's yardstick (``bmm`` x 3
-    and silu * mul over the live experts, never called by the port); its
-    call replayed from a CUDA graph; the plain backward.  The forward at the
-    same shape beside its own yardstick the same way."""
+    and silu * mul over the live experts, never called by the port); the
+    call replayed from a CUDA graph; its passes' device times from the
+    profiler; the plain backward.  The forward at the same shape beside its
+    own yardstick the same way."""
     from repro_torch.kernels.moe_gmm import (grouped_ffn,
                                              grouped_ffn_backward_reference,
                                              grouped_ffn_reference)
@@ -1892,20 +1958,25 @@ def phase_timing_gmm_bwd(card: str) -> dict:
         return forward_yard(xe, wi, wg, wo)
 
     out = {}
-    for key, kern, lib in (("backward", kernel, library),
-                           ("forward", fwd_kernel, fwd_library)):
+    for key, kerns, lib in (("backward", {"kernel": kernel}, library),
+                            ("forward", {"kernel": fwd_kernel},
+                             fwd_library)):
         tag = f"moe_gmm {key} {GMM_BWD_TRAIN} (every row live)"
         for _ in range(2):
-            kern()
+            for kern in kerns.values():
+                kern()
             lib()
         say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
-        kernel_r, library_r = [], []
+        rounds = {name: [] for name in (*kerns, "yardstick")}
         for _ in range(3):
-            kernel_r.append(time_ms(kern, 5, warmup=1))
-            library_r.append(time_ms(lib, 5, warmup=1))
-        say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; kernel "
-            f"rounds {', '.join(f'{t:.4f}' for t in kernel_r)} ms, yardstick "
-            f"rounds {', '.join(f'{t:.4f}' for t in library_r)} ms")
+            for name, kern in kerns.items():
+                rounds[name].append(time_ms(kern, 5, warmup=1))
+            rounds["yardstick"].append(time_ms(lib, 5, warmup=1))
+        say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; rounds "
+            + "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in r) + " ms"
+                        for n, r in rounds.items()))
+        med = {n: sorted(r)[1] for n, r in rounds.items()}
+        graph = {n: graph_ms(kern, 5) for n, kern in kerns.items()}
         n_prod = 6 if key == "backward" else 3
         flops = n_prod * 2 * e * rows * d * f
         # the weights read (and, backward, their gradients written); buf and
@@ -1915,29 +1986,39 @@ def phase_timing_gmm_bwd(card: str) -> dict:
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         res = {"shape": list(GMM_BWD_TRAIN), "live_experts": e,
-               "live_rows": e * rows, "ms": sorted(kernel_r)[1],
-               "graph_ms": graph_ms(kern, 5), "library_ms": None,
-               "yardstick_ms": sorted(library_r)[1],
+               "live_rows": e * rows, "ms": med["kernel"],
+               "graph_ms": graph["kernel"], "library_ms": None,
+               "yardstick_ms": med["yardstick"],
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "flops": flops, "bytes": nbytes}
         if key == "backward":
+            res["passes_ms"] = pass_ms(kernel, card)
             res["plain_ms"] = time_ms(lambda: grouped_ffn_backward_reference(
                 buf, wi, wg, wo, dy), 2, warmup=1)
         else:
             res["plain_ms"] = time_ms(lambda: grouped_ffn_reference(
                 buf, wi, wg, wo), 2, warmup=1)
-        say(f"[timing] {tag} bf16 swiglu: kernel {res['ms']:.4f} ms (median; "
-            f"replayed from a CUDA graph {res['graph_ms']:.4f} ms), plain "
-            f"{res['plain_ms']:.4f} ms, yardstick ("
-            + ("autograd's backward of " if key == "backward" else "")
-            + f"bmm x 3 + silu*mul) {res['yardstick_ms']:.4f} ms, kernel / "
-            f"yardstick {res['ms'] / res['yardstick_ms']:.3f}; bound "
-            f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
-            f"({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB; the other "
-            f"bound {min(t_ops, t_bytes):.4f} ms); "
-            f"{flops / res['ms'] / 1e9:.2f} TFLOP/s achieved, "
-            f"{100 * res['bound_ms'] / res['ms']:.1f}% of bound [{card}]")
+        for name in kerns:
+            say(f"[timing] {tag} bf16 swiglu: kernel "
+                f"{med[name]:.4f} ms (median; replayed from a CUDA graph "
+                f"{graph[name]:.4f} ms), plain {res['plain_ms']:.4f} ms, "
+                f"yardstick ("
+                + ("autograd's backward of " if key == "backward" else "")
+                + f"bmm x 3 + silu*mul) {med['yardstick']:.4f} ms, kernel / "
+                f"yardstick {med[name] / med['yardstick']:.3f}; bound "
+                f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+                f"({flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB; the "
+                f"other bound {min(t_ops, t_bytes):.4f} ms); "
+                f"{flops / med[name] / 1e9:.2f} TFLOP/s achieved, "
+                f"{100 * res['bound_ms'] / med[name]:.1f}% of bound "
+                f"[{card}]")
+        if key == "backward":
+            say(f"[timing] {tag}: passes, device ms "
+                + ", ".join(
+                    f"{k} " + ("not measured (the profiler did not see "
+                               "it)" if v is None else f"{v:.4f}")
+                    for k, v in res["passes_ms"].items()))
         out[key] = res
     del buf, wi, wg, wo, dy, xe, dye, yard, out_y
     torch.cuda.empty_cache()
@@ -2076,7 +2157,7 @@ def main(argv: list[str]) -> int:
     if "--flash-bwd-only" in argv:
         return flash_bwd_only(card)
     if "--moe-bwd-only" in argv:
-        return moe_bwd_only(card)
+        return moe_bwd_only(card, "--src" in argv)
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
@@ -2168,7 +2249,7 @@ def main(argv: list[str]) -> int:
         **launches("moe_gmm_bwd"), "max_abs_err": gmm_bwd_err,
         **{k: gmm_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "yardstick_ms", "graph_ms",
-                                   "shape")},
+                                   "shape", "passes_ms")},
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",

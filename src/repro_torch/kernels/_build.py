@@ -8,15 +8,18 @@ unchanged source is built once.  Nothing is built at import: the first call
 of a kernel builds it, and ``build_all`` builds every kernel at once, one
 ``nvcc`` process per source, all started together.
 
-A source may include the headers (``*.cuh``) beside it, which enter the
-hash too.  The compiler's report (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside each library as ``<name>-<hash>.log``.
+Every header a source includes with ``#include "..."``, followed
+transitively (``csrc/sm90.cuh`` is shared by the kernels that run ``wgmma``
+fed by TMA), enters the hash too.  The compiler's report (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside each library as
+``<name>-<hash>.log``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,10 +55,36 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = _PKG / SOURCES[name]
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(src: Path) -> list[Path]:
+    """The headers ``src`` includes with ``#include "..."``, each resolved
+    beside the file that names it, followed transitively, in the order
+    first reached.  Raises if one is missing."""
+    seen: list[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = (path.parent / inc).resolve()
+            if header in seen:
+                continue
+            if not header.is_file():
+                raise FileNotFoundError(f"{path.name} includes {inc!r}, "
+                                        f"not found at {header}")
+            seen.append(header)
+            todo.append(header)
+    return seen
+
+
+def library_path(name: str, root: Path = _PKG) -> Path:
+    """Where kernel ``name``'s library goes: named by a hash of its source,
+    every header it includes (transitively) and the flags.  ``root`` is the
+    directory the sources lie under (this package's, or a copy's)."""
+    src = root / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):   # what it may include
+    for header in included_headers(src):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -102,8 +131,7 @@ def build_all(names=None) -> dict[str, Path]:
 
 
 def build_log(name: str) -> str:
-    """A source may include the headers (``*.cuh``) beside it, which enter the
-hash too.  The compiler's report for the current build of ``name``, or ''."""
+    """The compiler's report for the current build of ``name``, or ''."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 

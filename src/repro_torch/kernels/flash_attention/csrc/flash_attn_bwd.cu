@@ -93,7 +93,7 @@
 
 #include <atomic>
 
-#include "sm90.cuh"
+#include "../../csrc/sm90.cuh"
 
 namespace {
 

@@ -66,7 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "../../csrc/sm90.cuh"
 
 namespace {
 

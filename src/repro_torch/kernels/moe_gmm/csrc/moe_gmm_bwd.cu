@@ -26,27 +26,51 @@
 // the tiles of dead experts as zeros itself (no 4 GB memset at llama4).
 //
 // Passes (one launch each after the scan):
-//   (1) hidden:  units (live expert, 64 rows, 128 F columns), reduction over
-//       D.  A, G and dH from one walk over X and dY; the epilogue writes H =
-//       act(A, G) (rounded to bf16, as the forward rounds it), dA and dG into
-//       (E, R, F) scratch.  The two up products are recomputed, not saved,
-//       so the forward keeps no activation (remat "full" keeps memory as the
-//       reference's).
-//   (2) dX:  units (live expert, 64 rows, 128 D columns), reduction over 2F:
-//       dA against W_in^T, then dG against W_gate^T; written into dbuf
-//       (B, E, C, D) through its strides.
-//   (3) weights:  units (expert, which of the three, 128 x 128 output tile),
-//       reduction over the expert's R rows in ascending order, the row
-//       operand read transposed.  Each output tile has one owner: no split,
-//       no atomics, every sum in a fixed order, so two calls give the same
-//       bits.
-// bfloat16: each unit is one block of 8 warps running mma.sync m16n8k16
-// (bf16 in, f32 accumulate) with fragments from ldmatrix, fed by a 4-stage
-// cp.async ring.  Weights are read K-contiguous where the product needs
-// their transpose (W_out in (1), W_in and W_gate in (2)): those tiles are
-// kept as [n][k] in shared memory and loaded without .trans.  float32 (the
-// tests' dtype): one thread per output element, its sum in order on FMAs,
-// H in f32; exact to the order of sums.
+//   (1) hidden:  A, G and dH from one walk over X and dY (reduction over D);
+//       the epilogue writes H = act(A, G) (rounded to bf16, as the forward
+//       rounds it), dA and dG into (E, R, F) scratch.  The two up products
+//       are recomputed, not saved, so the forward keeps no activation (remat
+//       "full" keeps memory as the reference's).
+//   (2) dX:  dA against W_in^T, then dG against W_gate^T (reduction over
+//       2F), written into dbuf (B, E, C, D) through its strides.
+//   (3) weights:  each output tile summed over the expert's R rows in
+//       ascending order.  Each output tile has one owner: no split, no
+//       atomics, every sum in a fixed order, so two calls give the same
+//       bits.  Dead experts' tiles are written as zeros.
+//
+// Bodies, chosen by the wrapper (kernel.py::bwd_body) by dtype alone:
+//   * wgmma (bfloat16, every shape the wrapper takes: D and F multiples of 8,
+//     rows 16-byte aligned; training's path), namespace wg.  Each pass is
+//     one persistent launch of 256-thread blocks, one an SM: two consumer
+//     warpgroups, and warp 0 also issues the TMA loads (by predicate from
+//     one lane) into a ring of mbarrier-guarded stages, up to a ring ahead
+//     and across the block's units, so a unit's epilogue overlaps the next
+//     unit's loads.  Every product is wgmma from 128-byte swizzled shared
+//     memory, each operand in the major-ness its layout gives (no copy in
+//     memory):
+//       hidden  A^T = W_in^T X^T, G^T, dH^T = W_out dY^T: rows on wgmma's N
+//               (80 rows of one batch row), 128 F columns on M (64 a
+//               warpgroup); W_in, W_gate MN-major, W_out, X, dY K-major;
+//               three accumulators of 64 x 80, 120 registers a thread.
+//       dX      dX^T = W_in dA^T + W_gate dG^T: 160 rows of one batch row on
+//               N, 256 D columns on M (two m64 slabs a warpgroup, sharing
+//               the dA tile); both operands K-major.
+//       weights dW_in = X^T dA, dW_gate = X^T dG, dW_out = H^T dY: 128 x
+//               256 output tiles (64 x 256 a warpgroup), reduction in steps
+//               of 64 rows of one batch row; both operands MN-major; each
+//               tile goes through shared memory to a TMA store that
+//               overlaps the next tile's products.
+//     Row operands are read through rank-4 TMA maps over buf, dY (cols, C,
+//     E, B) and the scratch (F, C, B, E), so a box never crosses a batch
+//     row: TMA zero-fills the rows past C, and no epilogue writes them.
+//     Rows on N (80 and 160 divide C = 160, llama4's capacity) waste no
+//     product where 64-row M tiles would compute 384 rows for 320.  The
+//     weight pass's steps of 64 rows compute 384 for 320 at C = 160; steps
+//     of 32 rows (no waste) ran that pass 1.4x slower on an H100: the
+//     per-step wait and refill, not the products, set its pace.  The maps'
+//     dims and strides come from the wrapper (kernel.py::bwd_maps).
+//   * FMA (float32, the tests' dtype): one thread per output element, its
+//     sum in order on FMAs, H in f32; exact to the order of sums.
 //
 // What bounds it on an H100.  At llama4-scout's training shape (buf (2, 16,
 // 160, 5120), F 8192, bf16, all 16 experts live with 320 rows each) the
@@ -55,10 +79,12 @@
 // three gradients written, buf, dY and dX) are about 8.21 GB, 2.45 ms at
 // 3.35 TB/s: bound by operations.  This design recomputes A and G, two
 // products more (its own floor 3.47 ms), and moves its (E, R, F) scratch
-// (252 MB written, read twice) through memory.  It is simple first: mma.sync
-// rather than wgmma, one unit a block, no split of the reduction when few
-// experts are live.
+// (252 MB written, read twice) through memory.  The wgmma body puts every
+// product on the tensor cores' asynchronous path at N = 80 to 256; the
+// weight pass, 6 reduction steps a tile at llama4's 320 rows, hides its
+// 64 KB a tile of output behind the next tile's loads and products.
 #include "gmm_common.cuh"
+#include "../../csrc/sm90.cuh"
 
 namespace {
 
@@ -103,443 +129,546 @@ struct Hidden {   // H, dA, dG at one element from A, G, dH
   }
 };
 
-// ===================================================== bfloat16: mma.sync
-namespace bf16 {
+// ============================================ bfloat16: wgmma fed by TMA
+namespace wg {
 
-constexpr int kBK = 32;            // reduction step
-constexpr int kStages = 4;         // cp.async ring depth
-constexpr int kBN = 128;           // output columns per unit
-constexpr int kLDK = kBK + kPad;   // a [row][k] tile's row
-constexpr int kLDN = kBN + kPad;   // a [k][n] tile's row
+using namespace sm90;   // mbarriers, TMA, wgmma (kernels/csrc/sm90.cuh)
 
+constexpr int kThreads = 256;   // two consumer warpgroups; warp 0 issues TMA
+constexpr long long kHangCycles = 20000000000LL;   // about 10 s: then trap
 using bf = __nv_bfloat16;
 
-// The standard ring: kStages - 1 steps in flight ahead of the one computed;
-// every step commits one group (empty past the end).  load(stage, step)
-// starts a step's copies, compute(stage) consumes one.
-template <typename Load, typename Compute>
-__device__ __forceinline__ void ring(int steps, Load load, Compute compute) {
+// The tensors whose TMA maps the wrapper describes (kernel.py::bwd_maps),
+// in its order: rank 4, dims inner first, element strides of dims 1..3.
+// Row operands are cut per batch row, so a box of rows stays in one: buf
+// and dY (cols, C, E, B), the scratch (F, C, B, E).
+enum { kMapX, kMapDy, kMapWi, kMapWg, kMapWo, kMapScratch, kMapDwi, kMapDwg,
+       kMapDwo };
+struct MapDims {
+  long long dims[4];
+  long long strides[3];
+};
+
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// B, the batch rows of R = B C
+__host__ __device__ __forceinline__ int batch(const Bwd& p) {
+  return p.R / p.C;
+}
+
+// v as lane 0 of the warp holds it: a value every lane reads the same, made
+// warp-uniform for the compiler, so that branches on it are
+__device__ __forceinline__ int uniform(int v) {
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// Wait for the phase of parity `parity` of `bar`; lane 0's reading decides
+// for the warp, so the wait is warp-uniform.  A wait of kHangCycles traps,
+// so a schedule fault fails the launch instead of hanging the card.
+__device__ __forceinline__ void wait(uint64_t* bar, unsigned parity) {
+  if (uniform(mbar_try(bar, parity))) return;
+  const long long t0 = clock64();
+  while (!uniform(mbar_try(bar, parity)))
+    if (uniform(clock64() - t0 > kHangCycles)) __trap();
+}
+
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[M][N]) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load(s, s);
-    cp_commit();
-  }
-  for (int k = 0; k < steps; ++k) {
-    cp_wait<kStages - 2>();    // step k's tiles have landed
-    __syncthreads();           // for all threads; the oldest stage is free
-    const int next = k + kStages - 1;
-    if (next < steps) load(next % kStages, next);
-    cp_commit();
-    compute(k % kStages);
-  }
-  cp_wait<0>();
-}
-
-// A fragment (16 x 16) of rows [r0, r0 + 16) from a [row][k] tile
-__device__ __forceinline__ void frag_a(const bf* t, int ld, int r0, int k0,
-                                      unsigned (&f)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(t + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8, f);
-}
-
-// A fragment of rows [m0, m0 + 16) from a [k][m] tile (the operand stored
-// transposed)
-__device__ __forceinline__ void frag_a_t(const bf* t, int ld, int m0, int k0,
-                                        unsigned (&f)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4_trans(t + (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 +
-                    ((lane >> 3) & 1) * 8,
-                f);
-}
-
-// B fragments of columns [n0, n0 + 16) (two n8 blocks: f[0..1], f[2..3])
-// from a [k][n] tile
-__device__ __forceinline__ void frag_b(const bf* t, int ld, int n0, int k0,
-                                      unsigned (&f)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4_trans(t + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8, f);
-}
-
-// the same from an [n][k] tile (a K-contiguous operand)
-__device__ __forceinline__ void frag_b_t(const bf* t, int ld, int n0, int k0,
-                                        unsigned (&f)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-              ((lane >> 3) & 1) * 8,
-          f);
-}
-
-// Copy a (rows, kBK) slice of a row-gathered operand into a [row][k] tile:
-// row r of expert e at base + row_off(r), columns [k0, k0 + kBK) of K.
-__device__ __forceinline__ void load_rows(bf* dst, const bf* base, int C,
-                                          long long se, long long sb,
-                                          long long sc, int e, int r0,
-                                          int R, int k0, int K) {
-  constexpr int kChunks = kBK / 8;
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-  for (int it = 0; it < kBM * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int row = r0 + r, k = k0 + c * 8;
-    const bool ok = row < R && k < K;
-    cp16(dst + r * kLDK + c * 8,
-         ok ? base + row_off(row, C, se, sb, sc, e) + k : base, ok);
-  }
+    for (int i = 0; i < N; ++i) acc[m][i] = 0.f;
 }
 
-// Copy rows [k0, k0 + kBK) x columns [n0, n0 + kBN) of a (K, N) matrix with
-// row stride sk (N contiguous) into a [k][n] tile.
-__device__ __forceinline__ void load_kn(bf* dst, const bf* base,
-                                        long long sk, int k0, int K, int n0,
-                                        int N) {
-  constexpr int kChunks = kBN / 8;
+template <int M, int N>
+__device__ __forceinline__ void pin_all(float (&acc)[M][N]) {
 #pragma unroll
-  for (int it = 0; it < kBK * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int k = k0 + r, n = n0 + c * 8;
-    const bool ok = k < K && n < N;
-    cp16(dst + r * kLDN + c * 8, ok ? base + k * sk + n : base, ok);
-  }
+  for (int m = 0; m < M; ++m) pin(acc[m]);
 }
 
-// Copy columns [n0, n0 + kBN) x rows [k0, k0 + kBK) of the transpose of an
-// (N, K) matrix with row stride sn (K contiguous) into an [n][k] tile.
-__device__ __forceinline__ void load_nk(bf* dst, const bf* base,
-                                        long long sn, int n0, int N, int k0,
-                                        int K) {
-  constexpr int kChunks = kBK / 8;
-#pragma unroll
-  for (int it = 0; it < kBN * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int n = n0 + r, k = k0 + c * 8;
-    const bool ok = n < N && k < K;
-    cp16(dst + r * kLDK + c * 8, ok ? base + n * sn + k : base, ok);
-  }
+// x, which the compiler may not see through
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
+// x, which the compiler may neither see through nor compute before the
+// memory accesses that precede it
+__device__ __forceinline__ int opaque_after_stores(int x) {
+  asm volatile("" : "+r"(x)::"memory");
+  return x;
+}
+
+// Where this thread's accumulator element 4 i + q of a 64 x N wgmma result
+// lies: row (of the 64) and column.  Made in an epilogue from an opaque
+// thread index: hoisted, the epilogue's addresses would hold registers
+// through every step of the products.
+struct Frag {
+  int row0, col0;    // element 4 i + q: row0 + 8 (q / 2), col0 + 8 i + q % 2
+  __device__ __forceinline__ Frag() {
+    const int t = opaque((int)threadIdx.x);
+    const int warp = (t % 128) / 32, lane = t % 32;
+    row0 = warp * 16 + (lane >> 2);
+    col0 = 2 * (lane & 3);
+  }
+};
 
 // ------------------------------------------------------------ (1) hidden
+// Unit: (live expert, batch row b, 80 rows from c0, 128 F columns from f0).
+// Stage: W_in (and W_gate) as two [64 d][64 f] panels each (a warpgroup's
+// f on M, MN-major), W_out as [128 f][64 d] (K-major), X and dY as
+// [80 r][64 d] (K-major, the rows on N).
 template <int ACT>
-struct HiddenTiles {
-  static constexpr int kRows = kBM * kLDK;          // X or dY tile
-  static constexpr int kKN = kBK * kLDN;            // W_in or W_gate tile
-  static constexpr int kNK = kBN * kLDK;            // W_out^T tile
+struct HiddenPass {
   static constexpr int kMats = ACT == kSwiglu ? 2 : 1;
-  static constexpr int kStage = 2 * kRows + kMats * kKN + kNK;
-};
-
-template <int ACT>
-__global__ void __launch_bounds__(kThreads, 1) hidden_pass(const Bwd p) {
-  using T = HiddenTiles<ACT>;
-  constexpr int kMats = T::kMats;
-  constexpr int kMT = kBM / 16;
-  extern __shared__ uint4 smem_raw[];
-  bf* smem = reinterpret_cast<bf*>(smem_raw);
-
-  const int n_mt = (p.R + kBM - 1) / kBM, n_nt = (p.F + kBN - 1) / kBN;
-  const int mt = blockIdx.x % n_mt, nt = (blockIdx.x / n_mt) % n_nt;
-  const int li = blockIdx.x / (n_mt * n_nt);
-  if (li >= p.live.n_live()) return;               // the whole block
-  const int e = p.live.expert(li);
-  const int m0 = mt * kBM, n0 = nt * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3, wn = warp * 16;
-  const bf* x = static_cast<const bf*>(p.x);
-  const bf* dy = static_cast<const bf*>(p.dy);
-  const bf* wi = static_cast<const bf*>(p.wi) + e * p.wi_se;
-  const bf* wg = static_cast<const bf*>(p.wg) + e * p.wg_se;
-  const bf* wo = static_cast<const bf*>(p.wo) + e * p.wo_se;
-
-  float acc[kMats + 1][kMT][2][4] = {};            // A, (G,) dH
-  auto load = [&](int stage, int step) {
-    bf* st = smem + stage * T::kStage;
-    const int k0 = step * kBK;
-    load_rows(st, x, p.C, p.x_se, p.x_sb, p.x_sc, e, m0, p.R, k0, p.D);
-    load_rows(st + T::kRows, dy, p.C, p.dy_se, p.dy_sb, p.dy_sc, e, m0,
-              p.R, k0, p.D);
-    load_kn(st + 2 * T::kRows, wi, p.wi_sk, k0, p.D, n0, p.F);
-    if (kMats == 2)
-      load_kn(st + 2 * T::kRows + T::kKN, wg, p.wg_sk, k0, p.D, n0, p.F);
-    load_nk(st + 2 * T::kRows + kMats * T::kKN, wo, p.wo_sk, n0, p.F, k0,
-            p.D);
+  static constexpr int kRows = 80, kCols = 128;
+  static constexpr int kAccMats = kMats + 1, kN = kRows;
+  static constexpr int kW = 64 * 128;          // a [64 d][64 f] panel
+  static constexpr int kWo = kCols * 128;      // [128 f][64 d]
+  static constexpr int kR = kRows * 128;       // [80 r][64 d]
+  static constexpr int kStageBytes = kMats * 2 * kW + kWo + 2 * kR;
+  static constexpr int kStages = ACT == kSwiglu ? 3 : 4;
+  static constexpr int kExtraBytes = 0;
+  struct alignas(64) Maps {
+    CUtensorMap x, dy, wi, wg, wo;
   };
-  const int rows = p.R - m0;                       // block-uniform
-  auto compute = [&](int stage) {
-    const bf* st = smem + stage * T::kStage;
-    const bf* xs = st;
-    const bf* ys = st + T::kRows;
-    const bf* ws = st + 2 * T::kRows;
-    const bf* os = ws + kMats * T::kKN;
+  struct Unit {
+    int e, b, c0, f0;
+  };
+
+  static __device__ int tiles(const Bwd& p) {
+    return cdiv(p.C, kRows) * batch(p) * cdiv(p.F, kCols);
+  }
+  static __device__ int units(const Bwd& p) {
+    return uniform(p.live.n_live()) * tiles(p);
+  }
+  static __device__ int loaded_units(const Bwd& p) { return units(p); }
+  static __device__ int steps(const Bwd& p) { return cdiv(p.D, 64); }
+  // row tiles fastest: the units running together share their weight tiles
+  static __device__ Unit unit(const Bwd& p, int u) {
+    const int nrt = cdiv(p.C, kRows), nft = cdiv(p.F, kCols);
+    const int rt = u % nrt, b = (u / nrt) % batch(p);
+    const int ft = (u / (nrt * batch(p))) % nft, li = u / (nrt * batch(p) * nft);
+    return Unit{p.live.expert(li), b, rt * kRows, ft * kCols};
+  }
+  static __device__ void load(const Maps& m, const Bwd& p, uint8_t* st,
+                              uint64_t* bar, int u, int k, bool on) {
+    const Unit t = unit(p, u);
+    const int d0 = k * 64;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      unsigned bw[kMats][4], bo[4];
-#pragma unroll
-      for (int m = 0; m < kMats; ++m)
-        frag_b(ws + m * T::kKN, kLDN, wn, kk, bw[m]);
-      frag_b_t(os, kLDK, wn, kk, bo);
-#pragma unroll
-      for (int t = 0; t < kMT; ++t) {
-        if (t * 16 >= rows) break;
-        unsigned af[4];
-        frag_a(xs, kLDK, t * 16, kk, af);
-#pragma unroll
-        for (int m = 0; m < kMats; ++m) {
-          mma(acc[m][t][0], af, bw[m][0], bw[m][1]);
-          mma(acc[m][t][1], af, bw[m][2], bw[m][3]);
-        }
-        frag_a(ys, kLDK, t * 16, kk, af);
-        mma(acc[kMats][t][0], af, bo[0], bo[1]);
-        mma(acc[kMats][t][1], af, bo[2], bo[3]);
-      }
+    for (int q = 0; q < 2; ++q) {
+      tma_load_4d(st + q * kW, &m.wi, bar, t.f0 + 64 * q, d0, t.e, 0, on);
+      if (kMats == 2)
+        tma_load_4d(st + (2 + q) * kW, &m.wg, bar, t.f0 + 64 * q, d0, t.e, 0,
+                    on);
     }
-  };
-  ring((p.D + kBK - 1) / kBK, load, compute);
-
-  bf* hs = static_cast<bf*>(p.h);
-  bf* das = static_cast<bf*>(p.da);
-  bf* dgs = static_cast<bf*>(p.dg);
+    uint8_t* r = st + kMats * 2 * kW;
+    tma_load_4d(r, &m.wo, bar, d0, t.f0, t.e, 0, on);
+    tma_load_4d(r + kWo, &m.x, bar, d0, t.c0, t.e, t.b, on);
+    tma_load_4d(r + kWo + kR, &m.dy, bar, d0, t.c0, t.e, t.b, on);
+  }
+  // A^T (G^T) += W_in^T (W_gate^T) X^T and dH^T += W_out dY^T over 64 d;
+  // a k16 step is 16 rows (2048 bytes) of an MN-major panel, 32 bytes into
+  // the rows of a K-major one
+  static __device__ void mma(float (&acc)[kAccMats][kN / 2], uint8_t* st,
+                             int wgi) {
+    const uint64_t d_wi = desc(st + wgi * kW, kW, 1024);
+    const uint64_t d_wg = desc(st + (2 + wgi) * kW, kW, 1024);
+    uint8_t* r = st + kMats * 2 * kW;
+    const uint64_t d_wo = desc(r + wgi * 64 * 128, 16, 1024);
+    const uint64_t d_x = desc(r + kWo, 16, 1024);
+    const uint64_t d_dy = desc(r + kWo + kR, 16, 1024);
 #pragma unroll
-  for (int t = 0; t < kMT; ++t)
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_n80<1, 0>(acc[0], d_wi + kk * 128, d_x + kk * 2);
+      if constexpr (kMats == 2)
+        wgmma_ss_n80<1, 0>(acc[1], d_wg + kk * 128, d_x + kk * 2);
+      wgmma_ss_n80<0, 0>(acc[kMats], d_wo + kk * 2, d_dy + kk * 2);
+    }
+  }
+  // H, dA, dG of this thread's (f, row) elements into the scratch; rows
+  // past C and columns past F are not written
+  static __device__ void epilogue(float (&acc)[kAccMats][kN / 2], const Maps&,
+                                  const Bwd& p, uint8_t*, int u, int wgi) {
+    const Unit t = unit(p, u);
+    const Frag fr;
+    bf* hs = static_cast<bf*>(p.h);
+    bf* das = static_cast<bf*>(p.da);
+    bf* dgs = static_cast<bf*>(p.dg);
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int i = 0; i < kN / 8; ++i)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + t * 16 + g + hf * 8;
-        const int col = n0 + wn + n * 8 + tig * 2;   // even; F % 8 == 0
-        if (row >= p.R || col >= p.F) continue;
-        const int i = 2 * hf;
-        const Hidden<ACT> v0(acc[0][t][n][i], acc[kMats - 1][t][n][i],
-                             acc[kMats][t][n][i]);
-        const Hidden<ACT> v1(acc[0][t][n][i + 1], acc[kMats - 1][t][n][i + 1],
-                             acc[kMats][t][n][i + 1]);
-        const long long o = scratch_off(p, e, row) + col;
-        *reinterpret_cast<__nv_bfloat162*>(hs + o) =
-            __floats2bfloat162_rn(v0.h, v1.h);
-        *reinterpret_cast<__nv_bfloat162*>(das + o) =
-            __floats2bfloat162_rn(v0.da, v1.da);
-        if (ACT == kSwiglu)
-          *reinterpret_cast<__nv_bfloat162*>(dgs + o) =
-              __floats2bfloat162_rn(v0.dg, v1.dg);
+      for (int q = 0; q < 4; ++q) {
+        const int f = t.f0 + wgi * 64 + fr.row0 + 8 * (q >> 1);
+        const int c = t.c0 + fr.col0 + 8 * i + (q & 1);
+        const Hidden<ACT> v(acc[0][4 * i + q], acc[kMats - 1][4 * i + q],
+                            acc[kMats][4 * i + q]);
+        if (f < p.F && c < p.C) {
+          const long long o = scratch_off(p, t.e, t.b * p.C + c) + f;
+          hs[o] = __float2bfloat16_rn(v.h);
+          das[o] = __float2bfloat16_rn(v.da);
+          if (ACT == kSwiglu) dgs[o] = __float2bfloat16_rn(v.dg);
+        }
       }
-}
+  }
+  static __device__ void finish() {}
+};
 
 // ---------------------------------------------------------------- (2) dX
-constexpr int kDxStage = kBM * kLDK + kBN * kLDK;  // dA or dG, W^T
-
-template <int kMats>
-__global__ void __launch_bounds__(kThreads, 2) dx_pass(const Bwd p) {
-  constexpr int kMT = kBM / 16;
-  extern __shared__ uint4 smem_raw[];
-  bf* smem = reinterpret_cast<bf*>(smem_raw);
-
-  const int n_mt = (p.R + kBM - 1) / kBM, n_nt = (p.D + kBN - 1) / kBN;
-  const int mt = blockIdx.x % n_mt, nt = (blockIdx.x / n_mt) % n_nt;
-  const int li = blockIdx.x / (n_mt * n_nt);
-  if (li >= p.live.n_live()) return;
-  const int e = p.live.expert(li);
-  const int m0 = mt * kBM, n0 = nt * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3, wn = warp * 16;
-  const int ksteps = (p.F + kBK - 1) / kBK;
-  // the scratch as a row-gathered operand: (E, R, F) with se = R F, rows
-  // r = b C + c at b C F + c F
-  const long long s_se = (long long)p.R * p.F, s_sb = (long long)p.C * p.F;
-
-  float acc[kMT][2][4] = {};
-  auto load = [&](int stage, int step) {
-    bf* st = smem + stage * kDxStage;
-    const int m = step / ksteps, k0 = (step % ksteps) * kBK;
-    const bf* a = static_cast<const bf*>(m ? p.dg : p.da);
-    const bf* w = static_cast<const bf*>(m ? p.wg : p.wi) +
-                  e * (m ? p.wg_se : p.wi_se);
-    load_rows(st, a, p.C, s_se, s_sb, p.F, e, m0, p.R, k0, p.F);
-    load_nk(st + kBM * kLDK, w, m ? p.wg_sk : p.wi_sk, n0, p.D, k0, p.F);
+// Unit: (live expert, batch row b, 160 rows from c0, 256 D columns from
+// d0: two m64 slabs a warpgroup, which share the dA tile).  Stage: W_in or
+// W_gate as [256 d][64 f] and dA or dG as [160 r][64 f], both K-major;
+// steps over f run through dA, then dG.
+template <int MATS>
+struct DxPass {
+  static constexpr int kRows = 160, kCols = 256, kSlabs = kCols / 128;
+  static constexpr int kAccMats = kSlabs, kN = kRows;
+  static constexpr int kW = kCols * 128;       // [256 d][64 f]
+  static constexpr int kR = kRows * 128;       // [160 r][64 f]
+  static constexpr int kStageBytes = kW + kR;
+  static constexpr int kStages = 4;
+  static constexpr int kExtraBytes = 0;
+  struct alignas(64) Maps {
+    CUtensorMap wi, wg, da, dg;
   };
-  const int rows = p.R - m0;
-  auto compute = [&](int stage) {
-    const bf* as = smem + stage * kDxStage;
-    const bf* ws = as + kBM * kLDK;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      unsigned bw[4];
-      frag_b_t(ws, kLDK, wn, kk, bw);
-#pragma unroll
-      for (int t = 0; t < kMT; ++t) {
-        if (t * 16 >= rows) break;
-        unsigned af[4];
-        frag_a(as, kLDK, t * 16, kk, af);
-        mma(acc[t][0], af, bw[0], bw[1]);
-        mma(acc[t][1], af, bw[2], bw[3]);
-      }
-    }
+  struct Unit {
+    int e, b, c0, d0;
   };
-  ring(kMats * ksteps, load, compute);
 
-  bf* dx = static_cast<bf*>(p.dx);
+  static __device__ int tiles(const Bwd& p) {
+    return cdiv(p.C, kRows) * batch(p) * cdiv(p.D, kCols);
+  }
+  static __device__ int units(const Bwd& p) {
+    return uniform(p.live.n_live()) * tiles(p);
+  }
+  static __device__ int loaded_units(const Bwd& p) { return units(p); }
+  static __device__ int steps(const Bwd& p) { return MATS * cdiv(p.F, 64); }
+  static __device__ Unit unit(const Bwd& p, int u) {
+    const int nrt = cdiv(p.C, kRows), ndt = cdiv(p.D, kCols);
+    const int rt = u % nrt, b = (u / nrt) % batch(p);
+    const int dt = (u / (nrt * batch(p))) % ndt, li = u / (nrt * batch(p) * ndt);
+    return Unit{p.live.expert(li), b, rt * kRows, dt * kCols};
+  }
+  static __device__ void load(const Maps& m, const Bwd& p, uint8_t* st,
+                              uint64_t* bar, int u, int k, bool on) {
+    const Unit t = unit(p, u);
+    const int nf = cdiv(p.F, 64);
+    const bool gate = k >= nf;
+    const int f0 = (gate ? k - nf : k) * 64;
+    tma_load_4d(st, gate ? &m.wg : &m.wi, bar, f0, t.d0, t.e, 0, on);
+    tma_load_4d(st + kW, gate ? &m.dg : &m.da, bar, f0, t.c0, t.b, t.e, on);
+  }
+  static __device__ void mma(float (&acc)[kAccMats][kN / 2], uint8_t* st,
+                             int wgi) {
+    const uint64_t d_w = desc(st + wgi * kSlabs * 64 * 128, 16, 1024);
+    const uint64_t d_s = desc(st + kW, 16, 1024);
 #pragma unroll
-  for (int t = 0; t < kMT; ++t)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+      for (int sl = 0; sl < kSlabs; ++sl)   // 64 rows of 128 bytes a slab
+        wgmma_ss_n160<0, 0>(acc[sl], d_w + sl * 512 + kk * 2, d_s + kk * 2);
+  }
+  // dX^T's (d, row) elements into dbuf, a row of dbuf at a time; rows past
+  // C and columns past D are not written.  Each row's address is made after
+  // the last row's stores: made all at once, the 40 addresses would hold 80
+  // registers beside the 160 of the sums.
+  static __device__ void epilogue(float (&acc)[kAccMats][kN / 2], const Maps&,
+                                  const Bwd& p, uint8_t*, int u, int wgi) {
+    const Unit t = unit(p, u);
+    const Frag fr;
+    bf* dx = static_cast<bf*>(p.dx) + t.e * p.dx_se + t.b * p.dx_sb +
+             t.d0 + wgi * kSlabs * 64 + fr.row0;
+    const int d0 = t.d0 + wgi * kSlabs * 64 + fr.row0;
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + t * 16 + g + hf * 8;
-        const int col = n0 + wn + n * 8 + tig * 2;   // even; D % 8 == 0
-        if (row >= p.R || col >= p.D) continue;
-        *reinterpret_cast<__nv_bfloat162*>(
-            dx + row_off(row, p.C, p.dx_se, p.dx_sb, p.dx_sc, e) + col) =
-            __floats2bfloat162_rn(acc[t][n][2 * hf], acc[t][n][2 * hf + 1]);
+    for (int i = 0; i < kN / 8; ++i)
+#pragma unroll
+      for (int odd = 0; odd < 2; ++odd) {
+        const int c = opaque_after_stores(t.c0 + fr.col0 + 8 * i + odd);
+        if (c >= p.C) continue;
+        bf* row = dx + c * p.dx_sc;
+#pragma unroll
+        for (int sl = 0; sl < kSlabs; ++sl)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (d0 + sl * 64 + 8 * h < p.D)
+              row[sl * 64 + 8 * h] =
+                  __float2bfloat16_rn(acc[sl][4 * i + 2 * h + odd]);
       }
-}
-
-// ----------------------------------------------------------- (3) weights
-// O[e] (M, N) = P[e]^T Q[e], P (R, M) and Q (R, N) row-gathered; 128 x 128
-// tiles, warps 2 (rows) x 4 (columns) of 64 x 32 each.  Two blocks an SM
-// (ptxas then keeps it at 128 registers, no spills): at llama4's 320 rows a
-// unit has only 10 reduction steps, and a second block hides the first's
-// ring fill and epilogue (the backward 26.0 -> 22.5 ms on an H100).
-constexpr int kWM = 128;
-constexpr int kLDM = kWM + kPad;
-constexpr int kDwStage = kBK * kLDM + kBK * kLDN;
-
-// Operand `which` of expert e's weight gradient: 0 dW_in = X^T dA, 1
-// dW_gate = X^T dG, 2 dW_out = H^T dY.  Rows of an (E, R, F) scratch have
-// se = R F, sb = C F, sc = F.
-struct Operand {
-  const bf* base;
-  long long se, sb, sc;
-  int cols;
+  }
+  static __device__ void finish() {}
 };
 
-__device__ __forceinline__ void operands(const Bwd& p, int which, Operand& a,
-                                         Operand& b) {
-  const long long s_se = (long long)p.R * p.F, s_sb = (long long)p.C * p.F;
-  const Operand x{static_cast<const bf*>(p.x), p.x_se, p.x_sb, p.x_sc, p.D};
-  const Operand dy{static_cast<const bf*>(p.dy), p.dy_se, p.dy_sb, p.dy_sc,
-                   p.D};
-  const Operand da{static_cast<const bf*>(p.da), s_se, s_sb, p.F, p.F};
-  const Operand dg{static_cast<const bf*>(p.dg), s_se, s_sb, p.F, p.F};
-  const Operand h{static_cast<const bf*>(p.h), s_se, s_sb, p.F, p.F};
-  a = which == 2 ? h : x;
-  b = which == 0 ? da : which == 1 ? dg : dy;
-}
+// ----------------------------------------------------------- (3) weights
+// Unit: (expert, which gradient, 128 x 256 output tile); the live experts'
+// tiles first, then the dead ones', which run no step and store zeros.
+// Stage: 64 rows of one batch row of the A operand (X or H) as two [64 r]
+// [64 m] panels and of the B operand (dA, dG or dY) as four [64 r][64 n]
+// panels, all MN-major.  The epilogue stages a warpgroup's 64 x 256 result
+// as four swizzled [64][64] panels in shared memory; one TMA store each,
+// issued from the warpgroup's first lane, overlaps the next tile.
+template <int WHICH>   // 3 (swiglu: in, gate, out) or 2 (gelu: in, out)
+struct WeightPass {
+  static constexpr int kRows = 64, kM = 128, kNc = 256;
+  static constexpr int kAccMats = 1, kN = kNc;
+  static constexpr int kP = kRows * 128;       // a [64 r][64] panel
+  static constexpr int kStageBytes = 6 * kP;
+  static constexpr int kStages = 3;
+  static constexpr int kOut = 4 * 64 * 128;    // a warpgroup's 64 x 256
+  static constexpr int kExtraBytes = 2 * kOut;
+  struct alignas(64) Maps {
+    CUtensorMap x, dy, h, da, dg, dwi, dwg, dwo;
+  };
+  struct Unit {
+    int e, which, m0, n0;
+  };
 
-// Copy rows [k0, k0 + kBK) of the R gathered rows x columns [c0, c0 + W)
-// of an operand into a [k][c] tile of row length ld.
-template <int W>
-__device__ __forceinline__ void load_cols(bf* dst, int ld, const Operand& o,
-                                          int C, int e, int k0, int R,
-                                          int c0) {
-  constexpr int kChunks = W / 8;
-#pragma unroll
-  for (int it = 0; it < kBK * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int row = k0 + r, col = c0 + c * 8;
-    const bool ok = row < R && col < o.cols;
-    cp16(dst + r * ld + c * 8,
-         ok ? o.base + row_off(row, C, o.se, o.sb, o.sc, e) + col : o.base,
-         ok);
+  // tiles of one expert: (WHICH - 1) of (D, F), then one of (F, D)
+  static __device__ int tiles_in(const Bwd& p) {
+    return cdiv(p.D, kM) * cdiv(p.F, kNc);
   }
-}
-
-template <int kWhich>   // 3 (swiglu: in, gate, out) or 2 (gelu: in, out)
-__global__ void __launch_bounds__(kThreads, 2) dw_pass(const Bwd p) {
-  extern __shared__ uint4 smem_raw[];
-  bf* smem = reinterpret_cast<bf*>(smem_raw);
-
-  const int td = (p.D + kWM - 1) / kWM, tf = (p.F + kBN - 1) / kBN;
-  const int tiles = td * tf;           // the same count for (D,F) and (F,D)
-  const int tile = blockIdx.x % tiles;
-  const int sel = (blockIdx.x / tiles) % kWhich;
-  const int e = blockIdx.x / (tiles * kWhich);
-  const int which = kWhich == 3 ? sel : 2 * sel;
-  const int M = which == 2 ? p.F : p.D, N = which == 2 ? p.D : p.F;
-  const int n_nt = (N + kBN - 1) / kBN;
-  const int m0 = (tile / n_nt) * kWM, n0 = (tile % n_nt) * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  bf* out = static_cast<bf*>(which == 0 ? p.dwi : which == 1 ? p.dwg : p.dwo)
-            + (long long)e * M * N;
-
-  float acc[4][4][4] = {};             // 4 row tiles x 4 n8 blocks
-  if (p.live.rows(e) > 0) {            // else the tile is written as zeros
-    Operand a, b;
-    operands(p, which, a, b);
-    auto load = [&](int stage, int step) {
-      bf* st = smem + stage * kDwStage;
-      load_cols<kWM>(st, kLDM, a, p.C, e, step * kBK, p.R, m0);
-      load_cols<kBN>(st + kBK * kLDM, kLDN, b, p.C, e, step * kBK, p.R, n0);
-    };
-    auto compute = [&](int stage) {
-      const bf* as = smem + stage * kDwStage;
-      const bf* bs = as + kBK * kLDM;
+  static __device__ int tiles(const Bwd& p) {
+    return (WHICH - 1) * tiles_in(p) + cdiv(p.F, kM) * cdiv(p.D, kNc);
+  }
+  static __device__ int units(const Bwd& p) { return p.E * tiles(p); }
+  static __device__ int loaded_units(const Bwd& p) {
+    return uniform(p.live.n_live()) * tiles(p);
+  }
+  static __device__ int steps(const Bwd& p) {
+    return batch(p) * cdiv(p.C, kRows);
+  }
+  static __device__ Unit unit(const Bwd& p, int u) {
+    const int per = tiles(p), n_live = uniform(p.live.n_live());
+    int e, r = u % per;
+    if (u < n_live * per) {
+      e = p.live.expert(u / per);
+    } else {                       // the (u - n_live per) / per-th dead one
+      int want = (u - n_live * per) / per;
+      for (e = 0; e < p.E; ++e)
+        if (p.live.rows(e) == 0 && want-- == 0) break;
+    }
+    const int t_in = tiles_in(p);
+    int which;
+    if (r < (WHICH - 1) * t_in) {
+      which = r / t_in;
+      r %= t_in;
+    } else {
+      which = 2;
+      r -= (WHICH - 1) * t_in;
+    }
+    const int n_nt = cdiv(which == 2 ? p.D : p.F, kNc);
+    return Unit{e, which, (r / n_nt) * kM, (r % n_nt) * kNc};
+  }
+  static __device__ void load(const Maps& m, const Bwd& p, uint8_t* st,
+                              uint64_t* bar, int u, int k, bool on) {
+    const Unit t = unit(p, u);
+    const int kc = cdiv(p.C, kRows);
+    const int b = k / kc, c0 = (k % kc) * kRows;
+    // the scratch's map is (F, C, B, E), buf's and dY's (D, C, E, B)
+    const bool out = t.which == 2;
+    const CUtensorMap* a = out ? &m.h : &m.x;
+    const CUtensorMap* bm = t.which == 0 ? &m.da : t.which == 1 ? &m.dg : &m.dy;
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        unsigned bf_[2][4];
-        frag_b(bs, kLDN, wn, kk, bf_[0]);
-        frag_b(bs, kLDN, wn + 16, kk, bf_[1]);
+    for (int q = 0; q < 2; ++q)
+      tma_load_4d(st + q * kP, a, bar, t.m0 + 64 * q, c0, out ? b : t.e,
+                  out ? t.e : b, on);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          unsigned af[4];
-          frag_a_t(as, kLDM, wm + t * 16, kk, af);
+    for (int q = 0; q < 4; ++q)
+      tma_load_4d(st + (2 + q) * kP, bm, bar, t.n0 + 64 * q, c0,
+                  out ? t.e : b, out ? b : t.e, on);
+  }
+  static __device__ void mma(float (&acc)[kAccMats][kN / 2], uint8_t* st,
+                             int wgi) {
+    const uint64_t d_a = desc(st + wgi * kP, kP, 1024);
+    const uint64_t d_b = desc(st + 2 * kP, kP, 1024);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma(acc[t][2 * j], af, bf_[j][0], bf_[j][1]);
-            mma(acc[t][2 * j + 1], af, bf_[j][2], bf_[j][3]);
-          }
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_ss_n256<1, 1>(acc[0], d_a + kk * 128, d_b + kk * 128);
+  }
+  static __device__ bool lead_warp() {
+    return uniform((threadIdx.x % 128) / 32) == 0;
+  }
+  static __device__ void epilogue(float (&acc)[kAccMats][kN / 2],
+                                  const Maps& m, const Bwd& p, uint8_t* extra,
+                                  int u, int wgi) {
+    const Unit t = unit(p, u);
+    uint8_t* out = extra + wgi * kOut;
+    const bool lead = lead_warp();
+    if (lead) bulk_wait_read_all();   // the last store has read `out`
+    bar_sync(1 + wgi, 128);
+    const Frag fr;
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = fr.row0 + 8 * h;
+        // 8 columns of block i: panel i / 8, 16-byte chunk i % 8 of the
+        // row, swizzled with the row
+        *reinterpret_cast<unsigned*>(out + (i / 8) * 64 * 128 + row * 128 +
+                                     (((i % 8) ^ (row & 7)) << 4) +
+                                     2 * fr.col0) =
+            pack(acc[0][4 * i + 2 * h], acc[0][4 * i + 2 * h + 1]);
+      }
+    fence_async_smem();
+    bar_sync(1 + wgi, 128);
+    if (lead) {
+      const CUtensorMap* dst = t.which == 0   ? &m.dwi
+                               : t.which == 1 ? &m.dwg
+                                              : &m.dwo;
+      const bool on = threadIdx.x % 128 == 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        tma_store_4d(dst, out + q * 64 * 128, t.n0 + 64 * q,
+                     t.m0 + 64 * wgi, t.e, 0, on);
+      bulk_commit();
+    }
+  }
+  static __device__ void finish() {
+    if (lead_warp()) bulk_wait_all();
+  }
+};
+
+// ------------------------------------------------------- the common loop
+// A block walks units blockIdx.x, + gridDim.x, ...; the first loaded_units
+// run `steps` steps each through a ring of kStages stages, the rest (the
+// weight pass's dead experts) none.  full[s] completes when a stage's TMA
+// loads land, empty[s] when all 256 threads are done with it.  Warp 0 keeps
+// the ring a ring ahead: after step j is released it waits for every thread
+// to release it and loads step j + kStages into its stage (the block's own
+// load count, across units).  Thread 0 issues each load by predicate;
+// every branch is on a warp-uniform value.
+template <class P>
+__global__ void __launch_bounds__(kThreads, 1)
+    pass(const __grid_constant__ typename P::Maps maps, const Bwd p) {
+  constexpr int S = P::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  // 1 KB aligned, as the 128-byte swizzle's pattern is
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* extra = ring + S * P::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(extra + P::kExtraBytes);
+  uint64_t* empty = full + S;
+  const bool lane0 = threadIdx.x == 0;
+  const bool warp0 = uniform(threadIdx.x / 32) == 0;
+  const int wgi = uniform(threadIdx.x / 128);
+  if (lane0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_units = P::units(p), n_loaded = P::loaded_units(p);
+  const int steps = P::steps(p);
+  const int mine = n_loaded > (int)blockIdx.x
+                       ? (n_loaded - (int)blockIdx.x + (int)gridDim.x - 1) /
+                             (int)gridDim.x
+                       : 0;
+  const int n_loads = mine * steps;
+  // warp 0: load number L of this block into stage L % S
+  auto issue = [&](int L) {
+    if (L >= n_loads) return;
+    const int s = L % S;
+    if (L >= S) wait(&empty[s], ((L / S) + 1) & 1);
+    mbar_expect_tx_if(&full[s], P::kStageBytes, lane0);
+    P::load(maps, p, ring + s * P::kStageBytes, &full[s],
+            blockIdx.x + (L / steps) * gridDim.x, L % steps, lane0);
+  };
+  if (warp0)
+    for (int L = 0; L < S; ++L) issue(L);
+
+  int j = 0;                            // steps consumed so far
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    float acc[P::kAccMats][P::kN / 2];
+    zero(acc);
+    if (u < n_loaded) {
+      for (int k = 0; k < steps; ++k, ++j) {
+        const int s = j % S;
+        wait(&full[s], (j / S) & 1);
+        wg_fence();
+        P::mma(acc, ring + s * P::kStageBytes, wgi);
+        wg_commit();
+        wg_wait_pending<1>();           // step j - 1's products are done
+        if (k > 0) {
+          mbar_arrive(&empty[(j - 1) % S]);
+          if (warp0) issue(j - 1 + S);
         }
       }
-    };
-    ring((p.R + kBK - 1) / kBK, load, compute);
+      wg_wait();
+      pin_all(acc);
+      mbar_arrive(&empty[(j - 1) % S]);
+      if (warp0) issue(j - 1 + S);
+    }
+    P::epilogue(acc, maps, p, extra, u, wgi);
   }
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + wm + t * 16 + g + hf * 8;
-        const int col = n0 + wn + n * 8 + tig * 2;   // even; N % 8 == 0
-        if (row >= M || col >= N) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
-            __floats2bfloat162_rn(acc[t][n][2 * hf], acc[t][n][2 * hf + 1]);
-      }
+  P::finish();
 }
 
-template <typename K>
-cudaError_t launch(K kernel, long long blocks, size_t smem, const Bwd& p,
-                   cudaStream_t st) {
-  if (blocks <= 0) return cudaSuccess;
-  if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
+template <class P>
+cudaError_t launch(const typename P::Maps& maps, const Bwd& p,
+                   long long max_units, int sms, cudaStream_t st) {
+  if (max_units <= 0) return cudaSuccess;
+  constexpr size_t smem = 1024 + P::kStages * P::kStageBytes +
+                          P::kExtraBytes + 2 * P::kStages * sizeof(uint64_t);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pass<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kThreads, smem, st>>>(p);
+  const int grid = max_units < sms ? (int)max_units : sms;
+  pass<P><<<grid, kThreads, smem, st>>>(maps, p);
   return cudaGetLastError();
 }
 
 template <int ACT>
-cudaError_t run(const Bwd& p, cudaStream_t st) {
+cudaError_t run(const Bwd& p, const MapDims* md, cudaStream_t st) {
   constexpr int kMats = ACT == kSwiglu ? 2 : 1;
-  const long long n_mt = (p.R + kBM - 1) / kBM;
-  const long long n_ft = (p.F + kBN - 1) / kBN;
-  const long long n_dt = (p.D + kBN - 1) / kBN;
-  const size_t b = sizeof(bf) * kStages;
-  cudaError_t err = launch(hidden_pass<ACT>, p.E * n_mt * n_ft,
-                           b * HiddenTiles<ACT>::kStage, p, st);
+  using H = HiddenPass<ACT>;
+  using X = DxPass<kMats>;
+  using W = WeightPass<kMats + 1>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = launch(dx_pass<kMats>, p.E * n_mt * n_dt, b * kDxStage, p, st);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  auto map = [&](CUtensorMap* m, const void* base, int which, int rows) {
+    if (err == cudaSuccess)
+      err = make_map_4d(m, base, md[which].dims, md[which].strides, rows);
+  };
+  typename H::Maps hm;
+  map(&hm.x, p.x, kMapX, H::kRows);
+  map(&hm.dy, p.dy, kMapDy, H::kRows);
+  map(&hm.wi, p.wi, kMapWi, 64);
+  map(&hm.wg, p.wg, kMapWg, 64);
+  map(&hm.wo, p.wo, kMapWo, H::kCols);
+  typename X::Maps xm;
+  map(&xm.wi, p.wi, kMapWi, X::kCols);
+  map(&xm.wg, p.wg, kMapWg, X::kCols);
+  map(&xm.da, p.da, kMapScratch, X::kRows);
+  map(&xm.dg, p.dg, kMapScratch, X::kRows);
+  typename W::Maps wm;
+  map(&wm.x, p.x, kMapX, W::kRows);
+  map(&wm.dy, p.dy, kMapDy, W::kRows);
+  map(&wm.h, p.h, kMapScratch, W::kRows);
+  map(&wm.da, p.da, kMapScratch, W::kRows);
+  map(&wm.dg, p.dg, kMapScratch, W::kRows);
+  map(&wm.dwi, p.dwi, kMapDwi, 64);
+  map(&wm.dwg, p.dwg, kMapDwg, 64);
+  map(&wm.dwo, p.dwo, kMapDwo, 64);
+  if (err != cudaSuccess) return err;
+  auto cd = [](long long a, long long b) { return (a + b - 1) / b; };
+  const long long rows_h = cd(p.C, H::kRows) * batch(p);
+  const long long rows_x = cd(p.C, X::kRows) * batch(p);
+  err = launch<H>(hm, p, p.E * rows_h * cd(p.F, H::kCols), sms, st);
   if (err == cudaSuccess)
-    err = launch(dw_pass<kMats + 1>,
-                 (long long)p.E * (kMats + 1) * ((p.D + kWM - 1) / kWM) *
-                     n_ft,
-                 b * kDwStage, p, st);
+    err = launch<X>(xm, p, p.E * rows_x * cd(p.D, X::kCols), sms, st);
+  if (err == cudaSuccess)
+    err = launch<W>(wm, p,
+                    p.E * (kMats * cd(p.D, W::kM) * cd(p.F, W::kNc) +
+                           cd(p.F, W::kM) * cd(p.D, W::kNc)),
+                    sms, st);
   return err;
 }
 
-}  // namespace bf16
+}  // namespace wg
 
 // ======================================================= float32: FMAs
 // One thread per output element, its sum in order.  Blocks past the live
@@ -650,21 +779,28 @@ cudaError_t run(const Bwd& p, cudaStream_t st) {
 
 // dims (int64): dtype (0 float32, 1 bfloat16), act (1 swiglu, 2 gelu), B,
 // E, C, D, F, then the strides of buf (b, e, c), dy (b, e, c), w_in (e, d),
-// w_gate (e, d), w_out (e, f) and dbuf (b, e, c), in elements.  h, da, dg:
-// (E, B*C, F) scratch of buf's dtype (dg unused for gelu); ws: int32 of 2 +
-// 2E, zero-filled; dbuf zero-filled; dw_in, dw_gate (swiglu only), dw_out
-// contiguous.  For bfloat16 every row must start 16-byte aligned and D, F
-// must be multiples of 8 (checked by the wrapper).  Returns the CUDA error
-// of the launches (0 on success); the kernels run asynchronously on
-// `stream`.
+// w_gate (e, d), w_out (e, f) and dbuf (b, e, c), in elements; the body
+// (kBodyFma for float32, kBodyWgmma for bfloat16: any other pair is
+// refused, so the body the wrapper names is the one that runs); then, for
+// the wgmma body, the TMA maps of wg::kMaps tensors (kernel.py::bwd_maps),
+// 4 dims and 3 strides each.  h, da, dg: (E, B*C, F) scratch of buf's dtype (dg unused
+// for gelu); ws: int32 of 2 + 2E, zero-filled; dbuf zero-filled; dw_in,
+// dw_gate (swiglu only), dw_out contiguous.  For bfloat16 every row must
+// start 16-byte aligned and D, F must be multiples of 8 (checked by the
+// wrapper).  Returns the CUDA error of the launches (0 on success); the
+// kernels run asynchronously on `stream`.
+constexpr int kBodyFma = 0, kBodyWgmma = 1;
+constexpr int kDimsHead = 23;
+
 extern "C" int moe_gmm_bwd(const void* buf, const void* w_in,
                            const void* w_gate, const void* w_out,
                            const void* dy, void* h, void* da, void* dg,
                            int* ws, void* dbuf, void* dw_in, void* dw_gate,
                            void* dw_out, const long long* dims,
                            void* stream) {
-  const int dtype = (int)dims[0], act = (int)dims[1];
-  if ((dtype != 0 && dtype != 1) || (act != kSwiglu && act != kGelu))
+  const int dtype = (int)dims[0], act = (int)dims[1], body = (int)dims[22];
+  if ((dtype != 0 && dtype != 1) || (act != kSwiglu && act != kGelu) ||
+      body != (dtype == 0 ? kBodyFma : kBodyWgmma))
     return static_cast<int>(cudaErrorInvalidValue);
   const int B = (int)dims[2], E = (int)dims[3], C = (int)dims[4],
             D = (int)dims[5], F = (int)dims[6];
@@ -680,10 +816,13 @@ extern "C" int moe_gmm_bwd(const void* buf, const void* w_in,
                                 act == kGelu ? dy : nullptr, s[3], s[4],
                                 s[5], B, E, C, D, ws, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 1)
-    err = act == kSwiglu ? bf16::run<kSwiglu>(p, st) : bf16::run<kGelu>(p, st);
-  else
+  const wg::MapDims* maps =
+      reinterpret_cast<const wg::MapDims*>(dims + kDimsHead);
+  if (dtype == 0)
     err = act == kSwiglu ? f32::run<kSwiglu>(p, st) : f32::run<kGelu>(p, st);
+  else
+    err = act == kSwiglu ? wg::run<kSwiglu>(p, maps, st)
+                         : wg::run<kGelu>(p, maps, st);
   return static_cast<int>(err);
 }
 

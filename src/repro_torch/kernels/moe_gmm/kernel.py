@@ -1,5 +1,6 @@
 """ctypes bindings of the CUDA grouped expert FFN (``csrc/moe_gmm.cu``) and
-of its backward (``csrc/moe_gmm_bwd.cu``).
+of its backward (``csrc/moe_gmm_bwd.cu``), and the backward's body choice
+and TMA maps.
 
 The libraries are built at the first call (``kernels/_build.py``); importing
 this module needs neither ``nvcc`` nor a card."""
@@ -22,9 +23,17 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 7 + [_LL] * 12 + [_P]
 # buf, w_in, w_gate, w_out, dy, h, da, dg, ws, dbuf, dw_in, dw_gate, dw_out |
 # dims: dtype, act, B, E, C, D, F, strides of buf, dy (3 each), w_in,
-# w_gate, w_out (2 each), dbuf (3), packed as int64 | stream
+# w_gate, w_out (2 each), dbuf (3), body, then BWD_TENSORS' maps (4 dims, 3
+# strides each), packed as int64 | stream
 _BWD_ARGTYPES = [_P] * 13 + [ctypes.c_char_p, _P]
-_BWD_DIMS = struct.Struct("<22q")
+# the backward's bodies (csrc/moe_gmm_bwd.cu: kBodyFma, kBodyWgmma; the
+# kernel refuses a body its dtype does not run)
+BWD_BODIES = {"fma": 0, "wgmma": 1}
+# the tensors whose TMA maps the wrapper describes, in the kernel's order
+# (wg::kMapX ...): the scratch's map serves H, dA and dG
+BWD_TENSORS = ("x", "dy", "w_in", "w_gate", "w_out", "scratch", "dw_in",
+               "dw_gate", "dw_out")
+_BWD_DIMS = struct.Struct(f"<{23 + 7 * len(BWD_TENSORS)}q")
 
 
 def _lib() -> ctypes.CDLL:
@@ -73,6 +82,44 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def bwd_body(dtype: torch.dtype) -> str:
+    """The backward's body for ``dtype``: FMAs in f32; in bf16 wgmma fed by
+    TMA, which takes every shape the wrapper does (D and F multiples of 8,
+    rows 16-byte aligned: the strides TMA needs).  The choice is by dtype
+    alone, never by a failure."""
+    return "fma" if dtype == torch.float32 else "wgmma"
+
+
+def bwd_maps(shape, strides: dict) -> dict:
+    """The TMA maps of the wgmma body, from the shape (B, E, C, D, F) and
+    the element strides of each tensor (``strides[name]``: the tensor's
+    ``stride()``): BWD_TENSORS -> (dims, strides), rank 4, dims inner
+    first, the strides of dims 1..3 in elements.  Row operands are cut per
+    batch row, so that a box of rows stays in one: buf and dy (cols, C, E,
+    B), the (E, B*C, F) scratch (F, C, B, E); weights and their gradients
+    are (cols, rows, E, 1).  A dim of extent 1 gets stride 0 here (the
+    kernel gives it one that TMA takes; it is never stepped)."""
+    b, e, c, d, f = shape
+
+    def rows(name, cols):          # a (B, E, C, cols) tensor
+        sb, se, sc = strides[name][:3]
+        return (cols, c, e, b), (sc, se, sb)
+
+    def weight(name, n_rows, cols):            # (E, rows, cols)
+        se, sr = strides[name][:2]
+        return (cols, n_rows, e, 1), (sr, se, 0)
+
+    out = {"x": rows("x", d), "dy": rows("dy", d),
+           "w_in": weight("w_in", d, f), "w_gate": weight("w_gate", d, f),
+           "w_out": weight("w_out", f, d),
+           # (E, B*C, F): row b C + c of expert e at (e B C + b C + c) F
+           "scratch": ((f, c, b, e), (f, c * f, b * c * f)),
+           "dw_in": ((f, d, e, 1), (f, d * f, 0)),
+           "dw_gate": ((f, d, e, 1), (f, d * f, 0)),
+           "dw_out": ((d, f, e, 1), (d, f * d, 0))}
+    return {name: out[name] for name in BWD_TENSORS}
+
+
 def grouped_ffn_bwd_cuda(buf: torch.Tensor, w_in: torch.Tensor,
                          w_gate: torch.Tensor, w_out: torch.Tensor,
                          dy: torch.Tensor, act: str):
@@ -82,9 +129,12 @@ def grouped_ffn_bwd_cuda(buf: torch.Tensor, w_in: torch.Tensor,
     the rows of experts the scan finds dead stay exact zeros; the kernel
     writes every tile of the weight gradients, dead experts' as zeros.  For
     gelu ``w_gate`` is not read (pass any (E, D, F) tensor, such as w_in)
-    and dw_gate is None."""
+    and dw_gate is None.  Counts the launch in ``grouped_ffn_bwd_cuda.bodies``
+    under the body it names to the kernel (``bwd_body``), which runs that
+    body or fails."""
     b, e, c, d = buf.shape
     f = w_in.shape[-1]
+    body = bwd_body(buf.dtype)
     lib = _bwd_lib()
     dev = buf.device
     with torch.cuda.device(dev):
@@ -96,10 +146,16 @@ def grouped_ffn_bwd_cuda(buf: torch.Tensor, w_in: torch.Tensor,
         dw_out = torch.empty((e, f, d), dtype=buf.dtype, device=dev)
         dw_gate = (torch.empty((e, d, f), dtype=buf.dtype, device=dev)
                    if act == "swiglu" else None)
+        maps = bwd_maps((b, e, c, d, f), {
+            "x": buf.stride(), "dy": dy.stride(), "w_in": w_in.stride(),
+            "w_gate": w_gate.stride(), "w_out": w_out.stride()})
         dims = _BWD_DIMS.pack(_DTYPES[buf.dtype], _ACTS[act], b, e, c, d, f,
                               *buf.stride()[:3], *dy.stride()[:3],
                               *w_in.stride()[:2], *w_gate.stride()[:2],
-                              *w_out.stride()[:2], *dbuf.stride()[:3])
+                              *w_out.stride()[:2], *dbuf.stride()[:3],
+                              BWD_BODIES[body],
+                              *(v for dims_, st in maps.values()
+                                for v in (*dims_, *st)))
         h, da = scratch[:2]
         dg = scratch[2] if act == "swiglu" else h
         err = lib.moe_gmm_bwd(
@@ -110,4 +166,9 @@ def grouped_ffn_bwd_cuda(buf: torch.Tensor, w_in: torch.Tensor,
             dw_out.data_ptr(), dims,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, BWD_NAME, err)
+    bodies = grouped_ffn_bwd_cuda.bodies
+    bodies[body] = bodies.get(body, 0) + 1
     return dbuf, dw_in, dw_gate, dw_out
+
+
+grouped_ffn_bwd_cuda.bodies = {}

@@ -7,9 +7,13 @@ and the checks of the CUDA path.
 Inputs and cotangents are drawn once with numpy and handed to both
 frameworks.  The CUDA backward kernel runs only on the card: chip_smoke.py
 holds it against the same plain backward there."""
+import contextlib
+import importlib.util
 import types
+from pathlib import Path
 
 import pytest
+from _hyp import given, settings, st
 
 np = pytest.importorskip("numpy")
 jax = pytest.importorskip("jax")
@@ -22,7 +26,7 @@ from repro.kernels.moe_gmm.ref import \
 from repro_torch.kernels.moe_gmm import (  # noqa: E402
     GroupedFFN, grouped_ffn, grouped_ffn_backward_reference,
     grouped_ffn_reference)
-from repro_torch.kernels.moe_gmm import ops  # noqa: E402
+from repro_torch.kernels.moe_gmm import kernel, ops  # noqa: E402
 
 # f32 on both sides, only the order of sums differs; leaf-relative, as
 # tests/test_torch_train.py holds gradients
@@ -235,3 +239,121 @@ def test_check_cuda_inputs_checks_dy():
         ops._check_cuda_inputs(buf, wi, wg, wo, "swiglu",
                                dy.transpose(-1, -2).contiguous()
                                .transpose(-1, -2))
+
+
+# ---------------------------------------------------------------- geometry
+# The wgmma body's TMA maps (kernel.py::bwd_maps), which the CUDA kernel
+# encodes as they are given, and the body the wrapper names to the kernel.
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _strided(flat, dims, strides):
+    """The tensor a map describes, indexed (dim 3, dim 2, dim 1, dim 0)."""
+    return torch.as_strided(flat, tuple(reversed(dims)),
+                            (strides[2], strides[1], strides[0], 1))
+
+
+def _check_maps(b, e, c, d, f, transposed):
+    """Every map addresses its tensor: element (i0, i1, i2, i3) of the map
+    is the element the kernel means, for contiguous buffers and for a buf
+    and dy that are views of an (E, B, C, D) array."""
+    gen = torch.Generator().manual_seed(0)
+
+    def rows():
+        if transposed:
+            return torch.randn(e, b, c, d, generator=gen).transpose(0, 1)
+        return torch.randn(b, e, c, d, generator=gen)
+
+    x, dy = rows(), rows()
+    wi, wg = (torch.randn(e, d, f, generator=gen) for _ in range(2))
+    wo = torch.randn(e, f, d, generator=gen)
+    scratch = torch.randn(e, b * c, f, generator=gen)
+    maps = kernel.bwd_maps((b, e, c, d, f), {
+        "x": x.stride(), "dy": dy.stride(), "w_in": wi.stride(),
+        "w_gate": wg.stride(), "w_out": wo.stride()})
+    assert tuple(maps) == kernel.BWD_TENSORS
+    want = {"x": x, "dy": dy, "w_in": wi[None], "w_gate": wg[None],
+            "w_out": wo[None],
+            "scratch": scratch.view(e, b, c, f),
+            "dw_in": wi[None], "dw_gate": wg[None], "dw_out": wo[None]}
+    for name, (dims, strides) in maps.items():
+        assert len(dims) == 4 and len(strides) == 3
+        if name in ("x", "dy"):
+            assert dims == (d, c, e, b)     # a box of rows: one batch row
+        if name == "scratch":
+            assert dims == (f, c, b, e)
+        t = want[name]
+        base = t.as_strided((t.untyped_storage().nbytes() // 4,), (1,), 0)
+        got = _strided(base, dims, strides)
+        assert torch.equal(got, t), name
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("shape", [(2, 16, 160, 64, 96), (3, 5, 100, 24, 40),
+                                   (1, 1, 7, 8, 16)])
+def test_bwd_maps_address_the_tensors(shape, transposed):
+    _check_maps(*shape, transposed)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(1, 4), st.integers(1, 200), st.integers(1, 12),
+       st.integers(1, 12), st.booleans())
+def test_geometry_at_drawn_shapes(b, c, d, f, transposed):
+    """Hypothesis-drawn (B, C, D, F) (D and F multiples of 8, as the bf16
+    kernels take them): the maps address their tensors."""
+    _check_maps(b, 3, c, 8 * d, 8 * f, transposed)
+
+
+def test_bwd_body_by_dtype_and_name():
+    assert kernel.bwd_body(torch.bfloat16) == "wgmma"
+    assert kernel.bwd_body(torch.float32) == "fma"
+    assert kernel.BWD_BODIES == {"fma": 0, "wgmma": 1}
+    assert kernel._BWD_DIMS.size == 8 * (23 + 7 * len(kernel.BWD_TENSORS))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_wrapper_counts_the_body_it_names(monkeypatch, dt):
+    """grouped_ffn_bwd_cuda packs its dtype's body after the 22 sizes and
+    strides and counts the launch under that body, only once the kernel
+    returned success; emulated with the library and the stream patched."""
+    seen = []
+
+    def launch(*args):
+        seen.append(kernel._BWD_DIMS.unpack(args[13]))
+        return int(len(seen) > 1)        # the first call succeeds
+
+    lib = types.SimpleNamespace(moe_gmm_bwd=launch,
+                                repro_cuda_error_string=lambda e: b"failed")
+    monkeypatch.setattr(kernel, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types
+                        .SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(kernel.grouped_ffn_bwd_cuda, "bodies", {})
+    buf, wi, wg, wo, dy = (torch.tensor(a).to(dt) for a in
+                           _draw(1, 2, 4, 16, 32, None))
+    kernel.grouped_ffn_bwd_cuda(buf, wi, wg, wo, dy, "swiglu")
+    body = kernel.bwd_body(dt)
+    assert seen[0][0] == kernel._DTYPES[dt]
+    assert seen[0][22] == kernel.BWD_BODIES[body]
+    assert kernel.grouped_ffn_bwd_cuda.bodies == {body: 1}
+    with pytest.raises(RuntimeError):
+        kernel.grouped_ffn_bwd_cuda(buf, wi, wg, wo, dy, "swiglu")
+    assert kernel.grouped_ffn_bwd_cuda.bodies == {body: 1}
+
+
+def test_body_at_each_chip_smoke_case():
+    """chip_smoke.py's backward cases: bf16 runs the wgmma body (D and F
+    multiples of 8, as TMA's 16-byte strides need), f32 the FMAs."""
+    cases = _chip_smoke().GMM_BWD_CASES
+    assert len(cases) >= 12
+    for label, (b, e, c, d, f), act, dt, _ in cases:
+        want = "wgmma" if dt == torch.bfloat16 else "fma"
+        assert kernel.bwd_body(dt) == want, label
+        if want == "wgmma":
+            assert d % 8 == 0 and f % 8 == 0, label
