@@ -47,16 +47,26 @@ result line):
    dispatch leaves them, gelu with zero X rows under nonzero dY rows,
    ragged D and F, f32 at the smoke widths, B = 3 with C = 100, gelu on
    full tiles): dead rows' dX and dead experts' weight gradients exact
-   zeros, a second call at the training shape bit-identical.
+   zeros, a second call at the training shape bit-identical.  The SSD
+   backward through ``SSDIntraChunk`` against its plain version in f32
+   (mamba2-780m's and zamba2-2.7b's training shapes with x bf16, mamba2's
+   with x f32 and under mild decay, the model's strided views, one-chunk
+   prompts of ragged L and L = 1, unaligned inputs, P 36 and N 20, the
+   tests' and the smoke configs' shapes in f32, and losses that read y
+   only or the states only): a second call at the training shapes
+   bit-identical, and an f64 sum as the yardstick of rounding.  Then the
+   two backwards' device times by launch, profiled before the long phases.
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
    mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
    llava-next through prefill and 8 decode steps): greedy tokens equal,
    logits within rel 5e-4.  Training, from one initial state (f32 smoke
    deepseek-7b, phi4-mini-3.8b (GQA), gemma3-27b (window), llama4-scout and
-   arctic-480b (MoE, the grouped FFN's backward kernel)): the step-1
-   gradients leaf by leaf within 1e-4, 3 trainer steps' losses within rel
-   1e-4, and the card's checkpoint restored on the CPU.  And deepseek-7b at
+   arctic-480b (MoE, the grouped FFN's backward kernel), mamba2-780m and
+   zamba2-2.7b (the SSD backward kernel)): the step-1 gradients leaf by
+   leaf within 1e-4 with one backward call a layer of each kernel, 3
+   trainer steps' losses within rel 1e-4, and the card's checkpoint
+   restored on the CPU.  And deepseek-7b at
    full width cut to 2 layers, bf16 against f32 on the card from one state
    at the training shape: the step-1 loss and gradients and 3 steps'
    losses (the bf16 kernels through the model, the f32 ones as yardstick).
@@ -79,6 +89,12 @@ result line):
    from 0 (a step: 4 grouped-FFN forwards, 2 backwards, 4 flash forwards,
    2 backwards), every backward on the wgmma body; its profiled step also
    splits out the grouped FFN's forward and backward.
+5d, 5e. the SSM and hybrid training paths: the same on mamba2-780m (48
+   mamba layers; a step: 96 SSD forwards, 48 backwards) and zamba2-2.7b (54
+   mamba layers and the shared attention block after every 6: 108 SSD
+   forwards, 54 backwards, 18 flash forwards at hd 80, 9 backwards) at
+   their full width and depth; their profiled steps split out the SSD
+   forward and backward.
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (flash attention at
    (1, 2048, 32, 128), at deepseek's longest served prefill and at
@@ -92,7 +108,9 @@ result line):
    (asked for by name) and autograd's backward of SDPA; the grouped FFN's
    backward (with each pass's device time) and forward at llama4-scout's
    training shape with every row live, beside autograd's backward of the
-   bmm yardstick and the yardstick;
+   bmm yardstick and the yardstick; the SSD backward at mamba2-780m's
+   training shape (with each launch's device time) beside autograd's
+   backward of the f32 bmm spelling of the plain forward;
    each in three rounds taken in turns with its yardstick, the card's
    clocks read before and after).
 
@@ -100,11 +118,11 @@ result line):
 backward's registers and spills (none allowed), and runs the backward's
 part of phases 3 and 6 alone; ``--moe-bwd-only`` does the same for the
 grouped FFN's backward.  ``--ssd-only`` runs phases 1 and 2 and the SSD
-kernel's part of phases 3 and 6 alone.  With ``--src``, these two take
-``repro_torch`` from another checkout (a ``git archive`` of the parent
-commit, say), to check and time two versions of a kernel in one call on
-one card; another checkout's build is reported but not held to this
-one's register rules.
+kernels' part of phases 3 and 6 alone, the backward's too.  With
+``--src``, these two take ``repro_torch`` from another checkout (a ``git
+archive`` of the parent commit, say), to check and time two versions of a
+kernel in one call on one card; another checkout's build is reported but
+not held to this one's register rules.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -224,7 +242,7 @@ GRAD_ROW_FLOOR = 0.1
 # 2 x 2048 tokens; AdamW's moments in bf16 (f32 moments need 82.9 GB)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "deepseek-7b", 6, 2, 2048
 TRAIN_SMOKE = ("deepseek-7b", "phi4-mini-3.8b", "gemma3-27b", LLAMA4,
-               "arctic-480b")
+               "arctic-480b", MAMBA2, ZAMBA2)
 # the MoE training path: llama4-scout at its full widths, cut to 2 of its 48
 # layers (6.47 G parameters: with gradients and two bf16 moments 51.8 GB; a
 # third layer brings that to 69 GB, which leaves no room for activations)
@@ -329,6 +347,48 @@ SSD_TOL = {torch.float32: dict(atol=2e-4, rtol=1e-3)}  # test_kernels.py:94
 # where the kernel and the plain version are equally far from an f64 sum.
 SSD_ROW_REL = {torch.float32: 1e-4}
 SSD_TIMED = (1, 3, 256, 48, 64, 128)   # mamba2's 663-token prefill
+# the SSD backward: mamba2-780m's training shape (2 x 2048 tokens, 8 chunks
+# of 256) and zamba2-2.7b's, and the smoke configs' (2 x 32 tokens, chunks
+# of 8); (B, NC, L, H, P, N)
+SSD_BWD_TRAIN = (2, 8, 256, 48, 64, 128)
+SSD_BWD_ZAMBA2 = (2, 8, 256, 80, 64, 64)
+SSD_BWD_SMOKE = (2, 4, 8, 8, 16, 16)
+# its cases: label, shape, x_bf16, decay (None: the served A = -linspace(1,
+# 16, H)), layout (as ssd_inputs), and the outputs the loss reads.  The two
+# training shapes with x bf16 as the models give it; mamba2's again with x
+# f32 (every gradient f32: the arithmetic under the SSD tolerances at full
+# size) and under mild decay; the projection view (B > 1); one-chunk
+# prompts of ragged L, and L = 1; x, B and C not 16-byte aligned; P < 64
+# and N < 64; the tests' cases and the smoke shape in f32; and a loss that
+# reads y only, or the states only (the other cotangent absent)
+SSD_BWD_CASES = [
+    ("mamba2 train", SSD_BWD_TRAIN, True, None, "contiguous", "both"),
+    ("zamba2 train", SSD_BWD_ZAMBA2, True, None, "contiguous", "both"),
+    ("mamba2 train", SSD_BWD_TRAIN, False, None, "contiguous", "both"),
+    ("mamba2 train, mild decay", SSD_BWD_TRAIN, True, 0.01, "contiguous",
+     "both"),
+    ("projection view", (2, 2, 256, 48, 64, 128), True, None, "view", "both"),
+    ("one chunk 200, mild decay", (1, 1, 200, 48, 64, 128), True, 0.01,
+     "contiguous", "both"),
+    ("one chunk 92", (1, 1, 92, 48, 64, 128), True, None, "contiguous",
+     "both"),
+    ("L 1", (1, 1, 1, 48, 64, 128), True, None, "contiguous", "both"),
+    ("unaligned", (1, 2, 100, 6, 64, 128), False, 0.01, "unaligned", "both"),
+    ("P 36, N 20", (2, 2, 130, 4, 36, 20), True, 0.01, "contiguous", "both"),
+    *[(f"test {shape}", shape, False, 0.1, "contiguous", "both")
+      for shape in SSD_CASES],
+    ("smoke", SSD_BWD_SMOKE, False, 0.1, "contiguous", "both"),
+    ("y only", (1, 2, 64, 4, 32, 32), False, 0.1, "contiguous", "dy"),
+    ("states only", (1, 2, 64, 4, 32, 32), False, 0.1, "contiguous",
+     "states"),
+]
+# SSD_TOL and SSD_ROW_REL hold the gradients in f32; dxc comes back in x's
+# dtype, and a bf16 dxc also carries its own rounding (at most 2^-8 of each
+# value, so at most 2^-8 of a row's rms), which is added to both
+SSD_BWD_TOL = {torch.float32: SSD_TOL[torch.float32],
+               torch.bfloat16: dict(atol=2e-4, rtol=1e-3 + 2 ** -8)}
+SSD_BWD_ROW_REL = {torch.float32: SSD_ROW_REL[torch.float32],
+                   torch.bfloat16: SSD_ROW_REL[torch.float32] + 2 ** -8}
 # one-chunk prompts of 254 and 92 tokens, served as L = S
 SSD_ONE_CHUNK = [(1, 1, 254, 48, 64, 128), (1, 1, 92, 48, 64, 128)]
 # the main path's traffic: 8 requests, prompts of 64-768 tokens from a seed
@@ -1000,6 +1060,112 @@ def phase_ssd() -> float:
     return err
 
 
+def ssd_grads(x, dy, ds):
+    """``ssd_intra_chunk`` as training calls it, on aliases of the inputs
+    that require grad (their strides kept: the model's views reach the
+    kernel as they are): ``SSDIntraChunk``'s forward kernel, then the
+    backward kernel from the cotangents given (None: that output is not
+    read), which must count one backward call.  Returns the five inputs'
+    gradients."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    leaves = [t.detach().requires_grad_() for t in x]
+    before = ssd_intra_chunk.backward_launches
+    outs = ssd_intra_chunk(*leaves)
+    assert "SSDIntraChunk" in type(outs[0].grad_fn).__name__
+    read = [(o, g) for o, g in zip(outs, (dy, ds)) if g is not None]
+    torch.autograd.backward([o for o, _ in read], [g for _, g in read])
+    assert ssd_intra_chunk.backward_launches == before + 1
+    return tuple(t.grad for t in leaves)
+
+
+def ssd_cotangents(shape, which: str, gen):
+    """dy (B,NC,L,H,P) and d states (B,NC,H,N,P), f32 on the card; None for
+    an output the loss does not read (``which``: "both", "dy", "states")."""
+    b, nc, l, h, p, n = shape
+    dy = (torch.randn((b, nc, l, h, p), generator=gen, device="cuda")
+          if which != "states" else None)
+    ds = (torch.randn((b, nc, h, n, p), generator=gen, device="cuda")
+          if which != "dy" else None)
+    return dy, ds
+
+
+def phase_ssd_backward() -> float:
+    """The SSD backward through ``SSDIntraChunk`` (``ssd_grads``) against
+    ``ssd_intra_chunk_backward_reference`` run in f32 on the card from the
+    same inputs, at SSD_BWD_CASES: each gradient within SSD_BWD_TOL (atol
+    scaled to its max |value|) and its worst row within SSD_BWD_ROW_REL
+    (``grad_row_rel_err``); a second call at the two training shapes bit
+    for bit the same.  Then the rounding floor at mamba2's training shape:
+    the kernel and the plain version in f32 each against the plain version
+    in f64.  Returns the largest abs error at the training shapes."""
+    from repro_torch.kernels.ssd import (ssd_intra_chunk,
+                                         ssd_intra_chunk_backward_reference)
+    saved = ssd_intra_chunk.launches, ssd_intra_chunk.backward_launches
+    gen = torch.Generator("cuda").manual_seed(15)
+    names = ("dxc", "ddtc", "dcum", "dbc", "dcc")
+    main_err, worst = 0.0, {}
+    for label, shape, bf, decay, layout, which in SSD_BWD_CASES:
+        x = ssd_inputs(*shape, bf, gen, decay, layout)
+        dy, ds = ssd_cotangents(shape, which, gen)
+        got = ssd_grads(x, dy, ds)
+        with torch.no_grad():
+            want = ssd_intra_chunk_backward_reference(
+                *(t.float() for t in x), dy, ds)
+        torch.cuda.synchronize()
+        train = shape in (SSD_BWD_TRAIN, SSD_BWD_ZAMBA2)
+        tag = (f"{label} {shape} x {'bf16' if bf else 'f32'}"
+               + ("" if which == "both" else f", {which} only"))
+        parts = []
+        for name, g, w in zip(names, got, want):
+            dt = x[0].dtype if name == "dxc" else torch.float32
+            assert g.shape == w.shape and g.dtype == dt, (tag, name)
+            tol, bound = SSD_BWD_TOL[g.dtype], SSD_BWD_ROW_REL[g.dtype]
+            top = float(w.abs().max())
+            err = float((g.float() - w).abs().max())
+            rel = grad_row_rel_err(g, w) if top > 0 else 0.0
+            worst[g.dtype] = max(worst.get(g.dtype, 0.0), rel)
+            if train:
+                main_err = max(main_err, err)
+            parts.append(f"{name} {err:.3e} of max {top:.3e}, row {rel:.3e}")
+            torch.testing.assert_close(g.float(), w, atol=tol["atol"] * top,
+                                       rtol=tol["rtol"])
+            assert rel < bound, f"ssd_bwd {tag} {name}: row {rel}"
+        say(f"[kernels] ssd_intra_chunk_bwd {tag}: " + "; ".join(parts)
+            + f" (atol {SSD_TOL[torch.float32]['atol']} x max, rtol "
+            f"{SSD_TOL[torch.float32]['rtol']}, row < "
+            f"{SSD_ROW_REL[torch.float32]:.0e}; a bf16 dxc + 2^-8)")
+        if train:
+            again = ssd_grads(x, dy, ds)
+            same = [torch.equal(g, a) for g, a in zip(got, again)]
+            say(f"[kernels] ssd_intra_chunk_bwd {tag}: a second call gives "
+                f"bit-identical {', '.join(names)}: {same}")
+            assert all(same), f"ssd_bwd {tag}: not deterministic"
+            del again
+        del x, dy, ds, got, want
+        torch.cuda.empty_cache()
+    say(f"[kernels] ssd_intra_chunk_bwd: {len(SSD_BWD_CASES)} cases through "
+        f"SSDIntraChunk agree (one backward call each); largest row rel err: "
+        + ", ".join(f"{str(dt)[6:]} {r:.3e}" for dt, r in worst.items())
+        + f"; largest abs err at the training shapes {main_err:.3e}")
+    x = ssd_inputs(*SSD_BWD_TRAIN, True, gen)
+    dy, ds = ssd_cotangents(SSD_BWD_TRAIN, "both", gen)
+    kernel = ssd_grads(x, dy, ds)
+    with torch.no_grad():
+        exact = ssd_intra_chunk_backward_reference(
+            *(t.double() for t in x), dy.double(), ds.double())
+        plain = ssd_intra_chunk_backward_reference(
+            *(t.float() for t in x), dy, ds)
+    say(f"[kernels] ssd_intra_chunk_bwd {SSD_BWD_TRAIN} x bf16: row rel err "
+        f"against an f64 sum: " + "; ".join(
+            f"{n} kernel {grad_row_rel_err(g, e):.3e}, plain f32 "
+            f"{grad_row_rel_err(q, e):.3e}"
+            for n, g, q, e in zip(names, kernel, plain, exact)))
+    del x, dy, ds, kernel, exact, plain
+    torch.cuda.empty_cache()
+    ssd_intra_chunk.launches, ssd_intra_chunk.backward_launches = saved
+    return main_err
+
+
 def phase_card_vs_cpu() -> None:
     """The port on the card against itself on the CPU, f32 smoke configs:
     the engine's families through ``ServingEngine``, whisper and llava
@@ -1068,12 +1234,14 @@ def batched_card_vs_cpu(arch: str, steps: int = 8) -> None:
 
 def train_card_vs_cpu() -> None:
     """Training on the card against the same code on the CPU, f32 smoke
-    configs from one initial state: the step-1 gradients leaf by leaf, the
-    losses of 3 trainer steps, and the card's checkpoint restored on the
-    CPU equal to the card's state."""
+    configs from one initial state: the step-1 gradients leaf by leaf (with
+    one backward call a layer of each kernel the family runs: flash, the
+    grouped FFN, SSD), the losses of 3 trainer steps, and the card's
+    checkpoint restored on the CPU equal to the card's state."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gmm import grouped_ffn
+    from repro_torch.kernels.ssd import ssd_intra_chunk
     from repro_torch.models import Model
     from repro_torch.runtime import CheckpointManager, TrainConfig, Trainer
     from repro_torch.runtime.checkpoint import flatten_state
@@ -1083,7 +1251,9 @@ def train_card_vs_cpu() -> None:
             torch.Generator().manual_seed(0)).state_dict()
         toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 33))
         grads = []
-        bwd = flash_attention.backward_launches, grouped_ffn.backward_launches
+        bwd = (flash_attention.backward_launches,
+               grouped_ffn.backward_launches,
+               ssd_intra_chunk.backward_launches)
         for dev in ("cpu", "cuda"):
             model = Model(cfg, device=dev).load_state(
                 {n: x.clone() for n, x in state.items()})
@@ -1092,10 +1262,15 @@ def train_card_vs_cpu() -> None:
                  "labels": torch.as_tensor(toks[:, 1:], device=dev)})
             loss.backward()
             grads.append({n: p.grad for n, p in model.named_parameters()})
+        # one backward call a layer on the card, none on the CPU
         moe_layers = cfg.n_layers if cfg.n_experts else 0
+        mamba_layers = (cfg.n_layers if cfg.family in ("ssm", "hybrid")
+                        else 0)
         assert (flash_attention.backward_launches,
-                grouped_ffn.backward_launches) == (bwd[0] + cfg.n_layers,
-                                                   bwd[1] + moe_layers)
+                grouped_ffn.backward_launches,
+                ssd_intra_chunk.backward_launches) == (
+            bwd[0] + attention_layers(cfg), bwd[1] + moe_layers,
+            bwd[2] + mamba_layers)
         g_rel = max(leaf_rel(grads[1][n], g) for n, g in grads[0].items())
         assert g_rel <= TRAIN_REL, f"{arch}: step-1 gradients {g_rel}"
         tcfg = dict(batch=2, seq_len=32, steps=3, ckpt_every=3, log_every=0)
@@ -1198,9 +1373,20 @@ def build_model(cfg, tag: str):
         torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{widths(cfg)}, vocab {cfg.vocab}, {cfg.param_dtype}: "
+        f"{n_params:,} params ({model.cfg.param_counts()['total']:.4g} "
+        f"counted), init {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def widths(cfg) -> str:
+    """``cfg``'s widths by family: the mamba layers', the attention and
+    MLP's (with the experts), the hybrid's shared block, the encoder, the
+    patches."""
     moe = (f", {cfg.n_experts} experts top-{cfg.top_k}, shared expert "
            f"{cfg.shared_expert_ff}" if cfg.n_experts else "")
-    widths = ", ".join(
+    return ", ".join(
         ([f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
           f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
           f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}"]
@@ -1214,11 +1400,6 @@ def build_model(cfg, tag: str):
            if cfg.family == "encdec" else [])
         + ([f"{cfg.n_patches} image patches"] if cfg.family == "vlm"
            else []))
-    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {widths}, "
-        f"vocab {cfg.vocab}, {cfg.param_dtype}: "
-        f"{n_params:,} params ({model.cfg.param_counts()['total']:.4g} "
-        f"counted), init {time.perf_counter() - t0:.1f} s")
-    return model
 
 
 def time_calls(model) -> tuple[list, list]:
@@ -1258,7 +1439,7 @@ def zero_counts() -> None:
     from repro_torch.kernels.ssd import ssd_intra_chunk
     flash_attention.launches = grouped_ffn.launches = 0
     flash_attention.backward_launches = ssd_intra_chunk.launches = 0
-    grouped_ffn.backward_launches = 0
+    grouped_ffn.backward_launches = ssd_intra_chunk.backward_launches = 0
     grouped_ffn_bwd_cuda.bodies = {}
 
 
@@ -1270,7 +1451,8 @@ def read_counts() -> dict:
             "flash_attn_bwd": flash_attention.backward_launches,
             "moe_gmm": grouped_ffn.launches,
             "moe_gmm_bwd": grouped_ffn.backward_launches,
-            "ssd_intra_chunk": ssd_intra_chunk.launches}
+            "ssd_intra_chunk": ssd_intra_chunk.launches,
+            "ssd_intra_chunk_bwd": ssd_intra_chunk.backward_launches}
 
 
 def serve_record(cfg, card, prompt_lens, prefill_s, decode_s, n_tok, wall,
@@ -1322,7 +1504,8 @@ def phase_serve(cfg, card: str) -> dict:
     want = {"flash_attn_fwd": n_attn * n_pre, "flash_attn_bwd": 0,
             "moe_gmm": cfg.n_layers * (n_pre + len(decode_s))
             if cfg.n_experts else 0, "moe_gmm_bwd": 0,
-            "ssd_intra_chunk": cfg.n_layers * n_pre if mamba else 0}
+            "ssd_intra_chunk": cfg.n_layers * n_pre if mamba else 0,
+            "ssd_intra_chunk_bwd": 0}
     assert launches == want, f"launches {launches} != {want}"
     n_tok = sum(len(c.tokens) for c in done)
     res = serve_record(cfg, card, [len(p) for p in prompts], prefill_s,
@@ -1373,7 +1556,8 @@ def phase_serve_batched(cfg, card: str) -> dict:
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
     assert len(prefill_s) == 1 and len(decode_s) == SERVE_NEW - 1
     want = {"flash_attn_fwd": attention_layers(cfg), "flash_attn_bwd": 0,
-            "moe_gmm": 0, "moe_gmm_bwd": 0, "ssd_intra_chunk": 0}
+            "moe_gmm": 0, "moe_gmm_bwd": 0, "ssd_intra_chunk": 0,
+            "ssd_intra_chunk_bwd": 0}
     assert launches == want, f"launches {launches} != {want}"
     res = serve_record(cfg, card, [BATCH_PROMPT] * BATCH, prefill_s,
                        decode_s, toks.numel(), wall, launches)
@@ -1471,11 +1655,14 @@ def phase_train(card: str, cfg) -> dict:
     corpus, with every kernel's launch count set to 0 just before and read
     just after; then one profiled step, and the optimizer's update alone,
     timed with CUDA events.  5b runs deepseek-7b at full width and depth,
-    5c llama4-scout at its full widths cut to MOE_TRAIN_LAYERS layers."""
+    5c llama4-scout at its full widths cut to MOE_TRAIN_LAYERS layers, 5d
+    mamba2-780m and 5e zamba2-2.7b at full width and depth."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import TrainConfig, Trainer
     tag = f"[train {cfg.name}]"
     moe = bool(cfg.n_experts)
+    n_attn = attention_layers(cfg)
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     gc.collect()                 # the earlier paths' models are gone
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1493,11 +1680,12 @@ def phase_train(card: str, cfg) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(p.numel() for p in state["params"].values())
     # the forward and remat's recompute launch the forwards twice a layer
-    want = {"flash_attn_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attn_bwd": cfg.n_layers * TRAIN_STEPS,
+    want = {"flash_attn_fwd": 2 * n_attn * TRAIN_STEPS,
+            "flash_attn_bwd": n_attn * TRAIN_STEPS,
             "moe_gmm": 2 * cfg.n_layers * TRAIN_STEPS if moe else 0,
             "moe_gmm_bwd": cfg.n_layers * TRAIN_STEPS if moe else 0,
-            "ssd_intra_chunk": 0}
+            "ssd_intra_chunk": 2 * n_mamba * TRAIN_STEPS,
+            "ssd_intra_chunk_bwd": n_mamba * TRAIN_STEPS}
     assert launches == want, f"launches {launches} != {want}"
     from repro_torch.kernels.moe_gmm.kernel import grouped_ffn_bwd_cuda
     # the body each launch named to the kernel, which runs it or fails
@@ -1523,12 +1711,8 @@ def phase_train(card: str, cfg) -> dict:
            "max_memory_allocated_gb": peak_gb, "launches": launches}
     if moe:
         res["moe_gmm_bwd_bodies"] = bodies
-    experts = (f", {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
-               f"{cfg.d_ff}, shared expert {cfg.shared_expert_ff}"
-               if moe else "")
-    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
-        f"heads x {cfg.head_dim} ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}"
-        f"{experts}, vocab {cfg.vocab}, {cfg.param_dtype}, remat "
+    say(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{widths(cfg)}, vocab {cfg.vocab}, {cfg.param_dtype}, remat "
         f"{cfg.remat}: {n_params:,} params; AdamW moments bf16; "
         f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
     say(f"{tag} {ms:.2f} ms/step (median of the last 5; steps "
@@ -1540,11 +1724,12 @@ def phase_train(card: str, cfg) -> dict:
            if moe else "")
         + "; grad norms " + ", ".join(f"{x:.4f}" for x in norms)
         + "; lr " + ", ".join(f"{x:.3e}" for x in res["lr"]))
-    say(f"{tag} launches {launches}: flash forward = {cfg.n_layers} layers x "
-        f"2 (the forward and remat's recompute) x {TRAIN_STEPS} steps, "
-        f"backward = {cfg.n_layers} x {TRAIN_STEPS}"
-        + ("; moe_gmm the same, moe_gmm_bwd as flash's backward, by body "
-           f"{bodies}" if moe else ""))
+    say(f"{tag} launches {launches}: each forward = its layers x 2 (the "
+        f"forward and remat's recompute) x {TRAIN_STEPS} steps, each "
+        f"backward = its layers x {TRAIN_STEPS}; flash {n_attn} attention "
+        f"layers, ssd {n_mamba} mamba layers"
+        + (f"; moe_gmm {cfg.n_layers} layers, moe_gmm_bwd by body {bodies}"
+           if moe else ""))
     gen = torch.Generator("cuda").manual_seed(10)
     toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
                          device="cuda", generator=gen)
@@ -1554,7 +1739,9 @@ def phase_train(card: str, cfg) -> dict:
     res["profile"] = profile_region(
         lambda: trainer.step_fn(state, batch), f"{cfg.name}: one training "
         f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens", card,
-        groups={"moe_gmm forward": ("gemm_persistent", "reduce_splits",
+        groups={"ssd backward": ("ssd_bwd_", "BwdArgs"),
+                "ssd forward": ("ssd_chunk_kernel", "ssd_cb_kernel"),
+                "moe_gmm forward": ("gemm_persistent", "reduce_splits",
                                     "scan_rows"),
                 "moe_gmm backward": ("HiddenPass", "DxPass", "WeightPass"),
                 "moe_gmm backward, fma body": ("hidden_pass", "dx_pass",
@@ -1809,7 +1996,7 @@ def moe_bwd_only(card: str, other: bool) -> int:
     if not other:
         wgmma_gmm_bwd_report(lines)
     err = phase_gmm_backward()
-    timing = phase_timing_gmm_bwd(card)
+    timing = phase_timing_gmm_bwd(card, gmm_bwd_passes(card))
     say(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]),
                     "max_abs_err": err, "moe_gmm_bwd_timing": timing}))
     return 0
@@ -1914,16 +2101,48 @@ def pass_ms(fn, card: str) -> dict:
     return {k: (out[k] if out.get(k) else None) for k in GMM_BWD_PASSES}
 
 
-def phase_timing_gmm_bwd(card: str) -> dict:
+def gmm_bwd_passes(card: str) -> dict:
+    """The grouped-FFN backward's device time by pass (``pass_ms``) at
+    llama4-scout's training shape, taken early in a run: late in a whole run
+    the profiler missed a backward call's first kernels, which a run of
+    this alone never did."""
+    from repro_torch.kernels.moe_gmm.kernel import grouped_ffn_bwd_cuda
+    gen = torch.Generator("cuda").manual_seed(14)
+    b, e, c, d, f = GMM_BWD_TRAIN
+    buf, wi, wg, wo = gmm_inputs(b, e, c, d, f, torch.bfloat16, gen)
+    dy = torch.randn(buf.shape, generator=gen, device="cuda").to(buf.dtype)
+    passes = pass_ms(lambda: grouped_ffn_bwd_cuda(buf, wi, wg, wo, dy,
+                                                  "swiglu"), card)
+    del buf, wi, wg, wo, dy
+    torch.cuda.empty_cache()
+    return passes
+
+
+def ssd_bwd_parts(card: str) -> dict:
+    """The SSD backward's device time by launch (SSD_BWD_PARTS) at mamba2's
+    training shape, taken early in a run as ``gmm_bwd_passes`` is."""
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_bwd_cuda
+    gen = torch.Generator("cuda").manual_seed(16)
+    x = ssd_inputs(*SSD_BWD_TRAIN, True, gen)
+    dy, ds = ssd_cotangents(SSD_BWD_TRAIN, "both", gen)
+    out = profile_region(lambda: ssd_intra_chunk_bwd_cuda(*x, dy, ds),
+                         "ssd backward", card, top=6,
+                         groups=SSD_BWD_PARTS).get("groups", {})
+    del x, dy, ds
+    torch.cuda.empty_cache()
+    return {k: out.get(k) or None for k in SSD_BWD_PARTS}
+
+
+def phase_timing_gmm_bwd(card: str, passes: dict) -> dict:
     """The grouped FFN at llama4-scout's training shape (GMM_BWD_TRAIN,
     every row filled: 16 live experts of 320 rows), bf16 swiglu.  The
     backward: a call of its binding (the checks of ``GroupedFFN`` stay
     outside the timed call), in three rounds taken in turns with its
     yardstick, autograd's backward of the forward's yardstick (``bmm`` x 3
     and silu * mul over the live experts, never called by the port); the
-    call replayed from a CUDA graph; its passes' device times from the
-    profiler; the plain backward.  The forward at the same shape beside its
-    own yardstick the same way."""
+    call replayed from a CUDA graph; ``passes``, its passes' device times
+    from ``gmm_bwd_passes``; the plain backward.  The forward at the same
+    shape beside its own yardstick the same way."""
     from repro_torch.kernels.moe_gmm import (grouped_ffn,
                                              grouped_ffn_backward_reference,
                                              grouped_ffn_reference)
@@ -1993,7 +2212,7 @@ def phase_timing_gmm_bwd(card: str) -> dict:
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "flops": flops, "bytes": nbytes}
         if key == "backward":
-            res["passes_ms"] = pass_ms(kernel, card)
+            res["passes_ms"] = passes
             res["plain_ms"] = time_ms(lambda: grouped_ffn_backward_reference(
                 buf, wi, wg, wo, dy), 2, warmup=1)
         else:
@@ -2123,21 +2342,137 @@ def phase_timing_ssd(card: str) -> dict:
     return out
 
 
+def ssd_bwd_work(b, nc, l, h, p, n) -> tuple[int, int]:
+    """(flops, bytes) the SSD backward needs, x in bf16: per head the causal
+    halves of dM = dy X^T and of M^T dy, B dS and X dS^T; per chunk C B^T
+    (recomputed), dC = dCB B and dB = dCB^T C; each input (x, dt, cum, B, C,
+    dy, d states) read once and each gradient written once (dxc in
+    bf16)."""
+    pairs = l * (l + 1) // 2
+    flops = 2 * b * nc * (h * (2 * pairs * p + 2 * l * n * p)
+                          + 3 * pairs * n)
+    rows = b * nc * l
+    nbytes = (2 * 2 * rows * h * p           # x, dxc
+              + 4 * rows * h * p             # dy
+              + 4 * b * nc * h * n * p       # d states
+              + 4 * 4 * rows * h             # dt, cum, d dt, d cum
+              + 4 * 4 * rows * n)            # B, C, dB, dC
+    return flops, nbytes
+
+
+# the SSD backward's launches by part (ssd_intra_chunk_bwd.cu); its C B^T
+# launch is the forward's kernel taking the backward's BwdArgs
+SSD_BWD_PARTS = {"per head": ("ssd_bwd_head",), "dCB": ("ssd_bwd_dcb",),
+                 "dB, dC": ("ssd_bwd_bc",), "C B^T": ("ssd_cb_kernel",)}
+
+
+def phase_timing_ssd_bwd(card: str, parts: dict) -> dict:
+    """The SSD backward at mamba2-780m's training shape (SSD_BWD_TRAIN), x
+    bf16: a call of its binding (the checks of ``SSDIntraChunk`` stay
+    outside the timed call), in three rounds taken in turns with its
+    yardstick, autograd's backward of the f32 ``bmm`` spelling of the plain
+    forward (M and the state weights built from the inputs, then two
+    ``bmm``; never called by the port); the call replayed from a CUDA graph;
+    ``parts``, each launch's device time from ``ssd_bwd_parts``; the plain
+    backward."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk_backward_reference
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_bwd_cuda
+    gen = torch.Generator("cuda").manual_seed(16)
+    shape = SSD_BWD_TRAIN
+    b, nc, l, h, p, n = shape
+    x = ssd_inputs(*shape, True, gen)
+    dy, ds = ssd_cotangents(shape, "both", gen)
+    leaves = [t.detach().float().requires_grad_() for t in x]
+    xc, dtc, cum, bc, cc = leaves
+    idx = torch.arange(l, device="cuda")
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill(
+        ~(idx[:, None] >= idx[None, :])[None, None, :, :, None], -2.0 ** 30)
+    m = (torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None] * seg.exp()
+         * dtc[:, :, None, :, :]).permute(0, 1, 4, 2, 3).reshape(-1, l, l)
+    xs = xc.permute(0, 1, 3, 2, 4).reshape(-1, l, p)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+    bw = (bc[:, :, :, None, :] * w[..., None]).permute(0, 1, 3, 4, 2) \
+        .reshape(-1, n, l)
+    outs = (torch.bmm(m, xs), torch.bmm(bw, xs))
+    cots = (dy.permute(0, 1, 3, 2, 4).reshape(-1, l, p).contiguous(),
+            ds.reshape(-1, n, p))
+    del seg, m, xs, w, bw
+
+    def library():
+        return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+    def kernel():
+        return ssd_intra_chunk_bwd_cuda(*x, dy, ds)
+
+    tag = f"ssd_intra_chunk_bwd {shape}"
+    for _ in range(2):
+        kernel()
+        library()
+    say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
+    rounds = {"kernel": [], "yardstick": []}
+    for _ in range(3):
+        rounds["kernel"].append(time_ms(kernel, 10, warmup=1))
+        rounds["yardstick"].append(time_ms(library, 5, warmup=1))
+    say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; rounds "
+        + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in r) + " ms"
+                    for k, r in rounds.items()))
+    med = {k: sorted(r)[1] for k, r in rounds.items()}
+    device_ms = graph_ms(kernel, 10)
+    plain_ms = time_ms(lambda: ssd_intra_chunk_backward_reference(
+        *x, dy, ds), 2, warmup=1)
+    flops, nbytes = ssd_bwd_work(*shape)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_f32 = flops / PEAK_F32_FLOPS * 1e3
+    res = {"shape": list(shape), "ms": med["kernel"], "graph_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "yardstick_ms": med["yardstick"],
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "f32_fma_bound_ms": max(t_f32, t_bytes), "bytes_bound_ms": t_bytes,
+           "parts_ms": parts,
+           "flops": flops, "bytes": nbytes}
+    say(f"[timing] {tag} (B, NC, L, H, P, N) x bf16: kernel "
+        f"{res['ms']:.4f} ms (median; replayed from a CUDA graph "
+        f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, yardstick "
+        f"(autograd's backward of the f32 bmm spelling; no single PyTorch "
+        f"call computes this) {res['yardstick_ms']:.4f} ms, kernel / "
+        f"yardstick {res['ms'] / res['yardstick_ms']:.3f}; bound "
+        f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+        f"({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB), on f32 FMAs "
+        f"{res['f32_fma_bound_ms']:.4f} ms; {flops / res['ms'] / 1e9:.2f} "
+        f"TFLOP/s achieved, {100 * res['bound_ms'] / res['ms']:.1f}% of "
+        f"bound, graph {100 * res['bound_ms'] / device_ms:.1f}% [{card}]")
+    say(f"[timing] {tag}: launches, device ms "
+        + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f}")
+                    for k, v in res["parts_ms"].items()))
+    del x, dy, ds, leaves, outs, cots
+    torch.cuda.empty_cache()
+    return res
+
+
 def ssd_only(card: str) -> int:
-    """``--ssd-only``: the SSD kernel of the tree whose ``src`` is on the
-    path, held against its plain version (phase 3's SSD cases) and timed
-    (phase 6's SSD shapes); one JSON line.  With ``--src`` this times
-    another checkout's kernel, e.g. the parent commit's, in the same call."""
+    """``--ssd-only``: the SSD kernels of the tree whose ``src`` is on the
+    path, the forward and (where the tree has it) the backward, held against
+    their plain versions (phase 3's SSD cases) and timed (phase 6's SSD
+    shapes); one JSON line.  With ``--src`` this times another checkout's
+    kernels, e.g. the parent commit's, in the same call."""
     import repro_torch
     from repro_torch.kernels import _build
-    _build.build_all(["ssd_intra_chunk"])
-    for ln in _build.build_log("ssd_intra_chunk").splitlines():
-        if "registers" in ln or "spill" in ln or "entry function" in ln:
-            say(f"[build] ssd_intra_chunk: {ln.strip()}")
-    err = phase_ssd()
-    timing = phase_timing_ssd(card)
-    say(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]),
-                    "max_abs_err": err, "ssd_timing": timing}))
+    names = [k for k in ("ssd_intra_chunk", "ssd_intra_chunk_bwd")
+             if k in _build.SOURCES]       # another checkout may lack one
+    _build.build_all(names)
+    for name in names:
+        for ln in _build.build_log(name).splitlines():
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
+                say(f"[build] {name}: {ln.strip()}")
+    out = {"src": str(Path(repro_torch.__file__).parents[1]),
+           "max_abs_err": phase_ssd(), "ssd_timing": phase_timing_ssd(card)}
+    if "ssd_intra_chunk_bwd" in names:
+        out["bwd_max_abs_err"] = phase_ssd_backward()
+        out["ssd_bwd_timing"] = phase_timing_ssd_bwd(card,
+                                                     ssd_bwd_parts(card))
+    say(json.dumps(out))
     return 0
 
 
@@ -2164,6 +2499,9 @@ def main(argv: list[str]) -> int:
     gmm_err = phase_gmm()
     gmm_bwd_err = phase_gmm_backward()
     ssd_err = phase_ssd()
+    ssd_bwd_err = phase_ssd_backward()
+    # the backwards' device times by launch, before the long phases
+    gmm_passes, ssd_parts = gmm_bwd_passes(card), ssd_bwd_parts(card)
     phase_card_vs_cpu()
     train_card_vs_cpu()
     wide = train_wide_bf16_vs_f32()
@@ -2177,12 +2515,15 @@ def main(argv: list[str]) -> int:
     train = phase_train(card, get_config(TRAIN_ARCH))
     moe_train = phase_train(card, get_config(LLAMA4).replace(
         n_layers=MOE_TRAIN_LAYERS))
-    paths += [train, moe_train]
+    ssm_train = phase_train(card, get_config(MAMBA2))
+    hybrid_train = phase_train(card, get_config(ZAMBA2))
+    paths += [train, moe_train, ssm_train, hybrid_train]
     timing = phase_timing(card)
     bwd = phase_timing_bwd(card)
     gmm = phase_timing_gmm(card)
-    gmm_bwd = phase_timing_gmm_bwd(card)
+    gmm_bwd = phase_timing_gmm_bwd(card, gmm_passes)
     ssd = phase_timing_ssd(card)
+    ssd_bwd = phase_timing_ssd_bwd(card, ssd_parts)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
@@ -2264,6 +2605,16 @@ def main(argv: list[str]) -> int:
                             ("shape", "ms", "graph_ms", "plain_ms",
                              "bound_ms", "bound_by", "yardstick_ms")}
                       for key, r in ssd["one_chunk"].items()},
+    }, {
+        "name": "ssd_intra_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk_bwd.cu",
+        # no TPU kernel: the backward of the function of this one
+        "replaces": "src/repro/kernels/ssd/kernel.py:25",
+        **launches("ssd_intra_chunk_bwd"), "max_abs_err": ssd_bwd_err,
+        **{k: ssd_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "yardstick_ms",
+                                   "f32_fma_bound_ms", "bytes_bound_ms",
+                                   "graph_ms", "shape", "parts_ms")},
     }]
     record = ROOT / "chiprun_out" / "chip_smoke.json"
     record.parent.mkdir(exist_ok=True)
@@ -2275,7 +2626,11 @@ def main(argv: list[str]) -> int:
                                   "moe_gmm_timing": gmm,
                                   "moe_gmm_bwd_timing": gmm_bwd,
                                   "train_moe": moe_train,
-                                  "ssd_timing": ssd, "kernels": kernels},
+                                  "train_ssm": ssm_train,
+                                  "train_hybrid": hybrid_train,
+                                  "ssd_timing": ssd,
+                                  "ssd_bwd_timing": ssd_bwd,
+                                  "kernels": kernels},
                                  indent=1))
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -35,6 +35,7 @@ SOURCES = {
     "moe_gmm": "moe_gmm/csrc/moe_gmm.cu",
     "moe_gmm_bwd": "moe_gmm/csrc/moe_gmm_bwd.cu",
     "ssd_intra_chunk": "ssd/csrc/ssd_intra_chunk.cu",
+    "ssd_intra_chunk_bwd": "ssd/csrc/ssd_intra_chunk_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

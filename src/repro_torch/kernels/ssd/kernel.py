@@ -1,5 +1,6 @@
-"""ctypes binding of the CUDA SSD intra-chunk kernel
-(``csrc/ssd_intra_chunk.cu``).
+"""ctypes bindings of the CUDA SSD intra-chunk kernels: the forward
+(``csrc/ssd_intra_chunk.cu``) and its backward
+(``csrc/ssd_intra_chunk_bwd.cu``).
 
 The library is built at the first call (``kernels/_build.py``); importing
 this module needs neither ``nvcc`` nor a card."""
@@ -13,14 +14,20 @@ import torch
 from .. import _build
 
 NAME = "ssd_intra_chunk"
+BWD_NAME = "ssd_intra_chunk_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 # x, dt, cum, B, C, y, states, C·Bᵀ scratch | dims: dtype, B, NC, L, H, P,
 # N, strides of x, dt, cum (4 each), B, C (3 each), packed as int64 | stream
 _ARGTYPES = [_P] * 8 + [ctypes.c_char_p, _P]
 _DIMS = struct.Struct("<25q")
-_TILE = 64        # the scratch holds C·Bᵀ at L rounded up to this
+# the backward: 14 pointers (x, dt, cum, B, C, dy, dS, dx, d dt, d cum, dB,
+# dC, the C·Bᵀ and dCB scratches) | the forward's dims | stream
+_BWD_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_char_p, _P]
+_BWD_PTRS = _P * 14
+_TILE = 64        # the scratches hold L x L at L rounded up to this
 _LIB: ctypes.CDLL | None = None
+_BWD_LIB: ctypes.CDLL | None = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,6 +38,32 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_intra_chunk_fwd.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _build.load(BWD_NAME)
+        lib.ssd_intra_chunk_bwd.argtypes = _BWD_ARGTYPES
+        lib.ssd_intra_chunk_bwd.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def _dims(xc, dtc, cum, bc, cc) -> bytes:
+    """The dtype, sizes and strides both kernels take, packed as int64."""
+    b, nc, l, h, p = xc.shape
+    return _DIMS.pack(_DTYPES[xc.dtype], b, nc, l, h, p, bc.shape[-1],
+                      *xc.stride()[:4], *dtc.stride(), *cum.stride(),
+                      *bc.stride()[:3], *cc.stride()[:3])
+
+
+def _call(fn, dev: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of ``dev``, read raw."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def ssd_intra_chunk_cuda(xc: torch.Tensor, dtc: torch.Tensor,
@@ -51,17 +84,39 @@ def ssd_intra_chunk_cuda(xc: torch.Tensor, dtc: torch.Tensor,
     y = torch.empty((b, nc, l, h, p), dtype=torch.float32, device=dev)
     st = torch.empty((b, nc, h, n, p), dtype=torch.float32, device=dev)
     cb = torch.empty((b * nc, lp, lp), dtype=torch.float32, device=dev)
-    dims = _DIMS.pack(_DTYPES[xc.dtype], b, nc, l, h, p, n,
-                      *xc.stride()[:4], *dtc.stride(), *cum.stride(),
-                      *bc.stride()[:3], *cc.stride()[:3])
-    ptrs = (xc.data_ptr(), dtc.data_ptr(), cum.data_ptr(), bc.data_ptr(),
-            cc.data_ptr(), y.data_ptr(), st.data_ptr(), cb.data_ptr(), dims)
-    if dev.index == torch.cuda.current_device():
-        err = lib.ssd_intra_chunk_fwd(
-            *ptrs, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = lib.ssd_intra_chunk_fwd(
-                *ptrs, torch._C._cuda_getCurrentRawStream(dev.index))
+    err = _call(lib.ssd_intra_chunk_fwd, dev, xc.data_ptr(), dtc.data_ptr(),
+                cum.data_ptr(), bc.data_ptr(), cc.data_ptr(), y.data_ptr(),
+                st.data_ptr(), cb.data_ptr(), _dims(xc, dtc, cum, bc, cc))
     _build.check(lib, NAME, err)
     return y, st
+
+
+def ssd_intra_chunk_bwd_cuda(xc: torch.Tensor, dtc: torch.Tensor,
+                             cum: torch.Tensor, bc: torch.Tensor,
+                             cc: torch.Tensor, dy: torch.Tensor,
+                             dstates: torch.Tensor):
+    """Launch the backward (C·Bᵀ, the per-head kernel, dCB, then dB and dC)
+    on the current stream; inputs and the contiguous f32 cotangents ``dy``
+    (B,NC,L,H,P) and ``dstates`` (B,NC,H,N,P) are already checked by
+    ``ops.SSDIntraChunk``.  Returns (dxc in xc's dtype, d dtc, d cum, d bc,
+    d cc), all contiguous."""
+    b, nc, l, h, p = xc.shape
+    n = bc.shape[-1]
+    lp = -(-l // _TILE) * _TILE
+    lib = _bwd_lib()
+    dev = xc.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, nc, l, h, p), dtype=xc.dtype, device=dev)
+    ddt = torch.empty((b, nc, l, h), **f32)
+    dcum = torch.empty((b, nc, l, h), **f32)
+    dbc = torch.empty((b, nc, l, n), **f32)
+    dcc = torch.empty((b, nc, l, n), **f32)
+    cb = torch.empty((b * nc, lp, lp), **f32)
+    dcb = torch.empty((b * nc, lp, lp), **f32)
+    ptrs = _BWD_PTRS(*(t.data_ptr() for t in (
+        xc, dtc, cum, bc, cc, dy, dstates, dx, ddt, dcum, dbc, dcc, cb,
+        dcb)))
+    err = _call(lib.ssd_intra_chunk_bwd, dev, ptrs,
+                _dims(xc, dtc, cum, bc, cc))
+    _build.check(lib, BWD_NAME, err)
+    return dx, ddt, dcum, dbc, dcc

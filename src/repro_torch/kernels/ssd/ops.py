@@ -2,28 +2,29 @@
 version on the CPU.
 
 The tensors' device decides.  CUDA tensors launch the hand-written kernel or
-raise; nothing falls back to the plain version.  ``ssd_intra_chunk.launches``
-counts calls that launched the kernel (one call is one launch of the C·Bᵀ
-kernel and one of the y and state kernel), and nothing else.
+raise; nothing falls back to the plain version.  When grad is enabled and an
+input requires grad, the call goes through ``SSDIntraChunk``, whose backward
+is the hand-written backward kernel on the card (its plain version on the
+CPU).  ``ssd_intra_chunk.launches`` counts calls that launched the forward
+kernel (one call is one launch of the C·Bᵀ kernel and one of the y and state
+kernel) and ``ssd_intra_chunk.backward_launches`` backward calls that
+launched the backward kernels, and nothing else.
 
 The JAX wrapper's ``interpret`` flag has no counterpart: the device of the
-tensors takes its place.
-
-The kernel has no backward yet: a CUDA input that needs a gradient raises,
-where autograd would otherwise leave every parameter upstream without one."""
+tensors takes its place."""
 from __future__ import annotations
 
 import torch
 
-from .. import refuse_grad
-from .kernel import ssd_intra_chunk_cuda
-from .ref import ssd_intra_chunk_reference, ssd_reference
+from .kernel import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda
+from .ref import (ssd_intra_chunk_backward_reference,
+                  ssd_intra_chunk_reference, ssd_reference)
 
 X_DTYPES = (torch.float32, torch.bfloat16)
 MAX_L, MAX_N, MAX_P = 256, 128, 64
 
 
-def _check_cuda_inputs(xc, dtc, cum, bc, cc) -> None:
+def _check_cuda_inputs(xc, dtc, cum, bc, cc, dy=None, dstates=None) -> None:
     if xc.dtype not in X_DTYPES or any(
             t.dtype != torch.float32 for t in (dtc, cum, bc, cc)):
         raise TypeError(f"ssd_intra_chunk takes xc in float32 or bfloat16 "
@@ -49,12 +50,61 @@ def _check_cuda_inputs(xc, dtc, cum, bc, cc) -> None:
         raise ValueError("more than 65535 batch rows x chunks or heads")
     if any(t.stride(-1) != 1 for t in (xc, bc, cc)):
         raise ValueError("the last dim of xc, bc and cc must be contiguous")
+    for name, t, shape in (("dy", dy, (b, nc, l, h, p)),
+                           ("dstates", dstates, (b, nc, h, n, p))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or t.device != xc.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"the cotangent {name} must be contiguous f32 "
+                             f"{shape} on {xc.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-NO_GRAD = ("ssd_intra_chunk on the card has no backward yet; it comes with "
-           "SSM and hybrid training, an SSD backward (ROADMAP.md, queue 1). "
-           "Call it under torch.no_grad() or on inputs that need no "
-           "gradient")
+def _forward(xc, dtc, cum, bc, cc):
+    """The forward without a graph: the kernel on the card, counted, or the
+    plain version on the CPU."""
+    if xc.device.type == "cpu":
+        return ssd_intra_chunk_reference(xc, dtc, cum, bc, cc)
+    _check_cuda_inputs(xc, dtc, cum, bc, cc)
+    out = ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc)
+    ssd_intra_chunk.launches += 1
+    return out
+
+
+class SSDIntraChunk(torch.autograd.Function):
+    """The SSD intra-chunk function with a gradient: the forward keeps its
+    five inputs (not M or C·Bᵀ, which the backward recomputes); the backward
+    is the hand-written kernel on the card (deterministic: every sum over
+    heads and rows in a fixed order) and
+    ``ssd_intra_chunk_backward_reference`` on the CPU.  A cotangent that
+    does not reach the function arrives as None: the plain version skips
+    its terms, the kernel takes zeros."""
+
+    @staticmethod
+    def forward(ctx, xc, dtc, cum, bc, cc):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xc, dtc, cum, bc, cc)
+        return _forward(xc, dtc, cum, bc, cc)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        xc, dtc, cum, bc, cc = ctx.saved_tensors
+        if dy is None and dstates is None:
+            return None, None, None, None, None
+        if xc.device.type == "cpu":
+            return ssd_intra_chunk_backward_reference(xc, dtc, cum, bc, cc,
+                                                      dy, dstates)
+        b, nc, l, h, p = xc.shape
+        n = bc.shape[-1]
+        f32 = torch.float32
+        dy = (xc.new_zeros((b, nc, l, h, p), dtype=f32) if dy is None
+              else dy.contiguous())
+        dstates = (xc.new_zeros((b, nc, h, n, p), dtype=f32)
+                   if dstates is None else dstates.contiguous())
+        _check_cuda_inputs(xc, dtc, cum, bc, cc, dy, dstates)
+        grads = ssd_intra_chunk_bwd_cuda(xc, dtc, cum, bc, cc, dy, dstates)
+        ssd_intra_chunk.backward_launches += 1
+        return grads
 
 
 def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
@@ -67,16 +117,15 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
             xc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the inputs must lie on the CPU or on one CUDA "
                          f"device; got {[str(t.device) for t in ts]}")
-    if xc.device.type == "cpu":
-        return ssd_intra_chunk_reference(*ts)
-    refuse_grad(NO_GRAD, *ts)
-    _check_cuda_inputs(*ts)
-    out = ssd_intra_chunk_cuda(*ts)
-    ssd_intra_chunk.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return SSDIntraChunk.apply(*ts)
+    return _forward(*ts)
 
 
 ssd_intra_chunk.launches = 0
+ssd_intra_chunk.backward_launches = 0
 
 
-__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_reference", "ssd_reference"]
+__all__ = ["SSDIntraChunk", "ssd_intra_chunk",
+           "ssd_intra_chunk_backward_reference", "ssd_intra_chunk_reference",
+           "ssd_reference"]

@@ -3,7 +3,8 @@
 ``ssd_reference`` is the stepwise recurrence, the definition the chunked
 form must match.  ``ssd_intra_chunk_reference`` is the CPU path of
 ``ops.ssd_intra_chunk`` and the oracle the CUDA kernel is held against on the
-card.  Both do their math in f32 (f64 inputs stay f64).  ``split3_bf16`` is
+card; ``ssd_intra_chunk_backward_reference`` is the same for its backward.
+All do their math in f32 (f64 inputs stay f64).  ``split3_bf16`` is
 the split of an f32 operand into three bf16 parts that the CUDA kernel runs
 its tensor-core products on; the tests hold the scheme against f64 sums."""
 from __future__ import annotations
@@ -66,6 +67,70 @@ def ssd_intra_chunk_reference(xc: torch.Tensor, dtc: torch.Tensor,
     w_state = torch.exp(cum[:, :, -1:, :] - cum) * dtc          # (B,NC,L,H)
     states = torch.einsum("bclh,bcln,bclhp->bchnp", w_state, bc, x)
     return y_intra, states
+
+
+def ssd_intra_chunk_backward_reference(xc, dtc, cum, bc, cc, dy=None,
+                                       dstates=None):
+    """The gradients of ``ssd_intra_chunk_reference``'s inputs, given the
+    cotangents ``dy`` (B,NC,L,H,P) of y_intra and ``dstates`` (B,NC,H,N,P)
+    of the states (either may be None: no gradient flows from it).  The
+    formulas written out, not autograd; per (b, c, h), with E[i,j] =
+    exp(cum_i - cum_j) for i >= j (else 0), M = CB * E * dt_j and w_l =
+    exp(cum_{L-1} - cum_l) dt_l:
+
+        dM        = dy X^T                      (its causal half weighs in)
+        dX        = M^T dy + w * (B dS)
+        dw_l      = sum_p X[l,p] (B dS)[l,p]    (= sum_n B[l,n] (X dS^T)[l,n])
+        dCB       = sum_h dM * E * dt_j;   dC = dCB B;   dB = dCB^T C
+                    + sum_h w * (X dS^T)
+        d dt_j    = sum_i dM * CB * E + dw_j exp(cum_{L-1} - cum_j)
+        d cum     = rows of Q - columns of Q - dw * w, and + sum_l dw_l w_l
+                    on row L-1, with Q = dM * M
+
+    Returns (dxc in xc's dtype, d dtc, d cum, d bc, d cc), the last four in
+    f32 (f64 for f64 inputs, to measure rounding)."""
+    l = xc.shape[2]
+    ct = torch.promote_types(xc.dtype, torch.float32)
+    dtc, cum, bc, cc = (t.to(ct) for t in (dtc, cum, bc, cc))
+    x = xc.to(ct)
+    dx = torch.zeros_like(x)
+    ddt = torch.zeros_like(dtc)
+    dcum = torch.zeros_like(cum)
+    dbc = torch.zeros_like(bc)
+    dcc = torch.zeros_like(cc)
+    if dy is not None:
+        dy = dy.to(ct)
+        idx = torch.arange(l, device=xc.device)
+        causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+        # masked before the exponential: exp(-2^30) is 0, never inf * 0
+        e = torch.exp(torch.where(causal,
+                                  cum[:, :, :, None, :] - cum[:, :, None],
+                                  NEG_INF))                     # (B,NC,i,j,H)
+        cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+        m = cb[..., None] * e * dtc[:, :, None]
+        dm = torch.einsum("bcihp,bcjhp->bcijh", dy, x)
+        dx = dx + torch.einsum("bcijh,bcihp->bcjhp", m, dy)
+        g = dm * e                                               # dM * E
+        dcb = torch.einsum("bcijh,bcjh->bcij", g, dtc)
+        d = g * cb[..., None]                                    # dM * CB * E
+        ddt = ddt + d.sum(2)
+        q = d * dtc[:, :, None]                                  # dM * M
+        dcum = dcum + q.sum(3) - q.sum(2)
+        dcc = dcc + torch.einsum("bcij,bcjn->bcin", dcb, bc)
+        dbc = dbc + torch.einsum("bcij,bcin->bcjn", dcb, cc)
+    if dstates is not None:
+        ds = dstates.to(ct)
+        decay = torch.exp(cum[:, :, -1:, :] - cum)              # (B,NC,L,H)
+        w = decay * dtc
+        u = torch.einsum("bcln,bchnp->bclhp", bc, ds)            # B dS
+        dx = dx + w[..., None] * u
+        dw = torch.einsum("bclhp,bclhp->bclh", x, u)
+        ddt = ddt + dw * decay
+        dbc = dbc + torch.einsum("bclh,bclhp,bchnp->bcln", w, x, ds)
+        dww = dw * w
+        dcum = dcum - dww
+        dcum[:, :, -1] += dww.sum(2)
+    return dx.to(xc.dtype), ddt, dcum, dbc, dcc
 
 
 def split3_bf16(t: torch.Tensor):

@@ -90,8 +90,8 @@ class Model(nn.Module):
 
     def train_loss(self, batch):
         """(total loss, {"ce", "aux"}) of ``batch["tokens"]`` against
-        ``batch["labels"]``, with autograd; the dense and MoE families
-        (``lm.train_loss``)."""
+        ``batch["labels"]``, with autograd; the dense, MoE, SSM and hybrid
+        families (``lm.train_loss``)."""
         return lm.train_loss(self.params, batch, self.cfg)
 
     @torch.no_grad()

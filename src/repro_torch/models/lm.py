@@ -12,8 +12,9 @@ loop over views of the stacked leaves.  Entry points:
     prefill(params, batch, cfg)                -> last-token logits, cache
     decode_step(params, tokens, cache, cfg)    -> logits (cache in place)
 
-Training (``train_loss``, with autograd) takes the dense and MoE families;
-the other families wait for their kernels' backwards (ROADMAP.md, queue 1).
+Training (``train_loss``, with autograd) takes the dense, MoE, SSM and
+hybrid families; whisper and llava wait for their losses (ROADMAP.md,
+queue 1).
 
 Cache layouts (each with "pos": (B,) int64):
     attention families: {"k": (L,B,T,K,hd), "v": ...}
@@ -43,10 +44,9 @@ from .ssm import init_mamba_params, mamba_decode, mamba_forward
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: encdec.py
 PATCH_DIM = 1024          # the stub vision tower's patch features
+TRAINED = ("dense", "moe", "ssm", "hybrid")
 # what training each other family waits for (ROADMAP.md, queue 1)
 TRAIN_LATER = {
-    "ssm": "SSM and hybrid training (an SSD backward)",
-    "hybrid": "SSM and hybrid training (an SSD backward)",
     "encdec": "whisper and llava training",
     "vlm": "whisper and llava training",
 }
@@ -203,6 +203,27 @@ def _maybe_ckpt(fn, cfg: ArchConfig):
     raise ValueError(f"remat {cfg.remat!r}: want none, full or dots")
 
 
+def _mamba_layer(lp, h, cfg: ArchConfig, collect: bool):
+    """One pre-norm mamba layer with its residual.  Returns (h, (conv_state,
+    ssm_state) or None)."""
+    y, st = mamba_forward(lp, rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
+                          return_state=collect)
+    return h + y, st
+
+
+def _hybrid_block(blk, shared, h, positions, cfg: ArchConfig,
+                  collect: bool):
+    """One hybrid block: its pb mamba layers (``blk``, a list of layer
+    trees), then the shared attention + MLP block.  Returns (h, the mamba
+    states, (k, v))."""
+    sts = []
+    for lp in blk:
+        h, st = _mamba_layer(lp, h, cfg, collect)
+        sts.append(st)
+    h, _, kv = _block_forward(shared, h, positions, 0, cfg)
+    return h, sts, kv
+
+
 def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
     """One transformer block on a full sequence; window 0 => global.
     Returns (h, aux or None, (k, v))."""
@@ -232,19 +253,20 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
             for key, x in states.items():
                 per_layer.setdefault(key, []).append(x)
 
-    if cfg.family in ("ssm", "hybrid"):
-        lead = _mamba_lead(cfg)
-        for idx in itertools.product(*map(range, lead)):
-            lp = _layer(params["layers"], *idx)
-            y, st = mamba_forward(lp, rms_norm(h, lp["ln"], cfg.norm_eps),
-                                  cfg, return_state=collect_cache)
-            h = h + y
+    if cfg.family == "ssm":
+        layer = _maybe_ckpt(_mamba_layer, cfg)
+        for lp in _unbind(params["layers"]):
+            h, st = layer(lp, h, cfg, collect_cache)
             if collect_cache:
                 keep(conv=st[0], ssm=st[1])
-            if cfg.family == "hybrid" and idx[1] == cfg.attn_every - 1:
-                h, _, (k, v) = _block_forward(params["shared"], h,
-                                              positions, 0, cfg)
-                keep(k=k, v=v)
+    elif cfg.family == "hybrid":
+        block = _maybe_ckpt(_hybrid_block, cfg)
+        for blk in _unbind(params["layers"]):
+            h, sts, (k, v) = block(_unbind(blk), params["shared"], h,
+                                   positions, cfg, collect_cache)
+            for st in sts if collect_cache else ():
+                keep(conv=st[0], ssm=st[1])
+            keep(k=k, v=v)
     else:
         block = _maybe_ckpt(_block_forward, cfg)
         for i, lp in enumerate(_unbind(params["layers"])):
@@ -266,14 +288,14 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
 # ------------------------------------------------------------------- train
 def train_loss(params, batch, cfg: ArchConfig):
     """Mean CE of the logits of ``batch["tokens"]`` against
-    ``batch["labels"]`` plus 0.01 * the MoE aux loss (0 for the dense
-    family), as the reference's ``train_loss`` (``repro/models/lm.py:
+    ``batch["labels"]`` plus 0.01 * the MoE aux loss (0 for the other
+    families), as the reference's ``train_loss`` (``repro/models/lm.py:
     224-232``).  Returns (total, {"ce", "aux"}); differentiate ``total``.
-    Takes the dense and MoE families; the others raise
-    ``NotImplementedError``."""
-    if cfg.family not in ("dense", "moe"):
+    Takes the dense, MoE, SSM and hybrid families; whisper's (called from
+    ``api.Model``) and the VLM's raise ``NotImplementedError``."""
+    if cfg.family not in TRAINED:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense and MoE families; "
+            f"{cfg.name}: the port trains the families {TRAINED}; "
             f"training the {cfg.family} family waits for "
             f"{TRAIN_LATER[cfg.family]} (ROADMAP.md, "
             f"queue 1)")

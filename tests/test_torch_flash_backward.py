@@ -6,7 +6,6 @@ logsumexp, the autograd Function, and the input checks of the CUDA path.
 Inputs and cotangents are drawn once with numpy and handed to both
 frameworks.  The CUDA backward kernel runs only on the card: chip_smoke.py
 holds it against the same plain backward there."""
-import types
 
 import pytest
 
@@ -25,9 +24,9 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     BWD_TILE_KV, BWD_TILE_Q, band_schedule, bwd_body, workspace_words)
 from repro_torch.kernels.flash_attention.ops import \
     _check_cuda_inputs  # noqa: E402
-from repro_torch.kernels import refuse_grad  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
-from repro_torch.kernels.ssd.ops import NO_GRAD as SSD_NO_GRAD  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 
 # f32 on both sides; only the order of sums differs (observed <= 1e-6)
 REL = 1e-5
@@ -180,16 +179,13 @@ def test_check_cuda_inputs_checks_do():
         _check_cuda_inputs(q, k, k, unaligned)
 
 
-@pytest.mark.parametrize("message", ["moe_gmm", SSD_NO_GRAD],
-                         ids=["moe_gmm", "ssd"])
-def test_kernels_without_backward_refuse_grad_on_cuda(message):
-    """SSD has no backward on the card: a CUDA input that needs a gradient
-    raises, so that no parameter is left silently without one.  CPU inputs
-    (the plain versions, differentiated by autograd) and calls without grad
-    pass.  moe_gmm has its backward (``GroupedFFN``): its wrapper refuses
-    nothing, and an input that needs a gradient goes through the
+@pytest.mark.parametrize("kernel", ["moe_gmm", "ssd"])
+def test_kernels_without_backward_refuse_grad_on_cuda(kernel):
+    """Every kernel has its backward now, so no wrapper refuses a gradient:
+    moe_gmm's (``GroupedFFN``) and SSD's (``SSDIntraChunk``) keep no
+    refusal, and an input that needs a gradient goes through the
     Function."""
-    if message == "moe_gmm":
+    if kernel == "moe_gmm":
         assert not hasattr(gmm_ops, "NO_GRAD")
         assert not hasattr(gmm_ops, "refuse_grad")
         w = torch.zeros(2, 8, 16, requires_grad=True)
@@ -197,18 +193,16 @@ def test_kernels_without_backward_refuse_grad_on_cuda(message):
                                   torch.zeros(2, 16, 8))
         assert type(out.grad_fn).__name__ == "GroupedFFNBackward"
         return
-    cuda = torch.device("cuda")
-    needs = types.SimpleNamespace(requires_grad=True, device=cuda)
-    frozen = types.SimpleNamespace(requires_grad=False, device=cuda)
-    cpu = types.SimpleNamespace(requires_grad=True,
-                                device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        refuse_grad(message, frozen, needs)
-    assert str(err.value) == message
-    refuse_grad(message, frozen, frozen)
-    refuse_grad(message, cpu, cpu)
-    with torch.no_grad():
-        refuse_grad(message, needs)
+    assert not hasattr(ssd_ops, "NO_GRAD")
+    assert not hasattr(ssd_ops, "refuse_grad")
+    assert not hasattr(kernels, "refuse_grad")     # and its last user gone
+    x = torch.zeros(1, 1, 4, 2, 8, requires_grad=True)
+    y, st = ssd_ops.ssd_intra_chunk(x, torch.ones(1, 1, 4, 2),
+                                    torch.zeros(1, 1, 4, 2),
+                                    torch.ones(1, 1, 4, 3),
+                                    torch.ones(1, 1, 4, 3))
+    assert type(y.grad_fn).__name__ == "SSDIntraChunkBackward"
+    assert y.grad_fn is st.grad_fn
 
 
 # chip_smoke.py's BWD_CASES (B, S, T, H, K, hd, causal, window; the tests'

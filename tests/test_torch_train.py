@@ -1,6 +1,6 @@
 """The port's training path on the CPU against the JAX package: the loss
-and every gradient leaf (the dense and MoE families), one train step, the
-data loader's token stream,
+and every gradient leaf (the dense, MoE, SSM and hybrid families), one
+train step, the data loader's token stream,
 the trainer (the tests of tests/test_runtime.py and tests/test_system.py
 ported), and checkpoints that cross between the two packages.
 
@@ -31,6 +31,7 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.data import PrefetchingLoader, SyntheticCorpus  # noqa
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
 from repro_torch.kernels.moe_gmm import grouped_ffn  # noqa: E402
+from repro_torch.kernels.ssd import ssd_intra_chunk  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -42,6 +43,7 @@ from repro_torch.runtime.checkpoint import flatten_state  # noqa: E402
 
 DENSE = ["deepseek-7b", "phi4-mini-3.8b", "gemma3-27b"]
 MOE = ["llama4-scout-17b-a16e", "arctic-480b"]
+SSM = ["mamba2-780m", "zamba2-2.7b"]
 # f32 on both sides, only the order of sums differs (observed <= 1e-7 for
 # the loss, <= 1.4e-6 for a gradient leaf)
 LOSS_REL = 1e-5
@@ -131,6 +133,76 @@ def test_moe_loss_and_every_gradient_match_jax(arch):
             assert _leaf_rel(g, jgrads[name]) <= GRAD_REL, (remat, name)
 
 
+@pytest.mark.parametrize("seq", [16, 21], ids=["whole chunks", "ragged"])
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_loss_and_every_gradient_match_jax(arch, seq):
+    """The SSM and hybrid families: the loss and every gradient leaf
+    against jax.grad of the JAX train_loss with kernel_mode "ref" (the
+    reference trains them only so: jax.grad fails through its Pallas SSD
+    kernel); remat none and full, SSD through SSDIntraChunk's plain
+    backward, the hybrid's shared block through FlashAttention's.  The smoke
+    configs' chunk is 8: 16 tokens are two whole chunks, 21 leave a ragged
+    tail that ssd_chunked pads."""
+    jm = JaxModel(jax_smoke(arch))
+    assert jm.cfg.kernel_mode == "ref" and seq % jm.cfg.ssm_chunk in (0, 5)
+    jp = jm.init(KEY)
+    jb, tb = _batch(jm.cfg, s=seq, seed=7)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.train_loss(p, jb), has_aux=True))(jp)
+    jgrads = flatten(jax.device_get(jgrads))
+    state = params_from_jax(jax.device_get(jp))
+    for remat in ("none", "full"):
+        model = Model(get_smoke(arch).replace(remat=remat),
+                      device="cpu").load_state(state)
+        before = ssd_intra_chunk.launches, ssd_intra_chunk.backward_launches
+        loss, met = model.train_loss(tb)
+        for got, want in ((loss, jloss), (met["ce"], jmet["ce"])):
+            got, want = float(got.detach()), float(want)
+            assert abs(got - want) <= LOSS_REL * abs(want), (remat, got, want)
+        assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+        loss.backward()
+        # the CPU runs the plain versions: no kernel is launched
+        assert (ssd_intra_chunk.launches,
+                ssd_intra_chunk.backward_launches) == before
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        assert set(grads) == set(jgrads)
+        for name, g in grads.items():
+            assert g is not None and g.shape == jgrads[name].shape, name
+            assert _leaf_rel(g, jgrads[name]) <= GRAD_REL, (remat, name)
+
+
+def test_ssm_stacked_leaves_unbound_once():
+    """Under autograd each stacked leaf of the mamba layers is unbound once,
+    not indexed per layer (which would add a zero gradient of the whole
+    leaf for every layer): the leaf's one consumer in the graph is an
+    unbind, and for the hybrid's (nb, pb) leaves each of its nb blocks is
+    unbound once more."""
+    for arch in SSM:
+        model = Model(get_smoke(arch), device="cpu").init(
+            torch.Generator().manual_seed(0))
+        _, tb = _batch(model.cfg, seed=8)
+        loss, _ = model.train_loss(tb)
+        consumers, seen, todo = {}, set(), [loss.grad_fn]
+        while todo:
+            fn = todo.pop()
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            for nxt, _ in fn.next_functions:
+                if nxt is not None:
+                    consumers.setdefault(nxt, []).append(fn)
+                    todo.append(nxt)
+        leaf = model.params["layers"]["in_proj"]
+        acc = next(f for f in seen if getattr(f, "variable", None) is leaf)
+        (unbind,) = consumers[acc]
+        assert type(unbind).__name__.startswith("UnbindBackward")
+        if model.cfg.family == "hybrid":
+            inner = consumers[unbind]
+            assert len(inner) == leaf.shape[0]
+            assert all(type(f).__name__.startswith("UnbindBackward")
+                       for f in inner)
+
+
 def test_moe_router_gradient_stays_f32_in_bf16_model():
     """In a bf16 model the router stays f32 (``Model.load_state``), and so
     does its gradient; the expert weights' gradients come back in bf16."""
@@ -149,7 +221,7 @@ def test_moe_router_gradient_stays_f32_in_bf16_model():
 
 
 def test_train_loss_refuses_families_without_backward():
-    for arch, what in (("mamba2-780m", "SSD backward"),
+    for arch, what in (("llava-next-mistral-7b", "whisper and llava"),
                        ("whisper-medium", "whisper and llava")):
         model = Model(get_smoke(arch), device="cpu")
         with pytest.raises(NotImplementedError, match=what):
@@ -171,6 +243,17 @@ def test_moe_train_step_matches_jax(arch):
     lr * g / (|g| + eps) turns into moves of a sizeable share of lr: the
     updated parameters are held leaf by leaf at GRAD_REL (observed <= 3e-5),
     the metrics and moments as for the dense family."""
+    _train_step_matches_jax(arch, param_rel=GRAD_REL)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_train_step_matches_jax(arch):
+    """The same for the SSM and hybrid families, held as the MoE family is:
+    mamba2's conv_b, zeros at init, is after one step its update alone, and
+    one of its gradient elements is 1.2e-7 (3.2e-8 once clipped, near
+    AdamW's eps), whose rounding noise (9e-5 of it) moves that element's
+    update by 7.7e-4 of lr; the leaf is held at GRAD_REL (observed 3.3e-5,
+    every other leaf <= 1.8e-6)."""
     _train_step_matches_jax(arch, param_rel=GRAD_REL)
 
 
@@ -329,6 +412,19 @@ def test_train_cli_on_cpu_moe(capsys):
                     "cpu", "--steps", "3", "--batch", "2", "--seq", "16"])
     assert "final loss" in capsys.readouterr().out
     assert (grouped_ffn.launches, grouped_ffn.backward_launches) == before
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_train_cli_on_cpu_ssm(arch, capsys):
+    before = ssd_intra_chunk.launches, ssd_intra_chunk.backward_launches
+    flash = flash_attention.launches, flash_attention.backward_launches
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                    "3", "--batch", "2", "--seq", "20"])
+    assert "final loss" in capsys.readouterr().out
+    assert (ssd_intra_chunk.launches,
+            ssd_intra_chunk.backward_launches) == before
+    assert (flash_attention.launches,
+            flash_attention.backward_launches) == flash
 
 
 # ------------------------------------------ checkpoints across packages
