@@ -14,7 +14,8 @@ result line):
 2. build: every CUDA kernel from the sources in the checkout, in parallel;
    ptxas's registers and spills by instantiation, and none allowed in the
    wgmma bodies of flash's backward and of the grouped FFN's backward
-   (whose products ptxas must not serialize either: no C7520 note).
+   (whose products ptxas must not serialize either: no C7520 note) nor in
+   any of the SSD backward's eleven instantiations.
 3. kernels vs their plain PyTorch versions on the card, at the cases of
    tests/test_kernels.py and at the very shapes that phase 5 serves (flash
    attention: hd-128 prefill shapes, the served prompts of deepseek-7b,
@@ -51,11 +52,13 @@ result line):
    backward through ``SSDIntraChunk`` against its plain version in f32
    (mamba2-780m's and zamba2-2.7b's training shapes with x bf16, mamba2's
    with x f32 and under mild decay, the model's strided views, one-chunk
-   prompts of ragged L and L = 1, unaligned inputs, P 36 and N 20, the
-   tests' and the smoke configs' shapes in f32, and losses that read y
-   only or the states only): a second call at the training shapes
-   bit-identical, and an f64 sum as the yardstick of rounding.  Then the
-   two backwards' device times by launch, profiled before the long phases.
+   prompts of ragged L and L = 1, unaligned inputs (x f32 and x bf16),
+   P 36 and N 20, the tests' and the smoke configs' shapes in f32, losses
+   that read y only or the states only, and L one past a 64-row tile): a
+   second call at the training shapes bit-identical, and an f64 sum as the
+   yardstick of rounding.  Then the two backwards' device times by launch
+   (the SSD one at both training shapes), profiled before the long
+   phases.
 4. the port on the card vs the same port code on the CPU (f32 smoke
    configs of deepseek-7b, gemma3-27b, arctic-480b, llama4-scout,
    mamba2-780m and zamba2-2.7b through the engine; whisper-medium and
@@ -108,8 +111,9 @@ result line):
    (asked for by name) and autograd's backward of SDPA; the grouped FFN's
    backward (with each pass's device time) and forward at llama4-scout's
    training shape with every row live, beside autograd's backward of the
-   bmm yardstick and the yardstick; the SSD backward at mamba2-780m's
-   training shape (with each launch's device time) beside autograd's
+   bmm yardstick and the yardstick; the SSD backward at mamba2-780m's and
+   zamba2-2.7b's training shapes (with each launch's device time, and the
+   bf16 products it issues beside the function's work) beside autograd's
    backward of the f32 bmm spelling of the plain forward;
    each in three rounds taken in turns with its yardstick, the card's
    clocks read before and after).
@@ -118,7 +122,9 @@ result line):
 backward's registers and spills (none allowed), and runs the backward's
 part of phases 3 and 6 alone; ``--moe-bwd-only`` does the same for the
 grouped FFN's backward.  ``--ssd-only`` runs phases 1 and 2 and the SSD
-kernels' part of phases 3 and 6 alone, the backward's too.  With
+kernels' part of phases 3 and 6 alone, the backward's too, and prints a
+sha256 of the forward's outputs at fixed inputs (to hold a change against
+the parent's bits).  With
 ``--src``, these two take ``repro_torch`` from another checkout (a ``git
 archive`` of the parent commit, say), to check and time two versions of a
 kernel in one call on one card; another checkout's build is reported but
@@ -381,6 +387,11 @@ SSD_BWD_CASES = [
     ("y only", (1, 2, 64, 4, 32, 32), False, 0.1, "contiguous", "dy"),
     ("states only", (1, 2, 64, 4, 32, 32), False, 0.1, "contiguous",
      "states"),
+    # the 64-row tiles' edges: one row past a tile (L 129, L 65), and x bf16
+    # not 16-byte aligned (the bf16 body's plain loads)
+    ("L 129", (1, 2, 129, 8, 64, 128), True, None, "contiguous", "both"),
+    ("L 65", (1, 1, 65, 4, 64, 64), False, 0.01, "contiguous", "both"),
+    ("unaligned", (1, 2, 200, 6, 64, 128), True, 0.01, "unaligned", "both"),
 ]
 # SSD_TOL and SSD_ROW_REL hold the gradients in f32; dxc comes back in x's
 # dtype, and a bf16 dxc also carries its own rounding (at most 2^-8 of each
@@ -553,6 +564,7 @@ def phase_build() -> dict:
                         instantiations(report[name]).items()))
     wgmma_bwd_report(report["flash_attn_bwd"])
     wgmma_gmm_bwd_report(report["moe_gmm_bwd"])
+    ssd_bwd_report(report["ssd_intra_chunk_bwd"])
     return report
 
 
@@ -580,6 +592,19 @@ def wgmma_gmm_bwd_report(lines: list[str]) -> None:
     assert not serial, f"moe_gmm_bwd: wgmma serialized: {serial}"
 
 
+def ssd_bwd_report(lines: list[str]) -> None:
+    """The SSD backward's eleven instantiations (the per-head, dCB and state
+    term kernels, each for f32 x, bf16 x by cp.async and bf16 x by plain
+    loads; dB/dC by cp.async and by plain loads) with their registers: none
+    may spill."""
+    new = {k: v for k, v in instantiations(lines).items()
+           if k.startswith("ssd_bwd_")}
+    say(f"[build] ssd_intra_chunk_bwd: {new}")
+    assert len(new) == 11, f"want 11 SSD backward instantiations, got {new}"
+    for k, v in new.items():
+        assert v.endswith(" 0 bytes spilled"), f"{k} spills: {v}"
+
+
 def instantiations(lines: list[str]) -> dict:
     """ptxas's report as {"kernel<template arg>": "R registers, S bytes
     spilled"}, the kernel named from its mangled entry (``..._mmaILi80EE``
@@ -593,9 +618,19 @@ def instantiations(lines: list[str]) -> dict:
             arg = re.search(r"ILi(\d+)E", mangled)
             # a kernel templated on a pass (moe_gmm_bwd's wg::pass<P>)
             policy = re.search(r"\d+([A-Za-z]+Pass)ILi(\d+)E", mangled)
+            # or on x's type and the staging (the SSD kernels' <XT, kAsync>
+            # or <kAsync>)
+            typed = re.search(r"I(f|13__nv_bfloat16)?Lb([01])E", mangled)
+            staging = ""
+            if typed:
+                staging = "cp.async" if typed.group(2) == "1" else "plain"
+                if typed.group(1):
+                    staging = ("f32, " if typed.group(1) == "f" else
+                               "bf16, ") + staging
             label = (f"{policy.group(1)}<{policy.group(2)}>" if policy else
                      (name[-1] if name else mangled)
-                     + (f"<{arg.group(1)}>" if arg else ""))
+                     + (f"<{arg.group(1)}>" if arg else "")
+                     + (f"<{staging}>" if staging else ""))
             if label in out:                   # another type argument
                 label += f" #{sum(k.startswith(label) for k in out) + 1}"
         elif "spill stores" in ln and label:
@@ -2119,18 +2154,22 @@ def gmm_bwd_passes(card: str) -> dict:
 
 
 def ssd_bwd_parts(card: str) -> dict:
-    """The SSD backward's device time by launch (SSD_BWD_PARTS) at mamba2's
-    training shape, taken early in a run as ``gmm_bwd_passes`` is."""
+    """The SSD backward's device time by launch (SSD_BWD_PARTS) at each of
+    SSD_BWD_TIMED's training shapes, taken early in a run as
+    ``gmm_bwd_passes`` is."""
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_bwd_cuda
-    gen = torch.Generator("cuda").manual_seed(16)
-    x = ssd_inputs(*SSD_BWD_TRAIN, True, gen)
-    dy, ds = ssd_cotangents(SSD_BWD_TRAIN, "both", gen)
-    out = profile_region(lambda: ssd_intra_chunk_bwd_cuda(*x, dy, ds),
-                         "ssd backward", card, top=6,
-                         groups=SSD_BWD_PARTS).get("groups", {})
-    del x, dy, ds
-    torch.cuda.empty_cache()
-    return {k: out.get(k) or None for k in SSD_BWD_PARTS}
+    res = {}
+    for label, shape in SSD_BWD_TIMED.items():
+        gen = torch.Generator("cuda").manual_seed(16)
+        x = ssd_inputs(*shape, True, gen)
+        dy, ds = ssd_cotangents(shape, "both", gen)
+        out = profile_region(lambda: ssd_intra_chunk_bwd_cuda(*x, dy, ds),
+                             f"ssd backward {label} {shape}", card, top=6,
+                             groups=SSD_BWD_PARTS).get("groups", {})
+        res[label] = {k: out.get(k) or None for k in SSD_BWD_PARTS}
+        del x, dy, ds
+        torch.cuda.empty_cache()
+    return res
 
 
 def phase_timing_gmm_bwd(card: str, passes: dict) -> dict:
@@ -2360,25 +2399,38 @@ def ssd_bwd_work(b, nc, l, h, p, n) -> tuple[int, int]:
     return flops, nbytes
 
 
+def ssd_bwd_issued(b, nc, l, h, p, n) -> int:
+    """The bf16 tensor-core work the SSD backward issues, x in bf16
+    (ssd_intra_chunk_bwd.cu's table of products): each product at the
+    function's size times its part-products (three with X, six for f32 x
+    f32), dM twice (the per-head kernel and dCB's), C B^T once on FMAs.
+    Printed beside the function's work, never in its bound."""
+    pairs = l * (l + 1) // 2
+    dm, state = 2 * pairs * p, 2 * l * n * p
+    per_head = dm * (3 + 3) + dm * 6 + state * 6 + state * 3
+    return b * nc * (h * per_head + 2 * pairs * n * (6 + 6 + 1))
+
+
 # the SSD backward's launches by part (ssd_intra_chunk_bwd.cu); its C B^T
 # launch is the forward's kernel taking the backward's BwdArgs
 SSD_BWD_PARTS = {"per head": ("ssd_bwd_head",), "dCB": ("ssd_bwd_dcb",),
-                 "dB, dC": ("ssd_bwd_bc",), "C B^T": ("ssd_cb_kernel",)}
+                 "state term": ("ssd_bwd_state",), "dB, dC": ("ssd_bwd_bc",),
+                 "C B^T": ("ssd_cb_kernel",)}
+# the shapes phase 6 times it at: mamba2-780m's and zamba2-2.7b's training
+SSD_BWD_TIMED = {"mamba2": SSD_BWD_TRAIN, "zamba2": SSD_BWD_ZAMBA2}
 
 
-def phase_timing_ssd_bwd(card: str, parts: dict) -> dict:
-    """The SSD backward at mamba2-780m's training shape (SSD_BWD_TRAIN), x
-    bf16: a call of its binding (the checks of ``SSDIntraChunk`` stay
-    outside the timed call), in three rounds taken in turns with its
-    yardstick, autograd's backward of the f32 ``bmm`` spelling of the plain
-    forward (M and the state weights built from the inputs, then two
-    ``bmm``; never called by the port); the call replayed from a CUDA graph;
-    ``parts``, each launch's device time from ``ssd_bwd_parts``; the plain
-    backward."""
+def ssd_bwd_time(shape, card: str, parts: dict | None) -> dict:
+    """The SSD backward at ``shape``, x bf16: a call of its binding (the
+    checks of ``SSDIntraChunk`` stay outside the timed call), in three
+    rounds taken in turns with its yardstick, autograd's backward of the f32
+    ``bmm`` spelling of the plain forward (M and the state weights built
+    from the inputs, then two ``bmm``; never called by the port); the call
+    replayed from a CUDA graph; ``parts``, each launch's device time from
+    ``ssd_bwd_parts``; the plain backward."""
     from repro_torch.kernels.ssd import ssd_intra_chunk_backward_reference
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_bwd_cuda
     gen = torch.Generator("cuda").manual_seed(16)
-    shape = SSD_BWD_TRAIN
     b, nc, l, h, p, n = shape
     x = ssd_inputs(*shape, True, gen)
     dy, ds = ssd_cotangents(shape, "both", gen)
@@ -2421,6 +2473,7 @@ def phase_timing_ssd_bwd(card: str, parts: dict) -> dict:
     plain_ms = time_ms(lambda: ssd_intra_chunk_backward_reference(
         *x, dy, ds), 2, warmup=1)
     flops, nbytes = ssd_bwd_work(*shape)
+    issued = ssd_bwd_issued(*shape)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_f32 = flops / PEAK_F32_FLOPS * 1e3
@@ -2430,8 +2483,9 @@ def phase_timing_ssd_bwd(card: str, parts: dict) -> dict:
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "f32_fma_bound_ms": max(t_f32, t_bytes), "bytes_bound_ms": t_bytes,
-           "parts_ms": parts,
-           "flops": flops, "bytes": nbytes}
+           "parts_ms": parts, "flops": flops, "bytes": nbytes,
+           "issued_flops": issued,
+           "issued_tflops": issued / device_ms / 1e9}
     say(f"[timing] {tag} (B, NC, L, H, P, N) x bf16: kernel "
         f"{res['ms']:.4f} ms (median; replayed from a CUDA graph "
         f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, yardstick "
@@ -2442,13 +2496,48 @@ def phase_timing_ssd_bwd(card: str, parts: dict) -> dict:
         f"({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB), on f32 FMAs "
         f"{res['f32_fma_bound_ms']:.4f} ms; {flops / res['ms'] / 1e9:.2f} "
         f"TFLOP/s achieved, {100 * res['bound_ms'] / res['ms']:.1f}% of "
-        f"bound, graph {100 * res['bound_ms'] / device_ms:.1f}% [{card}]")
+        f"bound, graph {100 * res['bound_ms'] / device_ms:.1f}%; issued "
+        f"(the split's part-products, dM twice) {issued / 1e9:.2f} GFLOP, "
+        f"{res['issued_tflops']:.1f} TFLOP/s on the graph's time [{card}]")
     say(f"[timing] {tag}: launches, device ms "
         + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f}")
-                    for k, v in res["parts_ms"].items()))
+                    for k, v in (parts or {}).items()))
     del x, dy, ds, leaves, outs, cots
     torch.cuda.empty_cache()
     return res
+
+
+def phase_timing_ssd_bwd(card: str, parts: dict) -> dict:
+    """The SSD backward at mamba2-780m's training shape (its numbers at the
+    top level) and at zamba2-2.7b's (under "zamba2"), each by
+    ``ssd_bwd_time`` with its launches' device times from ``parts``."""
+    res = ssd_bwd_time(SSD_BWD_TIMED["mamba2"], card, parts.get("mamba2"))
+    res["zamba2"] = ssd_bwd_time(SSD_BWD_TIMED["zamba2"], card,
+                                 parts.get("zamba2"))
+    return res
+
+
+def ssd_fwd_digest() -> dict:
+    """sha256 of the SSD forward's y and states at fixed inputs, one case a
+    body (bf16 x by cp.async, bf16 x by plain loads, f32 x): a change to code
+    the forward compiles must leave these bit for bit."""
+    import hashlib
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    saved = ssd_intra_chunk.launches
+    gen = torch.Generator("cuda").manual_seed(7)
+    out = {}
+    for label, shape, bf, layout in (
+            ("bf16", SSD_TIMED, True, "contiguous"),
+            ("bf16 unaligned", (1, 2, 200, 6, 64, 128), True, "unaligned"),
+            ("f32", (1, 2, 128, 4, 64, 64), False, "contiguous")):
+        x = ssd_inputs(*shape, bf, gen, 0.01, layout)
+        y, st = ssd_intra_chunk(*x)
+        out[label] = hashlib.sha256(y.cpu().numpy().tobytes()
+                                    + st.cpu().numpy().tobytes()).hexdigest()
+    ssd_intra_chunk.launches = saved
+    say("[kernels] ssd_intra_chunk forward's outputs, sha256: "
+        + "; ".join(f"{k} {v[:16]}" for k, v in out.items()))
+    return out
 
 
 def ssd_only(card: str) -> int:
@@ -2463,10 +2552,14 @@ def ssd_only(card: str) -> int:
              if k in _build.SOURCES]       # another checkout may lack one
     _build.build_all(names)
     for name in names:
-        for ln in _build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln or "entry function" in ln:
-                say(f"[build] {name}: {ln.strip()}")
+        lines = [ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
+        say(f"[build] {name} by instantiation: "
+            + "; ".join(f"{k}: {v}" for k, v in
+                        instantiations(lines).items()))
     out = {"src": str(Path(repro_torch.__file__).parents[1]),
+           "fwd_sha256": ssd_fwd_digest(),
            "max_abs_err": phase_ssd(), "ssd_timing": phase_timing_ssd(card)}
     if "ssd_intra_chunk_bwd" in names:
         out["bwd_max_abs_err"] = phase_ssd_backward()
@@ -2614,7 +2707,13 @@ def main(argv: list[str]) -> int:
         **{k: ssd_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "yardstick_ms",
                                    "f32_fma_bound_ms", "bytes_bound_ms",
-                                   "graph_ms", "shape", "parts_ms")},
+                                   "graph_ms", "shape", "parts_ms",
+                                   "issued_tflops")},
+        # zamba2-2.7b's training shape beside mamba2-780m's
+        "zamba2": {k: ssd_bwd["zamba2"][k] for k in
+                   ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "yardstick_ms", "parts_ms",
+                    "issued_tflops")},
     }]
     record = ROOT / "chiprun_out" / "chip_smoke.json"
     record.parent.mkdir(exist_ok=True)

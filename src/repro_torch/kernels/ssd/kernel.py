@@ -21,10 +21,11 @@ _P = ctypes.c_void_p
 # N, strides of x, dt, cum (4 each), B, C (3 each), packed as int64 | stream
 _ARGTYPES = [_P] * 8 + [ctypes.c_char_p, _P]
 _DIMS = struct.Struct("<25q")
-# the backward: 14 pointers (x, dt, cum, B, C, dy, dS, dx, d dt, d cum, dB,
-# dC, the C·Bᵀ and dCB scratches) | the forward's dims | stream
+# the backward: 15 pointers (x, dt, cum, B, C, dy, dS, dx, d dt, d cum, dB,
+# dC, the C·Bᵀ scratch and the dCB and state-term group partials) | the
+# forward's dims | stream
 _BWD_ARGTYPES = [ctypes.POINTER(_P), ctypes.c_char_p, _P]
-_BWD_PTRS = _P * 14
+_BWD_PTRS = _P * 15
 _TILE = 64        # the scratches hold L x L at L rounded up to this
 _LIB: ctypes.CDLL | None = None
 _BWD_LIB: ctypes.CDLL | None = None
@@ -46,6 +47,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib = _build.load(BWD_NAME)
         lib.ssd_intra_chunk_bwd.argtypes = _BWD_ARGTYPES
         lib.ssd_intra_chunk_bwd.restype = ctypes.c_int
+        lib.ssd_bwd_groups.argtypes = [ctypes.c_int]
+        lib.groups = (lib.ssd_bwd_groups(0), lib.ssd_bwd_groups(1))
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -99,7 +102,8 @@ def ssd_intra_chunk_bwd_cuda(xc: torch.Tensor, dtc: torch.Tensor,
     on the current stream; inputs and the contiguous f32 cotangents ``dy``
     (B,NC,L,H,P) and ``dstates`` (B,NC,H,N,P) are already checked by
     ``ops.SSDIntraChunk``.  Returns (dxc in xc's dtype, d dtc, d cum, d bc,
-    d cc), all contiguous."""
+    d cc), all contiguous.  The dCB and state-term scratches hold one
+    partial per head group of their kernels (the library says how many)."""
     b, nc, l, h, p = xc.shape
     n = bc.shape[-1]
     lp = -(-l // _TILE) * _TILE
@@ -112,10 +116,11 @@ def ssd_intra_chunk_bwd_cuda(xc: torch.Tensor, dtc: torch.Tensor,
     dbc = torch.empty((b, nc, l, n), **f32)
     dcc = torch.empty((b, nc, l, n), **f32)
     cb = torch.empty((b * nc, lp, lp), **f32)
-    dcb = torch.empty((b * nc, lp, lp), **f32)
+    dcb = torch.empty((lib.groups[0], b * nc, lp, lp), **f32)
+    dst = torch.empty((lib.groups[1], b * nc, l, n), **f32)
     ptrs = _BWD_PTRS(*(t.data_ptr() for t in (
         xc, dtc, cum, bc, cc, dy, dstates, dx, ddt, dcum, dbc, dcc, cb,
-        dcb)))
+        dcb, dst)))
     err = _call(lib.ssd_intra_chunk_bwd, dev, ptrs,
                 _dims(xc, dtc, cum, bc, cc))
     _build.check(lib, BWD_NAME, err)

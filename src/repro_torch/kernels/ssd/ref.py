@@ -5,8 +5,10 @@ form must match.  ``ssd_intra_chunk_reference`` is the CPU path of
 ``ops.ssd_intra_chunk`` and the oracle the CUDA kernel is held against on the
 card; ``ssd_intra_chunk_backward_reference`` is the same for its backward.
 All do their math in f32 (f64 inputs stay f64).  ``split3_bf16`` is
-the split of an f32 operand into three bf16 parts that the CUDA kernel runs
-its tensor-core products on; the tests hold the scheme against f64 sums."""
+the split of an f32 operand into three bf16 parts that the CUDA kernels run
+their tensor-core products on, and ``split_matmul`` a product summed from
+such parts as the kernels sum it; the tests hold the scheme against f64
+sums (nothing on the main path calls either)."""
 from __future__ import annotations
 
 import torch
@@ -144,3 +146,23 @@ def split3_bf16(t: torch.Tensor):
     mid = r.to(torch.bfloat16)
     lo = (r - mid.float()).to(torch.bfloat16)
     return hi, mid, lo
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, a_parts: int = 3,
+                 b_parts: int = 3, order: int = 2) -> torch.Tensor:
+    """``a @ b`` (f32, batched) as the CUDA kernels compute it on bf16
+    tensor cores: each operand cut into its first ``a_parts`` / ``b_parts``
+    bf16 parts (``split3_bf16``; one part for an operand that holds bf16
+    values, which the first part carries exactly), the part-products
+    ``a_q @ b_r`` with ``q + r <= order`` (a part-product weighs about
+    2^-8(q + r) of the whole: order 2 keeps those down to 2^-16), each
+    summed in f32 and added into an f32 sum, the lightest first."""
+    ap = [t.float() for t in split3_bf16(a)[:a_parts]]
+    bp = [t.float() for t in split3_bf16(b)[:b_parts]]
+    out = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (a.shape[-2], b.shape[-1]), dtype=torch.float32)
+    for s in range(order, -1, -1):
+        for q, aq in enumerate(ap):
+            if 0 <= s - q < len(bp):
+                out = out + aq @ bp[s - q]
+    return out

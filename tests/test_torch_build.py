@@ -18,6 +18,7 @@ USERS = {
     "csrc/sm90.cuh": {"flash_attn_fwd", "flash_attn_bwd", "moe_gmm_bwd"},
     "moe_gmm/csrc/gmm_common.cuh": {"moe_gmm", "moe_gmm_bwd"},
     "ssd/csrc/ssd_cb.cuh": {"ssd_intra_chunk", "ssd_intra_chunk_bwd"},
+    "ssd/csrc/ssd_mma.cuh": {"ssd_intra_chunk", "ssd_intra_chunk_bwd"},
 }
 
 

@@ -24,6 +24,7 @@ from repro_torch.kernels.ssd import (  # noqa: E402
     SSDIntraChunk, ssd_intra_chunk, ssd_intra_chunk_backward_reference,
     ssd_intra_chunk_reference)
 from repro_torch.kernels.ssd import ops  # noqa: E402
+from repro_torch.kernels.ssd.ref import NEG_INF, split_matmul  # noqa: E402
 
 # tests/test_kernels.py:94-97, atol scaled to each gradient's max |value|
 # as chip_smoke.py holds the kernel (f32 on both sides here: only the order
@@ -225,3 +226,109 @@ def test_check_cuda_inputs_checks_cotangents():
         with pytest.raises(ValueError, match="cotangent"):
             ops._check_cuda_inputs(*tx, bad_dy, bad_ds)
 
+
+
+# ---------------------------------------------------------------------------
+# The numerics of the CUDA backward's products (ssd_intra_chunk_bwd.cu's
+# table): bf16 tensor-core products at f32 accuracy, each f32 operand split
+# into three bf16 parts (an operand holding bf16 values, X from a bf16 x, is
+# one), the part-products down to 2^-16 summed lightest first
+# (``split_matmul``), held against f64 sums of the same f32 operands beside
+# the plain f32 product.  Sizes: tests/test_kernels.py's SSD cases, which
+# chip_smoke.py's phase 3 runs too, (B, NC, L, H, P, N).
+SPLIT_CASES = [(2, 2, 16, 4, 8, 16), (1, 4, 32, 2, 16, 8),
+               (2, 1, 64, 8, 32, 32), (1, 2, 128, 4, 64, 64)]
+SSD_ROW_REL = 1e-4           # chip_smoke.py's bound on a row's rms error
+PRODUCTS = ["dM^T = X dy^T", "dM^T = X dy^T, x f32", "dX += M^T dy",
+            "U = B dS", "X dS^T", "X dS^T, x f32", "dC = dCB B",
+            "dB = dCB^T C"]
+
+
+def _products(shape, seed=0):
+    """product -> (A, B, A's parts, B's parts), f32 operands batched over
+    (b, c, h) or (b, c), built as the backward builds them: M = CB * E *
+    dt_j and dCB = sum_h dM * E * dt_j from the plain formulas, X holding
+    bf16 values but for the "x f32" products."""
+    b, nc, l, h, p, n = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*dims):
+        return torch.tensor(rng.standard_normal(dims, np.float32))
+    x32 = draw(b, nc, h, l, p)
+    x16 = x32.to(torch.bfloat16).float()
+    dy, ds = draw(b, nc, h, l, p), draw(b, nc, h, n, p)
+    bm, cm = draw(b, nc, l, n), draw(b, nc, l, n)
+    dt = torch.nn.functional.softplus(draw(b, nc, h, l))
+    cum = torch.cumsum(-0.1 * dt, -1)
+    causal = torch.tril(torch.ones(l, l, dtype=torch.bool))
+    e = torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                              NEG_INF))                       # (b,nc,h,i,j)
+    m = (cm @ bm.transpose(-1, -2))[:, :, None] * e * dt[..., None, :]
+    dcb = ((dy @ x16.transpose(-1, -2)) * e * dt[..., None, :]).sum(2)
+    return {
+        "dM^T = X dy^T": (x16, dy.transpose(-1, -2), 1, 3),
+        "dM^T = X dy^T, x f32": (x32, dy.transpose(-1, -2), 3, 3),
+        "dX += M^T dy": (m.transpose(-1, -2), dy, 3, 3),
+        "U = B dS": (bm[:, :, None], ds, 3, 3),
+        "X dS^T": (x16, ds.transpose(-1, -2), 1, 3),
+        "X dS^T, x f32": (x32, ds.transpose(-1, -2), 3, 3),
+        "dC = dCB B": (dcb, bm, 3, 3),
+        "dB = dCB^T C": (dcb.transpose(-1, -2), cm, 3, 3),
+    }
+
+
+def _cancelling(a, b, seed=1):
+    """(A, B) rebuilt so that every row of A B cancels to about 1% of its
+    terms: A's second half of columns the negated first, B's second half
+    of rows the first times 1 + 0.01 noise."""
+    rng = np.random.default_rng(seed)
+    k = a.shape[-1] // 2
+    noise = torch.tensor(rng.standard_normal(b[..., :k, :].shape, np.float32))
+    a = torch.cat([a[..., :k], -a[..., :k]], -1)
+    b = torch.cat([b[..., :k, :], b[..., :k, :] * (1 + 0.01 * noise)], -2)
+    return a, b
+
+
+def _row_rel(got, want):
+    """The largest rms(got - want) / rms(want) over the rows (last dim)."""
+    err = (got.double() - want).pow(2).mean(-1).sqrt()
+    return float((err / want.pow(2).mean(-1).sqrt().clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("cancel", [False, True],
+                         ids=["rows", "rows that cancel"])
+@pytest.mark.parametrize("product", PRODUCTS)
+@pytest.mark.parametrize("shape", SPLIT_CASES, ids=str)
+def test_split_products_stay_near_f64(shape, product, cancel):
+    """Each product from its parts, as the kernel sums them: every row
+    within SSD_ROW_REL of the f64 sum, and no more than 4x as far from it
+    as the plain f32 product."""
+    a, b, ap, bp = _products(shape)[product]
+    if cancel:
+        a, b = _cancelling(a, b)
+    exact = a.double() @ b.double()
+    split = _row_rel(split_matmul(a, b, ap, bp), exact)
+    plain = _row_rel(a @ b, exact)
+    assert split < SSD_ROW_REL, (split, plain)
+    assert split <= 4 * plain, (split, plain)
+
+
+def test_two_part_split_misses_the_row_bound():
+    """Why three parts: with two (about 16 bits of each operand; every
+    part-product kept) rows that cancel to 1% of their terms miss
+    SSD_ROW_REL, where three parts at the kernel's order stay within it
+    (observed on the CPU: two 5.6e-4, three 1.8e-5).  At the largest test
+    case's M^T dy."""
+    a, b, _, _ = _products(SPLIT_CASES[-1])["dX += M^T dy"]
+    a, b = _cancelling(a, b)
+    exact = a.double() @ b.double()
+    two = _row_rel(split_matmul(a, b, 2, 2, order=2), exact)
+    three = _row_rel(split_matmul(a, b), exact)
+    assert two > SSD_ROW_REL > three, (two, three)
+
+
+def test_split_matmul_of_bf16_values_is_one_part():
+    """An operand holding bf16 values is exact as its first part: with one
+    part of it, the product equals the three-part product of it."""
+    a, b, _, _ = _products(SPLIT_CASES[1])["X dS^T"]
+    assert torch.equal(split_matmul(a, b, 1, 3), split_matmul(a, b, 3, 3))
