@@ -21,7 +21,9 @@ result line):
    attention: hd-128 prefill shapes, the served prompts of deepseek-7b,
    llama4-scout and zamba2-2.7b (hd 80), whisper-medium's decoder and
    llava-next's 2880 patches + prompt, bf16 cases for every branch of the
-   wgmma kernel at hd 64 and 128, and f32 and bf16 cases at hd 80; the
+   wgmma kernel at hd 64 and 128, f32 and bf16 cases at hd 80, and
+   whisper's non-causal attentions at hd 64 and 128 (its encoder over 1500
+   frames, its cross-attention with T > S, T ragged, and T < S); the
    grouped expert FFN: llama4-scout's prefill of each served prompt and its
    decode step, a 768-token prefill, arctic's expert widths, and buffers
    with dead experts and dead rows as the MoE dispatch leaves them, whose
@@ -39,11 +41,12 @@ result line):
    deepseek-7b's training shape (2, 2048, 32, 128), GQA with a window of
    256, a kv prefix (T > S), hd 80, f32 at the smoke configs' hd 16, one
    partial tile, GQA at hd 64 with a window over several tiles,
-   granite-34b's MQA (48:1) at hd 128 and llama4-scout's training shape
-   (GQA 5:1); with an f64 sum at two shapes as the yardstick of rounding;
-   and a second call at the training shape and the windowed GQA cases,
-   which must give bit-identical dq, dk, dv.  The grouped FFN's backward
-   through ``GroupedFFN`` against its plain version in f32 (llama4-scout's
+   granite-34b's MQA (48:1) at hd 128, llama4-scout's training shape
+   (GQA 5:1), and whisper's non-causal cases on the wgmma body and in f32
+   at hd 64; with an f64 sum at two shapes as the yardstick of rounding;
+   and a second call at the training shape, the windowed GQA cases and
+   whisper's encoder, which must give bit-identical dq, dk, dv.  The
+   grouped FFN's backward through ``GroupedFFN`` against its plain version in f32 (llama4-scout's
    training shape, arctic's expert widths, dead experts and rows as the
    dispatch leaves them, gelu with zero X rows under nonzero dY rows,
    ragged D and F, f32 at the smoke widths, B = 3 with C = 100, gelu on
@@ -66,10 +69,12 @@ result line):
    logits within rel 5e-4.  Training, from one initial state (f32 smoke
    deepseek-7b, phi4-mini-3.8b (GQA), gemma3-27b (window), llama4-scout and
    arctic-480b (MoE, the grouped FFN's backward kernel), mamba2-780m and
-   zamba2-2.7b (the SSD backward kernel)): the step-1 gradients leaf by
-   leaf within 1e-4 with one backward call a layer of each kernel, 3
-   trainer steps' losses within rel 1e-4, and the card's checkpoint
-   restored on the CPU.  And deepseek-7b at
+   zamba2-2.7b (the SSD backward kernel), whisper-medium (frames; flash
+   non-causal in its encoder and cross-attention) and llava-next
+   (patches)): the step-1 gradients leaf by leaf within 1e-4 with one
+   backward call a layer of each kernel, 3 steps' losses (the trainer's;
+   whisper's and llava's through ``make_train_step``) within rel 1e-4, and
+   the card's checkpoint restored on the CPU.  And deepseek-7b at
    full width cut to 2 layers, bf16 against f32 on the card from one state
    at the training shape: the step-1 loss and gradients and 3 steps'
    losses (the bf16 kernels through the model, the f32 ones as yardstick).
@@ -79,8 +84,10 @@ result line):
    layers (bf16, 57 GB of weights; all 48 do not fit one card),
    mamba2-780m and zamba2-2.7b at their full width and depth (bf16).
    Served by the batched loop of ``launch/serve.py`` (their prefill takes
-   frames or patches besides tokens): whisper-medium and
-   llava-next-mistral-7b at full width and depth (bf16).
+   frames or patches besides tokens): whisper-medium (72 flash launches a
+   prefill: 24 encoder, 24 decoder, 24 cross; and one prefill's peak memory
+   with the non-causal attentions on the kernel and on the plain version)
+   and llava-next-mistral-7b at full width and depth (bf16).
 5b. the training path: ``Trainer`` on deepseek-7b at its full width and
    depth (30 layers, bf16, remat "full", AdamW with bf16 moments), 6 steps
    of 2 x 2048 tokens, every launch counted from 0 (60 flash forwards and
@@ -98,17 +105,26 @@ result line):
    forwards, 54 backwards, 18 flash forwards at hd 80, 9 backwards) at
    their full width and depth; their profiled steps split out the SSD
    forward and backward.
+5f, 5g. the encoder-decoder and the VLM trained through
+   ``launch/steps.make_train_step`` and AdamW (bf16 moments; ``Trainer``'s
+   loader makes tokens only), at full width and depth, 6 steps:
+   whisper-medium at 8 x (1500 frames + 448 decoder tokens), a step 144
+   flash forwards and 72 backwards; llava-next at 2 x (2880 patches + 1216
+   tokens), 64 and 32; ms per step, label tokens/s (and llava's
+   positions/s), peak memory, a profiled step, AdamW alone.
 6. kernel timing with CUDA events beside the plain version, a PyTorch
    yardstick, and the card's bound for the same work (flash attention at
-   (1, 2048, 32, 128), at deepseek's longest served prefill and at
-   zamba2's (hd 80); the grouped FFN at decode with the served occupancy
+   (1, 2048, 32, 128), at deepseek's longest served prefill, at zamba2's
+   (hd 80) and non-causal at whisper's encoder (8, 1500, 16, 64); the
+   grouped FFN at decode with the served occupancy
    of 4 live experts, at decode with every row filled, and at the longest
    served prompt's prefill, each bound over the bytes of the live
    experts; the SSD kernel at mamba2's
    longest served prefill and at its one-chunk prompts of 254 and 92
    tokens; the flash backward's wgmma body at the training shape and at
    phi4-mini's GQA (2, 2048, 24, 8, 128), each beside the mma.sync body
-   (asked for by name) and autograd's backward of SDPA; the grouped FFN's
+   (asked for by name) and autograd's backward of SDPA, and non-causal at
+   whisper's encoder beside SDPA's backward; the grouped FFN's
    backward (with each pass's device time) and forward at llama4-scout's
    training shape with every row live, beside autograd's backward of the
    bmm yardstick and the yardstick; the SSD backward at mamba2-780m's and
@@ -190,15 +206,26 @@ HD80_CASES = [(b, s, t, h, k, 80, c, w) for b, s, t, h, k, c, w in [
     (1, 100, 100, 4, 4, True, 0), (2, 32, 128, 4, 1, True, 0),
     (1, 700, 700, 8, 2, True, 256), (1, 64, 64, 4, 2, True, 0),
     (1, 200, 200, 2, 2, False, 0), (1, 663, 663, 8, 8, True, 0)]]
+# whisper's non-causal attentions (its encoder and its cross-attention) on
+# the wgmma kernels, bf16 at hd 64 and 128: 448 decoder rows (whisper's
+# max_target_positions) against 1500 frames (T > S, T not a multiple of the
+# 128-row kv tile), and fewer keys than rows (T < S); with the served
+# encoder and cross-attention shapes (phase_kernels) and, in the backward,
+# the encoder's (4, 1500, 1500) beside them
+NON_CAUSAL_CASES = [(b, s, t, h, k, hd, False, 0) for hd in (64, 128)
+                    for b, s, t, h, k in [(2, 448, 1500, 16, 16),
+                                          (1, 300, 100, 4, 4)]]
+WHISPER_ENCODER = (4, 1500, 1500, 16, 16, 64, False, 0)
 # bf16 shapes at which the kernel and the plain version are each held
-# against an f64 sum (B, S, H, K, hd; causal, T = S): deepseek's shortest
+# against an f64 sum (B, S, H, K, hd, causal; T = S): deepseek's shortest
 # served prompt (one partial tile), the timed shape, zamba2's longest
-# prompt at hd 80, whisper's decoder and llava's prefill
-FLASH_FLOORS = {"deepseek 75": (1, 75, 32, 32, 128),
-                "S 2048": (1, 2048, 32, 32, 128),
-                "zamba2 663": (1, 663, 32, 32, 80),
-                "whisper decoder": (4, 64, 16, 16, 64),
-                "llava prefill": (4, 2944, 32, 8, 128)}
+# prompt at hd 80, whisper's decoder, llava's prefill and whisper's encoder
+FLASH_FLOORS = {"deepseek 75": (1, 75, 32, 32, 128, True),
+                "S 2048": (1, 2048, 32, 32, 128, True),
+                "zamba2 663": (1, 663, 32, 32, 80, True),
+                "whisper decoder": (4, 64, 16, 16, 64, True),
+                "llava prefill": (4, 2944, 32, 8, 128, True),
+                "whisper encoder": (4, 1500, 16, 16, 64, False)}
 F32_TOL = dict(atol=3e-5, rtol=1e-4)       # tests/test_kernels.py
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 # Bound on row_rel_err.  Late rows of a long causal prefill average many
@@ -213,7 +240,8 @@ MODEL_REL = 5e-4                           # tests/test_models.py:76
 # 80 in both dtypes; f32 at the smoke configs' hd 16 (MHA, and GQA with a
 # window); one partial tile; GQA (K 4) at hd 64 with a window of 256 over
 # several tiles; granite-34b's MQA (48:1) at hd 128; llama4-scout's training
-# shape, GQA 5:1
+# shape, GQA 5:1; whisper's non-causal cases on the wgmma body (bf16) and
+# at hd 64 in f32
 TRAIN_SHAPE = (2, 2048, 32, 32, 128)       # B, S, H, K, hd
 BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
              for b, s, t, h, k, hd, c, w in FLASH_CASES
@@ -228,15 +256,20 @@ BWD_CASES = [(b, s, t, h, k, hd, c, w, dt)
     (1, 20, 20, 4, 2, 64, True, 0, torch.bfloat16),
     (1, 1024, 1024, 16, 4, 64, True, 256, torch.bfloat16),
     (1, 512, 512, 48, 1, 128, True, 0, torch.bfloat16),
-    (2, 2048, 2048, 40, 8, 128, True, 0, torch.bfloat16)]
+    (2, 2048, 2048, 40, 8, 128, True, 0, torch.bfloat16)] + [
+    (*c, torch.bfloat16) for c in NON_CAUSAL_CASES + [WHISPER_ENCODER]] + [
+    (1, 96, 96, 2, 2, 64, False, 0, torch.float32)]
 # cases whose backward runs twice and must give bit-identical dq, dk, dv:
-# the training shape and the two windowed GQA cases
+# the training shape, the two windowed GQA cases and whisper's encoder
 BWD_REPEAT = [(2, 2048, 2048, 32, 32, 128, True, 0),
               (2, 1024, 1024, 32, 8, 128, True, 256),
-              (1, 1024, 1024, 16, 4, 64, True, 256)]
-# the backward's timed shapes (B, S, H, K, hd; bf16 causal): deepseek-7b's
-# training shape and phi4-mini's GQA at the same length
-BWD_TIMED = {"train": TRAIN_SHAPE, "phi4 gqa": (2, 2048, 24, 8, 128)}
+              (1, 1024, 1024, 16, 4, 64, True, 256), WHISPER_ENCODER]
+# the backward's timed shapes (B, S, H, K, hd, causal; bf16, T = S):
+# deepseek-7b's training shape, phi4-mini's GQA at the same length, and
+# whisper's encoder at its training batch (non-causal)
+BWD_TIMED = {"train": (*TRAIN_SHAPE, True),
+             "phi4 gqa": (2, 2048, 24, 8, 128, True),
+             "whisper encoder": (8, 1500, 16, 16, 64, False)}
 # bf16 shapes at which the backward and the plain one (f32) are each held
 # against the plain backward summed in f64 (B, S, H, K, hd; causal)
 BWD_FLOORS = {"S 2048": (1, 2048, 32, 32, 128), "hd 80": (1, 663, 32, 32, 80)}
@@ -248,7 +281,14 @@ GRAD_ROW_FLOOR = 0.1
 # 2 x 2048 tokens; AdamW's moments in bf16 (f32 moments need 82.9 GB)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "deepseek-7b", 6, 2, 2048
 TRAIN_SMOKE = ("deepseek-7b", "phi4-mini-3.8b", "gemma3-27b", LLAMA4,
-               "arctic-480b", MAMBA2, ZAMBA2)
+               "arctic-480b", MAMBA2, ZAMBA2, WHISPER, LLAVA)
+# 5f, 5g: the encoder-decoder and the VLM at full width and depth, trained
+# through make_train_step (their batches carry frames or patches, which the
+# Trainer's token loader does not make): (batch, text tokens).  whisper-
+# medium: 8 x (1500 frames + 448 decoder tokens, its published
+# max_target_positions); llava-next: input_specs' train_4k layout, 2 x (2880
+# patches + 1216 tokens) = 2 x 4096 positions
+BATCHED_TRAIN = {WHISPER: (8, 448), LLAVA: (2, 4096 - 2880)}
 # the MoE training path: llama4-scout at its full widths, cut to 2 of its 48
 # layers (6.47 G parameters: with gradients and two bf16 moments 51.8 GB; a
 # third layer brings that to 69 GB, which leaves no room for activations)
@@ -673,6 +713,15 @@ def phase_kernels() -> float:
         s = BATCH_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
         cases.append((BATCH, s, s, cfg.n_heads, cfg.n_kv_heads,
                       cfg.head_dim, True, 0, torch.bfloat16, True))
+    # whisper's non-causal attentions (drawn after every earlier case): the
+    # cases of NON_CAUSAL_CASES, and the batched path's encoder over its
+    # frames and cross-attention of the prompt against them
+    cfg = get_config(WHISPER)
+    cases += [(*c, torch.bfloat16, False) for c in NON_CAUSAL_CASES]
+    cases += [(BATCH, s, cfg.enc_len, cfg.n_heads, cfg.n_kv_heads,
+               cfg.head_dim, False, 0, torch.bfloat16, True)
+              for s in (cfg.enc_len, BATCH_PROMPT)]
+    assert cases[-2][:8] == WHISPER_ENCODER
 
     def run(b, s, t, h, k, hd, causal, window, dtype):
         q, kk, v = qkv(b, s, t, h, k, hd, dtype, gen)
@@ -688,14 +737,16 @@ def phase_kernels() -> float:
     # against the plain version summed in f64 on the same bf16 inputs; the
     # kernel's worst row may be no farther from it than the plain one's
     fgen = torch.Generator("cuda").manual_seed(7)
-    for label, (b, s, h, k, hd) in FLASH_FLOORS.items():
+    for label, (b, s, h, k, hd, causal) in FLASH_FLOORS.items():
         q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, fgen)
-        exact = attention_reference(q.double(), kk.double(), v.double())
-        kernel = row_rel_err(flash_attention(q, kk, v), exact)
-        plain = row_rel_err(attention_reference(q, kk, v), exact)
-        say(f"[kernels] flash_attn_fwd {label} {(b, s, h, k, hd)} bf16: row "
-            f"rel err against an f64 sum: kernel {kernel:.3e}, plain "
-            f"{plain:.3e}")
+        exact = attention_reference(q.double(), kk.double(), v.double(),
+                                    causal=causal)
+        kernel = row_rel_err(flash_attention(q, kk, v, causal=causal), exact)
+        plain = row_rel_err(attention_reference(q, kk, v, causal=causal),
+                            exact)
+        say(f"[kernels] flash_attn_fwd {label} {(b, s, h, k, hd)} bf16 "
+            f"{'causal' if causal else 'non-causal'}: row rel err against "
+            f"an f64 sum: kernel {kernel:.3e}, plain {plain:.3e}")
         assert kernel <= plain, f"flash {label}: kernel farther from f64"
         del q, kk, v, exact
     torch.cuda.empty_cache()
@@ -1267,17 +1318,82 @@ def batched_card_vs_cpu(arch: str, steps: int = 8) -> None:
         f"equal")
 
 
+def side_inputs(cfg, b: int, gen: torch.Generator) -> dict:
+    """What a batch of ``cfg`` carries besides tokens: frames (B, enc_len,
+    d_model) for the encoder-decoder, patches (B, n_patches, 1024) for the
+    VLM, 0.1 N(0, 1) in f32 from ``gen`` on its device, as
+    ``launch/serve.py::make_batch`` draws them; nothing for the others."""
+    from repro_torch.models.lm import PATCH_DIM
+    shape = {"encdec": ("frames", (b, cfg.enc_len, cfg.d_model)),
+             "vlm": ("patches", (b, cfg.n_patches, PATCH_DIM))}
+    if cfg.family not in shape:
+        return {}
+    key, dims = shape[cfg.family]
+    return {key: 0.1 * torch.randn(dims, generator=gen,
+                                   device=gen.device)}
+
+
+def train_state(cfg, dev, state: dict, opt):
+    """A model of ``cfg`` on ``dev`` loaded with a copy of ``state``, and
+    its training state {"params", "opt"} with zero moments, as
+    ``Trainer.init_state`` gives it."""
+    from repro_torch.models import Model
+    model = Model(cfg, device=dev).load_state(
+        {n: x.to(dev, copy=True) for n, x in state.items()})
+    params = dict(model.named_parameters())
+    return model, {"params": params, "opt": opt.init(params)}
+
+
+def train_side_inputs(cfg, dev, state: dict, tcfg: dict, ckpt_dir: str):
+    """For the encoder-decoder and the VLM, which ``Trainer`` refuses, what
+    ``Trainer.run`` does for the others: ``tcfg``'s steps of
+    ``make_train_step`` from ``state`` with Trainer's default AdamW
+    schedule, tokens and labels from the synthetic corpus through the
+    prefetching loader, frames or patches from a CPU generator seeded 3
+    (copied to ``dev``), the checkpoint saved after the last step.  Returns
+    (state, losses)."""
+    from repro_torch.data import PrefetchingLoader, SyntheticCorpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.runtime import CheckpointManager
+    steps, b, seq = tcfg["steps"], tcfg["batch"], tcfg["seq_len"]
+    opt = AdamW(AdamWConfig(warmup_steps=max(steps // 10, 1),
+                            total_steps=steps))
+    model, st = train_state(cfg, dev, state, opt)
+    step_fn = make_train_step(model, opt)
+    gen = torch.Generator().manual_seed(3)
+    loader = PrefetchingLoader(
+        SyntheticCorpus(cfg.vocab, seq, seed=0), b, seq,
+        to_device=lambda x: torch.as_tensor(x, dtype=torch.int64).to(dev))
+    losses = []
+    try:
+        for _ in range(steps):
+            batch = next(loader)
+            batch.update({k: v.to(dev) for k, v in
+                          side_inputs(cfg, b, gen).items()})
+            st, metrics = step_fn(st, batch)
+            losses.append(float(metrics["loss"]))
+    finally:
+        loader.close()
+    CheckpointManager(ckpt_dir).save(steps - 1, st)
+    return st, losses
+
+
 def train_card_vs_cpu() -> None:
     """Training on the card against the same code on the CPU, f32 smoke
     configs from one initial state: the step-1 gradients leaf by leaf (with
     one backward call a layer of each kernel the family runs: flash, the
-    grouped FFN, SSD), the losses of 3 trainer steps, and the card's
-    checkpoint restored on the CPU equal to the card's state."""
+    grouped FFN, SSD; whisper's three attentions a decoder layer and one an
+    encoder layer), the losses of 3 trainer steps (whisper and llava
+    through ``make_train_step``, with frames or patches, as ``Trainer``
+    refuses them), and the card's checkpoint restored on the CPU equal to
+    the card's state."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gmm import grouped_ffn
     from repro_torch.kernels.ssd import ssd_intra_chunk
     from repro_torch.models import Model
+    from repro_torch.optim import AdamW, AdamWConfig
     from repro_torch.runtime import CheckpointManager, TrainConfig, Trainer
     from repro_torch.runtime.checkpoint import flatten_state
     for arch in TRAIN_SMOKE:
@@ -1285,6 +1401,7 @@ def train_card_vs_cpu() -> None:
         state = Model(cfg, device="cpu").init(
             torch.Generator().manual_seed(0)).state_dict()
         toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 33))
+        extra = side_inputs(cfg, 2, torch.Generator().manual_seed(2))
         grads = []
         bwd = (flash_attention.backward_launches,
                grouped_ffn.backward_launches,
@@ -1294,7 +1411,8 @@ def train_card_vs_cpu() -> None:
                 {n: x.clone() for n, x in state.items()})
             loss, _ = model.train_loss(
                 {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
-                 "labels": torch.as_tensor(toks[:, 1:], device=dev)})
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev),
+                 **{k: v.to(dev) for k, v in extra.items()}})
             loss.backward()
             grads.append({n: p.grad for n, p in model.named_parameters()})
         # one backward call a layer on the card, none on the CPU
@@ -1310,14 +1428,20 @@ def train_card_vs_cpu() -> None:
         assert g_rel <= TRAIN_REL, f"{arch}: step-1 gradients {g_rel}"
         tcfg = dict(batch=2, seq_len=32, steps=3, ckpt_every=3, log_every=0)
         with tempfile.TemporaryDirectory() as d:
-            runs = {dev: Trainer(cfg, TrainConfig(
-                **tcfg, ckpt_dir=os.path.join(d, dev)), device=dev,
-                params=state).run() for dev in ("cpu", "cuda")}
+            if extra:
+                runs = {dev: train_side_inputs(cfg, dev, state, tcfg,
+                                               os.path.join(d, dev))
+                        for dev in ("cpu", "cuda")}
+                _, like = train_state(cfg, "cpu", state, AdamW(AdamWConfig()))
+            else:
+                runs = {dev: Trainer(cfg, TrainConfig(
+                    **tcfg, ckpt_dir=os.path.join(d, dev)), device=dev,
+                    params=state).run() for dev in ("cpu", "cuda")}
+                like = Trainer(cfg, TrainConfig(**tcfg), device="cpu",
+                               params=state).init_state()
             rel = max(abs(a - b) / abs(b) for a, b in
                       zip(runs["cuda"][1], runs["cpu"][1]))
             assert rel <= TRAIN_REL, f"{arch}: losses {runs}"
-            like = Trainer(cfg, TrainConfig(**tcfg), device="cpu",
-                           params=state).init_state()
             _, step = CheckpointManager(os.path.join(d, "cuda")).restore(like)
             card, back = flatten_state(runs["cuda"][0]), flatten_state(like)
             assert step == 2 and list(card) == list(back)
@@ -1325,7 +1449,9 @@ def train_card_vs_cpu() -> None:
                        for n in card), f"{arch}: checkpoint differs"
         say(f"[card-vs-cpu] {arch} smoke f32 training: step-1 gradients "
             f"{len(grads[0])} leaves, largest ||card - cpu|| / ||cpu|| "
-            f"{g_rel:.2e} (<= {TRAIN_REL}); 3 steps, losses "
+            f"{g_rel:.2e} (<= {TRAIN_REL}); 3 steps"
+            + (f" (make_train_step, with {', '.join(extra)})" if extra
+               else "") + ", losses "
             f"{[round(x, 6) for x in runs['cuda'][1]]}, largest rel "
             f"{rel:.2e} (<= {TRAIN_REL}); the card's checkpoint "
             f"({len(card)} leaves) restored on the CPU, equal")
@@ -1389,10 +1515,12 @@ def train_wide_bf16_vs_f32() -> dict:
 
 
 def attention_layers(cfg) -> int:
-    """The layers whose prefill runs flash attention: every layer, none
-    (ssm), the shared block once per ``attn_every`` layers (hybrid), or the
-    decoder's (encdec; the encoder's attention is not causal)."""
-    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)
+    """The flash attentions a full forward (a prefill) runs: one a layer,
+    none (ssm), the shared block once per ``attn_every`` layers (hybrid), or
+    for the encoder-decoder one an encoder layer and two a decoder layer
+    (its causal self-attention and its cross-attention)."""
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "encdec": cfg.enc_layers + 2 * cfg.n_layers
             }.get(cfg.family, cfg.n_layers)
 
 
@@ -1606,9 +1734,52 @@ def phase_serve_batched(cfg, card: str) -> dict:
         f"({toks.numel()} in {wall:.2f} s), max memory allocated "
         f"{res['max_memory_allocated_gb']:.2f} GB [{card}]")
     say(f"{tag} launches {launches}: flash = {attention_layers(cfg)} "
-        f"{'decoder ' if cfg.family == 'encdec' else ''}layers x 1 prefill")
+        + (f"attentions ({cfg.enc_layers} encoder layers, {cfg.n_layers} "
+           f"decoder layers x 2: self and cross)" if cfg.family == "encdec"
+           else "layers") + " x 1 prefill")
     del model.prefill, model.decode_step
+    if cfg.family == "encdec":
+        res["prefill_peak_gb"] = prefill_peak_gb(model, batch, card)
     return res
+
+
+def prefill_peak_gb(model, batch, card: str) -> dict:
+    """Peak device memory of one prefill of ``batch``, weights included,
+    with the non-causal attentions (whisper's encoder and cross-attention)
+    on the flash kernel, and again on its plain version (f32 scores, the
+    spelling the port's encoder and cross-attention had before they moved to
+    flash); the launches of these two calls are not counted."""
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention)
+    from repro_torch.models import attention
+    saved = flash_attention.launches
+    flash = attention.flash_attention
+
+    def plain_non_causal(q, k, v, causal=True, window=0, scale=None):
+        if causal:
+            return flash(q, k, v, causal=True, window=window, scale=scale)
+        return attention_reference(q, k, v, causal=False, window=window,
+                                   scale=scale)
+
+    out = {}
+    for key in ("kernel", "plain"):
+        attention.flash_attention = flash if key == "kernel" else \
+            plain_non_causal
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model.prefill(batch, pad_to=BATCH_PROMPT + SERVE_NEW)
+            torch.cuda.synchronize()
+            out[key] = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            attention.flash_attention = flash
+    flash_attention.launches = saved
+    say(f"[serve {model.cfg.name}] one prefill's peak memory, weights "
+        f"included: {out['kernel']:.3f} GB with the encoder and "
+        f"cross-attention on flash, {out['plain']:.3f} GB on the plain "
+        f"version (f32 scores) [{card}]")
+    return out
 
 
 def profile_region(fn, label: str, card: str, top: int = 12,
@@ -1769,12 +1940,25 @@ def phase_train(card: str, cfg) -> dict:
     toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
                          device="cuda", generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    # the grouped FFN's kernels first: "gemm" of the matrix products would
-    # take its forward's gemm_persistent; its scan counts with the forward
     res["profile"] = profile_region(
         lambda: trainer.step_fn(state, batch), f"{cfg.name}: one training "
         f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens", card,
-        groups={"ssd backward": ("ssd_bwd_", "BwdArgs"),
+        groups=TRAIN_GROUPS)
+    # bf16 training: the profile sees only the wgmma body's kernels
+    fma_ms = res["profile"].get("groups", {}).get(
+        "moe_gmm backward, fma body", 0.0)
+    assert fma_ms == 0.0, f"{tag} the fma body ran for {fma_ms} ms"
+    res["adamw_ms"] = adamw_alone(trainer.opt, state, tag, ms, card)
+    del trainer, state, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# a training step's device time by kind (profile_region's groups).  The
+# grouped FFN's kernels come first: "gemm" of the matrix products would take
+# its forward's gemm_persistent; its scan counts with the forward
+TRAIN_GROUPS = {"ssd backward": ("ssd_bwd_", "BwdArgs"),
                 "ssd forward": ("ssd_chunk_kernel", "ssd_cb_kernel"),
                 "moe_gmm forward": ("gemm_persistent", "reduce_splits",
                                     "scan_rows"),
@@ -1783,21 +1967,124 @@ def phase_train(card: str, cfg) -> dict:
                                                "dw_pass"),
                 "matrix products": ("nvjet", "gemm", "xmma", "cutlass"),
                 "flash forward": ("flash_attn_fwd",),
-                "flash backward": ("flash_attn_bwd",)})
-    # bf16 training: the profile sees only the wgmma body's kernels
-    fma_ms = res["profile"].get("groups", {}).get(
-        "moe_gmm backward, fma body", 0.0)
-    assert fma_ms == 0.0, f"{tag} the fma body ran for {fma_ms} ms"
-    # the optimizer layer alone: one update of every leaf (its time does not
-    # depend on the gradients' values)
+                "flash backward": ("flash_attn_bwd",)}
+
+
+def adamw_alone(opt, state: dict, tag: str, step_ms: float,
+                card: str) -> float:
+    """The optimizer layer alone: one update of every leaf of ``state``,
+    timed with CUDA events (its time does not depend on the gradients'
+    values)."""
     params = state["params"]
     grads = {n: torch.zeros_like(p) for n, p in params.items()}
-    res["adamw_ms"] = time_ms(
-        lambda: trainer.opt.update(grads, state["opt"], params), 2, warmup=1)
+    ms = time_ms(lambda: opt.update(grads, state["opt"], params), 2,
+                 warmup=1)
+    n_params = sum(p.numel() for p in params.values())
     say(f"{tag} AdamW's update of all {n_params:,} parameters alone: "
-        f"{res['adamw_ms']:.2f} ms, {100 * res['adamw_ms'] / ms:.1f}% of the "
-        f"step's {ms:.2f} ms [{card}]")
-    del trainer, state, batch, toks, params, grads
+        f"{ms:.2f} ms, {100 * ms / step_ms:.1f}% of the step's "
+        f"{step_ms:.2f} ms [{card}]")
+    return ms
+
+
+def phase_train_batched(card: str, cfg) -> dict:
+    """5f, 5g: a training path through ``launch/steps.make_train_step``
+    and AdamW (bf16 moments, as 5b-5e), for the families whose batches
+    carry frames or patches besides tokens: ``cfg`` at full width and depth
+    (bf16, remat "full"), TRAIN_STEPS steps of BATCHED_TRAIN's batch,
+    tokens and labels from the synthetic corpus through the prefetching
+    loader, frames or patches 0.1 N(0, 1) from a seeded generator
+    (``side_inputs``), every kernel's launch count set to 0 just before and
+    read just after; ms per step (host clock from the step's call until its
+    metrics are read, as ``Trainer.step_seconds``), then one profiled step
+    and the optimizer's update alone."""
+    from repro_torch.data import PrefetchingLoader, SyntheticCorpus
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    tag = f"[train {cfg.name}]"
+    b, seq = BATCHED_TRAIN[cfg.name]
+    n_attn = attention_layers(cfg)
+    positions = b * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
+    gc.collect()                 # the earlier paths' models are gone
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(AdamWConfig(warmup_steps=max(TRAIN_STEPS // 10, 1),
+                            total_steps=TRAIN_STEPS, moment_dtype="bfloat16"))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    step_fn = make_train_step(model, opt)
+    gen = torch.Generator("cuda").manual_seed(1)
+    loader = PrefetchingLoader(
+        SyntheticCorpus(cfg.vocab, seq, seed=0), b, seq,
+        to_device=lambda x: torch.as_tensor(x, dtype=torch.int64).to("cuda"))
+    metrics, step_s = [], []
+    try:
+        for _ in range(TRAIN_STEPS):
+            batch = {**next(loader), **side_inputs(cfg, b, gen)}
+            t = time.perf_counter()
+            state, met = step_fn(state, batch)
+            metrics.append({k: float(v) for k, v in met.items()})
+            step_s.append(time.perf_counter() - t)
+    finally:
+        loader.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in params.values())
+    # the forward and remat's recompute launch the forwards twice each
+    want = {"flash_attn_fwd": 2 * n_attn * TRAIN_STEPS,
+            "flash_attn_bwd": n_attn * TRAIN_STEPS, "moe_gmm": 0,
+            "moe_gmm_bwd": 0, "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
+    assert launches == want, f"launches {launches} != {want}"
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    assert all(np.isfinite(x) for x in losses + norms), (losses, norms)
+    assert peak_gb * 1e9 < torch.cuda.get_device_properties(0).total_memory
+    ms = 1e3 * float(np.median(step_s[-5:]))
+    res = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "path": "train", "params": n_params, "batch": b,
+           "seq_len": seq, "positions": positions, "remat": cfg.remat,
+           "moment_dtype": "bfloat16", "steps": TRAIN_STEPS,
+           "step_ms": [1e3 * x for x in step_s], "ms_per_step": ms,
+           "tokens_per_s": b * seq / ms * 1e3,
+           "positions_per_s": positions / ms * 1e3, "losses": losses,
+           "grad_norms": norms, "lr": [m["lr"] for m in metrics],
+           "run_s": wall, "max_memory_allocated_gb": peak_gb,
+           "launches": launches}
+    inputs = (f"{cfg.enc_len} frames + {seq} decoder tokens"
+              if cfg.family == "encdec" else
+              f"{cfg.n_patches} patches + {seq} tokens")
+    say(f"{tag} {widths(cfg)}; {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}, remat "
+        f"{cfg.remat}: {n_params:,} params; AdamW moments bf16; "
+        f"{TRAIN_STEPS} steps of {b} x ({inputs}) through make_train_step")
+    say(f"{tag} {ms:.2f} ms/step (median of the last 5; steps "
+        + ", ".join(f"{x:.1f}" for x in res["step_ms"]) + f" ms), "
+        f"{res['tokens_per_s']:.1f} trained (label) tokens/s"
+        + (f", {res['positions_per_s']:.1f} positions/s"
+           if cfg.family == "vlm" else "")
+        + f", run {wall:.1f} s with init, max memory allocated "
+        f"{peak_gb:.2f} GB [{card}]")
+    say(f"{tag} losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad norms " + ", ".join(f"{x:.4f}" for x in norms)
+        + "; lr " + ", ".join(f"{x:.3e}" for x in res["lr"]))
+    say(f"{tag} launches {launches}: flash forward = {n_attn} attentions x "
+        f"2 (the forward and remat's recompute) x {TRAIN_STEPS} steps, "
+        f"backward = {n_attn} x {TRAIN_STEPS}")
+    toks = torch.randint(0, cfg.vocab, (b, seq + 1), device="cuda",
+                         generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             **side_inputs(cfg, b, gen)}
+    res["profile"] = profile_region(
+        lambda: step_fn(state, batch), f"{cfg.name}: one training step of "
+        f"{b} x ({inputs})", card, groups=TRAIN_GROUPS)
+    res["adamw_ms"] = adamw_alone(opt, state, tag, ms, card)
+    del model, opt, params, state, step_fn, batch, toks
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -1842,8 +2129,9 @@ def flash_served_shape(arch: str = "deepseek-7b") -> tuple:
 
 
 def phase_timing(card: str) -> dict:
-    """Flash attention, bf16 causal, at (1, 2048, 32, 128), at deepseek's
-    longest served prefill and at zamba2's (hd 80, the mma.sync body):
+    """Flash attention in bf16: causal at (1, 2048, 32, 128), at deepseek's
+    longest served prefill and at zamba2's (hd 80, the mma.sync body);
+    non-causal at whisper's encoder at its training batch (8, 1500, 16, 64):
     three rounds each, in turns with SDPA, medians kept, the card's clocks
     read before and after."""
     from repro_torch.kernels.flash_attention import (attention_reference,
@@ -1851,44 +2139,50 @@ def phase_timing(card: str) -> dict:
     gen = torch.Generator("cuda").manual_seed(2)
     saved = flash_attention.launches
     out = {}
-    for key, shape in (("timed", TIMED), ("served", flash_served_shape()),
-                       ("served_hd80", flash_served_shape(ZAMBA2))):
+    for key, shape, causal in (
+            ("timed", TIMED, True), ("served", flash_served_shape(), True),
+            ("served_hd80", flash_served_shape(ZAMBA2), True),
+            ("whisper_encoder", (*BWD_TIMED["whisper encoder"][:5], 0),
+             False)):
         b, s, h, k, hd, window = shape
+        mode = "causal" if causal else "non-causal"
         q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
         # SDPA takes (B, H, S, hd): transposed once, outside the timed call
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kk, v))
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=h != k)
+                qt, kt, vt, is_causal=causal, enable_gqa=h != k)
 
         say(f"[timing] flash_attn_fwd {shape[:5]}: clocks before ({CLOCKS}) "
             f"{card_line(CLOCKS)}")
         kernel_r, library_r = [], []
         for _ in range(3):
-            kernel_r.append(time_ms(lambda: flash_attention(q, kk, v,
-                                                            causal=True), 20))
+            kernel_r.append(time_ms(lambda: flash_attention(
+                q, kk, v, causal=causal), 20))
             library_r.append(time_ms(sdpa, 20))
         say(f"[timing] flash_attn_fwd {shape[:5]}: clocks after "
             f"{card_line(CLOCKS)}; kernel rounds "
             f"{', '.join(f'{t:.4f}' for t in kernel_r)} ms, sdpa rounds "
             f"{', '.join(f'{t:.4f}' for t in library_r)} ms")
         kernel_ms, library_ms = sorted(kernel_r)[1], sorted(library_r)[1]
-        device_ms = graph_ms(lambda: flash_attention(q, kk, v, causal=True))
-        plain_ms = time_ms(lambda: attention_reference(q, kk, v, causal=True),
-                           5)
-        pairs = s * (s + 1) // 2           # (q, k) pairs the causal mask keeps
+        device_ms = graph_ms(lambda: flash_attention(q, kk, v,
+                                                     causal=causal))
+        plain_ms = time_ms(lambda: attention_reference(q, kk, v,
+                                                       causal=causal), 5)
+        # (q, k) pairs the mask keeps: the causal half, or all S x T
+        pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4 * b * h * pairs * hd     # q.k and p.v, 2 flops per MAC
         nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * k * hd)  # q, o, k, v
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
-        res = {"shape": list(shape[:5]), "ms": kernel_ms,
+        res = {"shape": list(shape[:5]), "causal": causal, "ms": kernel_ms,
                "graph_ms": device_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "flops": flops, "bytes": nbytes}
-        say(f"[timing] flash_attn_fwd {shape[:5]} bf16 causal: kernel "
+        say(f"[timing] flash_attn_fwd {shape[:5]} bf16 {mode}: kernel "
             f"{kernel_ms:.4f} ms (median; replayed from a CUDA graph "
             f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
             f"(yardstick) {library_ms:.4f} ms, kernel / sdpa "
@@ -1903,10 +2197,10 @@ def phase_timing(card: str) -> dict:
 
 
 def phase_timing_bwd(card: str) -> dict:
-    """The flash backward at BWD_TIMED, bf16 causal: a call of its binding
-    (its launches; the checks of ``FlashAttention`` stay outside the timed
-    call) with the wgmma body, with the mma.sync body (asked for by name,
-    as no other phase does) and autograd's backward of SDPA (the
+    """The flash backward at BWD_TIMED, bf16: a call of its binding (its
+    launches; the checks of ``FlashAttention`` stay outside the timed call)
+    with the wgmma body, at hd 128 with the mma.sync body too (asked for by
+    name, as no other phase does), and autograd's backward of SDPA (the
     yardstick, never called by the port), in three rounds in turns, medians
     kept; each body's call replayed from a CUDA graph; the plain backward
     at the training shape.  Returns the training shape's wgmma numbers,
@@ -1918,63 +2212,66 @@ def phase_timing_bwd(card: str) -> dict:
     gen = torch.Generator("cuda").manual_seed(11)
     out = {}
     for key, shape in BWD_TIMED.items():
-        b, s, h, k, hd = shape
+        b, s, h, k, hd, causal = shape
+        bodies = ("wgmma", "mma") if hd == 128 else ("wgmma",)
         scale = hd ** -0.5
         q, kk, v = qkv(b, s, s, h, k, hd, torch.bfloat16, gen)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        o, lse = flash_attention_cuda(q, kk, v, True, 0, scale,
+        o, lse = flash_attention_cuda(q, kk, v, causal, 0, scale,
                                       with_lse=True)
 
         def kernel(body=None):
-            return flash_attention_bwd_cuda(q, kk, v, o, lse, do, True, 0,
+            return flash_attention_bwd_cuda(q, kk, v, o, lse, do, causal, 0,
                                             scale, body=body)
 
         # SDPA takes (B, H, S, hd): transposed once, outside the timed call
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, kk, v))
         ot = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=h != k)
+            qt, kt, vt, is_causal=causal, enable_gqa=h != k)
         dot = do.transpose(1, 2).contiguous()
 
         def library():
             return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                        retain_graph=True)
 
-        tag = f"flash_attn_bwd {shape}"
+        tag = f"flash_attn_bwd {shape[:5]}"
+        mode = "causal" if causal else "non-causal"
         for _ in range(5):   # SDPA's backward ran slow in its first rounds
-            kernel()
-            kernel("mma")
+            for body in bodies:
+                kernel(body)
             library()
         say(f"[timing] {tag}: clocks before ({CLOCKS}) {card_line(CLOCKS)}")
-        rounds = {"wgmma": [], "mma": [], "sdpa": []}
+        rounds = {n: [] for n in (*bodies, "sdpa")}
         for _ in range(3):
-            rounds["wgmma"].append(time_ms(kernel, 10))
-            rounds["mma"].append(time_ms(lambda: kernel("mma"), 10))
+            for body in bodies:
+                rounds[body].append(time_ms(lambda: kernel(body), 10))
             rounds["sdpa"].append(time_ms(library, 10))
         say(f"[timing] {tag}: clocks after {card_line(CLOCKS)}; rounds "
             + "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in r) + " ms"
                         for n, r in rounds.items()))
         med = {n: sorted(r)[1] for n, r in rounds.items()}
-        graph = {"wgmma": graph_ms(kernel),
-                 "mma": graph_ms(lambda: kernel("mma"))}
-        pairs = s * (s + 1) // 2         # (q, k) pairs the causal mask keeps
+        graph = {body: graph_ms(lambda: kernel(body)) for body in bodies}
+        # (q, k) pairs the mask keeps: the causal half, or all S x T
+        pairs = s * (s + 1) // 2 if causal else s * s
         flops = 5 * 2 * b * h * pairs * hd          # five products
         # q, o, do, dq (B,S,H,hd) and k, v, dk, dv (B,S,K,hd) in bf16; lse
         nbytes = 2 * 4 * b * s * (h + k) * hd + 4 * b * h * s
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        res = {"shape": list(shape), "ms": med["wgmma"],
-               "graph_ms": graph["wgmma"], "library_ms": med["sdpa"],
-               "bound_ms": bound,
+        res = {"shape": list(shape[:5]), "causal": causal,
+               "ms": med["wgmma"], "graph_ms": graph["wgmma"],
+               "library_ms": med["sdpa"], "bound_ms": bound,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "flops": flops, "bytes": nbytes,
-               "mma": {"ms": med["mma"], "graph_ms": graph["mma"]}}
+               "flops": flops, "bytes": nbytes}
+        if "mma" in bodies:
+            res["mma"] = {"ms": med["mma"], "graph_ms": graph["mma"]}
         if key == "train":
             res["plain_ms"] = time_ms(lambda: attention_backward_reference(
                 q, kk, v, o, lse, do), 3)
-        for body in ("wgmma", "mma"):
-            say(f"[timing] {tag} bf16 causal, {body} body: "
+        for body in bodies:
+            say(f"[timing] {tag} bf16 {mode}, {body} body: "
                 f"{med[body]:.4f} ms (median; replayed from a CUDA graph "
                 f"{graph[body]:.4f} ms), sdpa backward (yardstick) "
                 f"{med['sdpa']:.4f} ms, {body} / sdpa "
@@ -2610,7 +2907,10 @@ def main(argv: list[str]) -> int:
         n_layers=MOE_TRAIN_LAYERS))
     ssm_train = phase_train(card, get_config(MAMBA2))
     hybrid_train = phase_train(card, get_config(ZAMBA2))
-    paths += [train, moe_train, ssm_train, hybrid_train]
+    encdec_train = phase_train_batched(card, get_config(WHISPER))
+    vlm_train = phase_train_batched(card, get_config(LLAVA))
+    paths += [train, moe_train, ssm_train, hybrid_train, encdec_train,
+              vlm_train]
     timing = phase_timing(card)
     bwd = phase_timing_bwd(card)
     gmm = phase_timing_gmm(card)
@@ -2634,13 +2934,13 @@ def main(argv: list[str]) -> int:
         **{k: timing["timed"][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms",
                                            "shape")},
-        # deepseek's and zamba2's (hd 80) longest served prefills beside
-        # the (1, 2048, 32, 128) one
+        # deepseek's and zamba2's (hd 80) longest served prefills and
+        # whisper's encoder (non-causal) beside the (1, 2048, 32, 128) one
         "graph_ms": timing["timed"]["graph_ms"],
         **{key: {k: timing[key][k] for k in
-                 ("shape", "ms", "graph_ms", "plain_ms", "bound_ms",
-                  "bound_by", "library_ms")}
-           for key in ("served", "served_hd80")},
+                 ("shape", "causal", "ms", "graph_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms")}
+           for key in ("served", "served_hd80", "whisper_encoder")},
     }, {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2650,11 +2950,15 @@ def main(argv: list[str]) -> int:
         **launches("flash_attn_bwd"), "max_abs_err": bwd_err,
         **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "graph_ms", "shape")},
-        # the mma.sync body at the same shape, and phi4-mini's GQA shape
+        # the mma.sync body at the same shape, phi4-mini's GQA shape and
+        # whisper's encoder (non-causal, wgmma body only at hd 64)
         "mma_body": bwd["mma"],
         "phi4_gqa": {k: bwd["by_shape"]["phi4 gqa"][k] for k in
                      ("shape", "ms", "graph_ms", "bound_ms", "bound_by",
                       "library_ms", "mma")},
+        "whisper_encoder": {k: bwd["by_shape"]["whisper encoder"][k] for k in
+                            ("shape", "causal", "ms", "graph_ms", "bound_ms",
+                             "bound_by", "library_ms")},
     }, {
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
@@ -2727,6 +3031,8 @@ def main(argv: list[str]) -> int:
                                   "train_moe": moe_train,
                                   "train_ssm": ssm_train,
                                   "train_hybrid": hybrid_train,
+                                  "train_encdec": encdec_train,
+                                  "train_vlm": vlm_train,
                                   "ssd_timing": ssd,
                                   "ssd_bwd_timing": ssd_bwd,
                                   "kernels": kernels},

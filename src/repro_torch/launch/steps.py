@@ -14,8 +14,10 @@ def make_train_step(model: Model, opt: AdamW):
     """One optimizer step on one batch, as the reference's
     ``make_train_step`` (``repro/launch/steps.py:11-25``).  ``state`` is
     {"params": {name: parameter}, "opt": the optimizer's state}; both are
-    updated in place and returned with the metrics "loss", "ce", "aux",
-    "lr" and "grad_norm" (0-d tensors)."""
+    updated in place and returned with the metrics "loss", the loss's own
+    ("ce", and "aux" for every family but the encoder-decoder), "lr" and
+    "grad_norm" (0-d tensors).  ``batch`` is what ``Model.train_loss``
+    takes: tokens and labels, and frames (whisper) or patches (llava)."""
     def train_step(state, batch):
         params = state["params"]
         for p in params.values():

@@ -4,7 +4,10 @@
         --device cpu --steps 50 --batch 8 --seq 128
 
 Runs on the card unless ``--device cpu``.  The same flags as the
-reference's ``repro/launch/train.py``, plus ``--device``.
+reference's ``repro/launch/train.py``, plus ``--device``.  It trains the
+token-only families; ``Trainer`` refuses whisper-medium and
+llava-next-mistral-7b, whose batches carry frames or patches: train those
+with ``launch/steps.make_train_step``.
 """
 from __future__ import annotations
 

@@ -89,10 +89,11 @@ class Model(nn.Module):
         return self
 
     def train_loss(self, batch):
-        """(total loss, {"ce", "aux"}) of ``batch["tokens"]`` against
-        ``batch["labels"]``, with autograd; the dense, MoE, SSM and hybrid
-        families (``lm.train_loss``)."""
-        return lm.train_loss(self.params, batch, self.cfg)
+        """(total loss, metrics) of ``batch["tokens"]`` against
+        ``batch["labels"]``, with autograd, from the family's module as the
+        reference dispatches it: ``encdec.train_loss`` ({"ce"}) for whisper,
+        ``lm.train_loss`` ({"ce", "aux"}) for the rest."""
+        return self._mod.train_loss(self.params, batch, self.cfg)
 
     @torch.no_grad()
     def forward_logits(self, batch) -> torch.Tensor:

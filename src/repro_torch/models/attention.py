@@ -1,11 +1,16 @@
-"""GQA attention: full-sequence (prefill), single-token decode with a KV
-cache, optional sliding window (gemma3-style local layers), RoPE; and the
-encoder-decoder's cross-attention.
+"""GQA attention: full-sequence (training and prefill), single-token decode
+with a KV cache, optional sliding window (gemma3-style local layers), RoPE;
+and the encoder-decoder's cross-attention, over a full decoder sequence
+(``cross_attention``) or one decode row (``decode_cross_attention``).
 
-The causal full-sequence path goes through ``kernels.flash_attention``: the
-hand-written CUDA kernel for CUDA tensors, its plain version on the CPU.
-Decode attention, the encoder's non-causal attention and cross-attention
-have no kernel in the reference and stay plain torch."""
+Every full-sequence attention goes through ``kernels.flash_attention`` (the
+hand-written CUDA kernel for CUDA tensors, its plain version on the CPU):
+causal self-attention, the encoder's non-causal self-attention and the
+decoder's cross-attention, S decoder rows against the encoder's T keys.  The
+kernel computes the reference's masked ``_sdpa`` for each of them (causal is
+a parameter of the Pallas kernel, with the diagonal offset T - S).  Decode
+attention and decode cross-attention, one query row a step, have no kernel
+in the reference and stay plain torch."""
 from __future__ import annotations
 
 import torch
@@ -65,16 +70,7 @@ def full_attention(params, x, positions, cfg: ArchConfig, window: int = 0,
 
     Returns (output, (k, v)) so prefill can seed the decode cache."""
     q, k, v = _qkv(params, x, positions, cfg)
-    if causal:
-        out = flash_attention(q, k, v, causal=True, window=window)
-    else:
-        s = x.shape[1]
-        rows = torch.arange(s, device=x.device)[:, None]
-        cols = torch.arange(s, device=x.device)[None, :]
-        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
-        if window > 0:
-            mask &= cols > rows - window
-        out = _sdpa(q, k, v, mask[None, None])
+    out = flash_attention(q, k, v, causal=causal, window=window)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, (k, v)
 
@@ -106,9 +102,19 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg: ArchConfig,
 
 
 def cross_attention(params, x, enc_k, enc_v, cfg: ArchConfig) -> torch.Tensor:
-    """Decoder -> encoder attention over every encoder position, no RoPE;
-    enc_k/v (B,T,K,hd) precomputed by ``encode_kv``.  Plain torch, as in
-    the reference (no Pallas kernel there)."""
+    """Decoder -> encoder attention of a full decoder sequence x (B,S,D)
+    over every encoder position, no RoPE; enc_k/v (B,T,K,hd) precomputed by
+    ``encode_kv``.  Non-causal flash attention, S rows against T keys."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    out = flash_attention(q, enc_k, enc_v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def decode_cross_attention(params, x, enc_k, enc_v,
+                           cfg: ArchConfig) -> torch.Tensor:
+    """``cross_attention`` of one decode row x (B,1,D): plain torch, as
+    decode self-attention (a 1-row query would fill one row of the kernel's
+    64- or 128-row tiles)."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     mask = torch.ones((1, 1, x.shape[1], enc_k.shape[1]), dtype=torch.bool,
                       device=x.device)

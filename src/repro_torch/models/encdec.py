@@ -9,26 +9,33 @@ package's names and stacked layout (``enc_layers.attn.wq`` is (E,D,H,hd),
 
     encode(params, frames, cfg)                  -> encoder output (B,T,D)
     dec_forward(params, tokens, enc_out, cfg)    -> logits, cache|None
+    train_loss(params, batch, cfg)               -> loss, {"ce"}
     prefill(params, batch, cfg)                  -> last-token logits, cache
     decode_step(params, tokens, cache, cfg)      -> logits (cache in place)
 
 Cache: {"k", "v": (L,B,T,K,hd) self-attention, padded to ``pad_to``;
 "xk", "xv": (L,B,enc_len,K,hd) cross-attention; "pos": (B,) int64}.
 
-The decoder's causal self-attention goes through ``kernels.flash_attention``
-(the hand-written CUDA kernel on the card); the encoder's attention and the
-cross-attention stay plain torch, as in the reference.
+Every full-sequence attention goes through ``kernels.flash_attention`` (the
+hand-written CUDA kernel on the card, forward and backward): the encoder's
+non-causal self-attention, the decoder's causal self-attention and its
+cross-attention (non-causal, the decoder's S rows against the encoder's T
+frames).  A decode step's cross-attention, one row, stays plain torch.
+Under autograd each encoder and decoder layer runs under ``cfg.remat``
+(``lm._maybe_ckpt``), as the reference's scans do, and the stacked leaves
+are unbound once a forward (``lm._unbind``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .attention import (cross_attention, decode_attention, encode_kv,
-                        full_attention, init_attn_params)
-from .common import dtype_of, normal_init, rms_norm
+from .attention import (cross_attention, decode_attention,
+                        decode_cross_attention, encode_kv, full_attention,
+                        init_attn_params)
+from .common import cross_entropy_loss, dtype_of, normal_init, rms_norm
 from .config import ArchConfig
-from .lm import _layer, _logits
+from .lm import _layer, _logits, _maybe_ckpt, _unbind
 from .mlp import init_mlp_params, mlp_forward
 
 
@@ -74,19 +81,41 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
     }
 
 
+def _enc_layer(lp, h, positions, cfg: ArchConfig):
+    """One pre-norm encoder layer: non-causal self-attention and the MLP,
+    each with its residual."""
+    a, _ = full_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
+                          positions, cfg, window=0, causal=False)
+    h = h + a
+    return h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                           cfg.mlp_act)
+
+
 def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
     """frames (B,T,D) stub embeddings -> encoder output (B,T,D)."""
     t = frames.shape[1]
     h = frames.to(dtype_of(cfg.compute_dtype)) + params["enc_pos"][None, :t]
     positions = torch.arange(t, device=frames.device)[None, :]
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        a, _ = full_attention(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps),
-                              positions, cfg, window=0, causal=False)
-        h = h + a
-        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                            cfg.mlp_act)
+    layer = _maybe_ckpt(_enc_layer, cfg)
+    for lp in _unbind(params["enc_layers"]):
+        h = layer(lp, h, positions, cfg)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_layer(lp, h, positions, enc_out, cfg: ArchConfig):
+    """One pre-norm decoder layer: causal self-attention, cross-attention
+    to ``enc_out`` and the MLP, each with its residual.  Returns (h, (k, v),
+    (xk, xv)): the self- and cross-attention keys and values."""
+    a, (k, v) = full_attention(lp["attn"],
+                               rms_norm(h, lp["ln1"], cfg.norm_eps),
+                               positions, cfg, window=0)
+    h = h + a
+    xk, xv = encode_kv(lp["xattn"], enc_out)
+    h = h + cross_attention(lp["xattn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                            xk, xv, cfg)
+    h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
+                        cfg.mlp_act)
+    return h, (k, v), (xk, xv)
 
 
 def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
@@ -96,18 +125,9 @@ def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
     h = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     per_layer: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
-        a, (k, v) = full_attention(lp["attn"],
-                                   rms_norm(h, lp["ln1"], cfg.norm_eps),
-                                   positions, cfg, window=0)
-        h = h + a
-        xk, xv = encode_kv(lp["xattn"], enc_out)
-        h = h + cross_attention(lp["xattn"],
-                                rms_norm(h, lp["ln2"], cfg.norm_eps), xk, xv,
-                                cfg)
-        h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
-                            cfg.mlp_act)
+    layer = _maybe_ckpt(_dec_layer, cfg)
+    for lp in _unbind(params["dec_layers"]):
+        h, (k, v), (xk, xv) = layer(lp, h, positions, enc_out, cfg)
         if collect_cache:
             for key, x in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
                 per_layer[key].append(x)
@@ -116,6 +136,17 @@ def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
     if last_only:
         h = h[:, -1:, :]
     return _logits(params, h, cfg), cache
+
+
+def train_loss(params, batch, cfg: ArchConfig):
+    """Mean CE of the decoder's logits over ``batch["tokens"]`` against
+    ``batch["labels"]``, the encoder run over ``batch["frames"]``, as the
+    reference's ``train_loss`` (``repro/models/encdec.py:118-122``).
+    Returns (loss, {"ce": loss}); differentiate ``loss``."""
+    enc_out = encode(params, batch["frames"], cfg)
+    logits, _ = dec_forward(params, batch["tokens"], enc_out, cfg)
+    loss = cross_entropy_loss(logits, batch["labels"])
+    return loss, {"ce": loss}
 
 
 def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
@@ -149,9 +180,9 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
                                 cache["k"][i], cache["v"][i], pos, cfg,
                                 window=0)
         h = h + a
-        h = h + cross_attention(lp["xattn"],
-                                rms_norm(h, lp["ln2"], cfg.norm_eps),
-                                cache["xk"][i], cache["xv"][i], cfg)
+        h = h + decode_cross_attention(lp["xattn"],
+                                       rms_norm(h, lp["ln2"], cfg.norm_eps),
+                                       cache["xk"][i], cache["xv"][i], cfg)
         h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
                             cfg.mlp_act)
     pos += 1

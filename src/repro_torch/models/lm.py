@@ -12,9 +12,8 @@ loop over views of the stacked leaves.  Entry points:
     prefill(params, batch, cfg)                -> last-token logits, cache
     decode_step(params, tokens, cache, cfg)    -> logits (cache in place)
 
-Training (``train_loss``, with autograd) takes the dense, MoE, SSM and
-hybrid families; whisper and llava wait for their losses (ROADMAP.md,
-queue 1).
+``train_loss`` (with autograd) takes every family of this module; the VLM's
+CE covers its text positions only.
 
 Cache layouts (each with "pos": (B,) int64):
     attention families: {"k": (L,B,T,K,hd), "v": ...}
@@ -44,12 +43,6 @@ from .ssm import init_mamba_params, mamba_decode, mamba_forward
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: encdec.py
 PATCH_DIM = 1024          # the stub vision tower's patch features
-TRAINED = ("dense", "moe", "ssm", "hybrid")
-# what training each other family waits for (ROADMAP.md, queue 1)
-TRAIN_LATER = {
-    "encdec": "whisper and llava training",
-    "vlm": "whisper and llava training",
-}
 # "dots" remat keeps the outputs of the matrix products (einsum lowers to
 # these), as jax.checkpoint_policies.checkpoint_dots keeps dot_general's
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -236,12 +229,14 @@ def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
 
 # ------------------------------------------------------------ full forward
 def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
-            last_only: bool = False, patches=None):
+            last: int = 0, patches=None):
     """Full-sequence forward.  Returns (logits, aux, cache|None); aux is the
     MoE load-balancing loss summed over the layers in layer order, in f32
     (0 for the other families), as the reference's scan carry sums it.
 
-    ``last_only``: compute logits for the final position only (prefill).
+    ``last > 0``: logits of the last ``last`` positions only (1 for prefill,
+    the text positions for the VLM's loss); the final norm and the head act
+    per position, so these are the full logits' last rows.
     ``patches``: the VLM's (B,P,1024) patch features, prepended."""
     h = _embed(params, tokens, cfg, patches)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
@@ -280,8 +275,8 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
         for key in ("conv", "ssm"):
             if key in cache:      # (nb * pb, ...) -> (nb, pb, ...)
                 cache[key] = cache[key].unflatten(0, _mamba_lead(cfg))
-    if last_only:
-        h = h[:, -1:, :]
+    if last > 0:
+        h = h[:, -last:, :]
     return _logits(params, h, cfg), aux, cache
 
 
@@ -291,16 +286,14 @@ def train_loss(params, batch, cfg: ArchConfig):
     ``batch["labels"]`` plus 0.01 * the MoE aux loss (0 for the other
     families), as the reference's ``train_loss`` (``repro/models/lm.py:
     224-232``).  Returns (total, {"ce", "aux"}); differentiate ``total``.
-    Takes the dense, MoE, SSM and hybrid families; whisper's (called from
-    ``api.Model``) and the VLM's raise ``NotImplementedError``."""
-    if cfg.family not in TRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains the families {TRAINED}; "
-            f"training the {cfg.family} family waits for "
-            f"{TRAIN_LATER[cfg.family]} (ROADMAP.md, "
-            f"queue 1)")
-    logits, aux, _ = forward(params, batch["tokens"], cfg)
-    loss = cross_entropy_loss(logits, batch["labels"])
+    The VLM runs ``batch["patches"]`` before the tokens and takes CE on the
+    last ``labels.shape[1]`` positions only, the text, as the reference's
+    ``logits[:, -labels.shape[1]:]`` does; the head runs on those alone."""
+    labels = batch["labels"]
+    logits, aux, _ = forward(
+        params, batch["tokens"], cfg, patches=batch.get("patches"),
+        last=labels.shape[1] if cfg.family == "vlm" else 0)
+    loss = cross_entropy_loss(logits, labels)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -314,7 +307,7 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     tokens = batch["tokens"]
     patches = batch.get("patches")
     logits, _, cache = forward(params, tokens, cfg, collect_cache=True,
-                               last_only=True, patches=patches)
+                               last=1, patches=patches)
     b, seqlen = tokens.shape
     if cfg.family == "vlm":
         seqlen += patches.shape[1]

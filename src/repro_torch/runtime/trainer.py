@@ -63,6 +63,13 @@ def make_accum_train_step(model: Model, opt: AdamW, n_micro: int):
     return train_step
 
 
+# what a batch of the families the loader cannot feed carries besides
+# tokens and labels (B, S), as the reference's launch/input_specs.py::
+# batch_specs lays it out
+_NOT_TOKENS_ONLY = {"encdec": "frames (B, enc_len, d_model)",
+                    "vlm": "patches (B, n_patches, 1024)"}
+
+
 class Trainer:
     """``cfg`` trained on the synthetic corpus.  ``params`` (a flat state
     dict, e.g. from ``bridge.params_from_jax``) and ``opt_state`` start each
@@ -70,12 +77,24 @@ class Trainer:
     and zero moments.  ``metrics`` keeps each step's metrics as floats, and
     ``step_seconds`` each step's time on the host clock, from the call of
     the step function until its metrics are read (which waits for the
-    device)."""
+    device).
+
+    The loader yields tokens and labels only, as the reference's does, so
+    the encoder-decoder and the VLM, whose batches carry frames or patches
+    besides, are refused: train them with ``launch.steps.make_train_step``
+    on batches of the reference's ``launch/input_specs.py`` layout."""
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainConfig,
                  opt_cfg: AdamWConfig | None = None, device="cuda",
                  params: dict | None = None,
                  opt_state: dict | None = None) -> None:
+        if cfg.family in _NOT_TOKENS_ONLY:
+            raise ValueError(
+                f"{cfg.name}: Trainer's loader yields tokens and labels "
+                f"only, and a {cfg.family} batch also carries "
+                f"{_NOT_TOKENS_ONLY[cfg.family]}; train it with "
+                f"launch/steps.make_train_step on batches laid out as "
+                f"launch/input_specs.py::batch_specs lays them out")
         self.cfg = cfg
         self.tcfg = tcfg
         self.model = Model(cfg, device=device)

@@ -3,7 +3,10 @@
 the prefill cache (k, v, xk, xv) and decode steps, with JAX's decoder
 self-attention in "ref" mode and on the Pallas flash kernel in "interpret"
 mode (the one model path of the reference that reaches that kernel); the
-port's own decode-vs-forward consistency; and the serving entry points."""
+encoder's self-attention and the full-sequence cross-attention, which the
+port runs on flash, against the Pallas kernel with ``causal=False``; the
+port's own decode-vs-forward consistency; ``Model.train_loss``'s dispatch
+to ``encdec.train_loss``; and the serving entry points."""
 import pytest
 
 np = pytest.importorskip("numpy")
@@ -13,6 +16,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_smoke as jax_smoke  # noqa: E402
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import encdec as jencdec  # noqa: E402
@@ -82,6 +87,72 @@ def test_cross_attention_and_encode_kv_match_jax():
     got = attention.cross_attention(tp, torch.from_numpy(x), tk, tv, cfg)
     assert got.shape == (2, 5, cfg.d_model)
     assert _rel(got, want) < JAX_REL
+
+
+# (label, decoder rows S, keys T): the encoder's self-attention over a
+# ragged number of frames (T = S, not a multiple of the 8-row blocks), and
+# the cross-attention of more and of fewer decoder rows than frames
+NON_CAUSAL = [("encoder", 21, 21), ("cross T > S", 12, 32),
+              ("cross T < S", 40, 21)]
+
+
+@pytest.mark.parametrize("label,s,t", NON_CAUSAL,
+                         ids=[c[0] for c in NON_CAUSAL])
+def test_non_causal_attention_matches_pallas_interpret(label, s, t):
+    """The two attentions the port sends through flash with
+    ``causal=False`` against the same layer spelled with the JAX package's
+    projections and its Pallas flash kernel, ``causal=False``, in interpret
+    mode (blocks of 8 rows): ``full_attention(causal=False)`` for the
+    encoder, ``cross_attention`` for the decoder's S rows against T
+    encoder positions."""
+    jcfg, cfg = jax_smoke(ARCH), get_smoke(ARCH)
+    jp, tp = _attn_params(jcfg)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, s, cfg.d_model), np.float32)
+    flash = dict(causal=False, interpret=True, bq=8, bk=8)
+    if label == "encoder":
+        positions = np.arange(s)[None, :]
+        q, k, v = jattn._qkv(jp, jnp.asarray(x), jnp.asarray(positions),
+                             jcfg)
+        got, (tk, _) = attention.full_attention(
+            tp, torch.from_numpy(x), torch.as_tensor(positions), cfg,
+            causal=False)
+        assert _rel(tk, k) < JAX_REL
+    else:
+        enc_out = rng.standard_normal((2, t, cfg.d_model), np.float32)
+        k, v = jattn.encode_kv(jp, jnp.asarray(enc_out))
+        q = jnp.einsum("bsd,dhk->bshk", jnp.asarray(x), jp["wq"])
+        tk, tv = attention.encode_kv(tp, torch.from_numpy(enc_out))
+        got = attention.cross_attention(tp, torch.from_numpy(x), tk, tv, cfg)
+    want = jnp.einsum("bshk,hkd->bsd", jax_flash(q, k, v, **flash), jp["wo"])
+    assert k.shape[1] == t and got.shape == want.shape == (2, s, cfg.d_model)
+    assert _rel(got, want) < JAX_REL
+
+
+def test_model_train_loss_reaches_encdec_train_loss(jax_params,
+                                                     monkeypatch):
+    """``Model.train_loss`` dispatches by family as the reference's does:
+    whisper's goes to ``encdec.train_loss`` (frames through the encoder, CE
+    of the decoder's logits), whose loss it returns."""
+    _, model = _pair(jax_params)
+    calls = []
+    real = encdec.train_loss
+
+    def spy(params, batch, cfg):
+        calls.append(cfg.name)
+        return real(params, batch, cfg)
+
+    monkeypatch.setattr(encdec, "train_loss", spy)
+    batch = _torch(_batch(model.cfg, 2, 10, seed=5))
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    loss, met = model.train_loss(batch)
+    assert calls == [ARCH] and set(met) == {"ce"} and met["ce"] is loss
+    with torch.no_grad():
+        logits = model.forward_logits(batch)
+    want = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]).float(),
+        batch["labels"].reshape(-1))
+    assert abs(float(loss.detach()) - float(want)) <= 1e-6 * float(want)
 
 
 def test_encode_matches_jax(jax_params):

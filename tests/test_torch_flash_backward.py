@@ -208,8 +208,9 @@ def test_kernels_without_backward_refuse_grad_on_cuda(kernel):
 # chip_smoke.py's BWD_CASES (B, S, T, H, K, hd, causal, window; the tests'
 # flash cases, the training shape, GQA with a window, a kv prefix, hd 80,
 # the smoke configs' hd 16, one partial tile, hd-64 GQA with a window over
-# several tiles, MQA at hd 128), phi4-mini's GQA and granite-34b's 48:1 MQA
-# at their training length
+# several tiles, MQA at hd 128; whisper's non-causal cross-attention (T >
+# S, T ragged), T < S and its encoder), phi4-mini's GQA and granite-34b's
+# 48:1 MQA at their training length
 SCHEDULE_CASES = [
     (2, 64, 64, 4, 2, 32, True, 0), (1, 100, 100, 4, 4, 64, True, 0),
     (2, 32, 128, 4, 1, 16, True, 0), (1, 128, 128, 8, 2, 64, True, 24),
@@ -222,7 +223,13 @@ SCHEDULE_CASES = [
     (1, 1024, 1024, 16, 4, 64, True, 256), (1, 512, 512, 48, 1, 128, True, 0),
     (2, 2048, 2048, 24, 8, 128, True, 0),
     (1, 2048, 2048, 48, 1, 128, True, 0),
-    (1, 300, 700, 4, 2, 64, True, 100), (1, 300, 200, 4, 2, 64, False, 50)]
+    (1, 300, 700, 4, 2, 64, True, 100), (1, 300, 200, 4, 2, 64, False, 50),
+    (2, 448, 1500, 16, 16, 64, False, 0), (1, 300, 100, 4, 4, 64, False, 0),
+    (4, 1500, 1500, 16, 16, 64, False, 0), (1, 96, 96, 2, 2, 64, False, 0)]
+# non-causal, no window (whisper's encoder and cross-attention): T > S with
+# T ragged against the 128-row kv tiles, T < S (one partial kv tile), and
+# T = S ragged; (B, S, T, K)
+NON_CAUSAL = [(2, 448, 1500, 16), (1, 300, 100, 4), (4, 1500, 1500, 16)]
 
 
 @pytest.mark.parametrize("case", SCHEDULE_CASES, ids=str)
@@ -266,6 +273,29 @@ def test_band_schedule_matches_the_mask(case):
     # the kv tiles that see a q tile are contiguous, so ranks are dense
     for tt in range(n_q):
         assert seen[first[tt]:first[tt] + count[tt], tt].all()
+
+
+@pytest.mark.parametrize("case", NON_CAUSAL, ids=str)
+def test_band_schedule_non_causal_walks_every_q_tile_once(case):
+    """Without a causal mask or a window every kv tile walks every q tile,
+    the last partial ones included, once: q_lo 0 and q_hi n_q for each kv
+    tile, and each q tile's adds come from all n_kv kv tiles from the first
+    (so its dq is written by the add of rank n_kv - 1, kv tile n_kv - 1)."""
+    b, s, t, kh = case
+    sched = band_schedule(b, s, t, kh, False, 0)
+    n_kv, n_q = -(-t // BWD_TILE_KV), -(-s // BWD_TILE_Q)
+    n_items = n_kv * b * kh
+    items = sched[:n_items]
+    q_lo, q_hi, first, count = np.split(
+        sched[n_items:], np.cumsum([n_kv, n_kv, n_q]))
+    assert sorted(items.tolist()) == list(range(n_items))
+    np.testing.assert_array_equal(q_lo, np.zeros(n_kv))
+    np.testing.assert_array_equal(q_hi, np.full(n_kv, n_q))
+    np.testing.assert_array_equal(first, np.zeros(n_q))
+    np.testing.assert_array_equal(count, np.full(n_q, n_kv))
+    # the tiles cover S and T exactly: the last of each is partial or full
+    assert (n_q - 1) * BWD_TILE_Q < s <= n_q * BWD_TILE_Q
+    assert (n_kv - 1) * BWD_TILE_KV < t <= n_kv * BWD_TILE_KV
 
 
 def _scores_mask(s, t, causal, window):

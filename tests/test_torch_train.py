@@ -1,6 +1,7 @@
 """The port's training path on the CPU against the JAX package: the loss
-and every gradient leaf (the dense, MoE, SSM and hybrid families), one
-train step, the data loader's token stream,
+and every gradient leaf (every family: dense, MoE, SSM, hybrid, the
+encoder-decoder and the VLM), one train step, the data loader's token
+stream,
 the trainer (the tests of tests/test_runtime.py and tests/test_system.py
 ported), and checkpoints that cross between the two packages.
 
@@ -19,6 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke as jax_smoke  # noqa: E402
 from repro.data import PrefetchingLoader as JaxLoader  # noqa: E402
 from repro.data import SyntheticCorpus as JaxCorpus  # noqa: E402
+from repro.launch.input_specs import batch_specs  # noqa: E402
+from repro.launch.shapes_util import ShapeSpec  # noqa: E402
 from repro.launch.steps import make_train_step as jax_train_step  # noqa
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.optim import AdamW as JaxAdamW  # noqa: E402
@@ -44,6 +47,12 @@ from repro_torch.runtime.checkpoint import flatten_state  # noqa: E402
 DENSE = ["deepseek-7b", "phi4-mini-3.8b", "gemma3-27b"]
 MOE = ["llama4-scout-17b-a16e", "arctic-480b"]
 SSM = ["mamba2-780m", "zamba2-2.7b"]
+# the encoder-decoder and the VLM, whose batches carry frames or patches;
+# (arch, seq): whisper's smoke encoder has 32 frames, so 16 decoder tokens
+# attend to more keys than rows and 40 to fewer; llava's 24 positions are 8
+# patches and 16 text tokens
+ENC_VLM = [("whisper-medium", 16), ("whisper-medium", 40),
+           ("llava-next-mistral-7b", 24)]
 # f32 on both sides, only the order of sums differs (observed <= 1e-7 for
 # the loss, <= 1.4e-6 for a gradient leaf)
 LOSS_REL = 1e-5
@@ -58,6 +67,25 @@ def _batch(cfg, b=2, s=16, seed=0):
              "labels": jnp.asarray(toks[:, 1:])},
             {"tokens": torch.as_tensor(toks[:, :-1]),
              "labels": torch.as_tensor(toks[:, 1:])})
+
+
+def _spec_batch(cfg, b=2, s=24, seed=0):
+    """A training batch in the layout of the reference's launch/
+    input_specs.py::batch_specs at global batch ``b`` and seq ``s``: tokens
+    and labels (one draw, shifted by one), and frames (encdec) or patches
+    (vlm) as 0.1 N(0, 1) in the smoke configs' f32; drawn with numpy,
+    copied for torch."""
+    specs = batch_specs(cfg, ShapeSpec("train", "train", s, b))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(b, specs["tokens"].shape[1] + 1))
+    arrays = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for key in ("frames", "patches"):
+        if key in specs:
+            arrays[key] = 0.1 * rng.standard_normal(specs[key].shape,
+                                                    np.float32)
+    assert set(arrays) == set(specs)
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.tensor(v) for k, v in arrays.items()})
 
 
 def _leaf_rel(got, want) -> float:
@@ -220,13 +248,80 @@ def test_moe_router_gradient_stays_f32_in_bf16_model():
         assert g.abs().max() > 0
 
 
-def test_train_loss_refuses_families_without_backward():
-    for arch, what in (("llava-next-mistral-7b", "whisper and llava"),
-                       ("whisper-medium", "whisper and llava")):
-        model = Model(get_smoke(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            model.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.long),
-                              "labels": torch.zeros(1, 4, dtype=torch.long)})
+@pytest.mark.parametrize("arch,seq", ENC_VLM, ids=["whisper T>S",
+                                                     "whisper T<S", "llava"])
+def test_encdec_vlm_loss_and_every_gradient_match_jax(arch, seq):
+    """The encoder-decoder and the VLM: Model.train_loss (encdec.train_loss
+    for whisper, the text positions' CE for llava) and every gradient leaf
+    against jax.grad of the JAX Model.train_loss with kernel_mode "ref" (the
+    reference trains them only so: jax.grad fails through its Pallas flash
+    kernel); remat none and full, every attention through FlashAttention's
+    plain backward, whisper's encoder and cross-attention non-causal.  The
+    batch is the input_specs layout."""
+    jm = JaxModel(jax_smoke(arch))
+    assert jm.cfg.kernel_mode == "ref"
+    jp = jm.init(KEY)
+    jb, tb = _spec_batch(jm.cfg, s=seq, seed=11)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.train_loss(p, jb), has_aux=True))(jp)
+    jgrads = flatten(jax.device_get(jgrads))
+    state = params_from_jax(jax.device_get(jp))
+    for remat in ("none", "full"):
+        model = Model(get_smoke(arch).replace(remat=remat),
+                      device="cpu").load_state(state)
+        before = flash_attention.launches, flash_attention.backward_launches
+        loss, met = model.train_loss(tb)
+        assert set(met) == set(jmet)
+        for key, got, want in (("loss", loss, jloss),
+                               *((k, met[k], jmet[k]) for k in met)):
+            got, want = float(got.detach()), float(want)
+            assert abs(got - want) <= LOSS_REL * abs(want), (remat, key)
+        loss.backward()
+        # the CPU runs the plain versions: no kernel is launched
+        assert (flash_attention.launches,
+                flash_attention.backward_launches) == before
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        assert set(grads) == set(jgrads)
+        for name, g in grads.items():
+            assert g is not None and g.shape == jgrads[name].shape, name
+            assert _leaf_rel(g, jgrads[name]) <= GRAD_REL, (remat, name)
+
+
+def test_encdec_stacked_leaves_unbound_once():
+    """whisper's encoder and decoder stacks, as the mamba stacks: under
+    autograd each stacked leaf's one consumer is an unbind."""
+    model = Model(get_smoke("whisper-medium"), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    _, tb = _spec_batch(model.cfg, s=16, seed=12)
+    loss, _ = model.train_loss(tb)
+    consumers, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        for nxt, _ in fn.next_functions:
+            if nxt is not None:
+                consumers.setdefault(nxt, []).append(fn)
+                todo.append(nxt)
+    for stack in ("enc_layers", "dec_layers"):
+        leaf = model.params[stack]["attn"]["wq"]
+        acc = next(f for f in seen if getattr(f, "variable", None) is leaf)
+        (unbind,) = consumers[acc]
+        assert type(unbind).__name__.startswith("UnbindBackward"), stack
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_trainer_refuses_encdec_and_vlm(arch):
+    """The loader yields tokens and labels only, as the reference's does:
+    Trainer refuses the families whose batches carry frames or patches and
+    names the step function and the batch layout to train them with."""
+    with pytest.raises(ValueError, match="make_train_step") as err:
+        Trainer(get_smoke(arch), TrainConfig(steps=1), device="cpu")
+    assert "input_specs" in str(err.value)
+    with pytest.raises(ValueError, match="make_train_step"):
+        train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "1"])
 
 
 def test_train_step_matches_jax():
@@ -257,14 +352,27 @@ def test_ssm_train_step_matches_jax(arch):
     _train_step_matches_jax(arch, param_rel=GRAD_REL)
 
 
-def _train_step_matches_jax(arch, param_rel):
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_encdec_vlm_train_step_matches_jax(arch):
+    """The same for the encoder-decoder and the VLM, on a batch of the
+    input_specs layout, held as the MoE family is: whisper's encoder
+    attention-key gradient holds an element of 1.5e-7 (2.4e-8 once its norm
+    of 6.2 is clipped to 1, near AdamW's eps) with 5 % rounding noise, and
+    llava's projector one of 3.2e-7 (2.2e-8 after a clip from 14.4) with
+    11 %; the first update turns that noise into moves of a sizeable share
+    of lr (those leaves 1.09e-6 and 3.27e-6 off after the step)."""
+    _train_step_matches_jax(arch, param_rel=GRAD_REL, spec_batch=True)
+
+
+def _train_step_matches_jax(arch, param_rel, spec_batch=False):
     cfg = jax_smoke(arch)
     jm = JaxModel(cfg)
     jp = jm.init(KEY)
     ocfg = dict(lr=1e-3, warmup_steps=1, total_steps=10)
     jopt = JaxAdamW(JaxAdamWConfig(**ocfg))
     jstate = {"params": jp, "opt": jopt.init(jp)}
-    jb, tb = _batch(cfg, seed=3)
+    jb, tb = (_spec_batch(cfg, seed=3) if spec_batch
+              else _batch(cfg, seed=3))
     jstate, jmet = jax.jit(jax_train_step(jm, jopt))(jstate, jb)
 
     model = Model(get_smoke(arch), device="cpu").load_state(
@@ -273,7 +381,9 @@ def _train_step_matches_jax(arch, param_rel):
     params = dict(model.named_parameters())
     state = {"params": params, "opt": opt.init(params)}
     state, met = make_train_step(model, opt)(state, tb)
-    assert set(met) == {"loss", "ce", "aux", "lr", "grad_norm"}
+    # whisper's loss reports no aux, as the reference's encdec.train_loss
+    assert set(met) == set(jmet) == {"loss", "ce", "lr", "grad_norm"} | (
+        set() if cfg.family == "encdec" else {"aux"})
     for key in met:
         np.testing.assert_allclose(float(met[key]), float(jmet[key]),
                                    rtol=1e-5)

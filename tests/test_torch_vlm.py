@@ -2,7 +2,8 @@
 token embeddings, then the dense stack) vs the JAX package on bridged
 weights: ``_embed`` with patches, the logits, the prefill cache and its
 ``pos`` (prompt + n_patches), decode steps; the port's own
-decode-vs-forward consistency; and the serving entry points."""
+decode-vs-forward consistency; the loss on the text positions; and the
+serving entry points."""
 import pytest
 
 np = pytest.importorskip("numpy")
@@ -84,6 +85,33 @@ def test_forward_logits_match_jax(jax_params, mode):
     assert got.shape == want.shape == (2, model.cfg.n_patches + 12,
                                        model.cfg.vocab)
     assert _rel(got, want) < JAX_REL
+
+
+def test_train_loss_takes_text_positions_only(jax_params):
+    """The VLM's loss is the CE of the text positions alone, the last
+    ``labels.shape[1]`` rows of the logits, as the reference's
+    ``logits[:, -labels.shape[1]:]``; ``forward(last=n)`` applies the final
+    norm and the head to those rows only and gives the full logits' last n
+    rows."""
+    jm, model = _pair(jax_params)
+    cfg = model.cfg
+    batch = _batch(cfg, 2, 12, seed=6)
+    batch["labels"] = np.roll(batch["tokens"], -1, axis=1)
+    jloss, jmet = jm.train_loss(jax_params, _jax(batch))
+    loss, met = model.train_loss(_torch(batch))
+    assert _rel(loss, jloss) < JAX_REL
+    assert _rel(met["ce"], jmet["ce"]) < JAX_REL
+    with torch.no_grad():
+        full = model.forward_logits(_torch(batch))
+        text, _, _ = lm.forward(model.params, torch.as_tensor(batch["tokens"]),
+                                cfg, last=12,
+                                patches=torch.as_tensor(batch["patches"]))
+    assert full.shape[1] == cfg.n_patches + 12 and text.shape[1] == 12
+    assert _rel(text, full[:, -12:]) < JAX_REL
+    want = torch.nn.functional.cross_entropy(
+        full[:, -12:].reshape(-1, cfg.vocab),
+        torch.as_tensor(batch["labels"]).reshape(-1))
+    assert abs(float(loss.detach()) - float(want)) <= 1e-6 * float(want)
 
 
 def test_prefill_pos_and_decode_match_jax(jax_params):
