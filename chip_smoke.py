@@ -132,7 +132,23 @@ result line):
    bf16 products it issues beside the function's work) beside autograd's
    backward of the f32 bmm spelling of the plain forward;
    each in three rounds taken in turns with its yardstick, the card's
-   clocks read before and after).
+   clocks read before and after).  The bounds' work comes from
+   ``repro_torch/roofline/kernel_model.py``, the peaks from
+   ``repro_torch/roofline/model.py`` (the H100 SXM's data sheet).
+7. roofline: (a) each of the twelve main paths dry-run on meta
+   (``launch/dryrun.py``) at its exact config, batch, layers and moments
+   (the engine's prefills one a served prompt, its decode step at the
+   slots and max_len it serves), beside phase 5's measured times and peak:
+   counted FLOPs and bytes by kind, the bound at the data-sheet peaks,
+   MODEL_FLOPS, and mfu = model_flops / (measured s x 989e12), bound_share
+   = bound / measured, peak_ratio = dry-run peak / max_memory_allocated;
+   (b) one more training step of deepseek-7b, llama4-scout (2 layers) and
+   mamba2-780m counted on the card (phase 5b-5d), equal kind by kind, in
+   integer FLOPs and bytes, to the meta count of the same step, with one
+   kernel call for each launch of a step; (c) the scheduler's winner twin
+   (``repro_torch.core.torch_winner``) on the card against a numpy staged
+   reduction over 1200 draws, bit-identical, and one call at n 4096 timed
+   beside numpy's.
 
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma
 backward's registers and spills (none allowed), and runs the backward's
@@ -167,9 +183,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
-PEAK_F32_FLOPS = 67e12        # H100 SXM f32, outside the tensor cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+# the H100 SXM's data-sheet peaks and each kernel's work, from the port
+# (fails, and the script exits non-zero, outside a checkout of the repo)
+from repro_torch.roofline import kernel_model  # noqa: E402
+from repro_torch.roofline.model import HBM_BW as PEAK_BYTES  # noqa: E402
+from repro_torch.roofline.model import PEAK_F32_FLOPS  # noqa: E402
+from repro_torch.roofline.model import PEAK_FLOPS as PEAK_BF16_FLOPS  # noqa
+
 LLAMA4 = "llama4-scout-17b-a16e"
 LLAMA4_LAYERS = 12            # of 48: 57 GB of bf16 weights on an 80 GB card
 MAMBA2 = "mamba2-780m"        # all 48 layers: 1.56 GB of bf16 weights
@@ -1949,6 +1969,8 @@ def phase_train(card: str, cfg) -> dict:
         "moe_gmm backward, fma body", 0.0)
     assert fma_ms == 0.0, f"{tag} the fma body ran for {fma_ms} ms"
     res["adamw_ms"] = adamw_alone(trainer.opt, state, tag, ms, card)
+    if cfg.name in CARD_COUNT:
+        res["card_count"] = card_count(trainer.step_fn, state, cfg)
     del trainer, state, batch, toks
     gc.collect()
     torch.cuda.empty_cache()
@@ -1968,6 +1990,27 @@ TRAIN_GROUPS = {"ssd backward": ("ssd_bwd_", "BwdArgs"),
                 "matrix products": ("nvjet", "gemm", "xmma", "cutlass"),
                 "flash forward": ("flash_attn_fwd",),
                 "flash backward": ("flash_attn_bwd",)}
+
+
+# phase 7b: the training paths whose step is counted on the card as well
+CARD_COUNT = ("deepseek-7b", LLAMA4, MAMBA2)
+
+
+def card_count(step_fn, state: dict, cfg) -> dict:
+    """One more training step of TRAIN_BATCH x TRAIN_SEQ tokens, after the
+    timed and profiled ones, under ``roofline.counting.Counter`` on the
+    card: FLOPs and bytes by kind, kernel calls (phase 7 holds them equal to
+    the meta dry run's count of the same step)."""
+    from repro_torch.roofline import Counter
+    gen = torch.Generator("cuda").manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    with Counter("cuda") as counter:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    return counter.summary()
 
 
 def adamw_alone(opt, state: dict, tag: str, step_ms: float,
@@ -2170,10 +2213,7 @@ def phase_timing(card: str) -> dict:
                                                      causal=causal))
         plain_ms = time_ms(lambda: attention_reference(q, kk, v,
                                                        causal=causal), 5)
-        # (q, k) pairs the mask keeps: the causal half, or all S x T
-        pairs = s * (s + 1) // 2 if causal else s * s
-        flops = 4 * b * h * pairs * hd     # q.k and p.v, 2 flops per MAC
-        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * k * hd)  # q, o, k, v
+        flops, nbytes = kernel_model.flash_fwd(b, s, s, h, k, hd, causal)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
@@ -2252,11 +2292,7 @@ def phase_timing_bwd(card: str) -> dict:
                         for n, r in rounds.items()))
         med = {n: sorted(r)[1] for n, r in rounds.items()}
         graph = {body: graph_ms(lambda: kernel(body)) for body in bodies}
-        # (q, k) pairs the mask keeps: the causal half, or all S x T
-        pairs = s * (s + 1) // 2 if causal else s * s
-        flops = 5 * 2 * b * h * pairs * hd          # five products
-        # q, o, do, dq (B,S,H,hd) and k, v, dk, dv (B,S,K,hd) in bf16; lse
-        nbytes = 2 * 4 * b * s * (h + k) * hd + 4 * b * h * s
+        flops, nbytes = kernel_model.flash_bwd(b, s, s, h, k, hd, causal)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
@@ -2385,10 +2421,10 @@ def phase_timing_gmm(card: str) -> dict:
         library_ms = sorted(library_r)[1]
         device_ms = graph_ms(lambda: grouped_ffn(buf, wi, wg, wo))
         plain_ms = time_ms(lambda: grouped_ffn_reference(buf, wi, wg, wo), 5)
-        # three products over the live rows; the live experts' weights, buf
-        # and out
-        flops = 3 * 2 * n_rows * d * f
-        nbytes = 2 * (3 * n_live * d * f + 2 * b * e * c * d)
+        # the products over the live rows; the live experts' weights
+        flops, nbytes = kernel_model.moe_gmm(
+            b, e, c, d, f, "swiglu", torch.bfloat16, live_rows=n_rows,
+            live_experts=n_live)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         res = {"label": label, "occupancy": occupancy or "every row",
@@ -2532,12 +2568,8 @@ def phase_timing_gmm_bwd(card: str, passes: dict) -> dict:
                         for n, r in rounds.items()))
         med = {n: sorted(r)[1] for n, r in rounds.items()}
         graph = {n: graph_ms(kern, 5) for n, kern in kerns.items()}
-        n_prod = 6 if key == "backward" else 3
-        flops = n_prod * 2 * e * rows * d * f
-        # the weights read (and, backward, their gradients written); buf and
-        # out (backward: buf, dy and dbuf)
-        nbytes = 2 * ((n_prod * e * d * f)
-                      + (3 if key == "backward" else 2) * b * e * c * d)
+        flops, nbytes = (kernel_model.moe_gmm_bwd if key == "backward"
+                         else kernel_model.moe_gmm)(*GMM_BWD_TRAIN)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         res = {"shape": list(GMM_BWD_TRAIN), "live_experts": e,
@@ -2583,20 +2615,6 @@ def phase_timing_gmm_bwd(card: str, passes: dict) -> dict:
     return res
 
 
-def ssd_work(b, nc, l, h, p, n) -> tuple[int, int]:
-    """(flops, bytes) the SSD intra-chunk function needs, x in bf16: the
-    causal half of C B^T (once per chunk, shared by the heads) and of M X,
-    and the state product; each input read once, each output written once."""
-    pairs = l * (l + 1) // 2
-    flops = 2 * b * nc * (pairs * n + h * pairs * p + h * l * n * p)
-    nbytes = (2 * b * nc * l * h * p            # x, bf16
-              + 4 * 2 * b * nc * l * h          # dt, cum
-              + 4 * 2 * b * nc * l * n          # B, C
-              + 4 * b * nc * l * h * p          # y
-              + 4 * b * nc * h * n * p)         # states
-    return flops, nbytes
-
-
 def ssd_time(shape, card: str, gen) -> dict:
     """The SSD intra-chunk kernel at ``shape``, x bf16 as served: three
     rounds in turns with the yardstick, medians kept; a CUDA graph's replay
@@ -2638,7 +2656,7 @@ def ssd_time(shape, card: str, gen) -> dict:
     plain_ms = time_ms(lambda: ssd_intra_chunk_reference(xc, dtc, cum, bc,
                                                          cc), 5)
     kernel_ms, yard_ms = sorted(kernel_r)[1], sorted(library_r)[1]
-    flops, nbytes = ssd_work(*shape)
+    flops, nbytes = kernel_model.ssd(*shape)
     # the least time for this work: its operations at the bf16 tensor-core
     # rate (the kernel's products run there at f32 accuracy) or its bytes;
     # beside it the same work on f32 FMAs
@@ -2676,24 +2694,6 @@ def phase_timing_ssd(card: str) -> dict:
                         for s in SSD_ONE_CHUNK}
     ssd_intra_chunk.launches = saved     # comparisons do not count
     return out
-
-
-def ssd_bwd_work(b, nc, l, h, p, n) -> tuple[int, int]:
-    """(flops, bytes) the SSD backward needs, x in bf16: per head the causal
-    halves of dM = dy X^T and of M^T dy, B dS and X dS^T; per chunk C B^T
-    (recomputed), dC = dCB B and dB = dCB^T C; each input (x, dt, cum, B, C,
-    dy, d states) read once and each gradient written once (dxc in
-    bf16)."""
-    pairs = l * (l + 1) // 2
-    flops = 2 * b * nc * (h * (2 * pairs * p + 2 * l * n * p)
-                          + 3 * pairs * n)
-    rows = b * nc * l
-    nbytes = (2 * 2 * rows * h * p           # x, dxc
-              + 4 * rows * h * p             # dy
-              + 4 * b * nc * h * n * p       # d states
-              + 4 * 4 * rows * h             # dt, cum, d dt, d cum
-              + 4 * 4 * rows * n)            # B, C, dB, dC
-    return flops, nbytes
 
 
 def ssd_bwd_issued(b, nc, l, h, p, n) -> int:
@@ -2769,7 +2769,7 @@ def ssd_bwd_time(shape, card: str, parts: dict | None) -> dict:
     device_ms = graph_ms(kernel, 10)
     plain_ms = time_ms(lambda: ssd_intra_chunk_backward_reference(
         *x, dy, ds), 2, warmup=1)
-    flops, nbytes = ssd_bwd_work(*shape)
+    flops, nbytes = kernel_model.ssd_bwd(*shape)
     issued = ssd_bwd_issued(*shape)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -2866,6 +2866,205 @@ def ssd_only(card: str) -> int:
     return 0
 
 
+
+# ------------------------------------------------------------- phase 7
+def dry_run(arch: str, kind: str, n_layers: int, batch: int, seq: int,
+            moments: str | None = None) -> dict:
+    """One cell of ``launch/dryrun.py`` on meta at a main path's exact
+    config and sizes; it must end "ok"."""
+    from repro_torch.launch import dryrun
+    shape = {"train": "train_4k", "prefill": "prefill_32k",
+             "decode": "decode_32k"}[kind]
+    row = dryrun.run_cell(arch, shape, verbose=False,
+                          cfg_overrides={"n_layers": n_layers}, batch=batch,
+                          seq=seq, moments=moments)
+    assert row["status"] == "ok", (arch, kind, row.get("traceback"))
+    return row
+
+
+def roofline_part(rows: list, measured_ms: float) -> dict:
+    """A step kind's dry-run rows (one a call) beside its measured time:
+    counted FLOPs and bytes by kind, the bound, MODEL_FLOPS, the dry run's
+    peak, and mfu = model_flops / (measured s x peak), bound_share = bound /
+    measured."""
+    kinds: dict = {}
+    for r in rows:
+        for k, v in r["counts"]["kinds"].items():
+            acc = kinds.setdefault(k, {"flops": 0, "bytes": 0})
+            acc["flops"] += v["flops"]
+            acc["bytes"] += v["bytes"]
+    bound_ms = 1e3 * sum(r["bound_s"] for r in rows)
+    mf = sum(r["model_flops"] for r in rows)
+    return {"calls": len(rows), "kinds": kinds,
+            "flops": sum(r["counts"]["flops"] for r in rows),
+            "bytes": sum(r["counts"]["bytes"] for r in rows),
+            "bound_ms": bound_ms,
+            "bottleneck": sorted({r["roofline"]["bottleneck"]
+                                  for r in rows}),
+            "model_flops": mf,
+            "dryrun_peak_gb": max(r["memory"]["peak_bytes"]
+                                  for r in rows) / 1e9,
+            "measured_ms": measured_ms,
+            "mfu": mf / (measured_ms / 1e3 * PEAK_BF16_FLOPS),
+            "bound_share": bound_ms / measured_ms}
+
+
+def roofline_row(p: dict) -> dict:
+    """Phase 7a for one main path: each of its step kinds dry-run on meta
+    at the path's config, batch, layers and moments, beside what phase 5
+    measured; the dry run's peak over the measured ``max_memory_allocated``
+    (peak_ratio; the dry run sees neither the allocator's rounding nor
+    cuBLAS's workspaces, so it is recorded, not held)."""
+    from repro_torch.configs import get_config
+    arch, layers = p["arch"], p["n_layers"]
+    cfg = get_config(arch)
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
+    parts = {}
+    if p.get("path") == "train":
+        rows = [dry_run(arch, "train", layers, p["batch"],
+                        p["seq_len"] + extra, p["moment_dtype"])]
+        parts["train"] = roofline_part(rows, p["ms_per_step"])
+        parts["train"]["rows"] = rows
+    else:
+        lens = p["prompt_lens"]
+        if cfg.family in ("encdec", "vlm"):      # one batch of the prompts
+            pre = [dry_run(arch, "prefill", layers, len(lens),
+                           lens[0] + extra)]
+            dec_batch, dec_len = len(lens), lens[0] + SERVE_NEW + extra
+        else:                                    # the engine: one a request
+            pre = [dry_run(arch, "prefill", layers, 1, n) for n in lens]
+            dec_batch, dec_len = SERVE_SLOTS, SERVE_MAX_LEN
+        parts["prefill"] = roofline_part(pre, sum(p["prefill_ms"]))
+        parts["decode"] = roofline_part(
+            [dry_run(arch, "decode", layers, dec_batch, dec_len)],
+            p["decode_ms_per_step"])
+    peak = max(part["dryrun_peak_gb"] for part in parts.values())
+    return {"arch": arch, "n_layers": layers,
+            "path": p.get("path", "serve"), "parts": parts,
+            "dryrun_peak_gb": peak,
+            "measured_peak_gb": p["max_memory_allocated_gb"],
+            "peak_ratio": peak / p["max_memory_allocated_gb"]}
+
+
+def winner_reference(key: np.ndarray, ids: np.ndarray) -> int:
+    """The scheduler's staged reduction in numpy: the least key, then the
+    least id among its ties (repro/core/copmatrix.py, written out here)."""
+    big = np.iinfo(np.int64).max
+    return int(np.where(key == key.min(), ids, big).min())
+
+
+def winner_draws(n_draws: int = 1200):
+    """(key, ids) draws at n in WINNER_SIZES: float64 keys with ties and
+    +inf (some all +inf), int64 keys near int64 max, ids from a permutation
+    or near int64 max."""
+    rng = np.random.default_rng(8)
+    big = np.iinfo(np.int64).max
+    for i in range(n_draws):
+        n = WINNER_SIZES[i % len(WINNER_SIZES)]
+        if i % 2:
+            key = big - rng.integers(0, 4, n)
+        else:
+            key = rng.integers(0, 6, n).astype(np.float64)
+            key[rng.random(n) < (1.0 if i % 10 == 0 else 0.2)] = np.inf
+        ids = rng.permutation(n).astype(np.int64)
+        if i % 4 == 3:
+            ids = big - 1 - ids
+        yield key, ids
+
+
+WINNER_SIZES = (1, 3, 7, 16, 33, 1000, 4096, 4097)
+
+
+def phase_winner(card: str) -> dict:
+    """Phase 7c: the scheduler's winner twin (``repro_torch.core.
+    torch_winner``) on the card against the numpy staged reduction, every
+    draw bit-identical; one call at n = 4096 timed beside numpy's (host
+    clock; the twin copies its inputs to the card and its answer back)."""
+    from repro_torch.core import torch_winner
+    winner = torch_winner("cuda")
+    n = 0
+    for key, ids in winner_draws():
+        got, want = winner(key, ids), winner_reference(key, ids)
+        assert got == want, f"winner twin {got} != numpy {want} at n " \
+            f"{len(key)} ({key.dtype})"
+        n += 1
+    key, ids = next(k for k in winner_draws() if len(k[0]) == 4096)
+
+    def per_call_ms(fn, calls=200):
+        fn(key, ids)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn(key, ids)
+        return 1e3 * (time.perf_counter() - t) / calls
+
+    res = {"draws": n, "sizes": list(WINNER_SIZES),
+           "twin_ms_4096": per_call_ms(winner),
+           "numpy_ms_4096": per_call_ms(winner_reference)}
+    say(f"[roofline] winner twin: {n} draws at n in {WINNER_SIZES} "
+        f"(float64 keys with ties and inf, int64 keys near int64 max) "
+        f"bit-identical to numpy's staged reduction; one call at n 4096: "
+        f"twin {res['twin_ms_4096']:.4f} ms, numpy "
+        f"{res['numpy_ms_4096']:.4f} ms (host clock, copies included) "
+        f"[{card}]")
+    return res
+
+
+def phase_roofline(paths: list, card: str) -> dict:
+    """Phase 7: (a) a roofline row for each main path from the meta dry run
+    at its exact sizes, beside its measured times and peak; (b) the
+    training steps counted on the card (deepseek-7b, llama4-scout at 2
+    layers, mamba2-780m) equal to the same steps counted on meta, kind by
+    kind, exactly, with one kernel call for each launch of a step; (c) the
+    winner twin."""
+    rows = []
+    for p in paths:
+        row = roofline_row(p)
+        rows.append(row)
+        for kind, part in row["parts"].items():
+            by_kind = ", ".join(
+                f"{k} {v['flops'] / 1e12:.3f} TFLOP {v['bytes'] / 1e9:.2f} GB"
+                for k, v in sorted(part["kinds"].items()))
+            say(f"[roofline] {row['arch']} x{row['n_layers']} {row['path']} "
+                f"{kind} ({part['calls']} dry-run call"
+                f"{'s' if part['calls'] > 1 else ''}): counted "
+                f"{part['flops'] / 1e12:.3f} TFLOP, "
+                f"{part['bytes'] / 1e9:.2f} GB ({by_kind}); bound "
+                f"{part['bound_ms']:.3f} ms by {'/'.join(part['bottleneck'])}"
+                f"; model_flops {part['model_flops'] / 1e12:.3f} TFLOP; "
+                f"measured {part['measured_ms']:.3f} ms; mfu "
+                f"{100 * part['mfu']:.2f} %, bound_share "
+                f"{100 * part['bound_share']:.2f} % [{card}]")
+        say(f"[roofline] {row['arch']} x{row['n_layers']} {row['path']}: "
+            f"dry-run peak {row['dryrun_peak_gb']:.2f} GB, measured "
+            f"{row['measured_peak_gb']:.2f} GB, peak_ratio "
+            f"{row['peak_ratio']:.3f}")
+    checked = []
+    for p, row in zip(paths, rows):
+        if "card_count" not in p:
+            continue
+        card_c = p["card_count"]
+        meta_c = row["parts"]["train"]["rows"][0]["counts"]
+        per_step = {k: v // TRAIN_STEPS for k, v in p["launches"].items()
+                    if v}
+        assert card_c["kinds"] == meta_c["kinds"], \
+            f"{p['arch']}: card count {card_c['kinds']} != meta " \
+            f"{meta_c['kinds']}"
+        assert card_c["calls"] == meta_c["calls"] == per_step, \
+            f"{p['arch']}: calls card {card_c['calls']}, meta " \
+            f"{meta_c['calls']}, launches a step {per_step}"
+        say(f"[roofline] {p['arch']} x{p['n_layers']} train: the card's "
+            f"count equals the meta count kind by kind "
+            f"({card_c['flops']} FLOPs, {card_c['bytes']} bytes; calls "
+            f"{card_c['calls']} = launches a step) [{card}]")
+        checked.append(p["arch"])
+    assert sorted(checked) == sorted(CARD_COUNT), checked
+    for row in rows:
+        for part in row["parts"].values():
+            part.pop("rows", None)
+    return {"paths": rows, "card_equals_meta": checked,
+            "winner": phase_winner(card)}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -2917,6 +3116,7 @@ def main(argv: list[str]) -> int:
     gmm_bwd = phase_timing_gmm_bwd(card, gmm_passes)
     ssd = phase_timing_ssd(card)
     ssd_bwd = phase_timing_ssd_bwd(card, ssd_parts)
+    roofline = phase_roofline(paths, card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
@@ -3035,6 +3235,7 @@ def main(argv: list[str]) -> int:
                                   "train_vlm": vlm_train,
                                   "ssd_timing": ssd,
                                   "ssd_bwd_timing": ssd_bwd,
+                                  "roofline": roofline,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

@@ -1,12 +1,13 @@
 """Architecture config registry (``--arch <id>``).
 
-A copy of the JAX package's registry: the config files beside this one are
-data only and equal to the JAX package's."""
+A copy of the JAX package's registry: the config files beside this one,
+and the shape table, are data only and equal to the JAX package's."""
 from __future__ import annotations
 
 import importlib
 
 from ..models.config import ArchConfig
+from .shapes import SHAPES, ShapeSpec, applicable
 
 _MODULES = {
     "arctic-480b": "arctic_480b",
@@ -38,4 +39,5 @@ def get_smoke(name: str) -> ArchConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ARCHS", "get_config", "get_smoke"]
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "applicable", "get_config",
+           "get_smoke"]

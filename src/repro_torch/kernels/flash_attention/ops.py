@@ -9,11 +9,19 @@ hand-written backward kernel on the card (its plain version on the CPU);
 otherwise the forward launches without the logsumexp, as serving does.
 ``flash_attention.launches`` counts forward launches and
 ``flash_attention.backward_launches`` backward calls (and nothing else), so
-a run can show that its path went through the kernels."""
+a run can show that its path went through the kernels.
+
+A meta tensor (the dry run) gets the CUDA path's outputs, shapes and dtypes
+(``lse`` included), without arithmetic and without a launch: the launch
+counts do not move.  Under a ``roofline.counting.Counter`` every call books
+its ``roofline.kernel_model`` work (the plain version's aten work on the
+CPU)."""
 from __future__ import annotations
 
 import torch
 
+from ...roofline import counting, kernel_model
+from .._layout import as_kernel
 from .kernel import (TMA_HEAD_DIMS, flash_attention_bwd_cuda,
                      flash_attention_cuda)
 from .ref import attention_backward_reference, attention_reference
@@ -69,14 +77,57 @@ def _check_cuda_inputs(q, k, v, do=None) -> None:
                          "must be above 0 and below 2^40 bytes")
 
 
-def _launch_fwd(q, k, v, causal: bool, window: int, scale: float,
-                with_lse: bool = False):
-    """Check CUDA inputs, launch the forward kernel and count the launch."""
+def _fwd(q, k, v, causal: bool, window: int, scale: float,
+         with_lse: bool):
+    """The forward on q's device: the plain version on the CPU (laid out as
+    the kernel's outputs); on meta the kernel's outputs, o (B,S,H,hd) in q's
+    dtype and with ``with_lse`` the f32 row logsumexp (B,H,S); on the card
+    the kernel, its inputs checked and its launch counted."""
+    if q.device.type == "cpu":
+        return as_kernel(attention_reference(
+            q, k, v, causal=causal, window=window, scale=scale,
+            return_lse=with_lse))
+    if q.is_meta:
+        b, s, h, _ = q.shape
+        o = q.new_empty(q.shape)
+        return (o, q.new_empty((b, h, s), dtype=torch.float32)) \
+            if with_lse else o
     _check_cuda_inputs(q, k, v)
     out = flash_attention_cuda(q, k, v, causal, window, scale,
                                with_lse=with_lse)
     flash_attention.launches += 1
     return out
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float,
+             with_lse: bool = False):
+    if counting.active is None:
+        return _fwd(q, k, v, causal, window, scale, with_lse)
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    return counting.call(
+        "flash_attn_fwd", q.device,
+        lambda: kernel_model.flash_fwd(b, s, t, h, kh, hd, causal, window,
+                                       q.dtype, with_lse),
+        _fwd, q, k, v, causal, window, scale, with_lse)
+
+
+def _bwd(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
+    """The backward on q's device: the plain version on the CPU (laid out
+    as the kernel's outputs); on meta dq, dk, dv of the inputs' shapes and
+    dtypes, contiguous as the kernel's; on the card the kernel, its inputs
+    checked and its call counted."""
+    if q.device.type == "cpu":
+        return as_kernel(attention_backward_reference(
+            q, k, v, o, lse, do, causal=causal, window=window, scale=scale))
+    do = do.contiguous()
+    if q.is_meta:
+        return tuple(x.new_empty(x.shape) for x in (q, k, v))
+    _check_cuda_inputs(q, k, v, do)
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, window,
+                                     scale)
+    flash_attention.backward_launches += 1
+    return grads
 
 
 class FlashAttention(torch.autograd.Function):
@@ -91,13 +142,7 @@ class FlashAttention(torch.autograd.Function):
         if causal and k.shape[1] < q.shape[1]:
             raise ValueError("causal attention with fewer keys than queries "
                              "leaves rows without a key")
-        if q.device.type == "cuda":
-            o, lse = _launch_fwd(q, k, v, causal, window, scale,
-                                 with_lse=True)
-        else:
-            o, lse = attention_reference(q, k, v, causal=causal,
-                                         window=window, scale=scale,
-                                         return_lse=True)
+        o, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.attn = (causal, window, scale)
         return o
@@ -106,16 +151,17 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.attn
-        if q.device.type == "cuda":
-            do = do.contiguous()
-            _check_cuda_inputs(q, k, v, do)
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
-                                                  window, scale)
-            flash_attention.backward_launches += 1
+        args = (q, k, v, o, lse, do, causal, window, scale)
+        if counting.active is None:
+            dq, dk, dv = _bwd(*args)
         else:
-            dq, dk, dv = attention_backward_reference(
-                q, k, v, o, lse, do, causal=causal, window=window,
-                scale=scale)
+            b, s, h, hd = q.shape
+            t, kh = k.shape[1], k.shape[2]
+            dq, dk, dv = counting.call(
+                "flash_attn_bwd", q.device,
+                lambda: kernel_model.flash_bwd(b, s, t, h, kh, hd, causal,
+                                               window, q.dtype),
+                _bwd, *args)
         return dq, dk, dv, None, None, None
 
 
@@ -128,16 +174,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last ``window`` keys of each row.  ``scale`` defaults to hd^-0.5."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not (q.device == k.device == v.device) or \
-            q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"q, k, v must lie on the CPU or on one CUDA "
-                         f"device; got {q.device}, {k.device}, {v.device}")
+            q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"q, k, v must lie on the CPU, on one CUDA device "
+                         f"or on meta; got {q.device}, {k.device}, "
+                         f"{v.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, scale)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, causal=causal, window=window,
-                                   scale=scale)
-    return _launch_fwd(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0

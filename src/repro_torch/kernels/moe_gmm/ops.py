@@ -12,12 +12,20 @@ call is one launch of the up product and one of the down product),
 ``grouped_ffn.backward_launches`` backward calls that launched the backward
 kernel, and nothing else.
 
+A meta tensor (the dry run) gets the CUDA path's outputs, shapes and dtypes,
+without arithmetic and without a launch: the launch counts do not move.
+Under a ``roofline.counting.Counter`` every call books its
+``roofline.kernel_model`` work over every row (the plain version's aten
+work on the CPU).
+
 The JAX wrapper's ``bf`` (the TPU's F block) has no counterpart: the CUDA
 kernels pick their own tiles and mask the ragged edge."""
 from __future__ import annotations
 
 import torch
 
+from ...roofline import counting, kernel_model
+from .._layout import as_kernel
 from .kernel import grouped_ffn_bwd_cuda, grouped_ffn_cuda
 from .ref import ACTS, grouped_ffn_backward_reference, grouped_ffn_reference
 
@@ -74,16 +82,55 @@ def _check_cuda_inputs(buf, w_in, w_gate, w_out, act: str,
                          "multiples of 8")
 
 
-def _forward(buf, w_in, w_gate, w_out, act: str) -> torch.Tensor:
-    """The forward without a graph: the kernel on the card, counted, or the
-    plain version on the CPU."""
+def _fwd(buf, w_in, w_gate, w_out, act: str) -> torch.Tensor:
+    """The forward on buf's device: the plain version on the CPU (laid out
+    as the kernel's output), an output of buf's shape and dtype on meta,
+    the kernel on the card (counted)."""
     if buf.device.type == "cpu":
-        return grouped_ffn_reference(buf, w_in, w_gate, w_out, act)
+        return as_kernel(grouped_ffn_reference(buf, w_in, w_gate, w_out, act))
+    if buf.is_meta:
+        return buf.new_empty(buf.shape)
     _check_cuda_inputs(buf, w_in, w_gate, w_out, act)
     out = grouped_ffn_cuda(buf, w_in, w_gate if act == "swiglu" else w_in,
                            w_out, act)
     grouped_ffn.launches += 1
     return out
+
+
+def _work(model, buf, w_in, act: str):
+    """``model``'s (flops, bytes) over every row of buf, deferred."""
+    return lambda: model(*buf.shape, w_in.shape[-1], act, buf.dtype)
+
+
+def _forward(buf, w_in, w_gate, w_out, act: str) -> torch.Tensor:
+    """The forward without a graph."""
+    if counting.active is None:
+        return _fwd(buf, w_in, w_gate, w_out, act)
+    return counting.call("moe_gmm", buf.device,
+                         _work(kernel_model.moe_gmm, buf, w_in, act), _fwd,
+                         buf, w_in, w_gate, w_out, act)
+
+
+def _bwd(buf, w_in, w_gate, w_out, dy, act: str):
+    """The backward on buf's device: the plain version on the CPU (laid out
+    as the kernel's outputs), the gradients' shapes and dtypes on meta, the
+    kernel on the card (counted); gelu's w_gate gradient is zeros."""
+    if buf.device.type == "cpu":
+        return as_kernel(grouped_ffn_backward_reference(
+            buf, w_in, w_gate, w_out, dy, act))
+    dy = dy.contiguous()
+    if buf.is_meta:
+        dbuf, dw_in, dw_out = (x.new_empty(x.shape) for x in (buf, w_in,
+                                                              w_out))
+        dw_gate = w_gate.new_empty(w_gate.shape) if act == "swiglu" else None
+    else:
+        _check_cuda_inputs(buf, w_in, w_gate, w_out, act, dy)
+        dbuf, dw_in, dw_gate, dw_out = grouped_ffn_bwd_cuda(
+            buf, w_in, w_gate if act == "swiglu" else w_in, w_out, dy, act)
+        grouped_ffn.backward_launches += 1
+    if dw_gate is None:
+        dw_gate = torch.zeros_like(w_gate)
+    return dbuf, dw_in, dw_gate, dw_out
 
 
 class GroupedFFN(torch.autograd.Function):
@@ -102,19 +149,15 @@ class GroupedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         buf, w_in, w_gate, w_out = ctx.saved_tensors
-        act = ctx.act
-        if buf.device.type == "cpu":
-            grads = grouped_ffn_backward_reference(buf, w_in, w_gate, w_out,
-                                                   dy, act)
-            return (*grads, None)
-        dy = dy.contiguous()
-        _check_cuda_inputs(buf, w_in, w_gate, w_out, act, dy)
-        dbuf, dw_in, dw_gate, dw_out = grouped_ffn_bwd_cuda(
-            buf, w_in, w_gate if act == "swiglu" else w_in, w_out, dy, act)
-        grouped_ffn.backward_launches += 1
-        if dw_gate is None:
-            dw_gate = torch.zeros_like(w_gate)
-        return dbuf, dw_in, dw_gate, dw_out, None
+        args = (buf, w_in, w_gate, w_out, dy, ctx.act)
+        if counting.active is None:
+            grads = _bwd(*args)
+        else:
+            grads = counting.call("moe_gmm_bwd", buf.device,
+                                  _work(kernel_model.moe_gmm_bwd, buf, w_in,
+                                        ctx.act),
+                                  _bwd, *args)
+        return (*grads, None)
 
 
 def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
@@ -128,9 +171,10 @@ def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
         raise ValueError(f"act must be one of {ACTS}; got {act!r}")
     mats = _operands(buf, w_in, w_gate, w_out, act)
     if any(x.device != buf.device for x in mats) or \
-            buf.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"buf and the weights must lie on the CPU or on one "
-                         f"CUDA device; got {[str(x.device) for x in mats]}")
+            buf.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"buf and the weights must lie on the CPU, on one "
+                         f"CUDA device or on meta; got "
+                         f"{[str(x.device) for x in mats]}")
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (buf, w_in, w_gate, w_out)):
         return GroupedFFN.apply(buf, w_in, w_gate, w_out, act)

@@ -10,12 +10,19 @@ kernel (one call is one launch of the C·Bᵀ kernel and one of the y and state
 kernel) and ``ssd_intra_chunk.backward_launches`` backward calls that
 launched the backward kernels, and nothing else.
 
+A meta tensor (the dry run) gets the CUDA path's outputs, shapes and dtypes,
+without arithmetic and without a launch: the launch counts do not move.
+Under a ``roofline.counting.Counter`` every call books its
+``roofline.kernel_model`` work (the plain version's aten work on the CPU).
+
 The JAX wrapper's ``interpret`` flag has no counterpart: the device of the
 tensors takes its place."""
 from __future__ import annotations
 
 import torch
 
+from ...roofline import counting, kernel_model
+from .._layout import as_kernel
 from .kernel import ssd_intra_chunk_bwd_cuda, ssd_intra_chunk_cuda
 from .ref import (ssd_intra_chunk_backward_reference,
                   ssd_intra_chunk_reference, ssd_reference)
@@ -60,15 +67,60 @@ def _check_cuda_inputs(xc, dtc, cum, bc, cc, dy=None, dstates=None) -> None:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _forward(xc, dtc, cum, bc, cc):
-    """The forward without a graph: the kernel on the card, counted, or the
-    plain version on the CPU."""
+def _fwd(xc, dtc, cum, bc, cc):
+    """The forward on xc's device: the plain version on the CPU (laid out as
+    the kernel's outputs), the outputs' shapes (f32) on meta, the kernel on
+    the card (counted)."""
     if xc.device.type == "cpu":
-        return ssd_intra_chunk_reference(xc, dtc, cum, bc, cc)
+        return as_kernel(ssd_intra_chunk_reference(xc, dtc, cum, bc, cc))
+    if xc.is_meta:
+        b, nc, l, h, p = xc.shape
+        n = bc.shape[-1]
+        return (xc.new_empty((b, nc, l, h, p), dtype=torch.float32),
+                xc.new_empty((b, nc, h, n, p), dtype=torch.float32))
     _check_cuda_inputs(xc, dtc, cum, bc, cc)
     out = ssd_intra_chunk_cuda(xc, dtc, cum, bc, cc)
     ssd_intra_chunk.launches += 1
     return out
+
+
+def _work(model, xc, bc):
+    """``model``'s (flops, bytes) at these inputs, deferred."""
+    return lambda: model(*xc.shape, bc.shape[-1], xc.dtype)
+
+
+def _forward(xc, dtc, cum, bc, cc):
+    """The forward without a graph."""
+    if counting.active is None:
+        return _fwd(xc, dtc, cum, bc, cc)
+    return counting.call("ssd_intra_chunk", xc.device,
+                         _work(kernel_model.ssd, xc, bc), _fwd, xc, dtc, cum,
+                         bc, cc)
+
+
+def _bwd(xc, dtc, cum, bc, cc, dy, dstates):
+    """The backward on xc's device: the plain version on the CPU (which
+    skips an absent cotangent's terms; laid out as the kernel's outputs);
+    elsewhere an absent cotangent is zeros, and meta gets the gradients'
+    shapes (dxc in xc's dtype, the rest f32), the card the kernel
+    (counted)."""
+    if xc.device.type == "cpu":
+        return as_kernel(ssd_intra_chunk_backward_reference(
+            xc, dtc, cum, bc, cc, dy, dstates))
+    b, nc, l, h, p = xc.shape
+    n = bc.shape[-1]
+    f32 = torch.float32
+    dy = (xc.new_zeros((b, nc, l, h, p), dtype=f32) if dy is None
+          else dy.contiguous())
+    dstates = (xc.new_zeros((b, nc, h, n, p), dtype=f32)
+               if dstates is None else dstates.contiguous())
+    if xc.is_meta:
+        return (xc.new_empty(xc.shape),
+                *(t.new_empty(t.shape, dtype=f32) for t in (dtc, cum, bc, cc)))
+    _check_cuda_inputs(xc, dtc, cum, bc, cc, dy, dstates)
+    grads = ssd_intra_chunk_bwd_cuda(xc, dtc, cum, bc, cc, dy, dstates)
+    ssd_intra_chunk.backward_launches += 1
+    return grads
 
 
 class SSDIntraChunk(torch.autograd.Function):
@@ -91,20 +143,11 @@ class SSDIntraChunk(torch.autograd.Function):
         xc, dtc, cum, bc, cc = ctx.saved_tensors
         if dy is None and dstates is None:
             return None, None, None, None, None
-        if xc.device.type == "cpu":
-            return ssd_intra_chunk_backward_reference(xc, dtc, cum, bc, cc,
-                                                      dy, dstates)
-        b, nc, l, h, p = xc.shape
-        n = bc.shape[-1]
-        f32 = torch.float32
-        dy = (xc.new_zeros((b, nc, l, h, p), dtype=f32) if dy is None
-              else dy.contiguous())
-        dstates = (xc.new_zeros((b, nc, h, n, p), dtype=f32)
-                   if dstates is None else dstates.contiguous())
-        _check_cuda_inputs(xc, dtc, cum, bc, cc, dy, dstates)
-        grads = ssd_intra_chunk_bwd_cuda(xc, dtc, cum, bc, cc, dy, dstates)
-        ssd_intra_chunk.backward_launches += 1
-        return grads
+        args = (xc, dtc, cum, bc, cc, dy, dstates)
+        if counting.active is None:
+            return _bwd(*args)
+        return counting.call("ssd_intra_chunk_bwd", xc.device,
+                             _work(kernel_model.ssd_bwd, xc, bc), _bwd, *args)
 
 
 def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
@@ -114,9 +157,10 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     ``ssd_intra_chunk_reference`` for the function."""
     ts = (xc, dtc, cum, bc, cc)
     if any(t.device != xc.device for t in ts) or \
-            xc.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the inputs must lie on the CPU or on one CUDA "
-                         f"device; got {[str(t.device) for t in ts]}")
+            xc.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"the inputs must lie on the CPU, on one CUDA "
+                         f"device or on meta; got "
+                         f"{[str(t.device) for t in ts]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return SSDIntraChunk.apply(*ts)
     return _forward(*ts)

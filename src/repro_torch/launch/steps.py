@@ -1,7 +1,5 @@
-"""Step functions run by the trainer and the serving engine.
-
-The prefill step comes with the dry-run that calls it (ROADMAP.md, queue
-1)."""
+"""Step functions run by the trainer, the serving engine and the dry run
+(``launch/dryrun.py``)."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +32,17 @@ def make_train_step(model: Model, opt: AdamW):
         return state, metrics
 
     return train_step
+
+
+def make_prefill_step(model: Model):
+    """The prompt in, as the reference's ``make_prefill_step``
+    (``repro/launch/steps.py:28-33``): returns (the greedy next token of
+    each row, (B,) int64, and the cache)."""
+    def prefill_step(batch):
+        logits, cache = model.prefill(batch)
+        return torch.argmax(logits, dim=-1), cache
+
+    return prefill_step
 
 
 def make_serve_step(model: Model):

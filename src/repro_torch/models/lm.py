@@ -183,17 +183,24 @@ def _maybe_ckpt(fn, cfg: ArchConfig):
     (``repro/models/lm.py:105-111``): "full" keeps only each block's inputs
     and recomputes the block in the backward, "dots" also keeps its matrix
     products' outputs.  Without grad nothing is kept, and ``fn`` runs as
-    is."""
+    is.  On the meta device (the dry run) no RNG state is stashed: no block
+    draws random numbers, and meta has no generator."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    if cfg.remat == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _DOTS))
-    raise ValueError(f"remat {cfg.remat!r}: want none, full or dots")
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)}
+    else:
+        raise ValueError(f"remat {cfg.remat!r}: want none, full or dots")
+
+    def run(*args):
+        meta = any(isinstance(a, torch.Tensor) and a.is_meta for a in args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=not meta, **kw)
+
+    return run
 
 
 def _mamba_layer(lp, h, cfg: ArchConfig, collect: bool):

@@ -64,6 +64,13 @@ def moe_capacity(cfg: ArchConfig, tokens_per_row: int) -> int:
     return max(4, -(-c // 4) * 4)   # round up to a multiple of 4
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) spelled the same on every device:
+    ``F.one_hot`` checks the range on the CPU, scatters on the card and
+    compares on meta, so a step's counted work would differ between them."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def moe_forward(params, x, cfg: ArchConfig):
     """Top-k capacity-dispatch MoE.  x (B,S,D) -> (y, aux_loss).
 
@@ -81,12 +88,12 @@ def moe_forward(params, x, cfg: ArchConfig):
 
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=(0, 1))                                  # (E,)
-    ce = F.one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
+    ce = _one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
     aux = e * torch.sum(me * ce)
 
     # slot assignment: position of each routed token within its expert
     flat_e = top_i.reshape(b, s * k)                             # (B,T)
-    onehot = F.one_hot(flat_e, e)                                # (B,T,E)
+    onehot = _one_hot(flat_e, e)                                 # (B,T,E)
     pos_in_e = torch.cumsum(onehot, dim=1) - onehot
     slot = pos_in_e.gather(-1, flat_e[..., None])[..., 0]        # (B,T)
     keep = slot < cap

@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from ..roofline import counting
+
 _CHUNK = 1 << 24          # elements of one leaf updated at once
 
 
@@ -87,7 +89,12 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict) -> dict:
         """One step: updates ``params`` and ``state`` in place; returns
-        {"lr", "grad_norm"} (0-d f32; the norm before the clip)."""
+        {"lr", "grad_norm"} (0-d f32; the norm before the clip).  A
+        ``roofline.counting.Counter`` books its work as "optimizer"."""
+        with counting.region(counting.OPTIMIZER):
+            return self._update(grads, state, params)
+
+    def _update(self, grads: dict, state: dict, params: dict) -> dict:
         cfg = self.cfg
         if cfg.grad_compression == "bf16_ef":
             # compress: g_c = bf16(g + ef);  ef' = (g + ef) - g_c
