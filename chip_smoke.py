@@ -6,6 +6,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --ssd-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --flash-bwd-only
     python3 chip_smoke.py --moe-bwd-only [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --ep-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -149,18 +150,31 @@ result line):
    (``repro_torch.core.torch_winner``) on the card against a numpy staged
    reduction over 1200 draws, bit-identical, and one call at n 4096 timed
    beside numpy's.
+8. expert parallelism: llama4-scout at its full widths cut to 2 of its 48
+   layers (as 5c), bf16, the MoE layer's forward and backward on 2 x 2048
+   tokens and 3 ``make_train_step`` steps from the seed-0 state: first the
+   dense dispatch of one process, then each sharding mode ("tp", the
+   all-reduce path; "fsdp", the all-to-all path) on a (1, 1) mesh over
+   NCCL, held bit for bit to the dense dispatch (y, aux, the layer's
+   gradients, every step-1 gradient leaf, the losses), the grouped FFN's
+   kernels counted (13 forwards, 7 backwards a variant) and the path's
+   calls counted; ms per step beside 5c's and the NCCL kernels' device
+   time a layer from a profiled step.  With 2 or more cards it also runs
+   each mode on a (1, world) mesh, one spawned process a card (at most
+   4), each rank held to the dense dispatch within bf16 bounds; on one
+   card it says that this part ran at world 1 only.
 
-``--flash-bwd-only`` builds the flash kernels, prints the wgmma
-backward's registers and spills (none allowed), and runs the backward's
-part of phases 3 and 6 alone; ``--moe-bwd-only`` does the same for the
-grouped FFN's backward.  ``--ssd-only`` runs phases 1 and 2 and the SSD
-kernels' part of phases 3 and 6 alone, the backward's too, and prints a
-sha256 of the forward's outputs at fixed inputs (to hold a change against
-the parent's bits).  With
-``--src``, these two take ``repro_torch`` from another checkout (a ``git
-archive`` of the parent commit, say), to check and time two versions of a
-kernel in one call on one card; another checkout's build is reported but
-not held to this one's register rules.
+``--ep-only`` runs phase 8 alone.  ``--flash-bwd-only`` builds the flash
+kernels, prints the wgmma backward's registers and spills (none allowed),
+and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
+does the same for the grouped FFN's backward.  ``--ssd-only`` runs phases
+1 and 2 and the SSD kernels' part of phases 3 and 6 alone, the backward's
+too, and prints a sha256 of the forward's outputs at fixed inputs (to hold
+a change against the parent's bits).  With ``--src``, these two take
+``repro_torch`` from another checkout (a ``git archive`` of the parent
+commit, say), to check and time two versions of a kernel in one call on
+one card; another checkout's build is reported but not held to this
+one's register rules.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole record also goes to
@@ -3065,6 +3079,314 @@ def phase_roofline(paths: list, card: str) -> dict:
             "winner": phase_winner(card)}
 
 
+# ------------------------------------------------------------- phase 8
+# expert parallelism (launch/mesh.py, launch/shardings.py, models/mlp.py's
+# _moe_expert_parallel and _moe_expert_parallel_a2a) at llama4-scout's full
+# widths cut to MOE_TRAIN_LAYERS layers, as 5c: the MoE layer's forward and
+# backward, then EP_STEPS make_train_step steps from the seed-0 state, in
+# each sharding mode ("tp": the all-reduce path; "fsdp": the all-to-all
+# path), on NCCL over every card up to EP_MAX_WORLD
+EP_STEPS = 3
+EP_MAX_WORLD = 4
+EP_MODES = ("tp", "fsdp")
+# bounds on each rank of a world of 2 or more against the dense dispatch on
+# one card (bf16): the grouped FFN's kernels run other expert counts, so
+# other split grids and sums in other orders; about the rounding of one
+# bf16 op (2^-8), a third of the bf16-vs-f32 bounds of phase 4 (not yet
+# measured: the card machine has one card).  The all-to-all mode's
+# capacity is a slice's, so it is held there at a capacity factor of E / k,
+# at which no slice drops a token, against the dense dispatch at the same
+EP_Y_REL, EP_GRAD_REL, EP_LOSS_REL = 1e-2, 1e-2, 1e-3
+
+
+def ep_config():
+    from repro_torch.configs import get_config
+    return get_config(LLAMA4).replace(n_layers=MOE_TRAIN_LAYERS)
+
+
+def ep_inputs(cfg, device: str):
+    """The MoE layer's input (TRAIN_BATCH, TRAIN_SEQ, d_model) bf16 and a
+    training batch of TRAIN_BATCH x TRAIN_SEQ tokens, from seed 20."""
+    gen = torch.Generator(device).manual_seed(20)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=gen, device=device)
+    return x, {"tokens": toks[:, :-1].contiguous(),
+               "labels": toks[:, 1:].contiguous()}
+
+
+class EPCalls:
+    """Counts the calls of the two expert-parallel paths of
+    ``models/mlp.py`` (wrapped for the phase, restored after), to show that
+    a variant ran the path it names."""
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.calls = mlp, {"tp": 0, "fsdp": 0}
+        self.orig = {"tp": mlp._moe_expert_parallel,
+                     "fsdp": mlp._moe_expert_parallel_a2a}
+
+        def counted(mode):
+            def run(*args):
+                self.calls[mode] += 1
+                return self.orig[mode](*args)
+            return run
+
+        mlp._moe_expert_parallel = counted("tp")
+        mlp._moe_expert_parallel_a2a = counted("fsdp")
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._moe_expert_parallel = self.orig["tp"]
+        self.mlp._moe_expert_parallel_a2a = self.orig["fsdp"]
+
+
+def ep_compare(got: dict, ref: dict) -> dict:
+    """{name: max |got - ref|} over the tensors of ``ref`` (host copies),
+    and whether every one is bit-identical."""
+    diff = {}
+    for k, want in ref.items():
+        have = got[k]
+        assert have.shape == want.shape and have.dtype == want.dtype, k
+        diff[k] = 0.0 if torch.equal(have, want) else float(
+            (have.float() - want.float()).abs().max())
+    return diff
+
+
+def ep_variant(cfg, mesh, mode: str, device: str, ref=None,
+               card: str | None = None) -> dict:
+    """One variant on ``mesh`` (None: the dense dispatch of one process),
+    every launch counted from 0: the MoE layer's forward and backward on
+    x (y, aux, gradients of sum(y^2) in x and the layer's weights), then
+    EP_STEPS ``make_train_step`` steps from the seed-0 state (AdamW with
+    bf16 moments) with the step-1 gradients as AdamW takes them.  Without
+    ``ref`` the results come back as host tensors; with it each is
+    compared with ``ref``'s as it comes and only the differences are kept.
+    Then, given the ``card``'s name, one profiled step."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode, use_mesh
+    from repro_torch.models.mlp import moe_forward
+    from repro_torch.optim import AdamW, AdamWConfig
+    set_sharding_mode(mode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model = Model(cfg, device=device, mesh=mesh).init(
+            torch.Generator(device).manual_seed(0))
+        x, batch = ep_inputs(cfg, device)
+        out: dict = {}
+        keep = (lambda k, t: out.__setitem__(k, t.detach().cpu())) \
+            if ref is None else (lambda k, t: out.__setitem__(
+                k, ep_compare({k: t.detach().cpu()}, {k: ref[k]})[k]))
+        zero_counts()
+        with EPCalls() as calls:
+            lp = {k: v[0].detach().requires_grad_()
+                  for k, v in model.params["layers"]["moe"].items()}
+            xx = x.clone().requires_grad_()
+            with use_mesh(mesh):
+                y, aux = moe_forward(lp, xx, cfg)
+                grads = torch.autograd.grad(y.float().square().sum(),
+                                            [xx, *lp.values()])
+            keep("layer/y", y)
+            keep("layer/aux", aux)
+            for k, g in zip(["x", *lp], grads):
+                keep(f"layer/grad/{k}", g)
+            del y, grads, lp, xx
+            opt = AdamW(AdamWConfig(warmup_steps=1, total_steps=EP_STEPS,
+                                    moment_dtype="bfloat16"))
+            update, step1 = opt.update, []
+
+            def capture(g, *args, **kw):
+                if not step1:
+                    step1.append(True)
+                    for n, t in g.items():
+                        keep(f"step1/{n}", t)
+                return update(g, *args, **kw)
+
+            opt.update = capture
+            params = dict(model.named_parameters())
+            state = {"params": params, "opt": opt.init(params)}
+            step_fn = make_train_step(model, opt)
+            losses, step_s = [], []
+            for _ in range(EP_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, met = step_fn(state, batch)
+                losses.append(float(met["loss"]))
+                step_s.append(time.perf_counter() - t)
+            opt.update = update
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        keep("losses", torch.tensor(losses, dtype=torch.float64))
+        res = {"mode": mode, "mesh": None if mesh is None else
+               list(mesh.mesh.shape), "launches": launches,
+               "ep_calls": dict(calls.calls), "losses": losses,
+               "step_ms": [1e3 * t for t in step_s],
+               "ms_per_step": 1e3 * float(np.median(step_s[1:])),
+               "max_memory_allocated_gb": peak_gb, "out": out}
+        if card is not None:
+            where = "the dense dispatch" if mesh is None else \
+                f"{mode} on {tuple(mesh.mesh.shape)}"
+            res["profile"] = profile_region(
+                lambda: step_fn(state, batch), f"{cfg.name} x{cfg.n_layers}:"
+                f" one training step, {where}", card, groups=EP_GROUPS)
+        return res
+    finally:
+        set_sharding_mode("tp")
+
+
+# a step's device time by kind: NCCL's kernels first, then TRAIN_GROUPS'
+EP_GROUPS = {"nccl": ("nccl",), **TRAIN_GROUPS}
+
+
+def ep_rank(rank: int, world: int, store: str, out_dir: str, mode: str,
+            cf: float) -> None:
+    """One process of the multi-card part: rank ``rank`` on card ``rank``
+    of a (1, world) mesh over NCCL, at capacity factor ``cf``; its results
+    to out_dir/rank<r>.pt."""
+    from repro_torch.launch.mesh import make_mesh
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), device="cuda")
+        res = ep_variant(ep_config().replace(capacity_factor=cf), mesh, mode,
+                         "cuda")
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_multi(world: int, mode: str, cf: float, dense: dict,
+             want: dict) -> dict:
+    """The multi-card part: one process a card, each rank's output (the
+    whole y: the mesh splits no tokens), its replicated leaves' gradients,
+    its slice of the experts' gradients and the losses held to the dense
+    dispatch on one card at the same capacity factor within the bf16
+    bounds."""
+    import torch.multiprocessing as mp
+    cfg = ep_config()
+    nm = world
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(ep_rank, args=(world, os.path.join(d, "store"), d,
+                                          mode, cf), nprocs=world, join=True,
+                           start_method="spawn")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"))
+                 for r in range(world)]
+    calls = 1 + 2 * cfg.n_layers * EP_STEPS
+    for res in ranks:
+        assert res["launches"] == want, (res["launches"], want)
+        assert res["ep_calls"][mode] == calls, res["ep_calls"]
+    worst = {"y": 0.0, "grad": 0.0, "loss": 0.0}
+    e_loc = cfg.n_experts // nm
+    for r, res in enumerate(ranks):
+        for k, want in dense["out"].items():
+            have = res["out"][k]
+            if have.shape != want.shape:          # an expert leaf's slice
+                lead = want.dim() - 3
+                want = want.narrow(lead, r * e_loc, e_loc)
+            err = leaf_rel(have.float(), want.float())
+            kind = ("y" if k == "layer/y" else "loss" if k == "losses"
+                    else "grad")
+            worst[kind] = max(worst[kind], err)
+    assert worst["y"] <= EP_Y_REL and worst["grad"] <= EP_GRAD_REL and \
+        worst["loss"] <= EP_LOSS_REL, worst
+    return {"world": world, "mode": mode, "capacity_factor": cf,
+            "worst_rel": worst,
+            "ms_per_step": [res["ms_per_step"] for res in ranks],
+            "launches": [res["launches"] for res in ranks]}
+
+
+def phase_expert_parallel(card: str, dense_ms: float | None) -> dict:
+    """Phase 8: the dense dispatch, then each sharding mode on a (1, 1)
+    NCCL mesh, all on this card: every output, aux, step-1 gradient and
+    loss bit-identical to the dense dispatch's, the grouped FFN's kernels
+    launched on the expert-parallel path (one forward a MoE layer a pass:
+    the layer's call, each step's forward and remat's recompute; one
+    backward a layer a step and the layer's), the path's calls counted.
+    With 2 or more cards, each mode again on a (1, world) mesh, one process
+    a card, held to the dense dispatch within bf16 bounds."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    cfg = ep_config()
+    n = cfg.n_layers
+    world = min(EP_MAX_WORLD, torch.cuda.device_count())
+    dense = ep_variant(cfg, None, "tp", "cuda", card=card)
+    want = {"flash_attn_fwd": 2 * n * EP_STEPS, "flash_attn_bwd": n *
+            EP_STEPS, "moe_gmm": 1 + 2 * n * EP_STEPS,
+            "moe_gmm_bwd": 1 + n * EP_STEPS, "ssd_intra_chunk": 0,
+            "ssd_intra_chunk_bwd": 0}
+    assert dense["launches"] == want, (dense["launches"], want)
+    assert dense["ep_calls"] == {"tp": 0, "fsdp": 0}, dense["ep_calls"]
+    ref = dense["out"]
+    results = {"dense": {k: v for k, v in dense.items() if k != "out"}}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            for mode in EP_MODES:
+                res = ep_variant(cfg, mesh, mode, "cuda", ref=ref, card=card)
+                diffs = res.pop("out")
+                bad = {k: v for k, v in diffs.items() if v != 0.0}
+                assert not bad, f"[ep {mode}] not bit-identical: {bad}"
+                assert res["launches"] == want, (res["launches"], want)
+                calls = {m: (1 + 2 * n * EP_STEPS if m == mode else 0)
+                         for m in EP_MODES}
+                assert res["ep_calls"] == calls, (res["ep_calls"], calls)
+                res["bit_identical"] = sorted(diffs)
+                results[mode] = res
+        finally:
+            dist.destroy_process_group()
+    tag = f"[ep {cfg.name}]"
+    say(f"{tag} {n} layers at full widths ({widths(cfg)}), bf16, remat "
+        f"{cfg.remat}: the MoE layer's forward and backward on "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, then {EP_STEPS} make_train_step"
+        f" steps (AdamW, bf16 moments) from one state")
+    say(f"{tag} world 1 on NCCL (one card"
+        + ("" if world > 1 else "; the machine has one card, so the "
+           "(1, world) part runs at world 1 only")
+        + f"): both modes bit-identical to the dense dispatch in y, aux, the"
+        f" layer's gradients, all {sum(k.startswith('step1/') for k in ref)}"
+        f" step-1 gradient leaves and"
+        f" the {EP_STEPS} losses " + ", ".join(
+            f"{x:.6f}" for x in dense["losses"]) + f" [{card}]")
+    for key, res in results.items():
+        prof = res.get("profile", {})
+        groups = prof.get("groups", {})
+        nccl = groups.get("nccl", 0.0)
+        say(f"{tag} {key}: {res['ms_per_step']:.2f} ms/step (median of "
+            f"steps 2-{EP_STEPS}; steps " + ", ".join(
+                f"{t:.1f}" for t in res["step_ms"]) + " ms"
+            + (f"; phase 5c's Trainer step {dense_ms:.2f} ms" if dense_ms
+               else "") + f"), max memory {res['max_memory_allocated_gb']:.2f}"
+            f" GB, launches {res['launches']}, path calls {res['ep_calls']}; "
+            f"profiled step: NCCL kernels {nccl:.3f} ms ({nccl / n:.3f} ms a "
+            f"layer), device busy {prof.get('device_busy_ms', 0.0):.2f} ms "
+            f"[{card}]")
+    if world > 1:
+        no_drop = cfg.n_experts / cfg.top_k
+        dense_nd = ep_variant(cfg.replace(capacity_factor=no_drop), None,
+                              "tp", "cuda")
+        results["multi"] = [
+            ep_multi(world, "tp", cfg.capacity_factor, dense, want),
+            ep_multi(world, "fsdp", no_drop, dense_nd, want)]
+        for m in results["multi"]:
+            say(f"{tag} world {m['world']} {m['mode']}, capacity factor "
+                f"{m['capacity_factor']:g}: worst rel against "
+                f"the dense dispatch {m['worst_rel']} (bounds y {EP_Y_REL}, "
+                f"gradients {EP_GRAD_REL}, losses {EP_LOSS_REL}); ms/step "
+                f"by rank {m['ms_per_step']} [{card}]")
+    paths = [{"arch": cfg.name, "n_layers": n, "path": f"ep-{mode} world 1",
+              "launches": results[mode]["launches"]} for mode in EP_MODES]
+    return {"card": card, "world": world, "results": results,
+            "paths": paths}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -3082,6 +3404,10 @@ def main(argv: list[str]) -> int:
         return flash_bwd_only(card)
     if "--moe-bwd-only" in argv:
         return moe_bwd_only(card, "--src" in argv)
+    if "--ep-only" in argv:
+        ep = phase_expert_parallel(card, None)
+        say(json.dumps({"expert_parallel": ep}))
+        return 0
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
@@ -3117,10 +3443,11 @@ def main(argv: list[str]) -> int:
     ssd = phase_timing_ssd(card)
     ssd_bwd = phase_timing_ssd_bwd(card, ssd_parts)
     roofline = phase_roofline(paths, card)
+    ep = phase_expert_parallel(card, moe_train["ms_per_step"])
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
-                   p["launches"][name] for p in paths}
+                   p["launches"][name] for p in paths + ep["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -3236,6 +3563,7 @@ def main(argv: list[str]) -> int:
                                   "ssd_timing": ssd,
                                   "ssd_bwd_timing": ssd_bwd,
                                   "roofline": roofline,
+                                  "expert_parallel": ep,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

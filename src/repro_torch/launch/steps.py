@@ -2,10 +2,15 @@
 (``launch/dryrun.py``)."""
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 
 from ..models import Model
+from ..models.common import use_mesh
 from ..optim import AdamW
+from .mesh import MeshSpec, batch_axes
 
 
 def make_train_step(model: Model, opt: AdamW):
@@ -15,20 +20,42 @@ def make_train_step(model: Model, opt: AdamW):
     updated in place and returned with the metrics "loss", the loss's own
     ("ce", and "aux" for every family but the encoder-decoder), "lr" and
     "grad_norm" (0-d tensors).  ``batch`` is what ``Model.train_loss``
-    takes: tokens and labels, and frames (whisper) or patches (llava)."""
+    takes: tokens and labels, and frames (whisper) or patches (llava).
+
+    On a mesh (``model.mesh``) the batch is the rank's rows
+    (``launch/shardings.shard_batch``): the forward and backward run under
+    ``use_mesh``, every gradient and the loss's metrics are then averaged
+    over the batch axes when they hold more than one rank (data
+    parallelism), and AdamW's clip sums the
+    sharded leaves' norms over "model".  The expert-parallel MoE leaves
+    every other leaf's gradient whole on each rank of "model"
+    (``launch/collectives.py``), so nothing is summed over it."""
+    mesh = model.mesh
+    baxes = () if mesh is None else batch_axes(mesh)
+    nb = math.prod(MeshSpec.of(mesh).shape[a] for a in baxes)
+
+    def average(tensors: list) -> None:
+        for t in tensors:
+            for a in baxes:
+                dist.all_reduce(t, group=mesh.get_group(a))
+            t.div_(nb)
+
     def train_step(state, batch):
         params = state["params"]
         for p in params.values():
             p.grad = None
-        loss, metrics = model.train_loss(batch)
-        loss.backward()
+        with use_mesh(mesh):
+            loss, metrics = model.train_loss(batch)
+            loss.backward()
         grads = {n: p.grad for n, p in params.items()}
-        om = opt.update(grads, state["opt"], params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        if nb > 1:
+            average([*grads.values(), *metrics.values()])
+        om = opt.update(grads, state["opt"], params, mesh, model.sharded)
         for p in params.values():
             p.grad = None
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(om)
-        metrics["loss"] = loss.detach()
         return state, metrics
 
     return train_step

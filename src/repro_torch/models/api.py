@@ -18,14 +18,20 @@ it.
 n_patches, 1024) for the VLM; ``train_loss`` takes "labels" (B,S) besides.
 The parameters require grad: ``train_loss`` builds the autograd graph, the
 serving methods run under ``torch.no_grad``.
+
+On a mesh (``Model(cfg, mesh=mesh)``, a DeviceMesh from ``launch/mesh.py``)
+each rank keeps its slice of the experts (``launch/shardings.shard_params``)
+and every other leaf whole; the methods run under ``use_mesh(mesh)``, and
+the batch they take is the rank's rows (``shard_batch``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..launch.shardings import shard_params
 from . import encdec, lm
-from .common import dtype_of, require_device
+from .common import dtype_of, require_device, use_mesh
 from .config import ArchConfig
 
 
@@ -56,14 +62,28 @@ class Model(nn.Module):
     such as ``layers.attn.wq`` of shape (L, D, H, hd)).  A new model holds
     its parameters on the meta device, without memory; ``init`` draws them
     and ``load_state`` takes given ones.  Runs on CUDA unless the caller
-    passes another device; raises if CUDA is asked for and absent."""
+    passes another device; raises if CUDA is asked for and absent.  On a
+    ``mesh``, ``sharded`` names the leaves of which this rank holds a slice
+    (over "model")."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda") -> None:
+    def __init__(self, cfg: ArchConfig, device="cuda", mesh=None) -> None:
         super().__init__()
         self.cfg = cfg
         self.device = require_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run a model "
+                             f"on {self.device}")
         self._mod = encdec if cfg.family == "encdec" else lm
-        _populate(self, self._mod.init_params(cfg, None, "meta"))
+        full = flatten(self._mod.init_params(cfg, None, "meta"))
+        state = self._shard(full)
+        self.sharded = frozenset(n for n, p in state.items()
+                                 if p.shape != full[n].shape)
+        _populate(self, _unflatten(state))
+
+    def _shard(self, state: dict) -> dict:
+        """The rank's part of a whole flat state (all of it off a mesh)."""
+        return state if self.mesh is None else shard_params(state, self.mesh)
 
     @property
     def params(self) -> dict:
@@ -77,43 +97,52 @@ class Model(nn.Module):
         return self
 
     def load_state(self, state: dict) -> "Model":
-        """Take a flat state dict (name -> tensor), moved to the model's
-        device; every parameter must be given.  Each leaf is cast to the
-        dtype of the parameter it replaces, which ``init_params`` set:
-        ``cfg.param_dtype`` for most, f32 for the MoE router and for
-        mamba's ``A_log``, ``D`` and ``dt_bias``."""
+        """Take a flat state dict (name -> tensor) of whole leaves, moved to
+        the model's device; every parameter must be given.  Each leaf is
+        cast to the dtype of the parameter it replaces, which
+        ``init_params`` set: ``cfg.param_dtype`` for most, f32 for the MoE
+        router and for mamba's ``A_log``, ``D`` and ``dt_bias``.  On a mesh
+        the rank keeps its slice of each sharded leaf."""
         dtypes = {k: p.dtype for k, p in self.named_parameters()}
-        self.load_state_dict(
+        self.load_state_dict(self._shard(
             {k: v.to(device=self.device, dtype=dtypes.get(k, v.dtype))
-             for k, v in state.items()}, strict=True, assign=True)
+             for k, v in state.items()}), strict=True, assign=True)
         return self
 
     def train_loss(self, batch):
         """(total loss, metrics) of ``batch["tokens"]`` against
         ``batch["labels"]``, with autograd, from the family's module as the
         reference dispatches it: ``encdec.train_loss`` ({"ce"}) for whisper,
-        ``lm.train_loss`` ({"ce", "aux"}) for the rest."""
-        return self._mod.train_loss(self.params, batch, self.cfg)
+        ``lm.train_loss`` ({"ce", "aux"}) for the rest.  On a mesh, call
+        its backward under ``use_mesh(model.mesh)`` too (remat recomputes
+        the forward there), as ``make_train_step`` does."""
+        with use_mesh(self.mesh):
+            return self._mod.train_loss(self.params, batch, self.cfg)
 
     @torch.no_grad()
     def forward_logits(self, batch) -> torch.Tensor:
         params = self.params
-        if self.cfg.family == "encdec":
-            enc_out = encdec.encode(params, batch["frames"], self.cfg)
-            logits, _ = encdec.dec_forward(params, batch["tokens"], enc_out,
-                                           self.cfg)
+        with use_mesh(self.mesh):
+            if self.cfg.family == "encdec":
+                enc_out = encdec.encode(params, batch["frames"], self.cfg)
+                logits, _ = encdec.dec_forward(params, batch["tokens"],
+                                               enc_out, self.cfg)
+                return logits
+            logits, _, _ = lm.forward(params, batch["tokens"], self.cfg,
+                                      patches=batch.get("patches"))
             return logits
-        logits, _, _ = lm.forward(params, batch["tokens"], self.cfg,
-                               patches=batch.get("patches"))
-        return logits
 
     @torch.no_grad()
     def prefill(self, batch, pad_to: int | None = None):
-        return self._mod.prefill(self.params, batch, self.cfg, pad_to=pad_to)
+        with use_mesh(self.mesh):
+            return self._mod.prefill(self.params, batch, self.cfg,
+                                     pad_to=pad_to)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache):
-        return self._mod.decode_step(self.params, tokens, cache, self.cfg)
+        with use_mesh(self.mesh):
+            return self._mod.decode_step(self.params, tokens, cache,
+                                         self.cfg)
 
     def init_decode_cache(self, batch: int, max_len: int,
                           dtype: torch.dtype | None = None) -> dict:
@@ -122,6 +151,18 @@ class Model(nn.Module):
         return self._mod.init_decode_cache(self.cfg, batch, max_len, dtype,
                                            self.device)
 
+
+
+def _unflatten(state: dict) -> dict:
+    """A flat {dotted name: leaf} as the nested dict."""
+    tree: dict = {}
+    for name, leaf in state.items():
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
 
 
 def flatten(tree: dict, prefix: str = "") -> dict:

@@ -1,5 +1,8 @@
-"""Shared building blocks: device choice, norms, RoPE, init, the loss."""
+"""Shared building blocks: device choice, norms, RoPE, init, the loss, and
+the ambient mesh and sharding mode."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -88,3 +91,39 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if z_loss:
         loss = loss + z_loss * lse.square()
     return loss.mean()
+
+
+# "tp" (the default): the expert-parallel MoE combines by an all-reduce over
+# "model".  "fsdp": it dispatches by all-to-all when "model" divides the
+# sequence (``models/mlp.py``).  The reference's fsdp mode also shards every
+# parameter over the whole mesh and the batch over every axis; the port
+# computes those specs (``launch/shardings.py``) and does not carry them out.
+SHARDING_MODE = ["tp"]
+# the mesh of ``use_mesh``: a plain global, not a context variable, because
+# the autograd engine runs a CUDA backward (and remat's recompute inside
+# it) on threads of its own
+_MESH = [None]
+
+
+def set_sharding_mode(mode: str) -> None:
+    if mode not in ("tp", "fsdp"):
+        raise ValueError(f"sharding mode {mode!r}: want tp or fsdp")
+    SHARDING_MODE[0] = mode
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the model on ``mesh`` (a DeviceMesh, or None for one process),
+    the counterpart of the reference's ``with mesh:``.  A training step's
+    backward belongs inside too: remat recomputes the forward there."""
+    prev = _MESH[0]
+    _MESH[0] = mesh
+    try:
+        yield mesh
+    finally:
+        _MESH[0] = prev
+
+
+def ambient_mesh():
+    """The mesh ``use_mesh`` installed, or None."""
+    return _MESH[0]

@@ -1,11 +1,27 @@
 """Feed-forward blocks: SwiGLU/GELU MLP and capacity-based top-k MoE.
 
-The MoE block is the JAX package's single-device dense dispatch: tokens are
-scattered into per-expert capacity buffers (B,E,C,D), the grouped expert FFN
-runs on them (``kernels.moe_gmm``: the hand-written CUDA kernel for CUDA
-tensors, its plain version on the CPU), and the results are gathered back.
-The expert-parallel paths of the reference wait for the multi-device slice
-(ROADMAP.md, queue 1)."""
+The MoE block scatters tokens into per-expert capacity buffers (B,E,C,D),
+runs the grouped expert FFN on them (``kernels.moe_gmm``: the hand-written
+CUDA kernels for CUDA tensors, their plain versions on the CPU) and gathers
+the results back.  On one process that is the reference's dense dispatch.
+Under a mesh (``common.use_mesh``) whose "model" axis divides the experts,
+each rank holds E/nm experts (``launch/shardings.shard_params``) and runs
+one of the reference's two expert-parallel paths, with the collectives of
+``launch/collectives.py``:
+
+    _moe_expert_parallel      ("tp", the default) every rank routes its
+                              whole block, runs its experts' share, and an
+                              all-reduce over "model" sums the shares
+    _moe_expert_parallel_a2a  ("fsdp", when "model" divides the sequence)
+                              every rank routes its slice of the sequence,
+                              an all-to-all ships the slots to the experts'
+                              ranks and another one back
+
+A rank's block is the rows of the batch that ``shard_batch`` gave it (the
+whole batch when the rows do not divide the data axes), as the reference's
+``shard_map`` block, so its capacity, slot order and buffers are the
+reference's.  Unlike the reference, the load-balancing ``aux`` is the whole
+batch's at any mesh (ROADMAP.md, faults of the reference)."""
 from __future__ import annotations
 
 import math
@@ -14,7 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_gmm import grouped_ffn
-from .common import normal_init
+from ..launch.collectives import (all_reduce, all_to_all, copy_to,
+                                  seq_gather, seq_slice)
+from ..launch.mesh import MeshSpec, batch_axes, coordinate
+from .common import SHARDING_MODE, ambient_mesh, normal_init
 from .config import ArchConfig
 
 
@@ -74,24 +93,34 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 def moe_forward(params, x, cfg: ArchConfig):
     """Top-k capacity-dispatch MoE.  x (B,S,D) -> (y, aux_loss).
 
-    Per batch row, each expert takes at most ``moe_capacity(cfg, S)`` of the
-    routed (token, choice) pairs, in (S, k) order; the rest are dropped
-    (weight 0).  ``aux_loss`` is the Switch load-balancing loss."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    cap = moe_capacity(cfg, s)
+    Per batch row (per slice of a row in the all-to-all path), each expert
+    takes at most ``moe_capacity`` of the routed (token, choice) pairs, in
+    (S, k) order; the rest are dropped (weight 0).  ``aux_loss`` is the
+    Switch load-balancing loss.  The path is chosen as the reference's
+    ``moe_forward`` chooses it (``repro/models/mlp.py:69-79``), without its
+    ``kernel_mode`` condition: the port has no kernel mode."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return _moe_dense_dispatch(params, x, cfg)
+    nm = MeshSpec.of(mesh).shape.get("model", 0)
+    if nm and cfg.n_experts % nm == 0:
+        if SHARDING_MODE[0] == "fsdp" and x.shape[1] % nm == 0:
+            return _moe_expert_parallel_a2a(params, x, cfg, mesh)
+        return _moe_expert_parallel(params, x, cfg, mesh)
+    return _moe_dense_dispatch(params, x, cfg, mesh)
 
-    logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
+
+def _route(x, router, cfg: ArchConfig, cap: int):
+    """Route the tokens of x (B,S,D): the softmax probabilities (B,S,E),
+    the top-k expert ids (B,S,k), and per (row, token, choice) in (S, k)
+    order the expert (B,S*k), its slot, whether it fits the capacity and
+    its combine weight (renormalised top-k probability, 0 if dropped)."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = torch.einsum("bsd,de->bse", x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)                        # (B,S,E)
     top_p, top_i = torch.topk(probs, k, dim=-1)                  # (B,S,k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(dim=(0, 1))                                  # (E,)
-    ce = _one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-
-    # slot assignment: position of each routed token within its expert
     flat_e = top_i.reshape(b, s * k)                             # (B,T)
     onehot = _one_hot(flat_e, e)                                 # (B,T,E)
     pos_in_e = torch.cumsum(onehot, dim=1) - onehot
@@ -99,18 +128,131 @@ def moe_forward(params, x, cfg: ArchConfig):
     keep = slot < cap
     slot = torch.where(keep, slot, 0)
     w = top_p.reshape(b, s * k) * keep                           # (B,T)
+    return probs, top_i, flat_e, slot, keep, w
 
-    # scatter into (B,E,C,D): each kept (b, e, slot) gets exactly one token,
-    # dropped ones add exact zeros at slot 0, so the sum is order-free
+
+def _aux(probs, top_i, e: int, mesh=None, axes: tuple = (),
+         n_summed: int = 1):
+    """The Switch load-balancing loss e * sum(me * ce): me the mean routing
+    probability of each expert, ce the share of first choices.
+
+    Under a mesh, me and ce are means over every rank of ``axes``, the
+    ranks that hold other tokens, so aux is the whole batch's.  The
+    gradient each rank keeps of me is its share as the training step
+    counts it: ``make_train_step`` averages the gradients over the batch
+    axes, which takes the full derivative on each, and the shares of the
+    ``n_summed`` ranks of "model" that split the sequence add up in the
+    slice's backward."""
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    ce = _one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
+    if mesh is not None:
+        n = math.prod(MeshSpec.of(mesh).shape[a] for a in axes)
+        mc = all_reduce(torch.stack([me, ce]), mesh, axes,
+                        grad_scale=n / n_summed) / n
+        me, ce = mc[0], mc[1]
+    return e * torch.sum(me * ce)
+
+
+def _dispatch(x, flat_e, slot, gate, n_experts: int, cap: int, k: int):
+    """Scatter the (token, choice) pairs of x (B,S,D) whose ``gate`` is set
+    into (B, n_experts, cap, D); returns it and the row index of each pair.
+    Each gated (b, e, slot) gets exactly one token, the others add exact
+    zeros at slot 0, so the sum is order-free."""
+    b, s, d = x.shape
     x_tok = torch.repeat_interleave(x, k, dim=1)                 # (B,T,D)
-    buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((b, n_experts, cap, d), dtype=x.dtype, device=x.device)
     b_idx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf.index_put_((b_idx, flat_e, slot), x_tok * keep[..., None].to(x.dtype),
+    buf.index_put_((b_idx, flat_e, slot), x_tok * gate[..., None].to(x.dtype),
                    accumulate=True)
+    return buf, b_idx
 
-    h = grouped_ffn(buf, params["w_in"], params["w_gate"], params["w_out"],
-                    cfg.mlp_act)
 
-    # gather back and combine with routing weights
-    y_tok = h[b_idx, flat_e, slot] * w[..., None].to(x.dtype)    # (B,T,D)
-    return y_tok.reshape(b, s, k, d).sum(dim=2), aux
+def _combine(h, b_idx, flat_e, slot, w, k: int):
+    """Gather each pair's expert output from h and sum a token's choices
+    with weights ``w``: (B, S, D)."""
+    y_tok = h[b_idx, flat_e, slot] * w[..., None].to(h.dtype)    # (B,T,D)
+    b, t, d = y_tok.shape
+    return y_tok.reshape(b, t // k, k, d).sum(dim=2)
+
+
+def _experts(params, buf, cfg: ArchConfig):
+    return grouped_ffn(buf, params["w_in"], params["w_gate"],
+                       params["w_out"], cfg.mlp_act)
+
+
+def _moe_dense_dispatch(params, x, cfg: ArchConfig, mesh=None):
+    """One process's dispatch over every expert (or, under a mesh whose
+    "model" axis does not divide the experts, each rank's over its whole
+    experts, aux over the batch axes)."""
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(cfg, x.shape[1])
+    probs, top_i, flat_e, slot, keep, w = _route(x, params["router"], cfg,
+                                                 cap)
+    aux = _aux(probs, top_i, e, mesh, batch_axes(mesh) if mesh else ())
+    buf, b_idx = _dispatch(x, flat_e, slot, keep, e, cap, k)
+    return _combine(_experts(params, buf, cfg), b_idx, flat_e, slot, w,
+                    k), aux
+
+
+def _local_experts(params, cfg: ArchConfig, nm: int) -> int:
+    e_loc = params["w_in"].shape[-3]
+    if e_loc * nm != cfg.n_experts:
+        raise ValueError(f"a rank of a mesh with {nm} ranks on \"model\" "
+                         f"holds {cfg.n_experts // nm} of the "
+                         f"{cfg.n_experts} experts (launch/shardings."
+                         f"shard_params); got {e_loc}")
+    return e_loc
+
+
+def _moe_expert_parallel(params, x, cfg: ArchConfig, mesh):
+    """The reference's ``_moe_expert_parallel`` (``repro/models/mlp.py:
+    177``): every rank of "model" routes the whole block (B_loc,S,D) alike,
+    scatters the pairs bound for its own experts into (B_loc, E/nm, C, D)
+    at the same capacity and slots as the dense dispatch, runs its experts
+    and combines their outputs; an all-reduce over "model" sums the ranks'
+    shares.  The tokens and combine weights enter the rank-local work
+    through ``copy_to``, so their gradients add every rank's share."""
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = _local_experts(params, cfg, MeshSpec.of(mesh).shape["model"])
+    e0 = coordinate(mesh)["model"] * e_loc
+    cap = moe_capacity(cfg, x.shape[1])
+    probs, top_i, flat_e, slot, keep, w = _route(x, params["router"], cfg,
+                                                 cap)
+    aux = _aux(probs, top_i, e, mesh, batch_axes(mesh))
+    local = (flat_e >= e0) & (flat_e < e0 + e_loc)
+    le = torch.where(local, flat_e - e0, 0)
+    gate = keep & local
+    buf, b_idx = _dispatch(copy_to(x, mesh, "model"), le, slot, gate, e_loc,
+                           cap, k)
+    y = _combine(_experts(params, buf, cfg), b_idx, le, slot,
+                 copy_to(w, mesh, "model") * gate, k)
+    return all_reduce(y, mesh, "model"), aux
+
+
+def _moe_expert_parallel_a2a(params, x, cfg: ArchConfig, mesh):
+    """The reference's ``_moe_expert_parallel_a2a`` (``repro/models/mlp.py:
+    82``): every rank of "model" routes its slice of the sequence
+    (B_loc, S/nm, D) into (B_loc, E, C, D) at the slice's capacity; an
+    all-to-all sends each rank the slots of its experts, (B_loc, E/nm,
+    nm*C, D), in rank order; its experts run; a second all-to-all returns
+    the outputs, each rank combines its slice, and the slices are gathered
+    into (B_loc, S, D).  The router enters through ``copy_to``: each rank
+    routes other tokens, so its gradient adds the ranks' shares."""
+    e, k = cfg.n_experts, cfg.top_k
+    nm = MeshSpec.of(mesh).shape["model"]
+    _local_experts(params, cfg, nm)
+    cap = moe_capacity(cfg, x.shape[1] // nm)
+    # x's slice is taken once for the routing and once for the dispatch,
+    # as the dense dispatch reads x twice: x's gradient then adds the same
+    # terms in the same order, and one rank gives the dense dispatch's bits
+    probs, top_i, flat_e, slot, keep, w = _route(
+        seq_slice(x, mesh, "model", 1),
+        copy_to(params["router"], mesh, "model"), cfg, cap)
+    aux = _aux(probs, top_i, e, mesh, (*batch_axes(mesh), "model"), nm)
+    buf, b_idx = _dispatch(seq_slice(x, mesh, "model", 1), flat_e, slot,
+                           keep, e, cap, k)
+    recv = all_to_all(buf, mesh, "model", split_dim=1, concat_dim=2)
+    back = all_to_all(_experts(params, recv, cfg), mesh, "model",
+                      split_dim=2, concat_dim=1)
+    y = _combine(back, b_idx, flat_e, slot, w, k)
+    return seq_gather(y, mesh, "model", 1), aux

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from ..launch.collectives import all_reduce
 from ..roofline import counting
 
 _CHUNK = 1 << 24          # elements of one leaf updated at once
@@ -87,14 +88,21 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict) -> dict:
+    def update(self, grads: dict, state: dict, params: dict, mesh=None,
+               sharded=frozenset()) -> dict:
         """One step: updates ``params`` and ``state`` in place; returns
         {"lr", "grad_norm"} (0-d f32; the norm before the clip).  A
-        ``roofline.counting.Counter`` books its work as "optimizer"."""
-        with counting.region(counting.OPTIMIZER):
-            return self._update(grads, state, params)
+        ``roofline.counting.Counter`` books its work as "optimizer".
 
-    def _update(self, grads: dict, state: dict, params: dict) -> dict:
+        On a ``mesh``, the leaves named in ``sharded`` are this rank's
+        slices over "model" (``Model.sharded``): their squared norms are
+        summed over "model", every other leaf counted once, so the clip
+        takes the norm one process would.  The moments are the slices'."""
+        with counting.region(counting.OPTIMIZER):
+            return self._update(grads, state, params, mesh, sharded)
+
+    def _update(self, grads: dict, state: dict, params: dict, mesh,
+                sharded) -> dict:
         cfg = self.cfg
         if cfg.grad_compression == "bf16_ef":
             # compress: g_c = bf16(g + ef);  ef' = (g + ef) - g_c
@@ -108,10 +116,15 @@ class AdamW:
         state["count"] += 1
         count = state["count"].to(torch.float32)
         lr = schedule(cfg, count)
-        # global-norm clip in f32
-        gnorm = torch.sqrt(sum(
-            c.float().square().sum()
-            for g in grads.values() for c in _chunks(g.contiguous())))
+        # global-norm clip in f32, summed leaf by leaf in the tree's order
+        sq = {n: sum(c.float().square().sum() for c in _chunks(g.contiguous()))
+              for n, g in grads.items()}
+        split = [n for n in sq if n in sharded]
+        if mesh is not None and split:
+            for n, total in zip(split, all_reduce(
+                    torch.stack([sq[n] for n in split]), mesh, "model")):
+                sq[n] = total
+        gnorm = torch.sqrt(sum(sq.values()))
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         b1c = 1.0 - torch.pow(cfg.b1, count)
         b2c = 1.0 - torch.pow(cfg.b2, count)

@@ -52,7 +52,9 @@ class ServingEngine:
     """Slot-based continuous batching with greedy decoding.
 
     Runs where ``model`` lives, which must be ``device`` (CUDA unless the
-    caller names another device)."""
+    caller names another device).  A model on a mesh (``Model(cfg,
+    mesh=...)``) serves the same requests on every rank, each rank with its
+    own experts; its prefill and decode steps run under the mesh."""
 
     def __init__(self, model: Model, slots: int = 4, max_len: int = 128,
                  device="cuda") -> None:
