@@ -7,6 +7,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --flash-bwd-only
     python3 chip_smoke.py --moe-bwd-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --ep-only
+    python3 chip_smoke.py --tp-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -163,9 +164,28 @@ result line):
    each mode on a (1, world) mesh, one spawned process a card (at most
    4), each rank held to the dense dispatch within bf16 bounds; on one
    card it says that this part ran at world 1 only.
+9. tensor parallelism ("tp" mode: every leaf the rules split over "model"
+   held and computed on as the rank's slice) at deepseek-7b's published
+   widths (32 heads x 128, d_ff 11008, vocab 102400, bf16): (a) on a (1, 1)
+   mesh over NCCL, 3 ``make_train_step`` steps of 2 of its 30 layers on 2 x
+   2048 tokens from one state, bit for bit those without a mesh (every
+   step-1 gradient leaf, the losses and grad norms: at one rank the
+   tensor-parallel path runs one process's arithmetic); phase 5's
+   deepseek requests served at full depth on the mesh, greedy tokens equal
+   to phase 5's; the trained state checkpointed on the mesh (whole leaves)
+   and restored into a fresh model bit for bit; ms per step beside the
+   unsharded step's and NCCL's device time from a profiled step.  (b) One
+   full-width layer's attention (flash at 16 and 8 heads) and MLP (5504 and
+   2752 columns) as each rank of "model" at 2 and 4 ranks holds them
+   (``shard_params`` at each coordinate), forward and backward without
+   "f" and "g": the ranks' outputs and dx summed in rank order and their
+   weight gradients concatenated, held to the whole layer within bf16
+   bounds; flash timed at 32, 16 and 8 heads.  The path's flash launches
+   join the kernel line's totals.
 
-``--ep-only`` runs phase 8 alone.  ``--flash-bwd-only`` builds the flash
-kernels, prints the wgmma backward's registers and spills (none allowed),
+``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9.
+``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
+registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
 does the same for the grouped FFN's backward.  ``--ssd-only`` runs phases
 1 and 2 and the SSD kernels' part of phases 3 and 6 alone, the backward's
@@ -1707,6 +1727,8 @@ def phase_serve(cfg, card: str) -> dict:
     n_tok = sum(len(c.tokens) for c in done)
     res = serve_record(cfg, card, [len(p) for p in prompts], prefill_s,
                        decode_s, n_tok, wall, launches)
+    by_id = {c.id: c.tokens for c in done}
+    res["tokens"] = [by_id[i] for i in ids]     # phase 9 holds them
     say(f"{tag} {len(done)} requests (prompts {res['prompt_lens']}, "
         f"{SERVE_NEW} new tokens each), slots {SERVE_SLOTS}, max_len "
         f"{SERVE_MAX_LEN}")
@@ -2161,6 +2183,26 @@ def graph_ms(fn, iters: int = 20) -> float:
     ms = time_ms(graph.replay, iters)
     del graph
     return ms
+
+
+def device_ms(fn, iters: int = 20, spin_cycles: int = 400_000_000) -> float:
+    """The device's time for one call of ``fn`` without the host's cost of
+    issuing it, for calls a CUDA graph cannot hold (an autograd backward):
+    the card spins ``spin_cycles`` clocks (about 0.2 s) while the host
+    queues ``iters`` calls behind it, so the events between them time only
+    the device's work (if a call waited for the card, the host's cost
+    would show again)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -3387,6 +3429,416 @@ def phase_expert_parallel(card: str, dense_ms: float | None) -> dict:
             "paths": paths}
 
 
+# ------------------------------------------------------------- phase 9
+# tensor parallelism ("tp": every leaf the rules split over "model" held as
+# the rank's slice and computed on as such; launch/shardings.py,
+# models/attention.py, mlp.py, lm.py; the checkpoint of whole leaves,
+# runtime/checkpoint.py) at deepseek-7b's published widths: (a) world 1 on
+# NCCL, a (1, 1) mesh, against the same work without a mesh: TP_STEPS
+# make_train_step steps at WIDE_LAYERS layers, phase 5's requests served at
+# full depth, a checkpoint saved and restored; (b) each rank's part of one
+# full-width layer at each "model" size of TP_RANKS, in one process,
+# against the whole layer
+TP_STEPS = 3
+# steps timed after the held ones (the first variant's second step still
+# builds cuBLAS's plans)
+TP_TIMED_STEPS = 5
+TP_RANKS = (2, 4)
+# (a): at one rank of "model" the tensor-parallel path runs the arithmetic
+# of one process (its collectives over one rank copy, the vocabulary-
+# parallel loss is cross_entropy_loss's op for op), so every step-1
+# gradient, loss and grad norm is held bit for bit.  (b): bounds on
+# ||sum of the ranks' parts - whole|| / ||whole|| in bf16, where each
+# rank's share of y and dx is rounded to bf16 before the sum: about twice
+# what sound runs on the H100 gave (y 2.35e-3, dx 4.01e-3; the weight
+# gradients, each rank's columns or rows of the whole layer's, came out
+# bit-identical; PERF.md, findings)
+TP_PART_REL = {"y": 5e-3, "dx": 8e-3, "grad": 1e-3}
+
+
+def tp_config():
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).replace(n_layers=WIDE_LAYERS)
+
+
+def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
+             card: str | None = None) -> dict:
+    """TP_STEPS ``make_train_step`` steps (AdamW, bf16 moments) of ``cfg``
+    from ``state`` on ``mesh`` (None: one process, no mesh), every launch
+    counted from 0: losses, grad norms and the step-1 gradients as AdamW
+    takes them (kept on the card; with ``ref``, each compared with ref's
+    as it comes and only the differences kept); then TP_TIMED_STEPS timed
+    steps.  Given the ``card``'s name, one profiled step more.  Returns
+    the model and its state too."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a copy: load_state keeps the tensors it is given, which the steps
+    # update in place
+    model = Model(cfg, device="cuda", mesh=mesh).load_state(
+        {k: v.clone() for k, v in state.items()})
+    opt = AdamW(AdamWConfig(warmup_steps=1, total_steps=TP_STEPS,
+                            moment_dtype="bfloat16"))
+    update, step1 = opt.update, {}
+
+    def capture(g, *args, **kw):
+        if not step1:
+            for n, t in g.items():
+                step1[n] = t.detach().clone() if ref is None else (
+                    0.0 if torch.equal(t, ref["grads"][n])
+                    else leaf_rel(t, ref["grads"][n]))
+        return update(g, *args, **kw)
+
+    opt.update = capture
+    params = dict(model.named_parameters())
+    st = {"params": params, "opt": opt.init(params)}
+    step_fn = make_train_step(model, opt)
+    zero_counts()
+    losses, norms, step_s = [], [], []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, met = step_fn(st, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        step_s.append(time.perf_counter() - t)
+    launches = read_counts()
+    opt.update = update
+    for _ in range(TP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, met = step_fn(st, batch)
+        float(met["loss"])
+        step_s.append(time.perf_counter() - t)
+    res = {"losses": losses, "grad_norms": norms, "grads": step1,
+           "step_ms": [1e3 * t for t in step_s],
+           "ms_per_step": 1e3 * float(np.median(step_s[TP_STEPS:])),
+           "launches": launches, "model": model, "state": st}
+    if card is not None:
+        where = "without a mesh" if mesh is None else \
+            f"tp on {tuple(mesh.mesh.shape)}"
+        res["profile"] = profile_region(
+            lambda: step_fn(st, batch), f"{cfg.name} x{cfg.n_layers}: one "
+            f"training step, {where}", card, groups=EP_GROUPS)
+    return res
+
+
+def tp_checkpoint(res: dict, mesh) -> dict:
+    """(a)'s trained state saved on the mesh (whole leaves, rank 0 writes)
+    and restored into a fresh model's zeroed leaves and zeroed moments:
+    every leaf bit for bit."""
+    from repro_torch.models import Model
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.checkpoint import flatten_state
+    model, st = res["model"], res["state"]
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = CheckpointManager(d).save(TP_STEPS, st, model=model)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        fresh = Model(model.cfg, device="cuda", mesh=mesh)
+
+        def zeros(like):
+            return {n: torch.zeros_like(t) for n, t in like.items()}
+
+        params = {n: torch.zeros(p.shape, dtype=p.dtype, device="cuda")
+                  for n, p in fresh.named_parameters()}
+        back = {"params": params, "opt": {
+            "m": zeros(st["opt"]["m"]), "v": zeros(st["opt"]["v"]),
+            "count": torch.zeros_like(st["opt"]["count"])}}
+        t0 = time.perf_counter()
+        CheckpointManager(d).restore(back, model=fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    want, got = flatten_state(st), flatten_state(back)
+    assert set(want) == set(got)
+    bad = [n for n in want if not torch.equal(got[n], want[n].detach())]
+    assert not bad, f"[tp] checkpoint not restored exactly: {bad[:5]}"
+    return {"leaves": len(want), "bytes": size, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def tp_serve(cfg, mesh, card: str) -> dict:
+    """Phase 5's requests of ``cfg`` (full depth) through ServingEngine on
+    ``mesh`` (None: one process), launches counted from 0: the greedy
+    tokens in request order, the flash launches, the drain's wall time,
+    prefill ms a request and decode ms a step (host clock, synchronised),
+    and one decode step profiled."""
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServingEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, device="cuda", mesh=mesh).init(
+        torch.Generator("cuda").manual_seed(0))
+    prefill_s, decode_s = time_calls(model)
+    engine = ServingEngine(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    ids = [engine.submit(p, max_new=SERVE_NEW)
+           for p in serve_prompts(cfg.vocab)]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {c.id: c.tokens for c in engine.run_until_drained()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"tokens": [done[i] for i in ids], "launches": read_counts(),
+           "drain_s": wall,
+           "prefill_ms_per_request": 1e3 * float(np.mean(prefill_s)),
+           "decode_ms_per_step": 1e3 * float(np.mean(decode_s))}
+    del model.prefill, model.decode_step
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
+    where = "without a mesh" if mesh is None else \
+        f"tp on {tuple(mesh.mesh.shape)}"
+    res["decode_profile"] = profile_region(
+        lambda: model.decode_step(tok, engine.cache), f"{cfg.name}: one "
+        f"decode step of {SERVE_SLOTS} slots, {where}", card, top=6,
+        groups=EP_GROUPS)
+    res["decode_host"] = host_profile(
+        lambda: model.decode_step(tok, engine.cache),
+        f"{cfg.name}: one decode step of {SERVE_SLOTS} slots, {where}")
+    return res
+
+
+def host_profile(fn, label: str, top: int = 10) -> list:
+    """Where the host's time of one call of ``fn`` goes (cProfile, after a
+    warm call, synchronised): the ``top`` functions by their own time."""
+    import cProfile
+    import pstats
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    out = [(f"{Path(f).name}:{line}:{name}", calls, 1e3 * tt)
+           for (f, line, name), (_, calls, tt, _, _) in rows]
+    say(f"[host] {label}: {1e3 * stats.total_tt:.2f} ms under cProfile; "
+        f"by own time:")
+    for name, calls, ms in out:
+        say(f"[host]   {ms:8.3f} ms  {calls:6d} calls  {name}")
+    return out
+
+
+def tp_layer(cfg, layer: dict, x, dy, part: str):
+    """One full-width layer's attention or MLP (``part``) forward and
+    backward on ``layer`` (its leaves, unstacked) without a mesh, so with
+    no "f" or "g": y, dx and the leaves' gradients, for the cotangent dy."""
+    from repro_torch.models.attention import full_attention
+    from repro_torch.models.mlp import mlp_forward
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in layer.items()}
+    xx = x.detach().clone().requires_grad_()
+    if part == "attn":
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        y, _ = full_attention(leaves, xx, pos, cfg)
+    else:
+        y = mlp_forward(leaves, xx, cfg.mlp_act, cfg.d_ff)
+    y.backward(dy)
+    return y.detach(), xx.grad, {k: v.grad for k, v in leaves.items()}
+
+
+def tp_rank_parts(cfg, state: dict, card: str) -> dict:
+    """(b): layer 0 of ``state`` whole, then the part of it that
+    ``shard_params`` gives the rank at each coordinate of a MeshSpec (1, nm)
+    for nm in TP_RANKS (attention at 32 / nm heads, the MLP at 11008 / nm
+    columns), each run alone (``tp_layer``); the ranks' y and dx summed in
+    rank order (f32) and their weight gradients concatenated along the
+    split dim, held to the whole layer's.  Flash's forward and backward
+    timed at each rank's heads: CUDA events over 20 calls as the host
+    issues them, and the device's time alone (``graph_ms`` for the
+    forward, ``device_ms`` for the forward and backward)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.shardings import (model_dim, param_spec,
+                                              shard_params)
+    gen = torch.Generator("cuda").manual_seed(21)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)
+    dt = state["layers.attn.wq"].dtype
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    names = {part: [n for n in state if n.startswith(f"layers.{part}.")]
+             for part in ("attn", "mlp")}
+    zero_counts()
+    out: dict = {}
+    for part, leaves in names.items():
+        whole = {n: state[n] for n in leaves}
+        y, dx, g = tp_layer(cfg, {n.rsplit(".", 1)[1]: v[0]
+                                  for n, v in whole.items()}, x, dy, part)
+        for nm in TP_RANKS:
+            spec = MeshSpec(("data", "model"), (1, nm))
+            ys, dxs, gs = [], [], []
+            for r in range(nm):
+                local = shard_params(whole, spec, "tp",
+                                     {"data": 0, "model": r})
+                yr, dxr, gr = tp_layer(cfg, {n.rsplit(".", 1)[1]: v[0]
+                                             for n, v in local.items()},
+                                       x, dy, part)
+                ys.append(yr.float())
+                dxs.append(dxr.float())
+                gs.append(gr)
+                if r == 0:
+                    out[f"{part} nm{nm} rank shapes"] = {
+                        k: list(v.shape) for k, v in local.items()}
+            errs = {"y": leaf_rel(sum(ys), y), "dx": leaf_rel(sum(dxs), dx)}
+            for n in leaves:
+                k = n.rsplit(".", 1)[1]
+                dim = model_dim(param_spec(n, whole[n].shape, spec)) - 1
+                errs[f"grad {k}"] = leaf_rel(
+                    torch.cat([gr[k] for gr in gs], dim=dim), g[k])
+            out[f"{part} nm{nm}"] = errs
+            del ys, dxs, gs
+    launches = read_counts()
+    n_parts = 1 + sum(TP_RANKS)
+    assert launches["flash_attn_fwd"] == n_parts and \
+        launches["flash_attn_bwd"] == n_parts, launches
+    for key, errs in out.items():
+        if "shapes" in key:
+            continue
+        for k, e in errs.items():
+            bound = TP_PART_REL["grad" if k.startswith("grad") else k]
+            assert e <= bound, f"[tp] {key} {k}: {e:.3e} > {bound}"
+    flash = {}
+    for heads in (cfg.n_heads, *(cfg.n_heads // nm for nm in TP_RANKS)):
+        q, k, v = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, heads, cfg.head_dim),
+                               generator=gen, device="cuda")
+                   .to(dt).requires_grad_() for _ in range(3))
+        do = torch.randn_like(q)
+        fwd = time_ms(lambda: flash_attention(q.detach(), k.detach(),
+                                              v.detach()), 20)
+
+        def fwd_bwd():
+            o = flash_attention(q, k, v)
+            torch.autograd.grad(o, (q, k, v), do)
+
+        flash[heads] = {
+            "fwd_ms": fwd, "fwd_graph_ms": graph_ms(
+                lambda: flash_attention(q.detach(), k.detach(), v.detach())),
+            "fwd_bwd_ms": time_ms(fwd_bwd, 20),
+            "fwd_bwd_device_ms": device_ms(fwd_bwd)}
+    return {"errors": out, "launches": launches, "flash_ms": flash}
+
+
+def phase_tensor_parallel(card: str, served: list | None) -> dict:
+    """Phase 9 (see TP_* above).  ``served``: phase 5's greedy tokens of
+    deepseek-7b without a mesh, which this phase's own unsharded engine
+    must repeat (None with ``--tp-only``)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    cfg = tp_config()
+    n = cfg.n_layers
+    tag = f"[tp {cfg.name}]"
+    state = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0)).state_dict()
+    gen = torch.Generator("cuda").manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    full = get_config(TRAIN_ARCH)
+    one = tp_serve(full, None, card)
+    assert served is None or one["tokens"] == served, "serving not repeatable"
+    ref = tp_steps(cfg, None, state, batch, card=card)
+    ref.pop("model"), ref.pop("state")
+    want = {"flash_attn_fwd": 2 * n * TP_STEPS, "flash_attn_bwd": n *
+            TP_STEPS, "moe_gmm": 0, "moe_gmm_bwd": 0, "ssd_intra_chunk": 0,
+            "ssd_intra_chunk_bwd": 0}
+    assert ref["launches"] == want, (ref["launches"], want)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            tp = tp_steps(cfg, mesh, state, batch, ref=ref, card=card)
+            n_sliced = len(tp["model"].sharded)
+            assert n_sliced, "no leaf sliced in tp mode"
+            ckpt = tp_checkpoint(tp, mesh)
+            tp.pop("model"), tp.pop("state")
+            serve = tp_serve(full, mesh, card)
+        finally:
+            dist.destroy_process_group()
+    del ref["grads"]
+    assert tp["launches"] == want, (tp["launches"], want)
+    bad = {k: v for k, v in tp["grads"].items() if v != 0.0}
+    assert not bad, f"{tag} step-1 gradients not bit-identical: {bad}"
+    assert tp["losses"] == ref["losses"] and \
+        tp["grad_norms"] == ref["grad_norms"], (tp, ref)
+    want_serve = {"flash_attn_fwd": full.n_layers * SERVE_REQUESTS,
+                  "flash_attn_bwd": 0, "moe_gmm": 0, "moe_gmm_bwd": 0,
+                  "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
+    assert serve["launches"] == want_serve, serve["launches"]
+    assert serve["tokens"] == one["tokens"], f"{tag} served tokens differ"
+    del state
+    parts = tp_rank_parts(cfg, Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0)).state_dict(), card)
+    say(f"{tag} {n} of {full.n_layers} layers at full width "
+        f"({widths(cfg)}), bf16, remat {cfg.remat}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, {TP_STEPS} make_train_step steps (AdamW, bf16 "
+        f"moments) from one state: world 1 on NCCL, a (1, 1) mesh in \"tp\""
+        f" mode ({n_sliced} of {len(tp['grads'])} leaves sliced, whole at one"
+        f" rank), bit-identical to the steps without a mesh in every step-1 "
+        f"gradient leaf, the "
+        f"losses " + ", ".join(f"{v:.6f}" for v in tp["losses"])
+        + " and the grad norms " + ", ".join(f"{v:.6f}" for v in
+                                            tp["grad_norms"]) + f" [{card}]")
+    for key, res in (("without a mesh", ref), ("tp (1, 1)", tp)):
+        groups = res.get("profile", {}).get("groups", {})
+        say(f"{tag} {key}: {res['ms_per_step']:.2f} ms/step (median of "
+            f"steps {TP_STEPS + 1}-{TP_STEPS + TP_TIMED_STEPS}; steps "
+            + ", ".join(
+                f"{t:.1f}" for t in res["step_ms"]) + " ms), launches "
+            f"{res['launches']}; profiled step: NCCL kernels "
+            f"{groups.get('nccl', 0.0):.3f} ms, device busy "
+            f"{res.get('profile', {}).get('device_busy_ms', 0.0):.2f} ms "
+            f"[{card}]")
+    say(f"{tag} checkpoint of the trained state on the mesh: {ckpt['leaves']}"
+        f" leaves, {ckpt['bytes'] / 1e9:.2f} GB of whole leaves written in "
+        f"{ckpt['save_s']:.1f} s, restored into a fresh model in "
+        f"{ckpt['restore_s']:.1f} s, every leaf bit for bit")
+    say(f"{tag} served {SERVE_REQUESTS} requests at all {full.n_layers} "
+        f"layers on the (1, 1) mesh: greedy tokens equal to the unsharded "
+        f"engine's" + ("" if served is None else " and to phase 5's")
+        + f", launches {serve['launches']}")
+    for key, res in (("without a mesh", one), ("tp (1, 1)", serve)):
+        prof = res["decode_profile"]
+        say(f"{tag} serving {key}: drain {res['drain_s']:.2f} s, prefill "
+            f"{res['prefill_ms_per_request']:.2f} ms/request, decode "
+            f"{res['decode_ms_per_step']:.2f} ms/step; a profiled decode "
+            f"step: wall {prof.get('wall_ms', 0.0):.2f} ms, device busy "
+            f"{prof.get('device_busy_ms', 0.0):.2f} ms, NCCL kernels "
+            f"{prof.get('groups', {}).get('nccl', 0.0):.3f} ms [{card}]")
+    for key, errs in parts["errors"].items():
+        if "shapes" in key:
+            say(f"{tag} (b) {key}: {errs}")
+            continue
+        say(f"{tag} (b) {key}: ||sum of the ranks' parts - whole|| / "
+            f"||whole|| " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (bounds {TP_PART_REL})")
+    say(f"{tag} (b) flash at ({TRAIN_BATCH}, {TRAIN_SEQ}, H, {cfg.head_dim}) "
+        f"{cfg.compute_dtype} causal, by H: " + "; ".join(
+        f"{h} heads fwd {t['fwd_ms']:.4f} ms a call as issued, "
+        f"{t['fwd_graph_ms']:.4f} on the device; fwd + bwd "
+        f"{t['fwd_bwd_ms']:.4f} as issued, {t['fwd_bwd_device_ms']:.4f} on "
+        f"the device" for h, t in parts["flash_ms"].items()) + f" [{card}]")
+    paths = [{"arch": cfg.name, "n_layers": n, "path": "tp world 1 train",
+              "launches": tp["launches"]},
+             {"arch": full.name, "n_layers": full.n_layers,
+              "path": "tp world 1 serve", "launches": serve["launches"]}]
+    for res in (ref, tp):
+        res.pop("grads", None)
+    one.pop("tokens")
+    return {"card": card, "reference": ref, "tp": tp, "checkpoint": ckpt,
+            "serve_reference": one, "serve": serve, "rank_parts": parts,
+            "paths": paths}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -3407,6 +3859,10 @@ def main(argv: list[str]) -> int:
     if "--ep-only" in argv:
         ep = phase_expert_parallel(card, None)
         say(json.dumps({"expert_parallel": ep}))
+        return 0
+    if "--tp-only" in argv:
+        tp = phase_tensor_parallel(card, None)
+        say(json.dumps({"tensor_parallel": tp}))
         return 0
     build = phase_build()
     flash_err = phase_kernels()
@@ -3444,10 +3900,12 @@ def main(argv: list[str]) -> int:
     ssd_bwd = phase_timing_ssd_bwd(card, ssd_parts)
     roofline = phase_roofline(paths, card)
     ep = phase_expert_parallel(card, moe_train["ms_per_step"])
+    tp = phase_tensor_parallel(card, paths[0]["tokens"])
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
-                   p["launches"][name] for p in paths + ep["paths"]}
+                   p["launches"][name]
+                   for p in paths + ep["paths"] + tp["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -3564,6 +4022,7 @@ def main(argv: list[str]) -> int:
                                   "ssd_bwd_timing": ssd_bwd,
                                   "roofline": roofline,
                                   "expert_parallel": ep,
+                                  "tensor_parallel": tp,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

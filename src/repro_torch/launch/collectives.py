@@ -1,5 +1,5 @@
-"""The collectives of the expert-parallel MoE, each with the gradient that
-makes a training step's gradients those of one process.
+"""The collectives of expert and tensor parallelism, each with the gradient
+that makes a training step's gradients those of one process.
 
 The reference gets them from ``jax.lax`` inside ``shard_map`` (``psum``,
 ``all_to_all``), whose transposes JAX derives.  Here each is an autograd
@@ -18,6 +18,18 @@ Function over one axis of a DeviceMesh (``mesh.get_group(axis)``):
                  backward
     seq_gather   the slices gathered forward, this rank's slice of the
                  gradient backward
+    gather_leaf  ``seq_gather`` of a weight over "model": a leaf held in
+                 slices and used whole; every rank of "model" computes the
+                 same loss on replicated activations, so the gradient of
+                 the whole leaf is alike on each and the rank keeps its own
+                 slice of it
+
+and, over the vocabulary's slices of "model" (``lm.py``'s head in "tp"
+mode):
+
+    vocab_cross_entropy  ``models/common.cross_entropy_loss`` of logits
+                         held as (B, S, V/nm) slices
+    vocab_argmax         the greedy token of such logits
 
 ``torch.distributed.nn.functional.all_reduce`` sums the gradient too: when
 every rank computes the same loss that multiplies it by the axis's size,
@@ -32,9 +44,9 @@ from torch.distributed._functional_collectives import (
     all_to_all_single_autograd, wait_tensor)
 
 
-def _sum(x: torch.Tensor, group) -> torch.Tensor:
+def _sum(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -131,3 +143,61 @@ def seq_slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
 
 def seq_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return _SeqGather.apply(x, dim, mesh.get_group(axis))
+
+
+def gather_leaf(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The whole leaf of which ``x`` is this rank's slice along ``dim``
+    over "model"; backward, the rank's slice of the whole leaf's gradient."""
+    return _SeqGather.apply(x, dim, mesh.get_group("model"))
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """Mean CE of logits whose vocabulary is split over a group: the ranks'
+    row maxima and sums of exponentials combined by all-reduces (max, then
+    sum), the gold logit taken on the rank that holds the label.  The f32
+    arithmetic is ``cross_entropy_loss``'s, op for op: ``torch.logsumexp``
+    computes lse = log(sum(exp(x - max))) + max, and autograd of it and of
+    the gold gather gives exp(x - lse) * g with -g added at the label, which
+    the backward computes on each slice in the same order."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, v0):
+        x = logits.float()
+        m = _sum(torch.amax(x, dim=-1, keepdim=True), group,
+                 dist.ReduceOp.MAX)
+        s = _sum(torch.sum(torch.exp(x - m), dim=-1), group)
+        lse = s.log_().add_(m[..., 0])
+        own = (labels >= v0) & (labels < v0 + x.shape[-1])
+        idx = torch.where(own, labels - v0, 0).long()[..., None]
+        gold = _sum(torch.gather(x, -1, idx)[..., 0] * own, group)
+        ctx.save_for_backward(logits, lse, idx, own)
+        ctx.n = lse.numel()
+        return (lse - gold).mean()
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, idx, own = ctx.saved_tensors
+        g = (grad / ctx.n).expand(lse.shape)
+        d = torch.exp(logits.float() - lse[..., None]) * g[..., None]
+        d.scatter_add_(-1, idx, (-g * own)[..., None])
+        return d.to(logits.dtype), None, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        mesh) -> torch.Tensor:
+    """``models/common.cross_entropy_loss(logits, labels)`` of the whole
+    vocabulary, for ``logits`` (B, S, V/nm) this rank's slice over "model"
+    (the rank at position r holds ids [r V/nm, (r+1) V/nm)); labels (B, S)
+    of the whole vocabulary.  Every rank returns the loss, and keeps the
+    gradient of its own slice."""
+    group = mesh.get_group("model")
+    v0 = dist.get_rank(group) * logits.shape[-1]
+    return _VocabCrossEntropy.apply(logits, labels, group, v0)
+
+
+def vocab_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The greedy token of logits (B, V/nm) held in vocabulary slices over
+    "model": the slices gathered and ``torch.argmax`` taken on the whole
+    rows, so ties go to the lowest id as on one process.  Alike on every
+    rank."""
+    return torch.argmax(_gather(logits, -1, mesh.get_group("model")), dim=-1)

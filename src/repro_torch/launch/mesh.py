@@ -46,7 +46,10 @@ class MeshSpec:
     def of(cls, mesh: "MeshSpec | DeviceMesh") -> "MeshSpec":
         if isinstance(mesh, MeshSpec):
             return mesh
-        return cls(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
+        # ``mesh.shape``, not ``mesh.mesh.shape``: the models read the spec
+        # of the ambient mesh a few times a layer, and ``DeviceMesh.mesh``
+        # builds the rank tensor anew at each call (tens of microseconds)
+        return cls(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
 
 
 def production_spec(*, multi_pod: bool = False) -> MeshSpec:

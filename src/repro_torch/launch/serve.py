@@ -55,11 +55,11 @@ def generate(model: Model, batch: dict, gen: int) -> torch.Tensor:
     tokens on the model's device."""
     pad_to = pad_len(model.cfg, batch["tokens"].shape[1], gen)
     logits, cache = model.prefill(batch, pad_to=pad_to)
-    tok = torch.argmax(logits, dim=-1)[:, None]
+    tok = model.greedy(logits)[:, None]
     out = [tok]
     for _ in range(gen - 1):
         logits, cache = model.decode_step(tok, cache)
-        tok = torch.argmax(logits, dim=-1)[:, None]
+        tok = model.greedy(logits)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1)
 

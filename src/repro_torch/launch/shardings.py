@@ -20,13 +20,14 @@ rules read only the mesh's axes and sizes (``mesh.MeshSpec``), so a
 production mesh's specs need no processes.
 
 What this port carries out: ``shard_params`` gives each rank its slice of
-the experts (expert parallelism over "model", ``models/mlp.py``);
-``shard_batch`` its rows of a batch over the data axes.  Every other leaf
-stays whole on every rank.  Tensor parallelism of attention and the dense
-MLP, the fsdp and ZeRO-1 layouts and sharded caches are computed here but
-not carried out (ROADMAP.md, queue 1, item 9b).  The reference's
-``constraint`` and the models' ``maybe_constrain`` are hints to GSPMD's
-partitioner; eager PyTorch has no partitioner, so they have no counterpart.
+every leaf whose ``param_spec`` names "model" in "tp" mode (tensor
+parallelism: the models compute on the slices, ``models/attention.py``,
+``mlp.py``, ``lm.py``), and of the experts alone in "fsdp" mode (expert
+parallelism); ``shard_batch`` its rows of a batch over the data axes.  The
+fsdp and ZeRO-1 layouts are computed here but not carried out (ROADMAP.md,
+queue 1, item 9b).  The reference's ``constraint`` and the models'
+``maybe_constrain`` are hints to GSPMD's partitioner; eager PyTorch has no
+partitioner, so they have no counterpart.
 """
 from __future__ import annotations
 
@@ -324,23 +325,44 @@ def local_slice(x: torch.Tensor, spec: tuple, mesh,
     return out.clone(memory_format=torch.contiguous_format)
 
 
+def model_dim(spec: tuple) -> int | None:
+    """The dim that ``spec`` splits over "model", or None."""
+    for d, entry in enumerate(spec):
+        if "model" in _axes_of(entry):
+            return d
+    return None
+
+
 def expert_parallel(name: str, shape, mesh) -> bool:
-    """Whether ``shard_params`` slices this leaf: an expert weight whose
-    expert dim divides "model"."""
+    """Whether this leaf is an expert weight whose expert dim divides
+    "model" (sliced by ``shard_params`` in both modes)."""
     shape = _shape(shape)
     return _is_expert(name) and shape[-3] % MeshSpec.of(mesh).shape[
         "model"] == 0
 
 
-def shard_params(params: dict, mesh) -> dict:
-    """This rank's leaves of a flat parameter tree: each expert weight's
-    slice of experts over "model" (a contiguous (..., E/nm, D, F) copy),
-    every other leaf as it is.  Both sharding modes give the experts this
-    split (``param_spec``, ``fsdp_param_shardings``); the rest of their
-    specs is item 9b's."""
-    coord = coordinate(mesh)
+def carried(name: str, shape, mesh, mode: str = "tp") -> bool:
+    """Whether ``shard_params`` slices this leaf (``shape`` the whole
+    leaf's): in "tp" mode every leaf whose ``param_spec`` names "model", in
+    "fsdp" mode the experts of ``expert_parallel`` (the rest of the fsdp
+    layout is item 9b's)."""
+    if mode == "fsdp":
+        return expert_parallel(name, shape, mesh)
+    if mode != "tp":
+        raise ValueError(f"sharding mode {mode!r}: want tp or fsdp")
+    return model_dim(param_spec(name, shape, mesh)) is not None
+
+
+def shard_params(params: dict, mesh, mode: str = "tp",
+                 coord: dict[str, int] | None = None) -> dict:
+    """This rank's leaves of a flat tree of whole leaves: each leaf that
+    ``carried`` names as its ``param_spec`` slice over "model" (a
+    contiguous copy), every other leaf as it is.  ``coord`` ({axis: index})
+    names another position of ``mesh`` (a DeviceMesh, or a ``MeshSpec``
+    with ``coord`` given) than this process's."""
+    coord = coordinate(mesh) if coord is None else coord
     return {n: local_slice(p, param_spec(n, p, mesh), mesh, coord)
-            if expert_parallel(n, p, mesh) else p
+            if carried(n, p, mesh, mode) else p
             for n, p in params.items()}
 
 

@@ -4,7 +4,6 @@ from __future__ import annotations
 
 import math
 
-import torch
 import torch.distributed as dist
 
 from ..models import Model
@@ -27,9 +26,10 @@ def make_train_step(model: Model, opt: AdamW):
     ``use_mesh``, every gradient and the loss's metrics are then averaged
     over the batch axes when they hold more than one rank (data
     parallelism), and AdamW's clip sums the
-    sharded leaves' norms over "model".  The expert-parallel MoE leaves
-    every other leaf's gradient whole on each rank of "model"
-    (``launch/collectives.py``), so nothing is summed over it."""
+    sharded leaves' norms over "model".  Tensor and expert parallelism
+    leave each rank of "model" the gradient of its slices and the whole
+    gradient of every replicated leaf ("f" and "g",
+    ``launch/collectives.py``), so nothing is summed over it."""
     mesh = model.mesh
     baxes = () if mesh is None else batch_axes(mesh)
     nb = math.prod(MeshSpec.of(mesh).shape[a] for a in baxes)
@@ -44,7 +44,7 @@ def make_train_step(model: Model, opt: AdamW):
         params = state["params"]
         for p in params.values():
             p.grad = None
-        with use_mesh(mesh):
+        with use_mesh(mesh, model.mode):
             loss, metrics = model.train_loss(batch)
             loss.backward()
         grads = {n: p.grad for n, p in params.items()}
@@ -67,7 +67,7 @@ def make_prefill_step(model: Model):
     each row, (B,) int64, and the cache)."""
     def prefill_step(batch):
         logits, cache = model.prefill(batch)
-        return torch.argmax(logits, dim=-1), cache
+        return model.greedy(logits), cache
 
     return prefill_step
 
@@ -76,6 +76,6 @@ def make_serve_step(model: Model):
     """One decode step: token in, greedy token out, cache updated in place."""
     def serve_step(tokens, cache):
         logits, cache = model.decode_step(tokens, cache)
-        return torch.argmax(logits, dim=-1)[:, None], cache
+        return model.greedy(logits)[:, None], cache
 
     return serve_step

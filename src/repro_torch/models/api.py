@@ -20,18 +20,23 @@ The parameters require grad: ``train_loss`` builds the autograd graph, the
 serving methods run under ``torch.no_grad``.
 
 On a mesh (``Model(cfg, mesh=mesh)``, a DeviceMesh from ``launch/mesh.py``)
-each rank keeps its slice of the experts (``launch/shardings.shard_params``)
-and every other leaf whole; the methods run under ``use_mesh(mesh)``, and
-the batch they take is the rank's rows (``shard_batch``).
+each rank keeps its slice of the leaves that the sharding mode set when the
+model is built carries out (``launch/shardings.shard_params``): in "tp"
+mode every leaf the rules split over "model", in "fsdp" mode the experts;
+the methods run under ``use_mesh(mesh, mode)`` in that mode, whatever
+``set_sharding_mode`` says later, and the batch they take is the rank's
+rows (``shard_batch``).  In "tp" mode the logits are the rank's
+vocabulary slice; ``greedy`` takes the token of the whole vocabulary.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..launch.shardings import shard_params
+from ..launch.collectives import vocab_argmax
+from ..launch.shardings import carried, shard_params
 from . import encdec, lm
-from .common import dtype_of, require_device, use_mesh
+from .common import SHARDING_MODE, dtype_of, require_device, use_mesh
 from .config import ArchConfig
 
 
@@ -63,27 +68,35 @@ class Model(nn.Module):
     its parameters on the meta device, without memory; ``init`` draws them
     and ``load_state`` takes given ones.  Runs on CUDA unless the caller
     passes another device; raises if CUDA is asked for and absent.  On a
-    ``mesh``, ``sharded`` names the leaves of which this rank holds a slice
-    (over "model")."""
+    ``mesh``, ``mode`` is the sharding mode it was built in, ``sharded``
+    names the leaves of which this rank holds a slice over "model" (the
+    whole leaf at one rank of "model") and ``whole_shapes`` gives every
+    leaf's whole shape."""
 
     def __init__(self, cfg: ArchConfig, device="cuda", mesh=None) -> None:
         super().__init__()
         self.cfg = cfg
         self.device = require_device(device)
         self.mesh = mesh
+        self.mode = SHARDING_MODE[0]
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot run a model "
                              f"on {self.device}")
         self._mod = encdec if cfg.family == "encdec" else lm
         full = flatten(self._mod.init_params(cfg, None, "meta"))
-        state = self._shard(full)
-        self.sharded = frozenset(n for n, p in state.items()
-                                 if p.shape != full[n].shape)
-        _populate(self, _unflatten(state))
+        self.whole_shapes = {n: tuple(p.shape) for n, p in full.items()}
+        self.sharded = frozenset() if mesh is None else frozenset(
+            n for n, p in full.items() if carried(n, p, mesh, self.mode))
+        _populate(self, _unflatten(self._shard(full)))
+
+    def _on_mesh(self):
+        """``use_mesh`` of the model's mesh in the mode it was built in."""
+        return use_mesh(self.mesh, self.mode)
 
     def _shard(self, state: dict) -> dict:
         """The rank's part of a whole flat state (all of it off a mesh)."""
-        return state if self.mesh is None else shard_params(state, self.mesh)
+        return state if self.mesh is None else shard_params(state, self.mesh,
+                                                            self.mode)
 
     @property
     def params(self) -> dict:
@@ -114,15 +127,15 @@ class Model(nn.Module):
         ``batch["labels"]``, with autograd, from the family's module as the
         reference dispatches it: ``encdec.train_loss`` ({"ce"}) for whisper,
         ``lm.train_loss`` ({"ce", "aux"}) for the rest.  On a mesh, call
-        its backward under ``use_mesh(model.mesh)`` too (remat recomputes
-        the forward there), as ``make_train_step`` does."""
-        with use_mesh(self.mesh):
+        its backward under ``use_mesh(model.mesh, model.mode)`` too (remat
+        recomputes the forward there), as ``make_train_step`` does."""
+        with self._on_mesh():
             return self._mod.train_loss(self.params, batch, self.cfg)
 
     @torch.no_grad()
     def forward_logits(self, batch) -> torch.Tensor:
         params = self.params
-        with use_mesh(self.mesh):
+        with self._on_mesh():
             if self.cfg.family == "encdec":
                 enc_out = encdec.encode(params, batch["frames"], self.cfg)
                 logits, _ = encdec.dec_forward(params, batch["tokens"],
@@ -134,22 +147,36 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, pad_to: int | None = None):
-        with use_mesh(self.mesh):
+        with self._on_mesh():
             return self._mod.prefill(self.params, batch, self.cfg,
                                      pad_to=pad_to)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache):
-        with use_mesh(self.mesh):
+        with self._on_mesh():
             return self._mod.decode_step(self.params, tokens, cache,
                                          self.cfg)
 
     def init_decode_cache(self, batch: int, max_len: int,
                           dtype: torch.dtype | None = None) -> dict:
-        """Zero cache; ``dtype`` defaults to the config's compute dtype."""
+        """Zero cache; ``dtype`` defaults to the config's compute dtype.  On
+        a mesh it holds the kv heads the rank projects."""
         dtype = dtype_of(self.cfg.compute_dtype) if dtype is None else dtype
-        return self._mod.init_decode_cache(self.cfg, batch, max_len, dtype,
-                                           self.device)
+        with self._on_mesh():
+            return self._mod.init_decode_cache(self.cfg, batch, max_len,
+                                               dtype, self.device)
+
+    @torch.no_grad()
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token ids (B,) of the last-position logits (B, V) that
+        ``prefill`` and ``decode_step`` return: ``torch.argmax`` over the
+        whole vocabulary, whose slices a "tp" mesh gathers first
+        (``collectives.vocab_argmax``), so every rank gets the same ids."""
+        with self._on_mesh():
+            mesh = lm.vocab_mesh(self.cfg)
+        if mesh is None:
+            return torch.argmax(logits, dim=-1)
+        return vocab_argmax(logits, mesh)
 
 
 

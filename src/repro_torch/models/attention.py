@@ -10,14 +10,29 @@ decoder's cross-attention, S decoder rows against the encoder's T keys.  The
 kernel computes the reference's masked ``_sdpa`` for each of them (causal is
 a parameter of the Pallas kernel, with the diagonal offset T - S).  Decode
 attention and decode cross-attention, one query row a step, have no kernel
-in the reference and stay plain torch."""
+in the reference and stay plain torch.
+
+In "tp" mode on a mesh whose "model" axis divides the heads
+(``common.tp_split``), each rank holds H/nm of the query heads (``wq``'s
+columns and ``wo``'s rows, ``launch/shardings.shard_params``) and, when
+"model" divides the kv heads too, K/nm of them; Megatron's column and row
+split: the input enters through "f" (``copy_to``), flash runs on the rank's
+heads against the kv heads they read, ``wo``'s rows give the rank's share
+of the output, and "g" (``all_reduce``) sums the shares.  Where ``wk`` and
+``wv`` stay whole (fewer kv heads than ranks: GQA at a wide axis, MQA), the
+rank projects every kv head and attends with the one its query heads
+share; the whole kv weights enter through "f", so their gradients add the
+ranks' shares.  Decode caches hold the kv heads the rank projects, as
+``launch/shardings.cache_shardings`` lays them out."""
 from __future__ import annotations
 
 import torch
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF
-from .common import apply_rope, normal_init
+from ..launch.collectives import all_reduce, copy_to
+from ..launch.mesh import coordinate
+from .common import apply_rope, normal_init, tp_split
 from .config import ArchConfig
 
 
@@ -33,6 +48,50 @@ def init_attn_params(generator, cfg: ArchConfig, dtype, device,
         "wo": normal_init(generator, (*lead, h, hd, d), (h * hd) ** -0.5,
                           dtype, device),
     }
+
+
+def _split(params, cfg: ArchConfig):
+    """(mesh, params, kv): where "tp" mode splits the heads over "model"
+    (``common.tp_split`` of ``wq`` and ``wo``), the mesh and ``params``
+    with whole ``wk`` and ``wv`` passed through "f", else (None, params,
+    None); kv is the slice of the projected kv heads that this rank's query
+    heads read, None (all of them) unless the kv weights are whole.  Query
+    heads [r H/nm, (r+1) H/nm) read kv heads h // (H/K); with whole kv
+    weights a rank's query heads must share one."""
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mesh = tp_split("wq", (d, h, hd), params["wq"])
+    if mesh is None:
+        return None, params, None
+    tp_split("wo", (h, hd, d), params["wo"])
+    if tp_split("wk", (d, k, hd), params["wk"]) is not None:
+        tp_split("wv", (d, k, hd), params["wv"])
+        return mesh, params, None
+    h_loc, group = params["wq"].shape[-2], h // k
+    if group % h_loc or params["wk"].shape[-2] != k:
+        raise ValueError(
+            f"{cfg.name}: a rank's {h_loc} query heads of {h} must share one "
+            f"of the {k} kv heads (groups of {group}) when wk and wv stay "
+            f"whole; wq {tuple(params['wq'].shape)}, wk "
+            f"{tuple(params['wk'].shape)}")
+    kv = coordinate(mesh)["model"] * h_loc // group
+    params = {**params, "wk": copy_to(params["wk"], mesh, "model"),
+              "wv": copy_to(params["wv"], mesh, "model")}
+    return mesh, params, slice(kv, kv + 1)
+
+
+def _read(kv_heads, kv):
+    """The kv heads (B,T,K,hd) that the rank's query heads read."""
+    return kv_heads if kv is None else kv_heads[:, :, kv]
+
+
+def _enter(x, mesh):
+    """x into the rank's heads: "f" on a mesh."""
+    return x if mesh is None else copy_to(x, mesh, "model")
+
+
+def _leave(y, mesh):
+    """The rank's share of the output summed over "model" ("g")."""
+    return y if mesh is None else all_reduce(y, mesh, "model")
 
 
 def _project(params, x):
@@ -68,11 +127,15 @@ def full_attention(params, x, positions, cfg: ArchConfig, window: int = 0,
     """Self-attention over the whole sequence (causal unless ``causal=False``
     for encoder stacks).  ``window`` is a Python int, 0 => global.
 
-    Returns (output, (k, v)) so prefill can seed the decode cache."""
-    q, k, v = _qkv(params, x, positions, cfg)
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    Returns (output, (k, v)) so prefill can seed the decode cache; under
+    "tp" the rank's query heads attend and (k, v) are the kv heads it
+    projects."""
+    mesh, params, kv = _split(params, cfg)
+    q, k, v = _qkv(params, _enter(x, mesh), positions, cfg)
+    out = flash_attention(q, _read(k, kv), _read(v, kv), causal=causal,
+                          window=window)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, (k, v)
+    return _leave(y, mesh), (k, v)
 
 
 def decode_attention(params, x, cache_k, cache_v, pos, cfg: ArchConfig,
@@ -86,7 +149,8 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg: ArchConfig,
     write silently, a ``pos >= T`` raises: callers keep pos < T."""
     b = x.shape[0]
     t = cache_k.shape[1]
-    q, k, v = _project(params, x)
+    mesh, params, kv = _split(params, cfg)
+    q, k, v = _project(params, _enter(x, mesh))
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     rows = torch.arange(b, device=x.device)
@@ -96,18 +160,21 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg: ArchConfig,
     mask = cols <= pos[:, None]
     if window > 0:
         mask &= cols > (pos[:, None] - window)
-    out = _sdpa(q, cache_k, cache_v, mask[:, None, None, :])
+    out = _sdpa(q, _read(cache_k, kv), _read(cache_v, kv),
+                mask[:, None, None, :])
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, (cache_k, cache_v)
+    return _leave(y, mesh), (cache_k, cache_v)
 
 
 def cross_attention(params, x, enc_k, enc_v, cfg: ArchConfig) -> torch.Tensor:
     """Decoder -> encoder attention of a full decoder sequence x (B,S,D)
     over every encoder position, no RoPE; enc_k/v (B,T,K,hd) precomputed by
     ``encode_kv``.  Non-causal flash attention, S rows against T keys."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    out = flash_attention(q, enc_k, enc_v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    mesh, params, kv = _split(params, cfg)
+    q = torch.einsum("bsd,dhk->bshk", _enter(x, mesh), params["wq"])
+    out = flash_attention(q, _read(enc_k, kv), _read(enc_v, kv),
+                          causal=False)
+    return _leave(torch.einsum("bshk,hkd->bsd", out, params["wo"]), mesh)
 
 
 def decode_cross_attention(params, x, enc_k, enc_v,
@@ -115,15 +182,21 @@ def decode_cross_attention(params, x, enc_k, enc_v,
     """``cross_attention`` of one decode row x (B,1,D): plain torch, as
     decode self-attention (a 1-row query would fill one row of the kernel's
     64- or 128-row tiles)."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    mesh, params, kv = _split(params, cfg)
+    q = torch.einsum("bsd,dhk->bshk", _enter(x, mesh), params["wq"])
     mask = torch.ones((1, 1, x.shape[1], enc_k.shape[1]), dtype=torch.bool,
                       device=x.device)
-    out = _sdpa(q, enc_k, enc_v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    out = _sdpa(q, _read(enc_k, kv), _read(enc_v, kv), mask)
+    return _leave(torch.einsum("bshk,hkd->bsd", out, params["wo"]), mesh)
 
 
-def encode_kv(params, enc_out) -> tuple[torch.Tensor, torch.Tensor]:
-    """The cross-attention keys and values of the encoder output (B,T,D)."""
+def encode_kv(params, enc_out, cfg: ArchConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of the encoder output (B,T,D);
+    under "tp" the kv heads this rank projects (its own, or all when the kv
+    weights are whole), the encoder output entering through "f"."""
+    mesh, params, _ = _split(params, cfg)
+    enc_out = _enter(enc_out, mesh)
     k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"])
     return k, v

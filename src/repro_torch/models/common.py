@@ -3,8 +3,13 @@ the ambient mesh and sharding mode."""
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
+
+from ..launch.collectives import gather_leaf
+from ..launch.mesh import MeshSpec
+from ..launch.shardings import model_dim, param_spec
 
 
 def require_device(device) -> torch.device:
@@ -93,16 +98,22 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return loss.mean()
 
 
-# "tp" (the default): the expert-parallel MoE combines by an all-reduce over
-# "model".  "fsdp": it dispatches by all-to-all when "model" divides the
-# sequence (``models/mlp.py``).  The reference's fsdp mode also shards every
-# parameter over the whole mesh and the batch over every axis; the port
-# computes those specs (``launch/shardings.py``) and does not carry them out.
+# "tp" (the default): every leaf that the rules split over "model" is held
+# and computed on as the rank's slice (tensor parallelism, ``tp_split``),
+# and the expert-parallel MoE combines by an all-reduce over "model".
+# "fsdp": only the experts are sliced, and the MoE dispatches by all-to-all
+# when "model" divides the sequence (``models/mlp.py``).  The reference's
+# fsdp mode also shards every parameter over the whole mesh and the batch
+# over every axis; the port computes those specs (``launch/shardings.py``)
+# and does not carry them out.  ``SHARDING_MODE`` is the mode a Model is
+# built in (``Model.mode``); its methods install that mode with its mesh
+# (``use_mesh``), and the models read the installed one, so a later
+# ``set_sharding_mode`` changes no model already built.
 SHARDING_MODE = ["tp"]
-# the mesh of ``use_mesh``: a plain global, not a context variable, because
-# the autograd engine runs a CUDA backward (and remat's recompute inside
-# it) on threads of its own
-_MESH = [None]
+# the mesh and mode of ``use_mesh``: plain globals, not context variables,
+# because the autograd engine runs a CUDA backward (and remat's recompute
+# inside it) on threads of its own
+_AMBIENT = [(None, None)]
 
 
 def set_sharding_mode(mode: str) -> None:
@@ -112,18 +123,64 @@ def set_sharding_mode(mode: str) -> None:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
-    """Run the model on ``mesh`` (a DeviceMesh, or None for one process),
-    the counterpart of the reference's ``with mesh:``.  A training step's
-    backward belongs inside too: remat recomputes the forward there."""
-    prev = _MESH[0]
-    _MESH[0] = mesh
+def use_mesh(mesh, mode: str | None = None):
+    """Run the model on ``mesh`` (a DeviceMesh, or None for one process) in
+    sharding ``mode`` (default: ``SHARDING_MODE``'s), the counterpart of
+    the reference's ``with mesh:``.  A training step's backward belongs
+    inside too: remat recomputes the forward there."""
+    prev = _AMBIENT[0]
+    _AMBIENT[0] = (mesh, SHARDING_MODE[0] if mode is None else mode)
     try:
         yield mesh
     finally:
-        _MESH[0] = prev
+        _AMBIENT[0] = prev
 
 
 def ambient_mesh():
     """The mesh ``use_mesh`` installed, or None."""
-    return _MESH[0]
+    return _AMBIENT[0][0]
+
+
+def ambient_mode():
+    """The sharding mode ``use_mesh`` installed with its mesh."""
+    return _AMBIENT[0][1]
+
+
+@functools.lru_cache(maxsize=None)
+def _split_dim(name: str, whole: tuple, mesh: MeshSpec) -> int | None:
+    return model_dim(param_spec(name, whole, mesh))
+
+
+def tp_split(name: str, whole: tuple, leaf: torch.Tensor | None = None):
+    """The ambient mesh where its mode is "tp" and the rules split a leaf
+    ``name`` of shape ``whole`` over "model" (``launch/shardings.
+    param_spec``, by which ``shard_params`` sliced it), else None.  Given
+    ``leaf``, the rank's part, raises naming the shapes unless it holds the
+    rank's share of the split dim.  At one rank of "model" every dim the
+    rules would split counts as split, so that a (1, 1) mesh runs the
+    tensor-parallel path and its collectives."""
+    mesh, mode = _AMBIENT[0]
+    if mesh is None or mode != "tp":
+        return None
+    spec = MeshSpec.of(mesh)
+    d = _split_dim(name, tuple(whole), spec)
+    if d is None:
+        return None
+    part = whole[d] // spec.shape["model"]
+    if leaf is not None and leaf.shape[d - len(whole)] != part:
+        raise ValueError(f"{name}: a rank of \"model\" holds {part} of "
+                         f"{whole[d]} in dim {d} of {tuple(whole)} "
+                         f"(launch/shardings.shard_params in \"tp\" mode); "
+                         f"the leaf is {tuple(leaf.shape)}")
+    return mesh
+
+
+def tp_whole(name: str, whole: tuple, leaf: torch.Tensor) -> torch.Tensor:
+    """The whole leaf of which ``leaf`` is the rank's part: gathered over
+    "model" (``gather_leaf``) where ``tp_split`` holds it in slices."""
+    mesh = tp_split(name, whole, leaf)
+    if mesh is None:
+        return leaf
+    return gather_leaf(leaf, mesh, _split_dim(name, tuple(whole),
+                                              MeshSpec.of(mesh))
+                       - len(whole))

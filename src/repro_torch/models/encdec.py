@@ -24,6 +24,11 @@ frames).  A decode step's cross-attention, one row, stays plain torch.
 Under autograd each encoder and decoder layer runs under ``cfg.remat``
 (``lm._maybe_ckpt``), as the reference's scans do, and the stacked leaves
 are unbound once a forward (``lm._unbind``).
+
+In "tp" mode the encoder's, the decoder's and the cross-attention's heads,
+the MLPs and the vocabulary are split over "model" as in ``lm``
+(``attention``, ``mlp_forward``, ``lm.embed_tokens``, ``lm.ce_loss``);
+``encode_kv`` gives the rank's kv heads and ``enc_pos`` stays whole.
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ import torch.nn.functional as F
 from .attention import (cross_attention, decode_attention,
                         decode_cross_attention, encode_kv, full_attention,
                         init_attn_params)
-from .common import cross_entropy_loss, dtype_of, normal_init, rms_norm
+from .common import dtype_of, normal_init, rms_norm
 from .config import ArchConfig
-from .lm import _layer, _logits, _maybe_ckpt, _unbind
+from .lm import (_layer, _logits, _maybe_ckpt, _unbind, ce_loss,
+                 embed_tokens, kv_heads)
 from .mlp import init_mlp_params, mlp_forward
 
 
@@ -88,7 +94,7 @@ def _enc_layer(lp, h, positions, cfg: ArchConfig):
                           positions, cfg, window=0, causal=False)
     h = h + a
     return h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                           cfg.mlp_act)
+                           cfg.mlp_act, cfg.d_ff)
 
 
 def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
@@ -110,11 +116,11 @@ def _dec_layer(lp, h, positions, enc_out, cfg: ArchConfig):
                                rms_norm(h, lp["ln1"], cfg.norm_eps),
                                positions, cfg, window=0)
     h = h + a
-    xk, xv = encode_kv(lp["xattn"], enc_out)
+    xk, xv = encode_kv(lp["xattn"], enc_out, cfg)
     h = h + cross_attention(lp["xattn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                             xk, xv, cfg)
     h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
-                        cfg.mlp_act)
+                        cfg.mlp_act, cfg.d_ff)
     return h, (k, v), (xk, xv)
 
 
@@ -122,7 +128,7 @@ def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
                 collect_cache: bool = False, last_only: bool = False):
     """The decoder over the whole token sequence.  Returns (logits,
     cache|None); ``last_only``: logits of the final position only."""
-    h = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    h = embed_tokens(params, tokens, cfg).to(dtype_of(cfg.compute_dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     per_layer: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
     layer = _maybe_ckpt(_dec_layer, cfg)
@@ -145,7 +151,7 @@ def train_loss(params, batch, cfg: ArchConfig):
     Returns (loss, {"ce": loss}); differentiate ``loss``."""
     enc_out = encode(params, batch["frames"], cfg)
     logits, _ = dec_forward(params, batch["tokens"], enc_out, cfg)
-    loss = cross_entropy_loss(logits, batch["labels"])
+    loss = ce_loss(logits, batch["labels"], cfg)
     return loss, {"ce": loss}
 
 
@@ -171,7 +177,8 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     layer's new k/v row is written into ``cache["k"]``/``cache["v"]`` **in
     place** and ``cache["pos"]`` is incremented (the JAX version returns a
     new cache)."""
-    h = params["embed"][tokens[:, :1]].to(dtype_of(cfg.compute_dtype))
+    h = embed_tokens(params, tokens[:, :1], cfg).to(
+        dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)
@@ -184,16 +191,16 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
                                        rms_norm(h, lp["ln2"], cfg.norm_eps),
                                        cache["xk"][i], cache["xv"][i], cfg)
         h = h + mlp_forward(lp["mlp"], rms_norm(h, lp["ln3"], cfg.norm_eps),
-                            cfg.mlp_act)
+                            cfg.mlp_act, cfg.d_ff)
     pos += 1
     return _logits(params, h, cfg)[:, 0, :], cache
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
-    """Fresh (zero) decode cache."""
+    """Fresh (zero) decode cache, with the rank's kv heads under "tp"."""
     def zeros(t):
-        return torch.zeros((cfg.n_layers, batch, t, cfg.n_kv_heads,
+        return torch.zeros((cfg.n_layers, batch, t, kv_heads(cfg),
                             cfg.head_dim), dtype=dtype, device=device)
     return {"k": zeros(max_len), "v": zeros(max_len),
             "xk": zeros(cfg.enc_len), "xv": zeros(cfg.enc_len),

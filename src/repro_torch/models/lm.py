@@ -24,6 +24,15 @@ Cache layouts (each with "pos": (B,) int64):
 The hybrid's stacked leaves are (nb, pb, ...): block ``b`` runs its pb mamba
 layers, then the one ``shared`` attention + MLP block.  The VLM prepends its
 projected patches to the token embeddings and then runs the dense stack.
+
+In "tp" mode on a mesh whose "model" axis divides the vocabulary
+(``common.tp_split``), ``embed`` and ``lm_head`` hold the rank's slice of it
+(rows [r V/nm, (r+1) V/nm)): the embedding looks up the ids the rank holds
+(zeros for the others) and "g" sums the ranks' rows; the head takes the
+hidden states through "f" and gives the rank's (B, S, V/nm) logits, whose
+loss is ``collectives.vocab_cross_entropy`` and whose greedy token
+``Model.greedy`` takes.  Tied embeddings use the same slice as the head.
+The VLM's ``projector``, split over D, is gathered on use.
 """
 from __future__ import annotations
 
@@ -35,8 +44,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..launch.collectives import (all_reduce, copy_to,
+                                  vocab_cross_entropy)
+from ..launch.mesh import MeshSpec, coordinate
 from .attention import decode_attention, full_attention, init_attn_params
-from .common import cross_entropy_loss, dtype_of, normal_init, rms_norm
+from .common import (cross_entropy_loss, dtype_of, normal_init, rms_norm,
+                     tp_split, tp_whole)
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
@@ -145,21 +158,62 @@ def _window(cfg: ArchConfig, i: int) -> int:
     return 0 if cfg.is_global_layer(i) else cfg.sliding_window
 
 
+def vocab_mesh(cfg: ArchConfig, embed: torch.Tensor | None = None):
+    """The mesh over whose "model" ranks "tp" mode splits the vocabulary
+    (``common.tp_split`` of ``embed``, whose rows the rule splits by the
+    same test as ``lm_head``'s columns), else None; given ``embed``, the
+    rank's leaf, checks its share."""
+    return tp_split("embed", (cfg.vocab, cfg.d_model), embed)
+
+
 def _logits(params, h, cfg: ArchConfig):
+    """The logits (B,S,V) of the final hidden states; under "tp", the
+    rank's vocabulary slice (B,S,V/nm)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if cfg.tie_embeddings:
+        head = params["embed"].T
+        mesh = vocab_mesh(cfg, params["embed"])
+    else:
+        head = params["lm_head"]
+        mesh = tp_split("lm_head", (cfg.d_model, cfg.vocab), head)
+    if mesh is not None:
+        h = copy_to(h, mesh, "model")
     return torch.einsum("bsd,dv->bsv", h, head)
+
+
+def ce_loss(logits, labels, cfg: ArchConfig) -> torch.Tensor:
+    """Mean CE of ``_logits``' output: ``cross_entropy_loss``, over the
+    vocabulary's slices under "tp"."""
+    mesh = vocab_mesh(cfg)
+    if mesh is None:
+        return cross_entropy_loss(logits, labels)
+    return vocab_cross_entropy(logits, labels, mesh)
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
+    """``embed``'s rows of ``tokens``, in the parameters' dtype; under "tp"
+    each rank looks up the ids of its vocabulary slice, zeros for the
+    others, and the ranks' rows are summed."""
+    mesh = vocab_mesh(cfg, params["embed"])
+    if mesh is None:
+        return params["embed"][tokens]
+    part = params["embed"].shape[0]
+    v0 = coordinate(mesh)["model"] * part
+    own = (tokens >= v0) & (tokens < v0 + part)
+    rows = params["embed"][torch.where(own, tokens - v0, 0)]
+    return all_reduce(rows.masked_fill(~own[..., None], 0), mesh, "model")
 
 
 def _embed(params, tokens, cfg: ArchConfig, patches=None):
     """Token embeddings; the VLM prepends its ``patches`` (B,P,1024) through
     the projector, in the parameters' dtype."""
-    h = params["embed"][tokens]
+    h = embed_tokens(params, tokens, cfg)
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("vlm needs patch embeddings")
-        pe = torch.einsum("bpv,vd->bpd", patches.to(h.dtype),
-                          params["projector"])
+        proj = tp_whole("projector", (PATCH_DIM, cfg.d_model),
+                        params["projector"])
+        pe = torch.einsum("bpv,vd->bpd", patches.to(h.dtype), proj)
         h = torch.cat([pe, h], dim=1)
     return h.to(dtype_of(cfg.compute_dtype))
 
@@ -169,12 +223,14 @@ def _ffn(lp, m, cfg: ArchConfig):
     dense residual FFN and llama4's shared expert.  Returns (y, aux): the
     MoE's load-balancing loss, an f32 scalar, or None for the MLP."""
     if not cfg.n_experts:
-        return mlp_forward(lp["mlp"], m, cfg.mlp_act), None
+        return mlp_forward(lp["mlp"], m, cfg.mlp_act, cfg.d_ff), None
     y, aux = moe_forward(lp["moe"], m, cfg)
     if cfg.moe_dense_ff:
-        y = y + mlp_forward(lp["dense_mlp"], m, cfg.mlp_act)
+        y = y + mlp_forward(lp["dense_mlp"], m, cfg.mlp_act,
+                            cfg.moe_dense_ff)
     if cfg.shared_expert_ff:
-        y = y + mlp_forward(lp["shared_mlp"], m, cfg.mlp_act)
+        y = y + mlp_forward(lp["shared_mlp"], m, cfg.mlp_act,
+                            cfg.shared_expert_ff)
     return y, aux
 
 
@@ -300,7 +356,7 @@ def train_loss(params, batch, cfg: ArchConfig):
     logits, aux, _ = forward(
         params, batch["tokens"], cfg, patches=batch.get("patches"),
         last=labels.shape[1] if cfg.family == "vlm" else 0)
-    loss = cross_entropy_loss(logits, labels)
+    loss = ce_loss(logits, labels, cfg)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -344,7 +400,8 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     ssm states into ``cache["conv"]``/``cache["ssm"]``) and ``cache["pos"]``
     is incremented -- and the same dict is returned (the JAX version returns
     a new one)."""
-    h = params["embed"][tokens[:, :1]].to(dtype_of(cfg.compute_dtype))
+    h = embed_tokens(params, tokens[:, :1], cfg).to(
+        dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
     if cfg.family in ("ssm", "hybrid"):
         for idx in itertools.product(*map(range, _mamba_lead(cfg))):
@@ -366,10 +423,19 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     return _logits(params, h, cfg)[:, 0, :], cache
 
 
+def kv_heads(cfg: ArchConfig) -> int:
+    """The kv heads a rank's decode cache holds: K/nm where "tp" mode
+    splits them over "model", else all K (``cache_shardings``' layout)."""
+    mesh = tp_split("wk", (cfg.d_model, cfg.n_kv_heads, cfg.head_dim))
+    return cfg.n_kv_heads if mesh is None else \
+        cfg.n_kv_heads // MeshSpec.of(mesh).shape["model"]
+
+
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
     """Fresh (zero) decode cache; the mamba states do not depend on
-    ``max_len``."""
+    ``max_len``.  Under "tp" the kv heads are the rank's (``kv_heads``);
+    the conv and ssm states stay whole on every rank."""
     cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
     if cfg.family in ("ssm", "hybrid"):
         lead = _mamba_lead(cfg)
@@ -382,7 +448,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.family != "ssm":
         n_attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
                   else cfg.n_layers)
-        shape = (n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (n_attn, batch, max_len, kv_heads(cfg), cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache

@@ -21,7 +21,15 @@ A rank's block is the rows of the batch that ``shard_batch`` gave it (the
 whole batch when the rows do not divide the data axes), as the reference's
 ``shard_map`` block, so its capacity, slot order and buffers are the
 reference's.  Unlike the reference, the load-balancing ``aux`` is the whole
-batch's at any mesh (ROADMAP.md, faults of the reference)."""
+batch's at any mesh (ROADMAP.md, faults of the reference).
+
+In "tp" mode the MLP (the dense one, arctic's ``dense_mlp``, llama4's
+``shared_mlp``, whisper's and zamba2's shared block's) is Megatron's column
+and row split over "model" where it divides the hidden dim
+(``common.tp_split``): the input through "f", the rank's columns of ``w_in``
+and ``w_gate``, the activation on its hidden slice, its rows of ``w_out``,
+and "g" over the ranks' shares.  Experts fewer than the "model" axis are
+split the same way over their hidden dim, in the dense dispatch."""
 from __future__ import annotations
 
 import math
@@ -33,7 +41,7 @@ from ..kernels.moe_gmm import grouped_ffn
 from ..launch.collectives import (all_reduce, all_to_all, copy_to,
                                   seq_gather, seq_slice)
 from ..launch.mesh import MeshSpec, batch_axes, coordinate
-from .common import SHARDING_MODE, ambient_mesh, normal_init
+from .common import ambient_mesh, ambient_mode, normal_init, tp_split
 from .config import ArchConfig
 
 
@@ -51,14 +59,24 @@ def init_mlp_params(generator, d: int, ff: int, act: str, dtype, device,
     return p
 
 
-def mlp_forward(params, x, act: str) -> torch.Tensor:
+def mlp_forward(params, x, act: str, ff: int) -> torch.Tensor:
+    """SwiGLU or GELU MLP of x (B,S,D); ``ff`` is its whole hidden width,
+    which with D gives the whole leaves' shapes, by which "tp" mode knows
+    (``common.tp_split``) whether the leaves hold the rank's hidden slice
+    (then the output is summed over "model")."""
+    d = x.shape[-1]
+    mesh = tp_split("w_in", (d, ff), params["w_in"])
+    if mesh is not None:
+        tp_split("w_out", (ff, d), params["w_out"])
+        x = copy_to(x, mesh, "model")
     h = torch.einsum("bsd,df->bsf", x, params["w_in"])
     if act == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default form
-    return torch.einsum("bsf,fd->bsd", h, params["w_out"])
+    y = torch.einsum("bsf,fd->bsd", h, params["w_out"])
+    return y if mesh is None else all_reduce(y, mesh, "model")
 
 
 def init_moe_params(generator, cfg: ArchConfig, dtype, device,
@@ -104,7 +122,7 @@ def moe_forward(params, x, cfg: ArchConfig):
         return _moe_dense_dispatch(params, x, cfg)
     nm = MeshSpec.of(mesh).shape.get("model", 0)
     if nm and cfg.n_experts % nm == 0:
-        if SHARDING_MODE[0] == "fsdp" and x.shape[1] % nm == 0:
+        if ambient_mode() == "fsdp" and x.shape[1] % nm == 0:
             return _moe_expert_parallel_a2a(params, x, cfg, mesh)
         return _moe_expert_parallel(params, x, cfg, mesh)
     return _moe_dense_dispatch(params, x, cfg, mesh)
@@ -182,16 +200,21 @@ def _experts(params, buf, cfg: ArchConfig):
 
 def _moe_dense_dispatch(params, x, cfg: ArchConfig, mesh=None):
     """One process's dispatch over every expert (or, under a mesh whose
-    "model" axis does not divide the experts, each rank's over its whole
-    experts, aux over the batch axes)."""
+    "model" axis does not divide the experts, each rank's over every
+    expert, aux over the batch axes: the experts whole, or in "tp" mode
+    their hidden slice, the tokens and combine weights then entering
+    through "f" and the ranks' shares of y summed)."""
     e, k = cfg.n_experts, cfg.top_k
     cap = moe_capacity(cfg, x.shape[1])
     probs, top_i, flat_e, slot, keep, w = _route(x, params["router"], cfg,
                                                  cap)
     aux = _aux(probs, top_i, e, mesh, batch_axes(mesh) if mesh else ())
+    split = tp_split("moe.w_in", (e, cfg.d_model, cfg.d_ff), params["w_in"])
+    if split is not None:
+        x, w = copy_to(x, split, "model"), copy_to(w, split, "model")
     buf, b_idx = _dispatch(x, flat_e, slot, keep, e, cap, k)
-    return _combine(_experts(params, buf, cfg), b_idx, flat_e, slot, w,
-                    k), aux
+    y = _combine(_experts(params, buf, cfg), b_idx, flat_e, slot, w, k)
+    return (y if split is None else all_reduce(y, split, "model")), aux
 
 
 def _local_experts(params, cfg: ArchConfig, nm: int) -> int:

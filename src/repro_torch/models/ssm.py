@@ -9,14 +9,23 @@ for CUDA tensors, its plain version on the CPU); across chunks only the
 that part either).
 
 Oracle for tests: ``kernels.ssd.ssd_reference`` (the stepwise recurrence).
+
+In "tp" mode the rules split ``in_proj``, ``conv_w``, ``conv_b`` and
+``out_proj`` over "model" (their last dim, ``out_proj``'s first); each rank
+holds its slices and gathers the whole leaves on use (``common.tp_whole``), so
+the block, the SSD kernels and the decode states run whole on every rank.
+Splitting the computation is left for later: the packed [z, xBC, dt]
+columns of ``in_proj`` do not fall on the ranks' boundaries.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ssd_intra_chunk
-from .common import normal_init, rms_norm
+from .common import normal_init, rms_norm, tp_whole
 from .config import ArchConfig
 
 
@@ -45,6 +54,21 @@ def init_mamba_params(generator, cfg: ArchConfig, dtype, device,
         "out_proj": normal_init(generator, (*lead, di, d), di ** -0.5, dtype,
                                 device),
     }
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_shapes(cfg: ArchConfig) -> dict:
+    """{leaf: whole shape} of one layer's parameters."""
+    return {k: tuple(v.shape) for k, v in
+            init_mamba_params(None, cfg, torch.float32, "meta").items()}
+
+
+def _whole(params, cfg: ArchConfig) -> dict:
+    """The layer's leaves, those of the block that "tp" mode splits
+    gathered whole (``common.tp_whole``)."""
+    shapes = _whole_shapes(cfg)
+    return {k: tp_whole(k, shapes[k], v) if k in shapes else v
+            for k, v in params.items()}
 
 
 def _split_proj(zxbcdt, cfg: ArchConfig):
@@ -111,6 +135,7 @@ def mamba_forward(params, x, cfg: ArchConfig, return_state: bool = False):
     """Full-sequence Mamba2 block.  x (B,S,D) -> (y, (conv_state, ssm_state)
     or None); the states are in x's dtype."""
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    params = _whole(params, cfg)
     zxbcdt = torch.einsum("bsd,dk->bsk", x, params["in_proj"])
     z, xbc, dt = _split_proj(zxbcdt, cfg)
     xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
@@ -126,17 +151,19 @@ def mamba_forward(params, x, cfg: ArchConfig, return_state: bool = False):
     out = torch.einsum("bsk,kd->bsd", y, params["out_proj"])
     if not return_state:
         return out, None
-    return out, (xbc_raw_tail(x, params, cfg), h_final.to(x.dtype))
+    return out, (xbc_raw_tail(x, params["in_proj"], cfg),
+                 h_final.to(x.dtype))
 
 
-def xbc_raw_tail(x, params, cfg: ArchConfig):
-    """The last (conv_k - 1) pre-activation conv inputs, for the decode
-    cache.  A prompt shorter than that is left-padded with zeros, the rows
-    ``_causal_conv`` itself sees before the first token.  (The reference
-    returns fewer rows there, and its engine then serves 1- and 2-token
-    prompts wrongly: ROADMAP.md, faults of the reference.)"""
+def xbc_raw_tail(x, in_proj, cfg: ArchConfig):
+    """The last (conv_k - 1) pre-activation conv inputs of x (B,S,D) through
+    the whole ``in_proj``, for the decode cache.  A prompt shorter than that
+    is left-padded with zeros, the rows ``_causal_conv`` itself sees before
+    the first token.  (The reference returns fewer rows there, and its
+    engine then serves 1- and 2-token prompts wrongly: ROADMAP.md, faults
+    of the reference.)"""
     k1 = cfg.ssm_conv - 1
-    zxbcdt = torch.einsum("bsd,dk->bsk", x[:, -k1:, :], params["in_proj"])
+    zxbcdt = torch.einsum("bsd,dk->bsk", x[:, -k1:, :], in_proj)
     _, xbc, _ = _split_proj(zxbcdt, cfg)
     return F.pad(xbc, (0, 0, k1 - xbc.shape[1], 0))
 
@@ -148,6 +175,7 @@ def mamba_decode(params, x1, conv_state, ssm_state, cfg: ArchConfig):
     (y (B,1,D), (conv_state', ssm_state')): the state update is f32, cast
     back to ``ssm_state``'s dtype."""
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    params = _whole(params, cfg)
     zxbcdt = torch.einsum("bsd,dk->bsk", x1, params["in_proj"])
     z, xbc, dt = _split_proj(zxbcdt, cfg)
     window = torch.cat([conv_state, xbc], dim=1)           # (B,K,di+2N)

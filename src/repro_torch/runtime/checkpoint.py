@@ -14,6 +14,17 @@ reference restores by position, in ``jax.tree`` order, which sorts the keys
 of every level; the port writes its leaves in that order and restores by
 name, checking each leaf's shape and dtype.  ``ReplicaPlacer`` (WOW's
 placement of shard replicas over hosts) stays in the JAX package.
+
+A checkpoint holds whole leaves, as the reference's does (its
+``np.asarray`` gathers a sharded ``jax.Array``).  Given the ``model`` of a
+state on a mesh, ``save`` gathers over "model" each leaf that is the rank's
+slice of one of ``model.sharded`` (the parameter, or its AdamW moments and
+error-feedback buffer beside it) along the dim its spec splits, global
+rank 0 writes, and every rank waits at a barrier (in a group of more than
+one rank, ``save`` without such a model raises); ``restore`` reads whole
+leaves and keeps each rank's slice (``launch/shardings.local_slice``).  So
+a checkpoint crosses mesh shapes, and crosses with the JAX package both
+ways.
 """
 from __future__ import annotations
 
@@ -22,6 +33,11 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..launch.collectives import gather_leaf
+from ..launch.mesh import coordinate
+from ..launch.shardings import local_slice, model_dim, param_spec
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16", torch.int32: "int32",
@@ -46,19 +62,59 @@ def flatten_state(state: dict) -> dict:
     return {"/".join(p): out[p] for p in sorted(out)}
 
 
+def _slices(state: dict, model) -> dict:
+    """{leaf name: (spec, whole shape)} of the leaves of ``state`` that are
+    this rank's slices of a leaf of ``model.sharded``: a leaf whose name
+    ends in a sharded parameter's path (``params/layers/attn/wq``,
+    ``opt/m/layers/attn/wq``); empty off a mesh."""
+    if model is None or model.mesh is None:
+        return {}
+    paths = {n.replace(".", "/"): n for n in model.sharded}
+    out = {}
+    for name in flatten_state(state):
+        hits = [p for p in paths if name == p or name.endswith("/" + p)]
+        if hits:
+            param = paths[max(hits, key=len)]
+            whole = model.whole_shapes[param]
+            out[name] = (param_spec(param, whole, model.mesh), whole)
+    return out
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3) -> None:
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
 
-    def save(self, step: int, state: dict) -> str:
+    @torch.no_grad()
+    def save(self, step: int, state: dict, model=None) -> str:
+        """Write ``state``'s leaves whole.  With the ``model`` of a state on
+        a mesh, every rank calls it: the slices are gathered over "model",
+        global rank 0 writes, and the ranks meet at a barrier before it
+        returns.  In a process group of more than one rank, a call without
+        a model on a mesh raises, before anything is written: each rank
+        would write the leaves it holds under the whole leaves' names."""
+        on_mesh = model is not None and model.mesh is not None
+        if (not on_mesh and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise ValueError(
+                f"save: {dist.get_world_size()} ranks would each write the "
+                f"leaves they hold into {self.dir}; pass the model on a mesh "
+                f"(model=), whose slices are gathered and written once")
         path = os.path.join(self.dir, f"step_{step:08d}")
-        os.makedirs(path, exist_ok=True)
+        slices = _slices(state, model)
+        writer = not on_mesh or dist.get_rank() == 0
+        if writer:
+            os.makedirs(path, exist_ok=True)
         manifest = {"step": step, "leaves": []}
         for i, (name, leaf) in enumerate(flatten_state(state).items()):
             dtype = _DTYPE_NAMES[leaf.dtype]
             arr = leaf.detach()
+            if name in slices:
+                arr = gather_leaf(arr, model.mesh,
+                                  model_dim(slices[name][0]))
+            if not writer:
+                continue
             if leaf.dtype == torch.bfloat16:   # numpy has no bfloat16
                 arr = arr.float()
             arr = arr.cpu().numpy()
@@ -67,9 +123,12 @@ class CheckpointManager:
             manifest["leaves"].append({"name": name, "file": fn,
                                        "shape": list(arr.shape),
                                        "dtype": dtype})
-        with open(os.path.join(path, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        self._gc()
+        if writer:
+            with open(os.path.join(path, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            self._gc()
+        if on_mesh:
+            dist.barrier()
         return path
 
     def latest_step(self) -> int | None:
@@ -80,28 +139,35 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     @torch.no_grad()
-    def restore(self, state: dict, step: int | None = None):
+    def restore(self, state: dict, step: int | None = None, model=None):
         """Copy checkpoint ``step`` (default: the latest) into ``state`` in
         place, leaf by leaf by name; every leaf of ``state`` must be in the
-        checkpoint with its shape and dtype.  Returns (state, step)."""
+        checkpoint with its dtype and its shape, the whole leaf's for the
+        rank's slices of the ``model`` of a state on a mesh, of which the
+        rank keeps its own.  Returns (state, step)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError("no checkpoint found")
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             entries = {e["name"]: e for e in json.load(f)["leaves"]}
+        slices = _slices(state, model)
         for name, leaf in flatten_state(state).items():
             entry = entries.get(name)
             if entry is None:
                 raise KeyError(f"checkpoint step {step} has no leaf {name!r}")
-            if (tuple(entry["shape"]) != tuple(leaf.shape)
+            whole = slices[name][1] if name in slices else tuple(leaf.shape)
+            if (tuple(entry["shape"]) != whole
                     or entry["dtype"] != _DTYPE_NAMES[leaf.dtype]):
                 raise ValueError(
                     f"{name}: checkpoint has {entry['dtype']} "
                     f"{entry['shape']}, the state {_DTYPE_NAMES[leaf.dtype]} "
-                    f"{list(leaf.shape)}")
-            arr = np.load(os.path.join(path, entry["file"]))
-            leaf.copy_(torch.from_numpy(arr).to(leaf.dtype))
+                    f"{list(whole)}")
+            arr = torch.from_numpy(np.load(os.path.join(path, entry["file"])))
+            if name in slices:
+                arr = local_slice(arr, slices[name][0], model.mesh,
+                                  coordinate(model.mesh))
+            leaf.copy_(arr.to(leaf.dtype))
         return state, step
 
     def _gc(self) -> None:

@@ -54,7 +54,9 @@ class ServingEngine:
     Runs where ``model`` lives, which must be ``device`` (CUDA unless the
     caller names another device).  A model on a mesh (``Model(cfg,
     mesh=...)``) serves the same requests on every rank, each rank with its
-    own experts; its prefill and decode steps run under the mesh."""
+    own slices of the leaves; its prefill and decode steps run under the
+    mesh, and the greedy token of the vocabulary's slices is alike on every
+    rank (``Model.greedy``)."""
 
     def __init__(self, model: Model, slots: int = 4, max_len: int = 128,
                  device="cuda") -> None:
@@ -145,7 +147,7 @@ class ServingEngine:
             logits, cache1 = self.model.prefill({"tokens": tokens},
                                                 pad_to=self.max_len)
             self._splice(slot, cache1)
-            first = int(torch.argmax(logits, dim=-1)[0])
+            first = int(self.model.greedy(logits)[0])
             self._last_tok[slot, 0] = first
             self._active[slot] = {"req": req, "tokens": [first]}
             if req.max_new <= 1:
@@ -153,9 +155,10 @@ class ServingEngine:
                 self._retire(slot)
 
     def _splice(self, slot: int, cache1) -> None:
-        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v and
-        of the SSM family's conv and ssm states, axis 2 of the hybrid's
-        (nb, pb, B, ...) conv and ssm states."""
+        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v (the
+        kv heads the rank projects, on a mesh) and of the SSM family's conv
+        and ssm states, axis 2 of the hybrid's (nb, pb, B, ...) conv and ssm
+        states."""
         hybrid = self.cfg.family == "hybrid"
         for key, big in self.cache.items():
             if key == "pos":

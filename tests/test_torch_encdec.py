@@ -80,7 +80,7 @@ def test_cross_attention_and_encode_kv_match_jax():
     enc_out = rng.standard_normal((2, cfg.enc_len, cfg.d_model), np.float32)
     x = rng.standard_normal((2, 5, cfg.d_model), np.float32)
     jk, jv = jattn.encode_kv(jp, jnp.asarray(enc_out))
-    tk, tv = attention.encode_kv(tp, torch.from_numpy(enc_out))
+    tk, tv = attention.encode_kv(tp, torch.from_numpy(enc_out), cfg)
     assert tk.shape == (2, cfg.enc_len, cfg.n_kv_heads, cfg.head_dim)
     assert _rel(tk, jk) < JAX_REL and _rel(tv, jv) < JAX_REL
     want = jattn.cross_attention(jp, jnp.asarray(x), jk, jv, jcfg)
@@ -122,7 +122,7 @@ def test_non_causal_attention_matches_pallas_interpret(label, s, t):
         enc_out = rng.standard_normal((2, t, cfg.d_model), np.float32)
         k, v = jattn.encode_kv(jp, jnp.asarray(enc_out))
         q = jnp.einsum("bsd,dhk->bshk", jnp.asarray(x), jp["wq"])
-        tk, tv = attention.encode_kv(tp, torch.from_numpy(enc_out))
+        tk, tv = attention.encode_kv(tp, torch.from_numpy(enc_out), cfg)
         got = attention.cross_attention(tp, torch.from_numpy(x), tk, tv, cfg)
     want = jnp.einsum("bshk,hkd->bsd", jax_flash(q, k, v, **flash), jp["wo"])
     assert k.shape[1] == t and got.shape == want.shape == (2, s, cfg.d_model)

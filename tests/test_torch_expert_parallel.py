@@ -25,7 +25,8 @@ import _torch_dist as td  # noqa: E402
 
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.launch.mesh import MeshSpec, make_mesh  # noqa: E402
-from repro_torch.launch.shardings import local_slice, placements  # noqa
+from repro_torch.launch.shardings import (carried, local_slice,  # noqa
+                                          model_dim, param_spec, placements)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.mlp import moe_capacity, moe_forward  # noqa: E402
 
@@ -254,8 +255,9 @@ def _single_process_run(arch, mode, data):
 @pytest.mark.parametrize("arch", td.MOE)
 def test_data_expert_parallel_train_step(runs, arch, mode):
     """(iv) ``make_train_step`` on the (2, 2) mesh, remat "full", each data
-    rank on 2 of the 4 rows: every leaf's step-1 gradient (the experts
-    gathered over "model") within GRAD_REL of ``jax.grad`` of the JAX
+    rank on 2 of the 4 rows: every leaf's step-1 gradient (the leaves the
+    mode slices gathered over "model": the experts, and in "tp" mode every
+    leaf the rules split) within GRAD_REL of ``jax.grad`` of the JAX
     ``train_loss`` on the whole batch (dense dispatch; the all-to-all mode
     at a capacity that drops nothing), every rank's replicated leaves alike
     with no reduction over "model", and the 3 losses and grad norms those
@@ -268,14 +270,16 @@ def test_data_expert_parallel_train_step(runs, arch, mode):
     ranks = _ranks(runs, td.TRAIN_MESH)
     pre = f"{t}/{arch}/train/{mode}"
     nm = td.TRAIN_MESH[1]
+    spec = MeshSpec(td.AXES, td.TRAIN_MESH)
     assert {k.split("/grad/", 1)[1] for k in ranks[0].files
             if k.startswith(f"{pre}/grad/")} == set(jgrads)
     for name, want in jgrads.items():
         leaves = [res[f"{pre}/grad/{name}"] for res in ranks]
-        if name.split(".")[-1] in td.EXPERTS and "moe" in name:
+        if carried(name, want.shape, spec, mode):
             for r, leaf in enumerate(leaves):      # averaged over data
                 np.testing.assert_array_equal(leaf, leaves[r % nm])
-            got = np.concatenate(leaves[:nm], axis=-3)
+            got = np.concatenate(leaves[:nm], axis=model_dim(
+                param_spec(name, want.shape, spec)))
         else:
             for other in leaves[1:]:
                 np.testing.assert_array_equal(other, leaves[0])
