@@ -8,6 +8,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --moe-bwd-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --tp-only
+    python3 chip_smoke.py --fsdp-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -182,8 +183,29 @@ result line):
    weight gradients concatenated, held to the whole layer within bf16
    bounds; flash timed at 32, 16 and 8 heads.  The path's flash launches
    join the kernel line's totals.
+10. fsdp (ZeRO-3: every leaf the rank's part over the whole mesh, each
+   layer gathered whole inside its remat unit, its gradients
+   reduce-scattered) and ZeRO-1 (the AdamW moments' parts over "data") at
+   deepseek-7b's published widths, bf16: (a) on a (1, 1) mesh over NCCL, 3
+   ``make_train_step`` steps of 2 of its 30 layers on 2 x 2048 tokens in
+   "fsdp" and in "tp" with ZeRO-1 moments, each bit for bit those without
+   a mesh (every step-1 gradient leaf, the losses and grad norms); phase
+   5's deepseek requests served at full depth in "fsdp", greedy tokens
+   equal to phase 5's; the trained fsdp state checkpointed and restored
+   into a fresh model bit for bit; ms per step, peak memory, NCCL's
+   device time from a profiled step, decode ms per step.  (b) In one
+   process, at 2 and 4 ranks: each leaf's ranks' fsdp parts concatenated
+   in rank order equal to the whole leaf; each rank's rows of a 4 x 2048
+   batch forward and backward, the ranks' gradients summed in rank order
+   over n held to the whole batch's within bf16 bounds; each data rank's
+   ZeRO-1 part of one AdamW update concatenated in rank order equal to the
+   whole update bit for bit; the GB of state a rank holds at 30 layers,
+   from the local shapes.  The path's flash launches join the kernel
+   line's totals.
 
-``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9.
+``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
+phase 10 (serving phase 5's deepseek requests without a mesh itself, for
+the tokens to hold).
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -204,6 +226,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3126,8 +3149,9 @@ def phase_roofline(paths: list, card: str) -> dict:
 # _moe_expert_parallel and _moe_expert_parallel_a2a) at llama4-scout's full
 # widths cut to MOE_TRAIN_LAYERS layers, as 5c: the MoE layer's forward and
 # backward, then EP_STEPS make_train_step steps from the seed-0 state, in
-# each sharding mode ("tp": the all-reduce path; "fsdp": the all-to-all
-# path), on NCCL over every card up to EP_MAX_WORLD
+# each sharding mode ("tp": the all-reduce path, with tensor parallelism;
+# "fsdp": the all-to-all path, every leaf in the ZeRO-3 layout and gathered
+# a layer at a time), on NCCL over every card up to EP_MAX_WORLD
 EP_STEPS = 3
 EP_MAX_WORLD = 4
 EP_MODES = ("tp", "fsdp")
@@ -3461,24 +3485,38 @@ def tp_config():
     return get_config(TRAIN_ARCH).replace(n_layers=WIDE_LAYERS)
 
 
+def layout_name(mesh, mode: str = "tp", zero1: bool = False) -> str:
+    if mesh is None:
+        return "without a mesh"
+    return f"{mode}{' + ZeRO-1' if zero1 else ''} on {tuple(mesh.mesh.shape)}"
+
+
 def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
-             card: str | None = None) -> dict:
-    """TP_STEPS ``make_train_step`` steps (AdamW, bf16 moments) of ``cfg``
-    from ``state`` on ``mesh`` (None: one process, no mesh), every launch
-    counted from 0: losses, grad norms and the step-1 gradients as AdamW
-    takes them (kept on the card; with ``ref``, each compared with ref's
-    as it comes and only the differences kept); then TP_TIMED_STEPS timed
+             card: str | None = None, mode: str = "tp",
+             zero1: bool = False) -> dict:
+    """TP_STEPS ``make_train_step`` steps (AdamW, bf16 moments; ZeRO-1's
+    with ``zero1``) of ``cfg`` from ``state`` on ``mesh`` (None: one
+    process, no mesh) in sharding ``mode``, every launch counted from 0:
+    losses, grad norms, the step-1 gradients as AdamW takes them (kept on
+    the card; with ``ref``, each compared with ref's as it comes and only
+    the differences kept) and the peak memory; then TP_TIMED_STEPS timed
     steps.  Given the ``card``'s name, one profiled step more.  Returns
     the model and its state too."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
     from repro_torch.optim import AdamW, AdamWConfig
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     # a copy: load_state keeps the tensors it is given, which the steps
     # update in place
-    model = Model(cfg, device="cuda", mesh=mesh).load_state(
-        {k: v.clone() for k, v in state.items()})
+    set_sharding_mode(mode)
+    try:
+        model = Model(cfg, device="cuda", mesh=mesh).load_state(
+            {k: v.clone() for k, v in state.items()})
+    finally:
+        set_sharding_mode("tp")
     opt = AdamW(AdamWConfig(warmup_steps=1, total_steps=TP_STEPS,
                             moment_dtype="bfloat16"))
     update, step1 = opt.update, {}
@@ -3493,7 +3531,7 @@ def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
 
     opt.update = capture
     params = dict(model.named_parameters())
-    st = {"params": params, "opt": opt.init(params)}
+    st = {"params": params, "opt": opt.init(params, model, zero1=zero1)}
     step_fn = make_train_step(model, opt)
     zero_counts()
     losses, norms, step_s = [], [], []
@@ -3505,6 +3543,7 @@ def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
         norms.append(float(met["grad_norm"]))
         step_s.append(time.perf_counter() - t)
     launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     opt.update = update
     for _ in range(TP_TIMED_STEPS):
         torch.cuda.synchronize()
@@ -3515,10 +3554,10 @@ def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
     res = {"losses": losses, "grad_norms": norms, "grads": step1,
            "step_ms": [1e3 * t for t in step_s],
            "ms_per_step": 1e3 * float(np.median(step_s[TP_STEPS:])),
-           "launches": launches, "model": model, "state": st}
+           "max_memory_allocated_gb": peak_gb, "launches": launches,
+           "model": model, "state": st}
     if card is not None:
-        where = "without a mesh" if mesh is None else \
-            f"tp on {tuple(mesh.mesh.shape)}"
+        where = layout_name(mesh, mode, zero1)
         res["profile"] = profile_region(
             lambda: step_fn(st, batch), f"{cfg.name} x{cfg.n_layers}: one "
             f"training step, {where}", card, groups=EP_GROUPS)
@@ -3530,6 +3569,7 @@ def tp_checkpoint(res: dict, mesh) -> dict:
     and restored into a fresh model's zeroed leaves and zeroed moments:
     every leaf bit for bit."""
     from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
     from repro_torch.runtime import CheckpointManager
     from repro_torch.runtime.checkpoint import flatten_state
     model, st = res["model"], res["state"]
@@ -3540,7 +3580,11 @@ def tp_checkpoint(res: dict, mesh) -> dict:
         save_s = time.perf_counter() - t0
         size = sum(os.path.getsize(os.path.join(path, f))
                    for f in os.listdir(path))
-        fresh = Model(model.cfg, device="cuda", mesh=mesh)
+        set_sharding_mode(model.mode)
+        try:
+            fresh = Model(model.cfg, device="cuda", mesh=mesh)
+        finally:
+            set_sharding_mode("tp")
 
         def zeros(like):
             return {n: torch.zeros_like(t) for n, t in like.items()}
@@ -3562,18 +3606,23 @@ def tp_checkpoint(res: dict, mesh) -> dict:
             "restore_s": restore_s}
 
 
-def tp_serve(cfg, mesh, card: str) -> dict:
+def tp_serve(cfg, mesh, card: str, mode: str = "tp") -> dict:
     """Phase 5's requests of ``cfg`` (full depth) through ServingEngine on
-    ``mesh`` (None: one process), launches counted from 0: the greedy
-    tokens in request order, the flash launches, the drain's wall time,
-    prefill ms a request and decode ms a step (host clock, synchronised),
-    and one decode step profiled."""
+    ``mesh`` (None: one process) in sharding ``mode``, launches counted
+    from 0: the greedy tokens in request order, the flash launches, the
+    drain's wall time, prefill ms a request and decode ms a step (host
+    clock, synchronised), and one decode step profiled."""
     from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
     from repro_torch.runtime import ServingEngine
     gc.collect()
     torch.cuda.empty_cache()
-    model = Model(cfg, device="cuda", mesh=mesh).init(
-        torch.Generator("cuda").manual_seed(0))
+    set_sharding_mode(mode)
+    try:
+        model = Model(cfg, device="cuda", mesh=mesh).init(
+            torch.Generator("cuda").manual_seed(0))
+    finally:
+        set_sharding_mode("tp")
     prefill_s, decode_s = time_calls(model)
     engine = ServingEngine(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
     ids = [engine.submit(p, max_new=SERVE_NEW)
@@ -3590,8 +3639,7 @@ def tp_serve(cfg, mesh, card: str) -> dict:
            "decode_ms_per_step": 1e3 * float(np.mean(decode_s))}
     del model.prefill, model.decode_step
     tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
-    where = "without a mesh" if mesh is None else \
-        f"tp on {tuple(mesh.mesh.shape)}"
+    where = layout_name(mesh, mode)
     res["decode_profile"] = profile_region(
         lambda: model.decode_step(tok, engine.cache), f"{cfg.name}: one "
         f"decode step of {SERVE_SLOTS} slots, {where}", card, top=6,
@@ -3839,6 +3887,299 @@ def phase_tensor_parallel(card: str, served: list | None) -> dict:
             "paths": paths}
 
 
+# ------------------------------------------------------------- phase 10
+# the fsdp (ZeRO-3) and ZeRO-1 layouts (launch/shardings.py's fsdp_spec and
+# row_axes, models/common.gather_layer, launch/collectives.gather_leaf,
+# launch/steps.py, optim/adamw.py, runtime/checkpoint.py) at deepseek-7b's
+# published widths: (a) world 1 on NCCL, a (1, 1) mesh, against the same
+# work without a mesh: TP_STEPS make_train_step steps at WIDE_LAYERS layers
+# in "fsdp" and in "tp" with ZeRO-1 moments, phase 5's requests served at
+# full depth in "fsdp", the trained fsdp state checkpointed; (b) in one
+# process, each rank's part at FSDP_RANKS ranks: fsdp's rows and gathered
+# weights, ZeRO-1's update of each data rank's part, and the bytes of state
+# each rank holds
+FSDP_RANKS = (2, 4)
+# (b)'s batch: FSDP_ROWS rows of TRAIN_SEQ tokens, one rank's share at 4
+# ranks a row
+FSDP_ROWS = 4
+# (b): bounds on ||sum of the ranks' gradients / n - whole|| / ||whole||
+# and on the mean of the ranks' losses against the whole batch's, in bf16,
+# where each rank's gradient is rounded to bf16 before the sum: about twice
+# what a sound run on the H100 gave for the gradients (2.36e-3 at 2 and 4
+# ranks; the losses' mean came out equal to the whole batch's; PERF.md,
+# findings)
+FSDP_PART_REL = {"grad": 5e-3, "loss": 1e-5}
+
+
+def state_bytes(cfg, moment_bytes: int = 2) -> dict:
+    """GB of training state one rank holds at each size n of FSDP_RANKS
+    (and without a mesh), from the local shapes: the parameters, their
+    gradients (both ``cfg.param_dtype``) and the two AdamW moments
+    (``moment_bytes`` each).  "fsdp": every leaf's ``fsdp_spec`` part over
+    a (1, n) mesh; "zero1": whole parameters and gradients, the moments'
+    ``zero1_spec`` parts over an (n, 1) mesh."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.shardings import (fsdp_spec, local_shape,
+                                              param_spec, zero1_spec)
+    from repro_torch.models import lm
+    from repro_torch.models.api import flatten
+    from repro_torch.models.common import dtype_of
+    shapes = {n: tuple(p.shape) for n, p in
+              flatten(lm.init_params(cfg, None, "meta")).items()}
+    pb = torch.empty((), dtype=dtype_of(cfg.param_dtype)).element_size()
+
+    def gb(parts: dict) -> float:
+        return sum(math.prod(s) for s in parts.values())
+
+    out = {"whole": (2 * pb + 2 * moment_bytes) * gb(shapes) / 1e9}
+    for n in FSDP_RANKS:
+        fs = MeshSpec(("data", "model"), (1, n))
+        local = {k: local_shape(s, fsdp_spec(k, s, fs), fs)
+                 for k, s in shapes.items()}
+        out[f"fsdp {n}"] = (2 * pb + 2 * moment_bytes) * gb(local) / 1e9
+        zs = MeshSpec(("data", "model"), (n, 1))
+        moments = {k: local_shape(s, zero1_spec(param_spec(k, s, zs), s, zs),
+                                  zs) for k, s in shapes.items()}
+        out[f"zero1 {n}"] = (2 * pb * gb(shapes)
+                             + 2 * moment_bytes * gb(moments)) / 1e9
+    return out
+
+
+def fsdp_rank_parts(cfg, state: dict) -> dict:
+    """(b) on ``cfg`` (WIDE_LAYERS layers) from ``state``: for each n of
+    FSDP_RANKS, every leaf's ranks' parts (``shard_params`` in "fsdp" at
+    each coordinate of a MeshSpec (1, n)) concatenated in rank order, the
+    gather, must be the whole leaf bit for bit; each rank's rows (FSDP_ROWS
+    / n of them) run forward and backward on the whole weights, and the
+    ranks' gradients, summed in rank order and divided by n, are held to
+    the whole batch's within FSDP_PART_REL.  Then ZeRO-1: one AdamW step of
+    every leaf (``AdamW.leaf_update``, bf16 moments drawn nonzero), whole
+    and as each data rank of (n, 1) holds its ``zero1_spec`` part, the
+    parts concatenated in rank order equal to the whole update bit for
+    bit."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.shardings import (fsdp_spec, param_spec,
+                                              shard_params, spec_axes,
+                                              zero1_spec)
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    gen = torch.Generator("cuda").manual_seed(23)
+    toks = torch.randint(0, cfg.vocab, (FSDP_ROWS, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    model = Model(cfg, device="cuda").load_state(
+        {k: v.clone() for k, v in state.items()})
+    params = dict(model.named_parameters())
+
+    def grads_of(rows: slice):
+        for p in params.values():
+            p.grad = None
+        loss, _ = model.train_loss({k: v[rows] for k, v in batch.items()})
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone()
+                                      for n, p in params.items()}
+
+    zero_counts()
+    whole_loss, whole = grads_of(slice(None))
+    out: dict = {}
+    for n in FSDP_RANKS:
+        spec = MeshSpec(("data", "model"), (1, n))
+        for name, leaf in state.items():
+            s = fsdp_spec(name, leaf.shape, spec)
+            dims = [d for d, e in enumerate(s) if e is not None]
+            parts = [shard_params({name: leaf}, spec, "fsdp",
+                                  {"data": 0, "model": r})[name]
+                     for r in range(n)]
+            assert len(dims) == 1 and torch.equal(
+                torch.cat(parts, dim=dims[0]), leaf), f"[fsdp] gather {name}"
+        size = FSDP_ROWS // n
+        losses, summed = [], None
+        for r in range(n):
+            loss, g = grads_of(slice(r * size, (r + 1) * size))
+            losses.append(loss)
+            summed = {k: v.float() for k, v in g.items()} if summed is None \
+                else {k: summed[k] + v.float() for k, v in g.items()}
+        errs = {k: leaf_rel(summed[k] / n, whole[k].float()) for k in whole}
+        out[f"fsdp {n}"] = {
+            "loss": abs(float(np.mean(losses)) - whole_loss) / whole_loss,
+            "grad": max(errs.values()),
+            "worst_leaf": max(errs, key=errs.get)}
+        del summed
+    launches = read_counts()
+    # each forward launches flash twice a layer (remat's recompute)
+    n_calls = 1 + sum(FSDP_RANKS)
+    assert launches["flash_attn_fwd"] == 2 * n_calls * cfg.n_layers and \
+        launches["flash_attn_bwd"] == n_calls * cfg.n_layers, launches
+    for key in [k for k in out if k.startswith("fsdp")]:
+        for k in ("loss", "grad"):
+            assert out[key][k] <= FSDP_PART_REL[k], \
+                f"[fsdp] (b) {key} {k}: {out[key][k]:.3e} > {FSDP_PART_REL[k]}"
+    opt = AdamW(AdamWConfig(warmup_steps=1, total_steps=TP_STEPS,
+                            moment_dtype="bfloat16"))
+    count = torch.tensor(1.0, device="cuda")
+    lr = torch.tensor(opt.cfg.lr, device="cuda")
+    scale = torch.tensor(0.5, device="cuda")
+    for n in FSDP_RANKS:
+        spec = MeshSpec(("data", "model"), (n, 1))
+        split = 0
+        for name, leaf in state.items():
+            zs = zero1_spec(param_spec(name, leaf.shape, spec), leaf.shape,
+                            spec)
+            dims = [d for d, e in enumerate(zs) if "data" in
+                    spec_axes((e,))]
+            if not dims:
+                continue
+            d, split = dims[0], split + 1
+            m = (1e-3 * torch.randn(leaf.shape, generator=gen,
+                                    device="cuda")).to(torch.bfloat16)
+            v = (1e-6 * torch.rand(leaf.shape, generator=gen,
+                                   device="cuda")).to(torch.bfloat16)
+            w, mw, vw = leaf.clone(), m.clone(), v.clone()
+            opt.leaf_update(whole[name], mw, vw, w, scale, lr, count)
+            size = leaf.shape[d] // n
+            got = {"w": [], "m": [], "v": []}
+            for r in range(n):
+                part = (d, r * size, size)
+                wr, mr, vr = (t.narrow(*part).contiguous()
+                              for t in (leaf, m, v))
+                opt.leaf_update(whole[name].narrow(*part), mr, vr, wr, scale,
+                                lr, count)
+                for k, t in (("w", wr), ("m", mr), ("v", vr)):
+                    got[k].append(t)
+            for k, want in (("w", w), ("m", mw), ("v", vw)):
+                assert torch.equal(torch.cat(got[k], dim=d), want), \
+                    f"[zero1] {name} {k} at {n} data ranks"
+        out[f"zero1 {n}"] = {"leaves_split": split, "bit_identical": True}
+    out["launches"] = launches
+    return out
+
+
+def phase_fsdp(card: str, served: list | None) -> dict:
+    """Phase 10 (see FSDP_* above).  ``served``: phase 5's greedy tokens of
+    deepseek-7b without a mesh (None with ``--fsdp-only``: this phase then
+    serves them without a mesh itself)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    cfg = tp_config()
+    n = cfg.n_layers
+    tag = f"[fsdp {cfg.name}]"
+    state = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0)).state_dict()
+    gen = torch.Generator("cuda").manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    full = get_config(TRAIN_ARCH)
+    one = None
+    if served is None:
+        one = tp_serve(full, None, card)
+        served = one["tokens"]
+    ref = tp_steps(cfg, None, state, batch, card=card)
+    ref.pop("model"), ref.pop("state")
+    want = {"flash_attn_fwd": 2 * n * TP_STEPS, "flash_attn_bwd": n *
+            TP_STEPS, "moe_gmm": 0, "moe_gmm_bwd": 0, "ssd_intra_chunk": 0,
+            "ssd_intra_chunk_bwd": 0}
+    assert ref["launches"] == want, (ref["launches"], want)
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            for key, mode, zero1 in (("fsdp", "fsdp", False),
+                                     ("zero1", "tp", True)):
+                res = tp_steps(cfg, mesh, state, batch, ref=ref, card=card,
+                               mode=mode, zero1=zero1)
+                res["sliced"] = len(res["model"].sharded)
+                if key == "fsdp":
+                    assert res["sliced"] == len(state), res["sliced"]
+                    ckpt = tp_checkpoint(res, mesh)
+                res.pop("model"), res.pop("state")
+                runs[key] = res
+            serve = tp_serve(full, mesh, card, mode="fsdp")
+        finally:
+            dist.destroy_process_group()
+    for key, res in runs.items():
+        assert res["launches"] == want, (key, res["launches"], want)
+        bad = {k: v for k, v in res["grads"].items() if v != 0.0}
+        assert not bad, f"{tag} {key}: step-1 gradients not bit-identical: " \
+            f"{bad}"
+        assert res["losses"] == ref["losses"] and \
+            res["grad_norms"] == ref["grad_norms"], (key, res, ref)
+    want_serve = {"flash_attn_fwd": full.n_layers * SERVE_REQUESTS,
+                  "flash_attn_bwd": 0, "moe_gmm": 0, "moe_gmm_bwd": 0,
+                  "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
+    assert serve["launches"] == want_serve, serve["launches"]
+    assert serve["tokens"] == served, f"{tag} served tokens differ"
+    del ref["grads"]
+    parts = fsdp_rank_parts(cfg, state)
+    del state
+    held = state_bytes(full)
+    say(f"{tag} {n} of {full.n_layers} layers at full width "
+        f"({widths(cfg)}), bf16, remat {cfg.remat}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, {TP_STEPS} make_train_step steps (AdamW, bf16 "
+        f"moments) from one state, world 1 on NCCL, a (1, 1) mesh: \"fsdp\" "
+        f"({runs['fsdp']['sliced']} of {len(runs['fsdp']['grads'])} leaves "
+        f"sliced, whole at one rank, gathered a layer at a time) and \"tp\" "
+        f"with ZeRO-1 moments, each bit-identical to the steps without a "
+        f"mesh in every step-1 gradient leaf, the losses " + ", ".join(
+            f"{v:.6f}" for v in ref["losses"]) + " and the grad norms "
+        + ", ".join(f"{v:.6f}" for v in ref["grad_norms"]) + f" [{card}]")
+    for key, res in (("without a mesh", ref), ("fsdp (1, 1)", runs["fsdp"]),
+                     ("tp + ZeRO-1 (1, 1)", runs["zero1"])):
+        prof = res.get("profile", {})
+        say(f"{tag} {key}: {res['ms_per_step']:.2f} ms/step (median of "
+            f"steps {TP_STEPS + 1}-{TP_STEPS + TP_TIMED_STEPS}; steps "
+            + ", ".join(f"{t:.1f}" for t in res["step_ms"]) + " ms), peak "
+            f"{res['max_memory_allocated_gb']:.2f} GB, launches "
+            f"{res['launches']}; profiled step: NCCL kernels "
+            f"{prof.get('groups', {}).get('nccl', 0.0):.3f} ms, device busy "
+            f"{prof.get('device_busy_ms', 0.0):.2f} ms of wall "
+            f"{prof.get('wall_ms', 0.0):.2f} ms [{card}]")
+    say(f"{tag} checkpoint of the trained fsdp state on the mesh: "
+        f"{ckpt['leaves']} leaves, {ckpt['bytes'] / 1e9:.2f} GB of whole "
+        f"leaves written in {ckpt['save_s']:.1f} s, restored into a fresh "
+        f"model in {ckpt['restore_s']:.1f} s, every leaf bit for bit")
+    say(f"{tag} served {SERVE_REQUESTS} requests at all {full.n_layers} "
+        f"layers in \"fsdp\" on the (1, 1) mesh: greedy tokens equal to "
+        f"phase 5's" + (" (served here without a mesh)" if one else "")
+        + f", launches {serve['launches']}")
+    prof = serve["decode_profile"]
+    say(f"{tag} serving fsdp (1, 1): drain {serve['drain_s']:.2f} s, prefill "
+        f"{serve['prefill_ms_per_request']:.2f} ms/request, decode "
+        f"{serve['decode_ms_per_step']:.2f} ms/step; a profiled decode step: "
+        f"wall {prof.get('wall_ms', 0.0):.2f} ms, device busy "
+        f"{prof.get('device_busy_ms', 0.0):.2f} ms, NCCL kernels "
+        f"{prof.get('groups', {}).get('nccl', 0.0):.3f} ms [{card}]")
+    for key, errs in parts.items():
+        if key != "launches":
+            say(f"{tag} (b) {key}: {errs}" + (
+                f" (bounds {FSDP_PART_REL})" if key.startswith("fsdp")
+                else ""))
+    say(f"{tag} (b) GB of training state a rank holds at {full.name}'s "
+        f"{full.n_layers} layers (bf16 parameters, gradients and two bf16 "
+        f"moments, from the local shapes): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in held.items()))
+    paths = [{"arch": cfg.name, "n_layers": n, "path": f"{key} world 1 train",
+              "launches": runs[key]["launches"]} for key in runs]
+    paths += [{"arch": full.name, "n_layers": full.n_layers,
+               "path": "fsdp world 1 serve", "launches": serve["launches"]},
+              {"arch": cfg.name, "n_layers": n, "path": "fsdp rank parts",
+               "launches": parts.pop("launches")}]
+    for res in runs.values():
+        res.pop("grads", None)
+    serve.pop("tokens")
+    if one is not None:
+        one.pop("tokens")
+    return {"card": card, "reference": ref, **runs, "checkpoint": ckpt,
+            "serve": serve, "serve_reference": one, "rank_parts": parts,
+            "state_gb": held, "paths": paths}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -3863,6 +4204,10 @@ def main(argv: list[str]) -> int:
     if "--tp-only" in argv:
         tp = phase_tensor_parallel(card, None)
         say(json.dumps({"tensor_parallel": tp}))
+        return 0
+    if "--fsdp-only" in argv:
+        fsdp = phase_fsdp(card, None)
+        say(json.dumps({"fsdp": fsdp}))
         return 0
     build = phase_build()
     flash_err = phase_kernels()
@@ -3901,11 +4246,13 @@ def main(argv: list[str]) -> int:
     roofline = phase_roofline(paths, card)
     ep = phase_expert_parallel(card, moe_train["ms_per_step"])
     tp = phase_tensor_parallel(card, paths[0]["tokens"])
+    fsdp = phase_fsdp(card, paths[0]["tokens"])
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
                    p["launches"][name]
-                   for p in paths + ep["paths"] + tp["paths"]}
+                   for p in paths + ep["paths"] + tp["paths"]
+                   + fsdp["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -4023,6 +4370,7 @@ def main(argv: list[str]) -> int:
                                   "roofline": roofline,
                                   "expert_parallel": ep,
                                   "tensor_parallel": tp,
+                                  "fsdp": fsdp,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

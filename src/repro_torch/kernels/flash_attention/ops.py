@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ...roofline import counting, kernel_model
-from .._layout import as_kernel
+from .._layout import as_kernel, dense_strides
 from .kernel import (TMA_HEAD_DIMS, flash_attention_bwd_cuda,
                      flash_attention_cuda)
 from .ref import attention_backward_reference, attention_reference
@@ -120,7 +120,7 @@ def _bwd(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     if q.device.type == "cpu":
         return as_kernel(attention_backward_reference(
             q, k, v, o, lse, do, causal=causal, window=window, scale=scale))
-    do = do.contiguous()
+    do = dense_strides(do.contiguous())
     if q.is_meta:
         return tuple(x.new_empty(x.shape) for x in (q, k, v))
     _check_cuda_inputs(q, k, v, do)

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ...roofline import counting, kernel_model
-from .._layout import as_kernel
+from .._layout import as_kernel, dense_strides
 from .kernel import grouped_ffn_bwd_cuda, grouped_ffn_cuda
 from .ref import ACTS, grouped_ffn_backward_reference, grouped_ffn_reference
 
@@ -118,7 +118,7 @@ def _bwd(buf, w_in, w_gate, w_out, dy, act: str):
     if buf.device.type == "cpu":
         return as_kernel(grouped_ffn_backward_reference(
             buf, w_in, w_gate, w_out, dy, act))
-    dy = dy.contiguous()
+    dy = dense_strides(dy.contiguous())
     if buf.is_meta:
         dbuf, dw_in, dw_out = (x.new_empty(x.shape) for x in (buf, w_in,
                                                               w_out))

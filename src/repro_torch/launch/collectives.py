@@ -18,11 +18,18 @@ Function over one axis of a DeviceMesh (``mesh.get_group(axis)``):
                  backward
     seq_gather   the slices gathered forward, this rank's slice of the
                  gradient backward
-    gather_leaf  ``seq_gather`` of a weight over "model": a leaf held in
-                 slices and used whole; every rank of "model" computes the
-                 same loss on replicated activations, so the gradient of
-                 the whole leaf is alike on each and the rank keeps its own
-                 slice of it
+    gather_leaf  a leaf held in slices over one axis or a tuple of axes
+                 along one dim, gathered whole forward (fsdp's ZeRO-3
+                 gather); backward, the gradients of every rank of those
+                 axes summed and each rank's part kept (reduce-scatter):
+                 each rank computes on other rows, so the ranks' gradients
+                 of the whole leaf are shares of the step's
+    scatter_sum  its transpose: the ranks' tensors summed and each rank's
+                 part kept forward, the parts gathered backward
+
+"tp" mode gathers a leaf that every rank of "model" uses whole on the same
+rows (mamba's, llava's projector) with ``seq_gather``: there every rank's
+gradient of the whole leaf is the same, and the rank keeps its own slice.
 
 and, over the vocabulary's slices of "model" (``lm.py``'s head in "tp"
 mode):
@@ -43,6 +50,8 @@ import torch.distributed as dist
 from torch.distributed._functional_collectives import (
     all_to_all_single_autograd, wait_tensor)
 
+from ..kernels._layout import dense_strides
+
 
 def _sum(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.contiguous().clone()
@@ -50,11 +59,36 @@ def _sum(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return out
 
 
+# torch 2.13 renames all_gather_into_tensor and reduce_scatter_tensor;
+# older versions have only the old names
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    """The ranks' ``x`` concatenated along ``dim`` in rank order: gathered
+    into one buffer, the ranks' parts one after another, then laid along
+    ``dim`` by whole blocks (no copy when ``dim`` is 0 or the group has
+    one rank)."""
+    x = x.contiguous()
+    dim, n = dim % x.dim(), dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    _ALL_GATHER(out, x, group=group)
+    return dense_strides(out.view(n, *x.shape).movedim(0, dim)
+                         .flatten(dim, dim + 1).contiguous())
+
+
+def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks, cut along ``dim`` into one
+    part a rank in rank order, and this rank's part (contiguous): the parts
+    laid one after another, whole blocks copied (no copy when ``dim`` is 0
+    or the group has one rank), reduce-scattered into the rank's part."""
+    dim, n = dim % x.dim(), dist.get_world_size(group)
+    parts = x.unflatten(dim, (n, -1)).movedim(dim, 0).contiguous()
+    out = parts.new_empty(parts.shape[1:])
+    _REDUCE_SCATTER(out, parts.flatten(0, 1), group=group)
+    return out
 
 
 def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -109,6 +143,45 @@ class _SeqGather(torch.autograd.Function):
         return _own(grad, ctx.dim, ctx.group), None, None
 
 
+class _LeafGather(torch.autograd.Function):
+    """Gathered over ``groups`` (major axis first) along ``dim``, the minor
+    axis first, so that the parts come in ``launch/shardings.local_slice``'s
+    order; the backward reduce-scatters in the reverse order."""
+
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        for group in reversed(groups):
+            x = _gather(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for group in ctx.groups:
+            grad = _scatter(grad, ctx.dim, group)
+        return grad, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        for group in groups:
+            x = _scatter(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        for group in reversed(ctx.groups):
+            grad = _gather(grad, ctx.dim, group)
+        return grad, None, None
+
+
+def _groups(mesh, axes) -> tuple:
+    return tuple(mesh.get_group(a) for a in
+                 ((axes,) if isinstance(axes, str) else tuple(axes)))
+
+
 def all_reduce(x: torch.Tensor, mesh, axes,
                grad_scale: float = 1.0) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
@@ -133,8 +206,8 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     parts = x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
     out = wait_tensor(all_to_all_single_autograd(parts.contiguous(), None,
                                                  None, group))
-    return out.movedim(0, concat_dim).flatten(
-        concat_dim, concat_dim + 1).contiguous()
+    return dense_strides(out.movedim(0, concat_dim).flatten(
+        concat_dim, concat_dim + 1).contiguous())
 
 
 def seq_slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -145,10 +218,21 @@ def seq_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return _SeqGather.apply(x, dim, mesh.get_group(axis))
 
 
-def gather_leaf(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    """The whole leaf of which ``x`` is this rank's slice along ``dim``
-    over "model"; backward, the rank's slice of the whole leaf's gradient."""
-    return _SeqGather.apply(x, dim, mesh.get_group("model"))
+def gather_leaf(x: torch.Tensor, mesh, dim: int,
+                axes="model") -> torch.Tensor:
+    """The whole leaf of which ``x`` is this rank's part along ``dim``
+    over ``axes`` (a name, or a tuple of names with the first axis the
+    major one, as a spec names them); backward, the sum of every rank's
+    gradient of the whole leaf, of which the rank keeps its part.  Over an
+    axis of one rank both are copies."""
+    return _LeafGather.apply(x, dim, _groups(mesh, axes))
+
+
+def scatter_sum(x: torch.Tensor, mesh, dim: int, axes="model") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, of which the rank keeps
+    its part along ``dim`` (``gather_leaf``'s order); backward, the parts
+    of the gradient gathered."""
+    return _ScatterSum.apply(x, dim, _groups(mesh, axes))
 
 
 class _VocabCrossEntropy(torch.autograd.Function):

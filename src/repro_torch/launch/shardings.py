@@ -20,14 +20,19 @@ rules read only the mesh's axes and sizes (``mesh.MeshSpec``), so a
 production mesh's specs need no processes.
 
 What this port carries out: ``shard_params`` gives each rank its slice of
-every leaf whose ``param_spec`` names "model" in "tp" mode (tensor
-parallelism: the models compute on the slices, ``models/attention.py``,
-``mlp.py``, ``lm.py``), and of the experts alone in "fsdp" mode (expert
-parallelism); ``shard_batch`` its rows of a batch over the data axes.  The
-fsdp and ZeRO-1 layouts are computed here but not carried out (ROADMAP.md,
-queue 1, item 9b).  The reference's ``constraint`` and the models'
-``maybe_constrain`` are hints to GSPMD's partitioner; eager PyTorch has no
-partitioner, so they have no counterpart.
+every leaf that the mode's spec (``leaf_spec``) splits.  In "tp" mode that is
+every leaf whose ``param_spec`` names "model" (tensor parallelism: the models
+compute on the slices, ``models/attention.py``, ``mlp.py``, ``lm.py``); in
+"fsdp" mode every leaf ``fsdp_spec`` splits, over the whole mesh (ZeRO-3: the
+models gather each layer's leaves whole just before they use them and
+reduce-scatter the gradients, ``models/common.gather_layer``; the experts stay
+split over "model").  ``shard_batch`` gives its rows of a batch, over the data
+axes ("tp") or over every axis ("fsdp"); ZeRO-1's moments
+(``opt_shardings(..., zero1=True)``) are built by ``optim/adamw.AdamW.init``.
+The fsdp batch smaller than the mesh, whose sequence the rules split, is not
+carried out (ROADMAP.md, item 9b (viii)).  The reference's ``constraint`` and
+the models' ``maybe_constrain`` are hints to GSPMD's partitioner; eager
+PyTorch has no partitioner, so they have no counterpart.
 """
 from __future__ import annotations
 
@@ -139,44 +144,39 @@ def param_spec(name: str, shape, mesh) -> tuple:
 
 def param_shardings(params: dict, mesh, mode: str = "tp") -> dict:
     """{name: spec} of a flat parameter tree."""
-    if mode == "fsdp":
-        return fsdp_param_shardings(params, mesh)
-    if mode != "tp":
-        raise ValueError(f"sharding mode {mode!r}: want tp or fsdp")
-    return {n: param_spec(n, p, mesh) for n, p in params.items()}
+    return {n: leaf_spec(n, p, mesh, mode) for n, p in params.items()}
+
+
+def fsdp_spec(name: str, shape, mesh) -> tuple:
+    """ZeRO-3: a parameter sharded over the whole mesh on its largest
+    divisible dim (ties: the first); the experts stay EP-sharded over
+    "model" (the all-to-all dispatch takes rank-local experts), one of
+    their other dims over the remaining axes."""
+    mesh = MeshSpec.of(mesh)
+    shape = _shape(shape)
+    allax = mesh.axis_names
+    spec: list[Any] = [None] * len(shape)
+    if _is_expert(name):
+        lead = len(shape) - 3
+        if shape[lead] % mesh.shape["model"] == 0:
+            spec[lead] = "model"
+        rest = tuple(a for a in allax if a != "model")
+        nrest = _axis_size(mesh, rest)
+        for dd in sorted(range(lead + 1, len(shape)), key=lambda i: -shape[i]):
+            if shape[dd] % nrest == 0 and shape[dd] >= nrest:
+                spec[dd] = rest
+                break
+        return _spec(spec)
+    for d in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if shape[d] % mesh.size == 0 and shape[d] >= mesh.size:
+            spec[d] = allax
+            break
+    return _spec(spec)
 
 
 def fsdp_param_shardings(params: dict, mesh) -> dict:
-    """ZeRO-3: every parameter sharded over the whole mesh on its largest
-    divisible dim; the experts stay EP-sharded over "model" (the
-    all-to-all dispatch takes rank-local experts), one of their other dims
-    over the remaining axes."""
-    mesh = MeshSpec.of(mesh)
-    allax = mesh.axis_names
-    n = mesh.size
-
-    def one(name, leaf):
-        shape = _shape(leaf)
-        spec: list[Any] = [None] * len(shape)
-        if _is_expert(name):
-            lead = len(shape) - 3
-            if shape[lead] % mesh.shape["model"] == 0:
-                spec[lead] = "model"
-            rest = tuple(a for a in allax if a != "model")
-            nrest = _axis_size(mesh, rest)
-            for dd in sorted(range(lead + 1, len(shape)),
-                             key=lambda i: -shape[i]):
-                if shape[dd] % nrest == 0 and shape[dd] >= nrest:
-                    spec[dd] = rest
-                    break
-            return _spec(spec)
-        for d in sorted(range(len(shape)), key=lambda i: -shape[i]):
-            if shape[d] % n == 0 and shape[d] >= n:
-                spec[d] = allax
-                break
-        return _spec(spec)
-
-    return {n_: one(n_, p) for n_, p in params.items()}
+    """{name: ``fsdp_spec``} of a flat parameter tree."""
+    return {n: fsdp_spec(n, p, mesh) for n, p in params.items()}
 
 
 def zero1_spec(base: tuple, shape, mesh) -> tuple:
@@ -333,45 +333,104 @@ def model_dim(spec: tuple) -> int | None:
     return None
 
 
+def spec_axes(spec: tuple) -> tuple[str, ...]:
+    """Every axis that ``spec`` names, in the order of its dims."""
+    return tuple(a for entry in spec for a in _axes_of(entry))
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple[int, ...]:
+    """The shape of ``local_slice`` of a leaf of ``shape``."""
+    mesh = MeshSpec.of(mesh)
+    shape = _shape(shape)
+    return tuple(n // _axis_size(mesh, _axes_of(spec[d])) if d < len(spec)
+                 else n for d, n in enumerate(shape))
+
+
+def fsdp_gathers(name: str, shape, mesh) -> tuple:
+    """((dim, axes), ...): the splits of ``fsdp_spec`` that a use of the
+    leaf gathers, every one but the experts' over "model" (expert
+    parallelism keeps each rank's experts)."""
+    spec = fsdp_spec(name, shape, mesh)
+    return tuple((d, _axes_of(e)) for d, e in enumerate(spec)
+                 if e is not None and not (_is_expert(name) and e == "model"))
+
+
+def row_axes(mesh, mode: str = "tp") -> tuple[str, ...]:
+    """The axes over which ``shard_batch`` splits a training batch's rows:
+    the data axes in "tp" mode, every axis in "fsdp" mode."""
+    _check_mode(mode)
+    return MeshSpec.of(mesh).axis_names if mode == "fsdp" else \
+        batch_axes(mesh)
+
+
 def expert_parallel(name: str, shape, mesh) -> bool:
     """Whether this leaf is an expert weight whose expert dim divides
-    "model" (sliced by ``shard_params`` in both modes)."""
+    "model" (sliced over "model" by ``shard_params`` in both modes)."""
     shape = _shape(shape)
     return _is_expert(name) and shape[-3] % MeshSpec.of(mesh).shape[
         "model"] == 0
 
 
+def _check_mode(mode: str) -> None:
+    if mode not in ("tp", "fsdp"):
+        raise ValueError(f"sharding mode {mode!r}: want tp or fsdp")
+
+
+def leaf_spec(name: str, shape, mesh, mode: str = "tp") -> tuple:
+    """The spec by which ``mode`` lays a parameter out: ``param_spec`` in
+    "tp" mode, ``fsdp_spec`` in "fsdp" mode.  The one source of the layout
+    that ``shard_params``, ``Model.sharded``, the models' gathers, the
+    clip's norm and the checkpoint read."""
+    _check_mode(mode)
+    return fsdp_spec(name, shape, mesh) if mode == "fsdp" else \
+        param_spec(name, shape, mesh)
+
+
 def carried(name: str, shape, mesh, mode: str = "tp") -> bool:
     """Whether ``shard_params`` slices this leaf (``shape`` the whole
-    leaf's): in "tp" mode every leaf whose ``param_spec`` names "model", in
-    "fsdp" mode the experts of ``expert_parallel`` (the rest of the fsdp
-    layout is item 9b's)."""
-    if mode == "fsdp":
-        return expert_parallel(name, shape, mesh)
-    if mode != "tp":
-        raise ValueError(f"sharding mode {mode!r}: want tp or fsdp")
-    return model_dim(param_spec(name, shape, mesh)) is not None
+    leaf's): whether ``leaf_spec`` splits any dim.  At axes of size 1 a
+    split leaf is whole, and counts as split all the same, so that a (1, 1)
+    mesh runs the mode's path and its collectives."""
+    return bool(spec_axes(leaf_spec(name, shape, mesh, mode)))
+
+
+def sharded_specs(params: dict, mesh, mode: str = "tp") -> dict:
+    """{name: ``leaf_spec``} of the leaves of a flat tree of whole leaves
+    (or shapes) that ``carried`` names."""
+    return {n: leaf_spec(n, p, mesh, mode) for n, p in params.items()
+            if carried(n, p, mesh, mode)}
 
 
 def shard_params(params: dict, mesh, mode: str = "tp",
                  coord: dict[str, int] | None = None) -> dict:
     """This rank's leaves of a flat tree of whole leaves: each leaf that
-    ``carried`` names as its ``param_spec`` slice over "model" (a
-    contiguous copy), every other leaf as it is.  ``coord`` ({axis: index})
-    names another position of ``mesh`` (a DeviceMesh, or a ``MeshSpec``
-    with ``coord`` given) than this process's."""
+    ``carried`` names as its ``leaf_spec`` slice (a contiguous copy), every
+    other leaf as it is.  ``coord`` ({axis: index}) names another position
+    of ``mesh`` (a DeviceMesh, or a ``MeshSpec`` with ``coord`` given) than
+    this process's."""
     coord = coordinate(mesh) if coord is None else coord
-    return {n: local_slice(p, param_spec(n, p, mesh), mesh, coord)
-            if carried(n, p, mesh, mode) else p
+    specs = sharded_specs(params, mesh, mode)
+    return {n: local_slice(p, specs[n], mesh, coord) if n in specs else p
             for n, p in params.items()}
 
 
-def shard_batch(batch: dict, mesh) -> dict:
-    """This rank's rows of ``batch`` over the data axes, when the batch
-    divides them ("tp" ``batch_shardings``), else the whole batch, as the
-    reference's expert-parallel blocks take it
-    (``repro/models/mlp.py:106-108``)."""
-    specs = batch_shardings(batch, mesh)
+def shard_batch(batch: dict, mesh, mode: str = "tp") -> dict:
+    """This rank's rows of ``batch`` (``batch_shardings`` in ``mode``): over
+    the data axes in "tp" mode when the batch divides them, else the whole
+    batch, as the reference's expert-parallel blocks take it
+    (``repro/models/mlp.py:106-108``); over every axis in "fsdp" mode, or
+    the whole batch where no prefix of the axes divides it.  An "fsdp"
+    batch smaller than the mesh, whose sequence the rules put over the
+    axes that are left, raises: sequence parallelism is ROADMAP.md's item
+    9b (viii)."""
+    specs = batch_shardings(batch, mesh, mode)
+    for k, spec in specs.items():
+        if len(spec) > 1 and spec[1] is not None:
+            raise ValueError(
+                f"{k} {_shape(batch[k])}: \"fsdp\" puts its rows over "
+                f"{spec[0]} and its sequence over {spec[1]} (a batch smaller "
+                f"than the mesh); the port does not split the sequence "
+                f"(ROADMAP.md, item 9b (viii))")
     coord = coordinate(mesh)
     return {k: local_slice(v, specs[k], mesh, coord)
             for k, v in batch.items()}

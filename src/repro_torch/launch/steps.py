@@ -7,9 +7,9 @@ import math
 import torch.distributed as dist
 
 from ..models import Model
-from ..models.common import use_mesh
 from ..optim import AdamW
-from .mesh import MeshSpec, batch_axes
+from .mesh import MeshSpec
+from .shardings import row_axes, spec_axes
 
 
 def make_train_step(model: Model, opt: AdamW):
@@ -22,36 +22,51 @@ def make_train_step(model: Model, opt: AdamW):
     takes: tokens and labels, and frames (whisper) or patches (llava).
 
     On a mesh (``model.mesh``) the batch is the rank's rows
-    (``launch/shardings.shard_batch``): the forward and backward run under
-    ``use_mesh``, every gradient and the loss's metrics are then averaged
-    over the batch axes when they hold more than one rank (data
-    parallelism), and AdamW's clip sums the
-    sharded leaves' norms over "model".  Tensor and expert parallelism
-    leave each rank of "model" the gradient of its slices and the whole
-    gradient of every replicated leaf ("f" and "g",
-    ``launch/collectives.py``), so nothing is summed over it."""
+    (``launch/shardings.shard_batch`` in the model's mode) and the forward
+    and backward run under ``model.on_mesh(train=True)``.  In "tp" mode
+    every gradient and the loss's metrics are then averaged over the batch
+    axes when they hold more than one rank (data parallelism); tensor and
+    expert parallelism leave each rank of "model" the gradient of its
+    slices and the whole gradient of every replicated leaf ("f" and "g",
+    ``launch/collectives.py``), so nothing is summed over it.  In "fsdp"
+    mode the gathers' backward has summed each sliced leaf's gradient over
+    the axes its spec names (each rank's rows' share; the experts' split
+    over "model" is expert parallelism, whose ranks hold other experts);
+    every gradient is summed over the axes its spec does not name (over
+    every axis for a leaf left whole, over "model" for experts fewer than
+    it), the metrics over every axis, and all of them divided by the
+    mesh's size, so the gradient is one process's.  AdamW's clip sums the
+    sliced leaves' norms over the axes their specs name."""
     mesh = model.mesh
-    baxes = () if mesh is None else batch_axes(mesh)
-    nb = math.prod(MeshSpec.of(mesh).shape[a] for a in baxes)
+    fsdp = mesh is not None and model.mode == "fsdp"
+    axes = () if mesh is None else row_axes(mesh, model.mode)
+    n = math.prod(MeshSpec.of(mesh).shape[a] for a in axes)
 
-    def average(tensors: list) -> None:
-        for t in tensors:
-            for a in baxes:
-                dist.all_reduce(t, group=mesh.get_group(a))
-            t.div_(nb)
+    def reduce(tensors: dict, summed: dict) -> None:
+        """Sum each of ``tensors`` over the row axes but those ``summed``
+        names for it (the axes a gather's backward summed it over), and
+        divide it by the rows' ranks."""
+        for key, t in tensors.items():
+            for a in axes:
+                if a not in summed.get(key, ()):
+                    dist.all_reduce(t, group=mesh.get_group(a))
+            t.div_(n)
 
     def train_step(state, batch):
         params = state["params"]
         for p in params.values():
             p.grad = None
-        with use_mesh(mesh, model.mode):
+        with model.on_mesh(train=True):
             loss, metrics = model.train_loss(batch)
             loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
+        grads = {n_: p.grad for n_, p in params.items()}
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        if nb > 1:
-            average([*grads.values(), *metrics.values()])
+        if fsdp:
+            reduce({**grads, **metrics}, {k: spec_axes(s) for k, s in
+                                          model.sharded.items()})
+        elif n > 1:
+            reduce({**grads, **metrics}, {})
         om = opt.update(grads, state["opt"], params, mesh, model.sharded)
         for p in params.values():
             p.grad = None

@@ -22,10 +22,13 @@ serving methods run under ``torch.no_grad``.
 On a mesh (``Model(cfg, mesh=mesh)``, a DeviceMesh from ``launch/mesh.py``)
 each rank keeps its slice of the leaves that the sharding mode set when the
 model is built carries out (``launch/shardings.shard_params``): in "tp"
-mode every leaf the rules split over "model", in "fsdp" mode the experts;
+mode every leaf the rules split over "model", in "fsdp" mode every leaf the
+fsdp rule splits over the whole mesh (ZeRO-3; each use gathers it whole);
 the methods run under ``use_mesh(mesh, mode)`` in that mode, whatever
-``set_sharding_mode`` says later, and the batch they take is the rank's
-rows (``shard_batch``).  In "tp" mode the logits are the rank's
+``set_sharding_mode`` says later.  ``train_loss`` takes the rank's rows of
+a training batch (``shard_batch(batch, mesh, mode)``: over the data axes
+in "tp" mode, over every axis in "fsdp" mode); the serving methods take
+the same rows on every rank.  In "tp" mode the logits are the rank's
 vocabulary slice; ``greedy`` takes the token of the whole vocabulary.
 """
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from torch import nn
 
 from ..launch.collectives import vocab_argmax
-from ..launch.shardings import carried, shard_params
+from ..launch.shardings import row_axes, shard_params, sharded_specs
 from . import encdec, lm
 from .common import SHARDING_MODE, dtype_of, require_device, use_mesh
 from .config import ArchConfig
@@ -69,9 +72,10 @@ class Model(nn.Module):
     and ``load_state`` takes given ones.  Runs on CUDA unless the caller
     passes another device; raises if CUDA is asked for and absent.  On a
     ``mesh``, ``mode`` is the sharding mode it was built in, ``sharded``
-    names the leaves of which this rank holds a slice over "model" (the
-    whole leaf at one rank of "model") and ``whole_shapes`` gives every
-    leaf's whole shape."""
+    maps each leaf of which this rank holds a slice to the spec that names
+    the axes it is split over (``launch/shardings.leaf_spec`` in the mode;
+    the whole leaf where those axes have one rank) and ``whole_shapes``
+    gives every leaf's whole shape."""
 
     def __init__(self, cfg: ArchConfig, device="cuda", mesh=None) -> None:
         super().__init__()
@@ -85,13 +89,17 @@ class Model(nn.Module):
         self._mod = encdec if cfg.family == "encdec" else lm
         full = flatten(self._mod.init_params(cfg, None, "meta"))
         self.whole_shapes = {n: tuple(p.shape) for n, p in full.items()}
-        self.sharded = frozenset() if mesh is None else frozenset(
-            n for n, p in full.items() if carried(n, p, mesh, self.mode))
+        self.sharded = {} if mesh is None else sharded_specs(full, mesh,
+                                                             self.mode)
         _populate(self, _unflatten(self._shard(full)))
 
-    def _on_mesh(self):
-        """``use_mesh`` of the model's mesh in the mode it was built in."""
-        return use_mesh(self.mesh, self.mode)
+    def on_mesh(self, train: bool = False):
+        """``use_mesh`` of the model's mesh in the mode it was built in;
+        with ``train``, the rows split as ``shard_batch`` splits a training
+        batch in that mode (over every axis in "fsdp" mode)."""
+        rows = row_axes(self.mesh, self.mode) if train and self.mesh \
+            else None
+        return use_mesh(self.mesh, self.mode, rows)
 
     def _shard(self, state: dict) -> dict:
         """The rank's part of a whole flat state (all of it off a mesh)."""
@@ -127,15 +135,15 @@ class Model(nn.Module):
         ``batch["labels"]``, with autograd, from the family's module as the
         reference dispatches it: ``encdec.train_loss`` ({"ce"}) for whisper,
         ``lm.train_loss`` ({"ce", "aux"}) for the rest.  On a mesh, call
-        its backward under ``use_mesh(model.mesh, model.mode)`` too (remat
+        its backward under ``model.on_mesh(train=True)`` too (remat
         recomputes the forward there), as ``make_train_step`` does."""
-        with self._on_mesh():
+        with self.on_mesh(train=True):
             return self._mod.train_loss(self.params, batch, self.cfg)
 
     @torch.no_grad()
     def forward_logits(self, batch) -> torch.Tensor:
         params = self.params
-        with self._on_mesh():
+        with self.on_mesh():
             if self.cfg.family == "encdec":
                 enc_out = encdec.encode(params, batch["frames"], self.cfg)
                 logits, _ = encdec.dec_forward(params, batch["tokens"],
@@ -147,13 +155,13 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, pad_to: int | None = None):
-        with self._on_mesh():
+        with self.on_mesh():
             return self._mod.prefill(self.params, batch, self.cfg,
                                      pad_to=pad_to)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache):
-        with self._on_mesh():
+        with self.on_mesh():
             return self._mod.decode_step(self.params, tokens, cache,
                                          self.cfg)
 
@@ -162,7 +170,7 @@ class Model(nn.Module):
         """Zero cache; ``dtype`` defaults to the config's compute dtype.  On
         a mesh it holds the kv heads the rank projects."""
         dtype = dtype_of(self.cfg.compute_dtype) if dtype is None else dtype
-        with self._on_mesh():
+        with self.on_mesh():
             return self._mod.init_decode_cache(self.cfg, batch, max_len,
                                                dtype, self.device)
 
@@ -172,7 +180,7 @@ class Model(nn.Module):
         ``prefill`` and ``decode_step`` return: ``torch.argmax`` over the
         whole vocabulary, whose slices a "tp" mesh gathers first
         (``collectives.vocab_argmax``), so every rank gets the same ids."""
-        with self._on_mesh():
+        with self.on_mesh():
             mesh = lm.vocab_mesh(self.cfg)
         if mesh is None:
             return torch.argmax(logits, dim=-1)

@@ -23,7 +23,9 @@ of the output, and "g" (``all_reduce``) sums the shares.  Where ``wk`` and
 rank projects every kv head and attends with the one its query heads
 share; the whole kv weights enter through "f", so their gradients add the
 ranks' shares.  Decode caches hold the kv heads the rank projects, as
-``launch/shardings.cache_shardings`` lays them out."""
+``launch/shardings.cache_shardings`` lays them out.  In "fsdp" mode the
+layer's leaves arrive gathered whole (``common.gather_layer``) and each
+rank attends with every head on its own rows, with no collective here."""
 from __future__ import annotations
 
 import torch

@@ -7,9 +7,9 @@ import functools
 
 import torch
 
-from ..launch.collectives import gather_leaf
-from ..launch.mesh import MeshSpec
-from ..launch.shardings import model_dim, param_spec
+from ..launch.collectives import gather_leaf, seq_gather
+from ..launch.mesh import MeshSpec, batch_axes
+from ..launch.shardings import fsdp_gathers, model_dim, param_spec
 
 
 def require_device(device) -> torch.device:
@@ -101,19 +101,21 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 # "tp" (the default): every leaf that the rules split over "model" is held
 # and computed on as the rank's slice (tensor parallelism, ``tp_split``),
 # and the expert-parallel MoE combines by an all-reduce over "model".
-# "fsdp": only the experts are sliced, and the MoE dispatches by all-to-all
-# when "model" divides the sequence (``models/mlp.py``).  The reference's
-# fsdp mode also shards every parameter over the whole mesh and the batch
-# over every axis; the port computes those specs (``launch/shardings.py``)
-# and does not carry them out.  ``SHARDING_MODE`` is the mode a Model is
+# "fsdp": every leaf is held as the rank's slice over the whole mesh
+# (``launch/shardings.fsdp_spec``) and gathered whole at each use, a layer's
+# leaves inside its remat unit (``gather_layer``), with no tensor
+# parallelism inside the model, as the reference's fsdp mode ignores
+# "model" there (``repro/models/common.py:62-65``); the experts stay split
+# over "model" and the MoE dispatches by all-to-all when "model" divides
+# the sequence (``models/mlp.py``).  ``SHARDING_MODE`` is the mode a Model is
 # built in (``Model.mode``); its methods install that mode with its mesh
 # (``use_mesh``), and the models read the installed one, so a later
 # ``set_sharding_mode`` changes no model already built.
 SHARDING_MODE = ["tp"]
-# the mesh and mode of ``use_mesh``: plain globals, not context variables,
-# because the autograd engine runs a CUDA backward (and remat's recompute
-# inside it) on threads of its own
-_AMBIENT = [(None, None)]
+# the mesh, mode and row axes of ``use_mesh``: plain globals, not context
+# variables, because the autograd engine runs a CUDA backward (and remat's
+# recompute inside it) on threads of its own
+_AMBIENT = [(None, None, ())]
 
 
 def set_sharding_mode(mode: str) -> None:
@@ -123,13 +125,19 @@ def set_sharding_mode(mode: str) -> None:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, mode: str | None = None):
+def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None):
     """Run the model on ``mesh`` (a DeviceMesh, or None for one process) in
     sharding ``mode`` (default: ``SHARDING_MODE``'s), the counterpart of
-    the reference's ``with mesh:``.  A training step's backward belongs
-    inside too: remat recomputes the forward there."""
+    the reference's ``with mesh:``.  ``rows`` names the axes over which the
+    batch's rows are split (``launch/shardings.row_axes``); by default the
+    data axes, the rows alike on every rank of "model" (serving, and "tp"
+    training).  A training step's backward belongs inside too: remat
+    recomputes the forward there."""
     prev = _AMBIENT[0]
-    _AMBIENT[0] = (mesh, SHARDING_MODE[0] if mode is None else mode)
+    if rows is None:
+        rows = () if mesh is None else batch_axes(mesh)
+    _AMBIENT[0] = (mesh, SHARDING_MODE[0] if mode is None else mode,
+                   tuple(rows))
     try:
         yield mesh
     finally:
@@ -146,6 +154,11 @@ def ambient_mode():
     return _AMBIENT[0][1]
 
 
+def ambient_rows() -> tuple:
+    """The axes over which ``use_mesh`` says the rows are split."""
+    return _AMBIENT[0][2]
+
+
 @functools.lru_cache(maxsize=None)
 def _split_dim(name: str, whole: tuple, mesh: MeshSpec) -> int | None:
     return model_dim(param_spec(name, whole, mesh))
@@ -159,7 +172,7 @@ def tp_split(name: str, whole: tuple, leaf: torch.Tensor | None = None):
     rank's share of the split dim.  At one rank of "model" every dim the
     rules would split counts as split, so that a (1, 1) mesh runs the
     tensor-parallel path and its collectives."""
-    mesh, mode = _AMBIENT[0]
+    mesh, mode, _ = _AMBIENT[0]
     if mesh is None or mode != "tp":
         return None
     spec = MeshSpec.of(mesh)
@@ -177,10 +190,98 @@ def tp_split(name: str, whole: tuple, leaf: torch.Tensor | None = None):
 
 def tp_whole(name: str, whole: tuple, leaf: torch.Tensor) -> torch.Tensor:
     """The whole leaf of which ``leaf`` is the rank's part: gathered over
-    "model" (``gather_leaf``) where ``tp_split`` holds it in slices."""
+    "model" where ``tp_split`` holds it in slices.  Every rank of "model"
+    uses it on the same rows, so the gradient of the whole leaf is alike on
+    each and the rank keeps its own slice of it (``seq_gather``)."""
     mesh = tp_split(name, whole, leaf)
     if mesh is None:
         return leaf
-    return gather_leaf(leaf, mesh, _split_dim(name, tuple(whole),
-                                              MeshSpec.of(mesh))
-                       - len(whole))
+    return seq_gather(leaf, mesh, "model", _split_dim(name, tuple(whole),
+                                                      MeshSpec.of(mesh))
+                      - len(whole))
+
+
+_gathers = functools.lru_cache(maxsize=None)(fsdp_gathers)
+
+
+def fsdp_mesh():
+    """The ambient mesh where its mode is "fsdp", else None."""
+    mesh, mode, _ = _AMBIENT[0]
+    return mesh if mode == "fsdp" else None
+
+
+def fsdp_whole(name: str, whole: tuple, leaf: torch.Tensor,
+               lead: int = 0) -> torch.Tensor:
+    """In "fsdp" mode, the whole of a leaf ``name`` (of whole shape
+    ``whole``) of which ``leaf`` is the rank's part: gathered as
+    ``launch/shardings.fsdp_gathers`` says (``collectives.gather_leaf``;
+    its backward reduce-scatters the gradient), else ``leaf``.  ``leaf`` is
+    one layer of a stacked leaf when ``lead`` > 0, its ``lead`` stacked
+    dims indexed away; a split on a stacked dim was gathered before
+    (``gather_layers``)."""
+    mesh = fsdp_mesh()
+    if mesh is None:
+        return leaf
+    for d, axes in _gathers(name, tuple(whole), MeshSpec.of(mesh)):
+        if d >= lead:
+            leaf = gather_leaf(leaf, mesh, d - lead, axes)
+    return leaf
+
+
+def _walk(tree: dict, prefix: str, fn) -> dict:
+    return {k: _walk(v, f"{prefix}{k}.", fn) if isinstance(v, dict)
+            else fn(f"{prefix}{k}", v) for k, v in tree.items()}
+
+
+def gather_layer(tree: dict, prefix: str, shapes: dict,
+                 lead: int = 1) -> dict:
+    """The leaves of one layer's tree (``prefix`` the stacked tree's dotted
+    name, ``shapes`` every leaf's whole stacked shape, ``lead`` the stacked
+    dims indexed away) gathered whole in "fsdp" mode (``fsdp_whole``), the
+    tree as it is otherwise.  Called inside the layer's remat unit, so that
+    remat's recompute gathers again and no layer's whole weights outlive
+    it: ZeRO-3 as XLA does it in the reference's scan."""
+    if fsdp_mesh() is None:
+        return tree
+    return _walk(tree, f"{prefix}.",
+                 lambda n, v: fsdp_whole(n, shapes[n], v, lead))
+
+
+def gathering(fn, shapes: dict, prefix: str, lead: int = 1):
+    """``fn(lp, *args)`` with the layer's leaves ``lp`` (of the stacked tree
+    ``prefix``) first gathered whole in "fsdp" mode (``gather_layer``):
+    wrapped by remat (``lm._maybe_ckpt``), the gathers run inside the remat
+    unit, and again in its recompute."""
+    def run(lp, *args):
+        return fn(gather_layer(lp, prefix, shapes, lead), *args)
+
+    return run
+
+
+def gather_layers(tree: dict, prefix: str, shapes: dict,
+                  lead: int = 1) -> dict:
+    """A stacked tree with each leaf that "fsdp" mode splits on one of its
+    ``lead`` stacked dims (mamba2-780m's (48, 48) ``A_log``, whose layers
+    the largest-dim rule splits) gathered whole over those dims, once a
+    forward, before the layers are unbound."""
+    mesh = fsdp_mesh()
+    if mesh is None:
+        return tree
+
+    def one(name, leaf):
+        for d, axes in _gathers(name, tuple(shapes[name]), MeshSpec.of(mesh)):
+            if d < lead:
+                leaf = gather_leaf(leaf, mesh, d, axes)
+        return leaf
+
+    return _walk(tree, f"{prefix}.", one)
+
+
+@functools.lru_cache(maxsize=None)
+def whole_shapes(init, cfg) -> dict:
+    """{dotted name: whole shape} of the tree that ``init(cfg, None,
+    "meta")`` describes (a family module's ``init_params``)."""
+    out: dict = {}
+    _walk(init(cfg, None, "meta"), "",
+          lambda n, v: out.__setitem__(n, tuple(v.shape)))
+    return out

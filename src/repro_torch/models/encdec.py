@@ -28,7 +28,11 @@ are unbound once a forward (``lm._unbind``).
 In "tp" mode the encoder's, the decoder's and the cross-attention's heads,
 the MLPs and the vocabulary are split over "model" as in ``lm``
 (``attention``, ``mlp_forward``, ``lm.embed_tokens``, ``lm.ce_loss``);
-``encode_kv`` gives the rank's kv heads and ``enc_pos`` stays whole.
+``encode_kv`` gives the rank's kv heads and ``enc_pos`` stays whole.  In
+"fsdp" mode each encoder and decoder layer gathers its leaves whole inside
+its remat unit (``common.gather_layer``), and the embedding, ``enc_pos``,
+``enc_norm``, ``final_norm`` and the head are gathered at each use, as in
+``lm``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ import torch.nn.functional as F
 from .attention import (cross_attention, decode_attention,
                         decode_cross_attention, encode_kv, full_attention,
                         init_attn_params)
-from .common import dtype_of, normal_init, rms_norm
+from .common import (dtype_of, fsdp_whole, gather_layer, gather_layers, gathering,
+                     normal_init, rms_norm, whole_shapes)
 from .config import ArchConfig
 from .lm import (_layer, _logits, _maybe_ckpt, _unbind, ce_loss,
                  embed_tokens, kv_heads)
@@ -87,6 +92,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
     }
 
 
+def _shapes(cfg: ArchConfig) -> dict:
+    """Every leaf's whole shape, which "fsdp" mode's gathers read."""
+    return whole_shapes(init_params, cfg)
+
+
 def _enc_layer(lp, h, positions, cfg: ArchConfig):
     """One pre-norm encoder layer: non-causal self-attention and the MLP,
     each with its residual."""
@@ -99,13 +109,17 @@ def _enc_layer(lp, h, positions, cfg: ArchConfig):
 
 def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
     """frames (B,T,D) stub embeddings -> encoder output (B,T,D)."""
-    t = frames.shape[1]
-    h = frames.to(dtype_of(cfg.compute_dtype)) + params["enc_pos"][None, :t]
+    t, d = frames.shape[1], cfg.d_model
+    pos = fsdp_whole("enc_pos", (cfg.enc_len, d), params["enc_pos"])
+    h = frames.to(dtype_of(cfg.compute_dtype)) + pos[None, :t]
     positions = torch.arange(t, device=frames.device)[None, :]
-    layer = _maybe_ckpt(_enc_layer, cfg)
-    for lp in _unbind(params["enc_layers"]):
+    layer = _maybe_ckpt(gathering(_enc_layer, _shapes(cfg), "enc_layers"),
+                        cfg)
+    for lp in _unbind(gather_layers(params["enc_layers"], "enc_layers",
+                                    _shapes(cfg))):
         h = layer(lp, h, positions, cfg)
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(h, fsdp_whole("enc_norm", (d,), params["enc_norm"]),
+                    cfg.norm_eps)
 
 
 def _dec_layer(lp, h, positions, enc_out, cfg: ArchConfig):
@@ -131,8 +145,10 @@ def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
     h = embed_tokens(params, tokens, cfg).to(dtype_of(cfg.compute_dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     per_layer: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
-    layer = _maybe_ckpt(_dec_layer, cfg)
-    for lp in _unbind(params["dec_layers"]):
+    layer = _maybe_ckpt(gathering(_dec_layer, _shapes(cfg), "dec_layers"),
+                        cfg)
+    for lp in _unbind(gather_layers(params["dec_layers"], "dec_layers",
+                                    _shapes(cfg))):
         h, (k, v), (xk, xv) = layer(lp, h, positions, enc_out, cfg)
         if collect_cache:
             for key, x in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
@@ -180,8 +196,9 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     h = embed_tokens(params, tokens[:, :1], cfg).to(
         dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
+    layers = gather_layers(params["dec_layers"], "dec_layers", _shapes(cfg))
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
+        lp = gather_layer(_layer(layers, i), "dec_layers", _shapes(cfg))
         a, _ = decode_attention(lp["attn"],
                                 rms_norm(h, lp["ln1"], cfg.norm_eps),
                                 cache["k"][i], cache["v"][i], pos, cfg,

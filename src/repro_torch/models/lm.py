@@ -33,6 +33,14 @@ hidden states through "f" and gives the rank's (B, S, V/nm) logits, whose
 loss is ``collectives.vocab_cross_entropy`` and whose greedy token
 ``Model.greedy`` takes.  Tied embeddings use the same slice as the head.
 The VLM's ``projector``, split over D, is gathered on use.
+
+In "fsdp" mode every leaf is the rank's slice over the whole mesh: each
+layer gathers its leaves whole inside its remat unit (``common.
+gather_layer``; the backward reduce-scatters their gradients), a leaf split
+on its stacked layer dim is gathered once a forward before the layers are
+unbound (``common.gather_layers``), and the embedding, the head,
+``final_norm``, the projector and zamba2's shared block are gathered at each
+use.
 """
 from __future__ import annotations
 
@@ -48,8 +56,9 @@ from ..launch.collectives import (all_reduce, copy_to,
                                   vocab_cross_entropy)
 from ..launch.mesh import MeshSpec, coordinate
 from .attention import decode_attention, full_attention, init_attn_params
-from .common import (cross_entropy_loss, dtype_of, normal_init, rms_norm,
-                     tp_split, tp_whole)
+from .common import (cross_entropy_loss, dtype_of, fsdp_whole,
+                     gather_layer, gather_layers, gathering, normal_init,
+                     rms_norm, tp_split, tp_whole, whole_shapes)
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
@@ -86,7 +95,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
         params["lm_head"] = normal_init(generator, (d, cfg.vocab), d ** -0.5,
                                         dtype, device)
     if cfg.family in ("ssm", "hybrid"):
-        lead = _mamba_lead(cfg)
+        lead = _lead(cfg)
         params["layers"] = init_mamba_params(generator, cfg, dtype, device,
                                              lead=lead)
         params["layers"]["ln"] = torch.zeros((*lead, d), dtype=dtype,
@@ -127,15 +136,20 @@ def _init_block(generator, cfg: ArchConfig, dtype, device,
     return block
 
 
-def _mamba_lead(cfg: ArchConfig) -> tuple:
-    """The stacked axes of the mamba layers: (L,), or (nb, pb) for the
-    hybrid."""
+def _lead(cfg: ArchConfig) -> tuple:
+    """The stacked axes of ``params["layers"]``: (L,), or (nb, pb) for the
+    hybrid's mamba layers."""
     if cfg.family == "hybrid":
         return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
     return (cfg.n_layers,)
 
 
 # ----------------------------------------------------------------- helpers
+def _shapes(cfg: ArchConfig) -> dict:
+    """Every leaf's whole shape, which "fsdp" mode's gathers read."""
+    return whole_shapes(init_params, cfg)
+
+
 def _unbind(tree: dict) -> list[dict]:
     """The per-layer trees of the stacked leaves, each leaf unbound once.
     Under autograd the unbind's backward stacks the layers' gradients once,
@@ -169,13 +183,15 @@ def vocab_mesh(cfg: ArchConfig, embed: torch.Tensor | None = None):
 def _logits(params, h, cfg: ArchConfig):
     """The logits (B,S,V) of the final hidden states; under "tp", the
     rank's vocabulary slice (B,S,V/nm)."""
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    d, v = cfg.d_model, cfg.vocab
+    h = rms_norm(h, fsdp_whole("final_norm", (d,), params["final_norm"]),
+                 cfg.norm_eps)
     if cfg.tie_embeddings:
-        head = params["embed"].T
+        head = fsdp_whole("embed", (v, d), params["embed"]).T
         mesh = vocab_mesh(cfg, params["embed"])
     else:
-        head = params["lm_head"]
-        mesh = tp_split("lm_head", (cfg.d_model, cfg.vocab), head)
+        head = fsdp_whole("lm_head", (d, v), params["lm_head"])
+        mesh = tp_split("lm_head", (d, v), head)
     if mesh is not None:
         h = copy_to(h, mesh, "model")
     return torch.einsum("bsd,dv->bsv", h, head)
@@ -196,7 +212,8 @@ def embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
     others, and the ranks' rows are summed."""
     mesh = vocab_mesh(cfg, params["embed"])
     if mesh is None:
-        return params["embed"][tokens]
+        return fsdp_whole("embed", (cfg.vocab, cfg.d_model),
+                          params["embed"])[tokens]
     part = params["embed"].shape[0]
     v0 = coordinate(mesh)["model"] * part
     own = (tokens >= v0) & (tokens < v0 + part)
@@ -211,8 +228,9 @@ def _embed(params, tokens, cfg: ArchConfig, patches=None):
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("vlm needs patch embeddings")
-        proj = tp_whole("projector", (PATCH_DIM, cfg.d_model),
-                        params["projector"])
+        whole = (PATCH_DIM, cfg.d_model)
+        proj = fsdp_whole("projector", whole, tp_whole(
+            "projector", whole, params["projector"]))
         pe = torch.einsum("bpv,vd->bpd", patches.to(h.dtype), proj)
         h = torch.cat([pe, h], dim=1)
     return h.to(dtype_of(cfg.compute_dtype))
@@ -272,11 +290,14 @@ def _hybrid_block(blk, shared, h, positions, cfg: ArchConfig,
     """One hybrid block: its pb mamba layers (``blk``, a list of layer
     trees), then the shared attention + MLP block.  Returns (h, the mamba
     states, (k, v))."""
+    shapes = _shapes(cfg)
     sts = []
     for lp in blk:
-        h, st = _mamba_layer(lp, h, cfg, collect)
+        h, st = _mamba_layer(gather_layer(lp, "layers", shapes, 2), h, cfg,
+                             collect)
         sts.append(st)
-    h, _, kv = _block_forward(shared, h, positions, 0, cfg)
+    h, _, kv = _block_forward(gather_layer(shared, "shared", shapes, 0), h,
+                              positions, 0, cfg)
     return h, sts, kv
 
 
@@ -311,23 +332,26 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
             for key, x in states.items():
                 per_layer.setdefault(key, []).append(x)
 
+    shapes = _shapes(cfg)
+    layers = gather_layers(params["layers"], "layers", shapes,
+                           len(_lead(cfg)))
     if cfg.family == "ssm":
-        layer = _maybe_ckpt(_mamba_layer, cfg)
-        for lp in _unbind(params["layers"]):
+        layer = _maybe_ckpt(gathering(_mamba_layer, shapes, "layers"), cfg)
+        for lp in _unbind(layers):
             h, st = layer(lp, h, cfg, collect_cache)
             if collect_cache:
                 keep(conv=st[0], ssm=st[1])
     elif cfg.family == "hybrid":
         block = _maybe_ckpt(_hybrid_block, cfg)
-        for blk in _unbind(params["layers"]):
+        for blk in _unbind(layers):
             h, sts, (k, v) = block(_unbind(blk), params["shared"], h,
                                    positions, cfg, collect_cache)
             for st in sts if collect_cache else ():
                 keep(conv=st[0], ssm=st[1])
             keep(k=k, v=v)
     else:
-        block = _maybe_ckpt(_block_forward, cfg)
-        for i, lp in enumerate(_unbind(params["layers"])):
+        block = _maybe_ckpt(gathering(_block_forward, shapes, "layers"), cfg)
+        for i, lp in enumerate(_unbind(layers)):
             h, a, (k, v) = block(lp, h, positions, _window(cfg, i), cfg)
             if a is not None:
                 aux = aux + a
@@ -337,7 +361,7 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
         cache = {key: torch.stack(xs) for key, xs in per_layer.items()}
         for key in ("conv", "ssm"):
             if key in cache:      # (nb * pb, ...) -> (nb, pb, ...)
-                cache[key] = cache[key].unflatten(0, _mamba_lead(cfg))
+                cache[key] = cache[key].unflatten(0, _lead(cfg))
     if last > 0:
         h = h[:, -last:, :]
     return _logits(params, h, cfg), aux, cache
@@ -403,9 +427,13 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     h = embed_tokens(params, tokens[:, :1], cfg).to(
         dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
+    shapes = _shapes(cfg)
+    lead = _lead(cfg)
+    layers = gather_layers(params["layers"], "layers", shapes, len(lead))
     if cfg.family in ("ssm", "hybrid"):
-        for idx in itertools.product(*map(range, _mamba_lead(cfg))):
-            lp = _layer(params["layers"], *idx)
+        for idx in itertools.product(*map(range, lead)):
+            lp = gather_layer(_layer(layers, *idx), "layers", shapes,
+                              len(lead))
             y, (conv, ssm) = mamba_decode(
                 lp, rms_norm(h, lp["ln"], cfg.norm_eps), cache["conv"][idx],
                 cache["ssm"][idx], cfg)
@@ -413,11 +441,14 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
             cache["ssm"][idx].copy_(ssm)
             h = h + y
             if cfg.family == "hybrid" and idx[1] == cfg.attn_every - 1:
-                h = _block_decode(params["shared"], h, cache["k"][idx[0]],
-                                  cache["v"][idx[0]], pos, 0, cfg)
+                h = _block_decode(gather_layer(params["shared"], "shared",
+                                               shapes, 0), h,
+                                  cache["k"][idx[0]], cache["v"][idx[0]],
+                                  pos, 0, cfg)
     else:
         for i in range(cfg.n_layers):
-            h = _block_decode(_layer(params["layers"], i), h, cache["k"][i],
+            h = _block_decode(gather_layer(_layer(layers, i), "layers",
+                                           shapes), h, cache["k"][i],
                               cache["v"][i], pos, _window(cfg, i), cfg)
     pos += 1
     return _logits(params, h, cfg)[:, 0, :], cache
@@ -438,7 +469,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
     the conv and ssm states stay whole on every rank."""
     cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
     if cfg.family in ("ssm", "hybrid"):
-        lead = _mamba_lead(cfg)
+        lead = _lead(cfg)
         c = cfg.d_inner + 2 * cfg.ssm_state
         cache["conv"] = torch.zeros((*lead, batch, cfg.ssm_conv - 1, c),
                                     dtype=dtype, device=device)

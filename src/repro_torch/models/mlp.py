@@ -23,6 +23,17 @@ whole batch when the rows do not divide the data axes), as the reference's
 reference's.  Unlike the reference, the load-balancing ``aux`` is the whole
 batch's at any mesh (ROADMAP.md, faults of the reference).
 
+An "fsdp" training step splits the rows over "model" too (``use_mesh``'s
+``rows``, which ``Model.train_loss`` installs; serving keeps the rows the
+engine gives, alike on every rank of "model").  Then the all-to-all path
+first exchanges the rank's rows for its data group's rows at its slice of
+the sequence (the reference's ``in_specs`` ``P(bspec, "model")``) and
+exchanges them back at the end; the all-reduce path routes the rank's rows,
+gathers the rows and their routing over "model" and reduce-scatters the
+experts' shares back to the rows' ranks; the router, gathered whole by the
+layer (``common.gather_layer``), enters no "f": its reduce-scatter already
+sums every rank's share.
+
 In "tp" mode the MLP (the dense one, arctic's ``dense_mlp``, llama4's
 ``shared_mlp``, whisper's and zamba2's shared block's) is Megatron's column
 and row split over "model" where it divides the hidden dim
@@ -39,9 +50,11 @@ import torch.nn.functional as F
 
 from ..kernels.moe_gmm import grouped_ffn
 from ..launch.collectives import (all_reduce, all_to_all, copy_to,
-                                  seq_gather, seq_slice)
+                                  gather_leaf, scatter_sum, seq_gather,
+                                  seq_slice)
 from ..launch.mesh import MeshSpec, batch_axes, coordinate
-from .common import ambient_mesh, ambient_mode, normal_init, tp_split
+from .common import (ambient_mesh, ambient_mode, ambient_rows, normal_init,
+                     tp_split)
 from .config import ArchConfig
 
 
@@ -157,10 +170,10 @@ def _aux(probs, top_i, e: int, mesh=None, axes: tuple = (),
     Under a mesh, me and ce are means over every rank of ``axes``, the
     ranks that hold other tokens, so aux is the whole batch's.  The
     gradient each rank keeps of me is its share as the training step
-    counts it: ``make_train_step`` averages the gradients over the batch
+    counts it: ``make_train_step`` averages the gradients over the row
     axes, which takes the full derivative on each, and the shares of the
-    ``n_summed`` ranks of "model" that split the sequence add up in the
-    slice's backward."""
+    ``n_summed`` ranks of "model" that split the sequence of the same rows
+    add up in the slice's backward."""
     me = probs.mean(dim=(0, 1))                                  # (E,)
     ce = _one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
     if mesh is not None:
@@ -208,7 +221,7 @@ def _moe_dense_dispatch(params, x, cfg: ArchConfig, mesh=None):
     cap = moe_capacity(cfg, x.shape[1])
     probs, top_i, flat_e, slot, keep, w = _route(x, params["router"], cfg,
                                                  cap)
-    aux = _aux(probs, top_i, e, mesh, batch_axes(mesh) if mesh else ())
+    aux = _aux(probs, top_i, e, mesh, ambient_rows() if mesh else ())
     split = tp_split("moe.w_in", (e, cfg.d_model, cfg.d_ff), params["w_in"])
     if split is not None:
         x, w = copy_to(x, split, "model"), copy_to(w, split, "model")
@@ -234,7 +247,11 @@ def _moe_expert_parallel(params, x, cfg: ArchConfig, mesh):
     at the same capacity and slots as the dense dispatch, runs its experts
     and combines their outputs; an all-reduce over "model" sums the ranks'
     shares.  The tokens and combine weights enter the rank-local work
-    through ``copy_to``, so their gradients add every rank's share."""
+    through ``copy_to``, so their gradients add every rank's share.  With
+    the rows split over "model" (an "fsdp" training step), see
+    ``_moe_rows_gathered``."""
+    if "model" in ambient_rows():
+        return _moe_rows_gathered(params, x, cfg, mesh)
     e, k = cfg.n_experts, cfg.top_k
     e_loc = _local_experts(params, cfg, MeshSpec.of(mesh).shape["model"])
     e0 = coordinate(mesh)["model"] * e_loc
@@ -252,6 +269,37 @@ def _moe_expert_parallel(params, x, cfg: ArchConfig, mesh):
     return all_reduce(y, mesh, "model"), aux
 
 
+def _moe_rows_gathered(params, x, cfg: ArchConfig, mesh):
+    """The all-reduce path with the rows split over "model" (an "fsdp"
+    training step whose sequence "model" does not divide): each rank
+    routes its own rows (B_loc,S,D) at the dense dispatch's capacity and
+    slots, gathers the rows, their routing and combine weights over
+    "model" (the gather's backward sums the ranks' shares of their
+    gradients), runs its experts on the pairs bound for them, and the
+    ranks' shares of y are summed and cut back into each rank's rows
+    (``scatter_sum``, the gather's transpose).  Each rank routes other
+    rows, so the router's gradient is the rank's share, which the router's
+    own gather sums."""
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = _local_experts(params, cfg, MeshSpec.of(mesh).shape["model"])
+    e0 = coordinate(mesh)["model"] * e_loc
+    cap = moe_capacity(cfg, x.shape[1])
+    probs, top_i, flat_e, slot, keep, w = _route(x, params["router"], cfg,
+                                                 cap)
+    aux = _aux(probs, top_i, e, mesh, ambient_rows())
+    flat_e, slot, keep = gather_leaf(
+        torch.stack([flat_e, slot, keep.long()]), mesh, 1)
+    keep = keep.bool()
+    local = (flat_e >= e0) & (flat_e < e0 + e_loc)
+    le = torch.where(local, flat_e - e0, 0)
+    gate = keep & local
+    buf, b_idx = _dispatch(gather_leaf(x, mesh, 0), le, slot, gate, e_loc,
+                           cap, k)
+    y = _combine(_experts(params, buf, cfg), b_idx, le, slot,
+                 gather_leaf(w, mesh, 0) * gate, k)
+    return scatter_sum(y, mesh, 0), aux
+
+
 def _moe_expert_parallel_a2a(params, x, cfg: ArchConfig, mesh):
     """The reference's ``_moe_expert_parallel_a2a`` (``repro/models/mlp.py:
     82``): every rank of "model" routes its slice of the sequence
@@ -260,22 +308,39 @@ def _moe_expert_parallel_a2a(params, x, cfg: ArchConfig, mesh):
     nm*C, D), in rank order; its experts run; a second all-to-all returns
     the outputs, each rank combines its slice, and the slices are gathered
     into (B_loc, S, D).  The router enters through ``copy_to``: each rank
-    routes other tokens, so its gradient adds the ranks' shares."""
+    routes other tokens of the same rows, so its gradient adds the ranks'
+    shares.
+
+    With the rows split over "model" (an "fsdp" training step) the block
+    comes in as the rank's rows (B/n, S, D): an all-to-all over "model"
+    gives each rank its data group's rows at its slice of the sequence
+    (B/nb, S/nm, D), and the reverse one gives the rank its rows back; the
+    router, gathered whole by the layer, enters as it is (its gather's
+    reduce-scatter sums the ranks' shares)."""
     e, k = cfg.n_experts, cfg.top_k
     nm = MeshSpec.of(mesh).shape["model"]
     _local_experts(params, cfg, nm)
     cap = moe_capacity(cfg, x.shape[1] // nm)
-    # x's slice is taken once for the routing and once for the dispatch,
-    # as the dense dispatch reads x twice: x's gradient then adds the same
+    rows = "model" in ambient_rows()
+    if rows:
+        def part():
+            return all_to_all(x, mesh, "model", split_dim=1, concat_dim=0)
+        router, n_summed = params["router"], 1
+    else:
+        def part():
+            return seq_slice(x, mesh, "model", 1)
+        router, n_summed = copy_to(params["router"], mesh, "model"), nm
+    # x's part is taken once for the routing and once for the dispatch, as
+    # the dense dispatch reads x twice: x's gradient then adds the same
     # terms in the same order, and one rank gives the dense dispatch's bits
-    probs, top_i, flat_e, slot, keep, w = _route(
-        seq_slice(x, mesh, "model", 1),
-        copy_to(params["router"], mesh, "model"), cfg, cap)
-    aux = _aux(probs, top_i, e, mesh, (*batch_axes(mesh), "model"), nm)
-    buf, b_idx = _dispatch(seq_slice(x, mesh, "model", 1), flat_e, slot,
-                           keep, e, cap, k)
+    probs, top_i, flat_e, slot, keep, w = _route(part(), router, cfg, cap)
+    aux = _aux(probs, top_i, e, mesh, (*batch_axes(mesh), "model"),
+               n_summed)
+    buf, b_idx = _dispatch(part(), flat_e, slot, keep, e, cap, k)
     recv = all_to_all(buf, mesh, "model", split_dim=1, concat_dim=2)
     back = all_to_all(_experts(params, recv, cfg), mesh, "model",
                       split_dim=2, concat_dim=1)
     y = _combine(back, b_idx, flat_e, slot, w, k)
+    if rows:
+        return all_to_all(y, mesh, "model", split_dim=0, concat_dim=1), aux
     return seq_gather(y, mesh, "model", 1), aux

@@ -15,7 +15,10 @@ In "tp" mode the rules split ``in_proj``, ``conv_w``, ``conv_b`` and
 holds its slices and gathers the whole leaves on use (``common.tp_whole``), so
 the block, the SSD kernels and the decode states run whole on every rank.
 Splitting the computation is left for later: the packed [z, xBC, dt]
-columns of ``in_proj`` do not fall on the ranks' boundaries.
+columns of ``in_proj`` do not fall on the ranks' boundaries.  In "fsdp"
+mode the layer's leaves arrive gathered whole (``common.gather_layer``;
+``A_log``, ``D`` and ``dt_bias``, whose layers the rule may split, once a
+forward by ``common.gather_layers``).
 """
 from __future__ import annotations
 

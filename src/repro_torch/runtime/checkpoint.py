@@ -17,14 +17,16 @@ placement of shard replicas over hosts) stays in the JAX package.
 
 A checkpoint holds whole leaves, as the reference's does (its
 ``np.asarray`` gathers a sharded ``jax.Array``).  Given the ``model`` of a
-state on a mesh, ``save`` gathers over "model" each leaf that is the rank's
-slice of one of ``model.sharded`` (the parameter, or its AdamW moments and
-error-feedback buffer beside it) along the dim its spec splits, global
-rank 0 writes, and every rank waits at a barrier (in a group of more than
-one rank, ``save`` without such a model raises); ``restore`` reads whole
-leaves and keeps each rank's slice (``launch/shardings.local_slice``).  So
-a checkpoint crosses mesh shapes, and crosses with the JAX package both
-ways.
+state on a mesh, ``save`` gathers each leaf that is the rank's part of a
+parameter (the parameter, or its AdamW moments and error-feedback buffer
+beside it) over every axis of its spec, along the dims the spec splits:
+the parameter's ``model.sharded`` spec ("tp" or "fsdp"), or for a ZeRO-1
+moment its ``opt_shardings(..., zero1=True)`` spec, told apart by the
+leaf's shape.  Global rank 0 writes, and every rank waits at a barrier (in
+a group of more than one rank, ``save`` without such a model raises);
+``restore`` reads whole leaves and keeps each rank's part of the same spec
+(``launch/shardings.local_slice``).  So a checkpoint crosses mesh shapes
+and modes, and crosses with the JAX package both ways.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch.distributed as dist
 
 from ..launch.collectives import gather_leaf
 from ..launch.mesh import coordinate
-from ..launch.shardings import local_slice, model_dim, param_spec
+from ..launch.shardings import local_shape, local_slice, opt_shardings
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16", torch.int32: "int32",
@@ -64,19 +66,34 @@ def flatten_state(state: dict) -> dict:
 
 def _slices(state: dict, model) -> dict:
     """{leaf name: (spec, whole shape)} of the leaves of ``state`` that are
-    this rank's slices of a leaf of ``model.sharded``: a leaf whose name
-    ends in a sharded parameter's path (``params/layers/attn/wq``,
-    ``opt/m/layers/attn/wq``); empty off a mesh."""
+    this rank's parts of a parameter of ``model``: a leaf whose name ends
+    in a parameter's path (``params/layers/attn/wq``,
+    ``opt/m/layers/attn/wq``) and whose shape is the part of the
+    parameter's spec (``model.sharded``) or, for a ZeRO-1 moment, of its
+    ``opt_shardings(..., zero1=True)`` spec; empty off a mesh."""
     if model is None or model.mesh is None:
         return {}
-    paths = {n.replace(".", "/"): n for n in model.sharded}
+    mesh, wholes = model.mesh, model.whole_shapes
+    zero1 = opt_shardings(wholes, mesh, zero1=True, mode=model.mode)["m"]
+    paths = {n.replace(".", "/"): n for n in wholes}
     out = {}
-    for name in flatten_state(state):
+    for name, leaf in flatten_state(state).items():
         hits = [p for p in paths if name == p or name.endswith("/" + p)]
-        if hits:
-            param = paths[max(hits, key=len)]
-            whole = model.whole_shapes[param]
-            out[name] = (param_spec(param, whole, model.mesh), whole)
+        if not hits:
+            continue
+        param = paths[max(hits, key=len)]
+        whole = wholes[param]
+        specs = (model.sharded.get(param, ()), zero1[param])
+        spec = next((s for s in specs
+                     if local_shape(whole, s, mesh) == tuple(leaf.shape)),
+                    None)
+        if spec is None:
+            raise ValueError(
+                f"{name} {tuple(leaf.shape)}: neither the part of {param} "
+                f"{whole} that its spec {specs[0]} gives a rank nor its "
+                f"ZeRO-1 moment's ({specs[1]})")
+        if any(e is not None for e in spec):
+            out[name] = (spec, whole)
     return out
 
 
@@ -110,9 +127,9 @@ class CheckpointManager:
         for i, (name, leaf) in enumerate(flatten_state(state).items()):
             dtype = _DTYPE_NAMES[leaf.dtype]
             arr = leaf.detach()
-            if name in slices:
-                arr = gather_leaf(arr, model.mesh,
-                                  model_dim(slices[name][0]))
+            for d, axes in enumerate(slices.get(name, ((),))[0]):
+                if axes is not None:
+                    arr = gather_leaf(arr, model.mesh, d, axes)
             if not writer:
                 continue
             if leaf.dtype == torch.bfloat16:   # numpy has no bfloat16

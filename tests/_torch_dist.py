@@ -100,7 +100,7 @@ def train_run(model, data, arch: str) -> dict:
     batch = {"tokens": toks[:, :-1].contiguous(),
              "labels": toks[:, 1:].contiguous()}
     if model.mesh is not None:
-        batch = shard_batch(batch, model.mesh)
+        batch = shard_batch(batch, model.mesh, model.mode)
     opt = AdamW(AdamWConfig(**OPT))
     grads = []
     update = opt.update
@@ -158,8 +158,9 @@ def _block(moe: dict, x, cfg, mesh, mode: str) -> dict:
 
 def _world_one(data, arch: str, mesh, res: dict) -> None:
     """The (1, 1) mesh against no mesh, in both modes: the block's outputs
-    and gradients, and the training step's losses and step-1 gradients,
-    for comparison bit for bit."""
+    and gradients, and the training step's losses and step-1 gradients
+    (in "fsdp" mode the whole ZeRO-3 layout: every leaf gathered at its
+    use, its gradient reduce-scattered), for comparison bit for bit."""
     import torch
 
     from repro_torch.configs import get_smoke

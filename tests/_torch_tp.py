@@ -133,7 +133,7 @@ def train_run(model, data, arch: str) -> dict:
     from repro_torch.optim import AdamW, AdamWConfig
     b = batch(data, arch)
     if model.mesh is not None:
-        b = shard_batch(b, model.mesh)
+        b = shard_batch(b, model.mesh, model.mode)
     opt = AdamW(AdamWConfig(**OPT))
     grads = []
     update = opt.update
@@ -178,13 +178,14 @@ def serve_run(model, data, arch: str) -> np.ndarray:
 
 def _switched_losses(model, data, arch: str) -> np.ndarray:
     """The loss of the rank's rows in the mode the model was built in, and
-    again after ``set_sharding_mode`` names the other mode: the model's
+    again after ``set_sharding_mode`` names the other mode ("fsdp": every
+    leaf sliced over the whole mesh and gathered at its use): the model's
     methods install its own mode, so the two are the same."""
     import torch
 
     from repro_torch.launch.shardings import shard_batch
     from repro_torch.models.common import set_sharding_mode
-    b = shard_batch(batch(data, arch), model.mesh)
+    b = shard_batch(batch(data, arch), model.mesh, model.mode)
     out = []
     with torch.no_grad():
         for mode in (model.mode, {"tp": "fsdp", "fsdp": "tp"}[model.mode]):
@@ -343,13 +344,19 @@ def jax_reference(inputs: str, out: str, archs: tuple) -> None:
 
 # ------------------------------------------------------------ checkpoints
 # tests/test_torch_checkpoint_sharded.py: llama4-scout smoke (experts,
-# attention, the shared expert and the vocabulary all sliced in "tp"; the
-# experts alone in "fsdp"), saved on SAVE_MESH, restored on RESTORE_MESHES
-# and at world 1
+# attention, the shared expert and the vocabulary all sliced in "tp"; every
+# leaf over the whole mesh in "fsdp", the experts over "model" and "data"),
+# saved on SAVE_MESH, restored on RESTORE_MESHES and at world 1
 CKPT_ARCH = "llama4-scout-17b-a16e"
 SAVE_MESH = (1, 2)
 RESTORE_MESHES = {4: [(1, 4), (2, 2)]}
 MODES = ("tp", "fsdp")
+# and a state of each LAYOUT ({layout: (mode, ZeRO-1 moments)}) saved on
+# its LAYOUT_SAVE mesh, restored in every layout on LAYOUT_RESTORE and at
+# world 1, and the JAX package's save of it restored on LAYOUT_SAVE
+LAYOUTS = {"fsdp": ("fsdp", False), "zero1": ("tp", True)}
+LAYOUT_SAVE = {"fsdp": (2, 2), "zero1": (2, 1)}
+LAYOUT_RESTORE = (1, 4)
 
 
 def _zeroed(model) -> dict:
@@ -359,17 +366,18 @@ def _zeroed(model) -> dict:
             for n, p in model.named_parameters()}
 
 
-def _one_step_state(model, data) -> dict:
+def _one_step_state(model, data, zero1: bool = False) -> dict:
     """{"params", "opt"} after one ``make_train_step`` step on the rank's
-    rows (f32 AdamW moments, nonzero), as a checkpoint takes it."""
+    rows (f32 AdamW moments, nonzero; ZeRO-1's with ``zero1``), as a
+    checkpoint takes it."""
     from repro_torch.launch.shardings import shard_batch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW, AdamWConfig
     opt = AdamW(AdamWConfig(**OPT))
     params = dict(model.named_parameters())
-    st = {"params": params, "opt": opt.init(params)}
+    st = {"params": params, "opt": opt.init(params, model, zero1)}
     st, _ = make_train_step(model, opt)(
-        st, shard_batch(batch(data, CKPT_ARCH), model.mesh))
+        st, shard_batch(batch(data, CKPT_ARCH), model.mesh, model.mode))
     return st
 
 
@@ -388,7 +396,8 @@ def ckpt_worker(rank: int, world: int, store: str, inputs: str,
     into zeroed copies), a JAX-saved checkpoint restored, and one training
     step's state saved and dumped as the rank holds it.  Phase "restore"
     (world 1 or 4): that state restored on each mesh of the world (at
-    world 1 without a mesh, whole), dumped."""
+    world 1 without a mesh, whole), dumped.  Then the LAYOUTS' cases of
+    the phase (``_layout_cases``; phase "jax" has only those)."""
     import torch
     import torch.distributed as dist
 
@@ -403,9 +412,9 @@ def ckpt_worker(rank: int, world: int, store: str, inputs: str,
     cfg = train_cfg(CKPT_ARCH)
     res: dict = {}
     try:
-        for mode in MODES:
+        for mode in MODES if phase != "jax" else ():
             set_sharding_mode(mode)
-            if phase == "save":
+            if phase == "save" and world == 2:
                 mesh = make_mesh(SAVE_MESH, AXES, device="cpu")
                 model = Model(cfg, device="cpu", mesh=mesh).load_state(
                     state(data, CKPT_ARCH))
@@ -433,6 +442,8 @@ def ckpt_worker(rank: int, world: int, store: str, inputs: str,
                     2, st, model=model)
                 _dump(res, f"{mode}/saved", st)
                 continue
+            if phase == "save":
+                continue
             for shape in RESTORE_MESHES.get(world, [None]):
                 mesh = None if shape is None else make_mesh(shape, AXES,
                                                             device="cpu")
@@ -444,7 +455,67 @@ def ckpt_worker(rank: int, world: int, store: str, inputs: str,
                                   ).restore(back, model=model)
                 _dump(res, f"{mode}/{'1x1' if mesh is None else tag(shape)}",
                       back)
+        _layout_cases(world, phase, data, cfg, out_dir, res)
     finally:
         set_sharding_mode("tp")
         dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"{phase}_w{world}rank{rank}.npz"), **res)
+
+
+def _layout_model(cfg, mesh, layout: str):
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
+    set_sharding_mode(LAYOUTS[layout][0])
+    try:
+        return Model(cfg, device="cpu", mesh=mesh)
+    finally:
+        set_sharding_mode("tp")
+
+
+def _zeroed_state(model, layout: str) -> dict:
+    """Zeros of the rank's parameters and of its moments in ``layout``."""
+    from repro_torch.optim import AdamW
+    params = _zeroed(model)
+    return {"params": params, "opt": AdamW().init(
+        params, model, zero1=model.mesh is not None and LAYOUTS[layout][1])}
+
+
+def _layout_cases(world: int, phase: str, data, cfg, out_dir: str,
+                  res: dict) -> None:
+    """The LAYOUTS' cases of ``ckpt_worker``.  "save": one training step's
+    state of each layout whose LAYOUT_SAVE mesh has ``world`` ranks, saved
+    into ``layout_<layout>`` and dumped.  "restore": at world 1 each saved
+    state restored whole without a mesh, at the world of LAYOUT_RESTORE
+    each restored in every layout there.  "jax": the JAX package's save of
+    each state (``jax_<layout>``) restored on its LAYOUT_SAVE mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import CheckpointManager
+    for layout, shape in LAYOUT_SAVE.items():
+        if phase == "save" and int(np.prod(shape)) == world:
+            model = _layout_model(cfg, make_mesh(shape, AXES, device="cpu"),
+                                  layout).load_state(state(data, CKPT_ARCH))
+            st = _one_step_state(model, data, LAYOUTS[layout][1])
+            CheckpointManager(os.path.join(out_dir, f"layout_{layout}")).save(
+                2, st, model=model)
+            _dump(res, f"layout/{layout}/saved", st)
+        elif phase == "jax" and int(np.prod(shape)) == world:
+            model = _layout_model(cfg, make_mesh(shape, AXES, device="cpu"),
+                                  layout)
+            back = _zeroed_state(model, layout)
+            CheckpointManager(os.path.join(out_dir, f"jax_{layout}")).restore(
+                back, model=model)
+            _dump(res, f"layout/{layout}/from_jax", back)
+        elif phase == "restore" and world == 1:
+            model = _layout_model(cfg, None, layout)
+            back = _zeroed_state(model, layout)
+            CheckpointManager(os.path.join(out_dir, f"layout_{layout}")
+                              ).restore(back, model=model)
+            _dump(res, f"layout/{layout}/whole", back)
+        elif phase == "restore" and world == int(np.prod(LAYOUT_RESTORE)):
+            mesh = make_mesh(LAYOUT_RESTORE, AXES, device="cpu")
+            for target in LAYOUTS:
+                model = _layout_model(cfg, mesh, target)
+                back = _zeroed_state(model, target)
+                CheckpointManager(os.path.join(out_dir, f"layout_{layout}")
+                                  ).restore(back, model=model)
+                _dump(res, f"layout/{layout}/{target}", back)

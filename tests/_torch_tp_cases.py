@@ -206,8 +206,10 @@ def test_a_built_model_keeps_its_mode(runs, arch, shape):
     """A model built in "tp" runs in "tp" after ``set_sharding_mode`` names
     "fsdp": its methods install the mode it was built in, which the layers
     read, so every rank's loss is the same, bit for bit, before and after
-    the switch.  Layers reading the switched mode would skip their "g" on
-    the rank's heads and hidden slice and return a partial sum."""
+    the switch.  Layers reading the switched mode would take the rank's
+    "tp" slices for "fsdp" ones, gathering them over the whole mesh along
+    other dims (ZeRO-3), and skip their "g" on the rank's heads and hidden
+    slice."""
     t = f"{tt.tag(shape)}/{arch}"
     for res in ranks(runs, shape):
         built, switched = res[f"{t}/switched"]

@@ -4,10 +4,14 @@ the port and the JAX package.
 
 One module fixture runs the ranks (``tests/_torch_tp.py::ckpt_worker``, one
 spawned process a rank): world 2 on a (1, 2) mesh saves, in "tp" mode (every
-leaf the rules split over "model" is sliced) and in "fsdp" mode (the experts
-alone); then world 4 restores on (1, 4) and (2, 2), and world 1 without a
-mesh.  llama4-scout smoke, f32.  The JAX package's ``CheckpointManager``
-writes a checkpoint the ranks restore and reads back what they saved.
+leaf the rules split over "model" is sliced) and in "fsdp" mode (every leaf
+sliced over the whole mesh); then world 4 restores on (1, 4) and (2, 2), and
+world 1 without a mesh.  Besides, a state of the fsdp layout saved on
+(2, 2) and one with ZeRO-1 moments ("tp" mode) saved on (2, 1) are restored
+in both layouts on (1, 4) and whole without a mesh, and cross with the JAX
+package both ways.  llama4-scout smoke, f32.  The JAX package's
+``CheckpointManager`` writes a checkpoint the ranks restore and reads back
+what they saved.
 """
 import json
 import os
@@ -24,8 +28,8 @@ import _torch_tp as tt  # noqa: E402
 from repro.runtime.checkpoint import CheckpointManager as JaxCheckpoint  # noqa
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.launch.mesh import MeshSpec  # noqa: E402
-from repro_torch.launch.shardings import carried, local_slice  # noqa: E402
-from repro_torch.launch.shardings import param_spec  # noqa: E402
+from repro_torch.launch.shardings import leaf_spec, local_slice  # noqa
+from repro_torch.launch.shardings import zero1_spec  # noqa: E402
 from repro_torch.models.api import Model, flatten  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,10 +48,10 @@ def _spawn(phase: str, worlds, d, inputs) -> None:
             pass
 
 
-def _jax_tree(flat: dict) -> dict:
+def _jax_tree(flat: dict, sep: str = ".") -> dict:
     tree: dict = {}
     for name, leaf in flat.items():
-        *path, last = name.split(".")
+        *path, last = name.split(sep)
         node = tree
         for p in path:
             node = node.setdefault(p, {})
@@ -65,13 +69,27 @@ def runs(tmp_path_factory):
     # the JAX package writes the initial parameters, as its trainer would
     JaxCheckpoint(str(d / "jax")).save(0, {"params": _jax_tree(
         {k: jax.numpy.asarray(v.numpy()) for k, v in whole.items()})})
-    _spawn("save", (2,), d, inputs)
+    _spawn("save", (2, 4), d, inputs)
     _spawn("restore", (1, 4), d, inputs)
+    one = np.load(d / "restore_w1rank0.npz")
+    # the JAX package saves each layout's whole state, which the ranks
+    # restore in the layout
+    for layout in tt.LAYOUTS:
+        JaxCheckpoint(str(d / f"jax_{layout}")).save(
+            5, _jax_tree(_layout_flat(one, layout), "/"))
+    _spawn("jax", (2, 4), d, inputs)
     out = {"dir": d, "whole": {k: v.numpy() for k, v in whole.items()}}
-    for phase, w in (("save", 2), ("restore", 1), ("restore", 4)):
+    for phase, w in (("save", 2), ("save", 4), ("restore", 1),
+                     ("restore", 4), ("jax", 2), ("jax", 4)):
         for r in range(w):
             out[phase, w, r] = np.load(d / f"{phase}_w{w}rank{r}.npz")
     return out
+
+
+def _layout_flat(res, layout: str) -> dict:
+    """{"params/...": array} of the layout's state restored whole."""
+    pre = f"layout/{layout}/whole/"
+    return {k[len(pre):]: res[k] for k in res.files if k.startswith(pre)}
 
 
 def _coord(shape, r) -> dict:
@@ -82,11 +100,29 @@ def _own(whole: np.ndarray, name: str, shape, r: int, mode: str):
     """The slice of ``whole`` (a parameter, or a moment beside one) that
     the rank at ``r`` of a mesh of ``shape`` holds in ``mode``."""
     spec = MeshSpec(tt.AXES, shape)
-    if not carried(name, whole.shape, spec, mode):
-        return whole
-    return local_slice(torch.tensor(whole), param_spec(name, whole.shape,
-                                                       spec),
+    return local_slice(torch.tensor(whole), leaf_spec(name, whole.shape,
+                                                      spec, mode),
                        spec, _coord(shape, r)).numpy()
+
+
+def _layout_own(whole: np.ndarray, path: str, shape, r: int,
+                layout: str) -> np.ndarray:
+    """The part of the state's leaf ``path`` ("params/...", "opt/m/...",
+    "opt/count") that the rank at ``r`` of ``shape`` holds in ``layout``:
+    the parameter's spec in the layout's mode, for a ZeRO-1 moment the
+    reference's ``zero1_spec`` of its "tp" spec."""
+    if path == "opt/count":
+        return whole
+    mesh = MeshSpec(tt.AXES, shape)
+    moment = path.startswith("opt/")
+    name = path.split("/", 2)[-1] if moment else path.split("/", 1)[1]
+    name = name.replace("/", ".")
+    mode, zero1 = tt.LAYOUTS[layout]
+    spec = leaf_spec(name, whole.shape, mesh, mode)
+    if moment and zero1:
+        spec = zero1_spec(spec, whole.shape, mesh)
+    return local_slice(torch.tensor(whole), spec, mesh,
+                       _coord(shape, r)).numpy()
 
 
 @pytest.mark.parametrize("mode", tt.MODES)
@@ -228,3 +264,73 @@ def test_save_without_a_mesh_is_unchanged(tmp_path):
     assert step == 3
     for k, v in params.items():
         assert torch.equal(back["params"][k], v.detach()), k
+
+
+@pytest.mark.parametrize("layout", tt.LAYOUTS)
+def test_layout_state_restores_whole_as_the_ranks_held_it(runs, layout):
+    """A state of the fsdp layout saved on (2, 2), and one with ZeRO-1
+    moments saved on (2, 1), restored without a mesh: each saving rank's
+    parameters and both moments are its parts of the whole leaves (the
+    fsdp spec; ZeRO-1's moments their ``zero1_spec``), bit for bit."""
+    whole = _layout_flat(runs["restore", 1, 0], layout)
+    assert any(n.startswith("opt/m/") for n in whole)
+    shape = tt.LAYOUT_SAVE[layout]
+    pre = f"layout/{layout}/saved/"
+    for r in range(int(np.prod(shape))):
+        saved = runs["save", int(np.prod(shape)), r]
+        names = [k[len(pre):] for k in saved.files if k.startswith(pre)]
+        assert set(names) == set(whole)
+        for n in names:
+            np.testing.assert_array_equal(
+                saved[pre + n], _layout_own(whole[n], n, shape, r, layout),
+                err_msg=n)
+
+
+@pytest.mark.parametrize("target", tt.LAYOUTS)
+@pytest.mark.parametrize("layout", tt.LAYOUTS)
+def test_layout_state_restores_in_another_layout(runs, layout, target):
+    """Each saved state restored on (1, 4) in each layout, fsdp or ZeRO-1
+    in "tp": every rank's leaves are its parts of the whole leaves in the
+    target layout, exactly."""
+    whole = _layout_flat(runs["restore", 1, 0], layout)
+    shape = tt.LAYOUT_RESTORE
+    pre = f"layout/{layout}/{target}/"
+    for r in range(int(np.prod(shape))):
+        res = runs["restore", int(np.prod(shape)), r]
+        for n, w in whole.items():
+            np.testing.assert_array_equal(
+                res[pre + n], _layout_own(w, n, shape, r, target),
+                err_msg=n)
+
+
+@pytest.mark.parametrize("layout", tt.LAYOUTS)
+def test_jax_restores_the_layout_state(runs, layout):
+    """The JAX package's ``CheckpointManager.restore`` of each layout's
+    checkpoint gives the whole state: parameters, both moments and the
+    count."""
+    whole = _layout_flat(runs["restore", 1, 0], layout)
+    like = _jax_tree({k: jax.numpy.zeros(v.shape, v.dtype)
+                      for k, v in whole.items()}, "/")
+    got, step = JaxCheckpoint(str(runs["dir"] / f"layout_{layout}")
+                              ).restore(like)
+    assert step == 2
+    flat = {"/".join(str(p.key) for p in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(got)}
+    assert set(flat) == set(whole)
+    for k, v in whole.items():
+        np.testing.assert_array_equal(flat[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("layout", tt.LAYOUTS)
+def test_port_restores_the_jax_saved_state_in_the_layout(runs, layout):
+    """The JAX package's save of a whole state restored on the layout's
+    mesh (fsdp on (2, 2), ZeRO-1 on (2, 1)): every rank holds its parts."""
+    whole = _layout_flat(runs["restore", 1, 0], layout)
+    shape = tt.LAYOUT_SAVE[layout]
+    pre = f"layout/{layout}/from_jax/"
+    for r in range(int(np.prod(shape))):
+        res = runs["jax", int(np.prod(shape)), r]
+        for n, w in whole.items():
+            np.testing.assert_array_equal(
+                res[pre + n], _layout_own(w, n, shape, r, layout),
+                err_msg=n)

@@ -8,7 +8,11 @@ cases in one spawn) beside the JAX reference in a subprocess with 4 forced
 host devices (``shard_map`` needs them).  The tests read what they wrote.
 Smoke llama4-scout (top-1) and arctic-480b (top-2, 4 experts), f32, meshes
 (1, 2), (1, 4), (2, 2) and (4, 1) of (data, model), both sharding modes:
-"tp" is the all-reduce path, "fsdp" the all-to-all one.
+"tp" is the all-reduce path, "fsdp" the all-to-all one.  The MoE block's
+cases take the rows alike on every rank of "model" (as serving does); the
+training steps run each mode's whole layout: in "fsdp" every leaf sliced
+over the whole mesh and the rows over every axis (ZeRO-3; the other
+families' fsdp cases are tests/test_torch_fsdp.py's).
 """
 import os
 import subprocess
@@ -25,8 +29,8 @@ import _torch_dist as td  # noqa: E402
 
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.launch.mesh import MeshSpec, make_mesh  # noqa: E402
-from repro_torch.launch.shardings import (carried, local_slice,  # noqa
-                                          model_dim, param_spec, placements)
+from repro_torch.launch.shardings import (carried, leaf_spec,  # noqa
+                                          local_slice, placements)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.mlp import moe_capacity, moe_forward  # noqa: E402
 
@@ -251,17 +255,40 @@ def _single_process_run(arch, mode, data):
         td._state(data, arch)), data, arch)
 
 
+def _assemble(leaves: list, name: str, shape, mesh, mode: str):
+    """The whole leaf from each rank's part (``leaf_spec``'s slice at the
+    rank's coordinate, the leaf itself where ``carried`` says it is
+    whole); the ranks that hold one part must hold it alike, bit for bit
+    (a replicated leaf's gradient with no reduction over "model")."""
+    spec = leaf_spec(name, shape, mesh, mode) if carried(
+        name, shape, mesh, mode) else ()
+    ids = torch.arange(int(np.prod(shape))).reshape(shape)
+    out = np.full(shape, np.nan)
+    flat = out.reshape(-1)
+    for r, leaf in enumerate(leaves):
+        coord = dict(zip(td.AXES, map(int, np.unravel_index(
+            r, mesh.sizes))))
+        idx = local_slice(ids, spec, mesh, coord).numpy()
+        have = flat[idx]
+        seen = ~np.isnan(have)
+        np.testing.assert_array_equal(have[seen], leaf[seen], err_msg=name)
+        flat[idx] = leaf
+    assert not np.isnan(out).any(), name
+    return out
+
+
 @pytest.mark.parametrize("mode", td.MODES)
 @pytest.mark.parametrize("arch", td.MOE)
 def test_data_expert_parallel_train_step(runs, arch, mode):
-    """(iv) ``make_train_step`` on the (2, 2) mesh, remat "full", each data
-    rank on 2 of the 4 rows: every leaf's step-1 gradient (the leaves the
-    mode slices gathered over "model": the experts, and in "tp" mode every
-    leaf the rules split) within GRAD_REL of ``jax.grad`` of the JAX
+    """(iv) ``make_train_step`` on the (2, 2) mesh, remat "full", each rank
+    on its rows (in "tp" mode 2 of the 4 rows a data rank, in "fsdp" mode
+    1 a rank): every leaf's step-1 gradient, assembled from the ranks'
+    parts (in "tp" mode the experts and every leaf the rules split over
+    "model"; in "fsdp" mode every leaf, over the whole mesh, the experts
+    over "model" and "data"), within GRAD_REL of ``jax.grad`` of the JAX
     ``train_loss`` on the whole batch (dense dispatch; the all-to-all mode
-    at a capacity that drops nothing), every rank's replicated leaves alike
-    with no reduction over "model", and the 3 losses and grad norms those
-    of one process."""
+    at a capacity that drops nothing), the ranks that hold one part alike
+    bit for bit, and the 3 losses and grad norms those of one process."""
     t = td.tag(td.TRAIN_MESH)
     cf = td.train_cf(get_smoke(arch), mode)
     jgrads = {k.split("/grad/", 1)[1]: runs["jax"][k]
@@ -269,21 +296,12 @@ def test_data_expert_parallel_train_step(runs, arch, mode):
               if k.startswith(f"{arch}/train/cf{cf:g}/grad/")}
     ranks = _ranks(runs, td.TRAIN_MESH)
     pre = f"{t}/{arch}/train/{mode}"
-    nm = td.TRAIN_MESH[1]
     spec = MeshSpec(td.AXES, td.TRAIN_MESH)
     assert {k.split("/grad/", 1)[1] for k in ranks[0].files
             if k.startswith(f"{pre}/grad/")} == set(jgrads)
     for name, want in jgrads.items():
-        leaves = [res[f"{pre}/grad/{name}"] for res in ranks]
-        if carried(name, want.shape, spec, mode):
-            for r, leaf in enumerate(leaves):      # averaged over data
-                np.testing.assert_array_equal(leaf, leaves[r % nm])
-            got = np.concatenate(leaves[:nm], axis=model_dim(
-                param_spec(name, want.shape, spec)))
-        else:
-            for other in leaves[1:]:
-                np.testing.assert_array_equal(other, leaves[0])
-            got = leaves[0]
+        got = _assemble([res[f"{pre}/grad/{name}"] for res in ranks], name,
+                        want.shape, spec, mode)
         assert _leaf_rel(got, want) <= GRAD_REL, name
     one = _single_process_run(arch, mode, runs["inputs"])
     for res in ranks:
