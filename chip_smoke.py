@@ -9,6 +9,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --tp-only
     python3 chip_smoke.py --fsdp-only
+    python3 chip_smoke.py --seq-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -202,10 +203,36 @@ result line):
    whole update bit for bit; the GB of state a rank holds at 30 layers,
    from the local shapes.  The path's flash launches join the kernel
    line's totals.
+11. the sequence split of an "fsdp" batch smaller than the mesh (each
+   rank one contiguous slice of its rows' sequence), in one process (at
+   world 1 every batch divides the mesh, and NCCL puts no two ranks on
+   one card): layer 0 of deepseek-7b (32 heads x 128, d_ff 11008) and of
+   mamba2-780m (48 heads x 64, state 128, chunk 256) at their published
+   widths, bf16, on 1 x 4096 tokens, whole and as each of 2 and 4
+   sequence ranks holds it, through the port's own layer code with the
+   sequence's collectives done among the ranks in turn (``SeqRanks``:
+   forward in rank order, backward in reverse, each gather's gradient
+   summed into the rank that sent it): each rank's attention against the
+   keys of the ranks up to its own (flash at S = 4096 / n against T = (r +
+   1) S), its mamba layer from the conv halo and the state the earlier
+   ranks leave.  The ranks' y and dx concatenated in rank order, their
+   weight gradients summed in rank order and (deepseek) the keys' and
+   values' gradients each rank's backward got, held to the whole layer
+   within bf16 bounds; no gradient reaches a later rank.  The positions
+   are the port's (``lm.seq_positions``).  Then ``lm.prefill`` of the
+   one-layer model on 1 x 4096 tokens as each rank holds them, the ranks
+   run twice in rank order without autograd: each rank's last logits and
+   cache (k/v of the whole prompt, the mamba conv tail and state at its
+   end, pos its length; ``lm.forward``'s positions, ``seq_last`` and the
+   mamba prefill cache) held to the whole prompt's within bf16 bounds, pos
+   exactly.  Then flash's
+   forward and backward timed at each rank's (S, T), the SSD kernel at
+   each rank's chunks, and the state pass alone.  The path's flash and
+   SSD launches join the kernel line's totals.
 
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
-the tokens to hold).
+the tokens to hold), ``--seq-only`` phase 11.
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -4180,6 +4207,445 @@ def phase_fsdp(card: str, served: list | None) -> dict:
             "state_gb": held, "paths": paths}
 
 
+# ------------------------------------------------------------- phase 11
+# the sequence split of an "fsdp" batch smaller than the mesh
+# (launch/shardings.split_batch, models/attention.py's keys and values gathered
+# over the sequence's axes, models/ssm.py's conv halo and state pass,
+# launch/collectives.seq_halo).  The machine has one card, and at world 1
+# every batch divides the mesh, so the split never occurs on NCCL here: in
+# one process, each rank's part of one layer at published widths on 1 x
+# SEQ_TOKENS tokens, cut as each of SEQ_RANKS sequence ranks holds it, runs
+# the port's own layer code with the sequence's collectives done among the
+# ranks in turn (SeqRanks), against the whole layer
+SEQ_RANKS = (2, 4)
+SEQ_TOKENS = 4096
+SEQ_SSM_ARCH = MAMBA2
+# bounds on ||the ranks' parts joined - whole|| / ||whole|| in bf16: y and
+# dx concatenated in rank order, the weight gradients summed in rank order
+# (f32), the keys' and values' gradients as each rank's backward got them
+# (its own share and the later ranks', summed in bf16) concatenated.
+# About twice what a sound run on the H100 gave (PERF.md, findings): dx
+# 8.64e-4, the weight gradients 4.51e-3 (each rank's rounded to bf16
+# before the sum), dk and dv 2.99e-3; y came out bit-identical to the
+# whole layer's, which no bound requires
+SEQ_PART_REL = {"y": 1e-3, "dx": 2e-3, "grad": 1e-2, "dkv": 6e-3}
+# bounds on ||a rank's prefill output - the whole prompt's|| / ||whole||
+# in bf16 (lm.prefill of the one-layer model): the last logits and every
+# cache leaf but pos, which is exact
+SEQ_PREFILL_REL = {"logits": 1e-2, "k": 1e-2, "v": 1e-2, "conv": 1e-2,
+                   "ssm": 2e-2}
+
+
+class _SeqRankGather(torch.autograd.Function):
+    """``gather_leaf`` among the ranks of a ``SeqRanks``: the rank's part
+    joined with the other ranks' recorded ones in rank order; backward,
+    the rank's part of the gradient plus what the later ranks' backwards
+    sent it, and the earlier ranks' parts sent to them."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ranks, call):
+        ctx.dim, ctx.ranks, ctx.call, ctx.rank = dim, ranks, call, ranks.rank
+        parts = list(ranks.parts[call])
+        parts[ranks.rank] = x
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ranks, r = ctx.ranks, ctx.rank
+        sent = ranks.sent.setdefault(ctx.call, [None] * ranks.n)
+        chunks = grad.chunk(ranks.n, ctx.dim)
+        for j, c in enumerate(chunks):
+            if j > r:        # a later rank, already run: causality says 0
+                ranks.late = max(ranks.late, float(c.abs().max()))
+            elif j < r:
+                sent[j] = c.clone() if sent[j] is None else sent[j] + c
+        own = chunks[r] if sent[r] is None else chunks[r] + sent[r]
+        ranks.total.setdefault(ctx.call, [None] * ranks.n)[r] = own.detach()
+        return own.contiguous(), None, None, None
+
+
+class SeqRanks:
+    """The collectives of a sequence split over ``n`` ranks, the ranks run
+    one after another in this process.  Under ``patched()``, the layer
+    code's ``seq_split`` says that rank ``rank`` of ``n`` runs, and its
+    ``gather_leaf`` (the keys and values, the conv's halo, the state pass)
+    joins the ranks' parts in rank order.  Each call's parts are recorded
+    on a pass of every rank in rank order without autograd (``enter(r,
+    record=True)``); on the pass with autograd, in reverse rank order, the
+    gather's backward adds to the rank's part the gradient the later
+    ranks' backwards sent it (a reduce-scatter's sum) and sends the
+    earlier ranks theirs; what reaches a later rank must be 0 (``late``,
+    the largest such value)."""
+
+    def __init__(self, n: int):
+        self.n, self.rank, self.call, self.record = n, 0, 0, True
+        self.parts: dict = {}
+        self.sent: dict = {}
+        self.total: dict = {}
+        self.late = 0.0
+
+    def enter(self, rank: int, record: bool) -> None:
+        self.rank, self.record, self.call = rank, record, 0
+
+    def split(self):
+        return (None, ("seq",), self.rank, self.n)
+
+    def gather(self, x, mesh, dim: int, axes="model"):
+        call, self.call = self.call, self.call + 1
+        parts = self.parts.setdefault(call, [None] * self.n)
+        if not self.record:
+            return _SeqRankGather.apply(x, dim, self, call)
+        parts[self.rank] = x.detach().clone()
+        return torch.cat([torch.zeros_like(x) if p is None else p
+                          for p in parts], dim)
+
+    def patched(self):
+        from contextlib import ExitStack
+        from unittest import mock
+
+        import repro_torch.launch.collectives as collectives
+        import repro_torch.models.attention as attention
+        import repro_torch.models.lm as lm
+        import repro_torch.models.ssm as ssm
+        stack = ExitStack()
+        for mod in (collectives, attention, ssm):
+            stack.enter_context(mock.patch.object(mod, "gather_leaf",
+                                                  self.gather))
+        for mod in (attention, ssm, lm):
+            stack.enter_context(mock.patch.object(mod, "seq_split",
+                                                  self.split))
+        return stack
+
+
+def seq_layer_run(layer, leaves: dict, x, dy):
+    """``layer(leaves, x)`` forward and backward for the cotangent ``dy``:
+    y, dx and the leaves' gradients."""
+    lv = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+    xx = x.detach().clone().requires_grad_()
+    y = layer(lv, xx)
+    grads = torch.autograd.grad(y, [xx, *lv.values()], dy)
+    return y.detach(), grads[0], dict(zip(lv, grads[1:]))
+
+
+def seq_rank_parts(layer, leaves: dict, x, dy, n: int,
+                   whole: tuple, kv_calls: tuple = ()) -> dict:
+    """The ``n`` ranks' parts of ``layer`` on ``x`` (1, S, D) (rank r
+    holds tokens [r S/n, (r+1) S/n)) through ``SeqRanks``: their y and dx
+    concatenated in rank order and their weight gradients summed in rank
+    order, each held to ``whole`` (y, dx, gradients of the whole layer);
+    the gradients each rank's backward got for the gathers ``kv_calls``
+    (the keys and values), concatenated, against ``whole``'s fourth entry
+    (the same of one rank)."""
+    s = x.shape[1] // n
+    ranks = SeqRanks(n)
+    ys, dxs, summed = [None] * n, [None] * n, None
+    with ranks.patched():
+        for r in range(n):
+            ranks.enter(r, record=True)
+            with torch.no_grad():
+                layer(leaves, x[:, r * s:(r + 1) * s])
+        for r in reversed(range(n)):
+            ranks.enter(r, record=False)
+            ys[r], dxs[r], g = seq_layer_run(
+                layer, leaves, x[:, r * s:(r + 1) * s],
+                dy[:, r * s:(r + 1) * s])
+            g = {k: v.float() for k, v in g.items()}
+            summed = g if summed is None else \
+                {k: g[k] + summed[k] for k in g}
+    y, dx, grads = whole[:3]
+    errs = {"y": leaf_rel(torch.cat(ys, dim=1), y),
+            "dx": leaf_rel(torch.cat(dxs, dim=1), dx)}
+    worst = {k: leaf_rel(summed[k], grads[k]) for k in grads}
+    errs["grad"] = max(worst.values())
+    errs["worst_leaf"] = max(worst, key=worst.get)
+    for call, name in zip(kv_calls, ("dk", "dv")):
+        errs[name] = leaf_rel(torch.cat(ranks.total[call], dim=1),
+                              whole[3][call])
+    errs["late"] = ranks.late
+    return errs
+
+
+def seq_layers():
+    """Layer 0 of deepseek-7b and of mamba2-780m at their published widths
+    (bf16, seed 0), each as (cfg, the one-layer model's parameters, its
+    layer's leaves, layer(leaves, x) -> y: the port's pre-norm block with
+    its residuals, at the positions ``lm.seq_positions`` gives the rank
+    that runs it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, lm
+    from repro_torch.models.api import _unflatten
+    out = {}
+    for arch in (TRAIN_ARCH, SEQ_SSM_ARCH):
+        cfg = get_config(arch).replace(n_layers=1)
+        model = Model(cfg, device="cuda").init(
+            torch.Generator("cuda").manual_seed(0))
+        leaves = {k[len("layers."):]: v[0] for k, v in
+                  model.state_dict().items() if k.startswith("layers.")}
+        if cfg.family == "ssm":
+            def layer(lv, x, cfg=cfg):
+                return lm._mamba_layer(_unflatten(lv), x, cfg, False)[0]
+        else:
+            def layer(lv, x, cfg=cfg):
+                pos = lm.seq_positions(x.shape[1], x.device)
+                return lm._block_forward(_unflatten(lv), x, pos, 0, cfg)[0]
+        out[arch] = (cfg, model.params, leaves, layer)
+    return out
+
+
+def seq_prefill_parts(cfg, params, tokens, n: int, whole: tuple) -> dict:
+    """``lm.prefill`` of ``tokens`` (1, S) as each of ``n`` sequence ranks
+    holds them (rank r tokens [r S/n, (r+1) S/n)) through ``SeqRanks``,
+    without autograd: the ranks run in rank order twice, the first pass
+    recording each rank's parts of the gathers, so that on the second every
+    rank reads every other's.  Each rank's last logits and cache, from the
+    port's own positions, ``seq_last`` and mamba prefill cache, against
+    ``whole`` (the whole prompt's): the worst relative error of each
+    output over the ranks, and whether every rank's pos equals the
+    whole's."""
+    from repro_torch.models import lm
+    s = tokens.shape[1] // n
+    ranks = SeqRanks(n)
+    want_logits, want_cache = whole
+    errs: dict = {}
+    pos_equal = True
+    with ranks.patched(), torch.no_grad():
+        for check in (False, True):
+            for r in range(n):
+                ranks.enter(r, record=True)
+                logits, cache = lm.prefill(
+                    params, {"tokens": tokens[:, r * s:(r + 1) * s]}, cfg)
+                if not check:
+                    continue
+                got = {"logits": logits, **cache}
+                for k, want in {"logits": want_logits,
+                                **want_cache}.items():
+                    if k == "pos":
+                        pos_equal &= torch.equal(got[k], want)
+                        continue
+                    errs[k] = max(errs.get(k, 0.0), leaf_rel(got[k], want))
+    errs["pos_equal"] = pos_equal
+    return errs
+
+
+def seq_state_pass_ms(cfg, s: int, n: int, gen) -> dict:
+    """The state pass alone at a rank's slice of ``s`` tokens: the
+    rank's ``ssd_chunked`` (its SSD launch at s / chunk chunks and the
+    inter-chunk glue) with an incoming state added (``carry`` returning a
+    fixed state, as the fold over the gathered states gives it; rank n-1's
+    fold over n-1 states timed beside it) and without: CUDA events over 20
+    calls as the host issues them, and the device's time alone
+    (``graph_ms``)."""
+    from repro_torch.models.ssm import _carry, ssd_chunked
+    h, p, nn_ = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xh = torch.randn((1, s, h, p), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (1, s, h), generator=gen, device="cuda"))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    bm, cm = (torch.randn((1, s, nn_), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    h_in = torch.randn((1, h, nn_, p), generator=gen, device="cuda")
+    hs = torch.randn((n, 1, h, nn_, p), generator=gen, device="cuda")
+    decays = torch.rand((n, 1, h), generator=gen, device="cuda")
+    ranks = SeqRanks(n)
+    ranks.parts = {0: list(hs[:, None].unbind(0)),
+                   1: list(decays[:, None].unbind(0))}
+    fold = _carry(None, ("seq",), n - 1, n)
+
+    def folded():
+        ranks.enter(n - 1, record=False)
+        return fold(hs[-1], decays[-1])
+
+    def plain():
+        return ssd_chunked(xh, dt, a_log, bm, cm, cfg.ssm_chunk)
+
+    def carried():
+        return ssd_chunked(xh, dt, a_log, bm, cm, cfg.ssm_chunk,
+                           carry=lambda hh, aa: h_in)
+
+    out = {"tokens": s, "chunks": -(-s // cfg.ssm_chunk)}
+    with torch.no_grad():
+        for key, fn in (("ssd_chunked", plain), ("with_state", carried)):
+            out[f"{key}_ms"] = time_ms(fn, 20)
+            out[f"{key}_graph_ms"] = graph_ms(fn)
+        with ranks.patched():
+            out["fold_ms"] = time_ms(folded, 20)
+            out["fold_graph_ms"] = graph_ms(folded)
+    out["state_add_graph_ms"] = out["with_state_graph_ms"] - \
+        out["ssd_chunked_graph_ms"]
+    return out
+
+
+def seq_kernel_ms(cfg_dense, cfg_ssm, gen) -> dict:
+    """Flash's forward and forward + backward at each rank's (S, T) = (s,
+    (r+1) s) for s = SEQ_TOKENS / n (bf16, deepseek-7b's 32 heads x 128),
+    and the SSD kernel's forward and forward + backward at each rank's
+    chunks (mamba2-780m's 48 heads x 64, state 128): CUDA events over 20
+    calls, and the device's time of the forward (``graph_ms``) and of the
+    forward and backward (``device_ms``)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    h, hd = cfg_dense.n_heads, cfg_dense.head_dim
+    flash, ssd = {}, {}
+    for n in (1, *SEQ_RANKS):
+        s = SEQ_TOKENS // n
+        for r in range(n):
+            q, k, v = (torch.randn((1, t, h, hd), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       .requires_grad_() for t in (s, (r + 1) * s,
+                                                   (r + 1) * s))
+            do = torch.randn_like(q)
+
+            def fwd_bwd():
+                o = flash_attention(q, k, v)
+                torch.autograd.grad(o, (q, k, v), do)
+
+            flash[f"n{n} r{r} S{s} T{(r + 1) * s}"] = {
+                "fwd_ms": time_ms(lambda: flash_attention(
+                    q.detach(), k.detach(), v.detach()), 20),
+                "fwd_graph_ms": graph_ms(lambda: flash_attention(
+                    q.detach(), k.detach(), v.detach())),
+                "fwd_bwd_ms": time_ms(fwd_bwd, 20),
+                "fwd_bwd_device_ms": device_ms(fwd_bwd)}
+        shape = (1, s // cfg_ssm.ssm_chunk, cfg_ssm.ssm_chunk,
+                 cfg_ssm.ssm_heads, cfg_ssm.ssm_head_dim, cfg_ssm.ssm_state)
+        x = ssd_inputs(*shape, True, gen)
+        dy, ds = ssd_cotangents(shape, "both", gen)
+        ssd[f"n{n} chunks {shape[1]}"] = {
+            "shape": list(shape),
+            "fwd_ms": time_ms(lambda: ssd_intra_chunk(*x), 20),
+            "fwd_graph_ms": graph_ms(lambda: ssd_intra_chunk(*x)),
+            "fwd_bwd_ms": time_ms(lambda: ssd_grads(x, dy, ds), 20),
+            "fwd_bwd_device_ms": device_ms(lambda: ssd_grads(x, dy, ds))}
+    return {"flash": flash, "ssd": ssd}
+
+
+def phase_seq_split(card: str) -> dict:
+    """Phase 11 (see SEQ_* above): for deepseek-7b's and mamba2-780m's
+    layer 0 at published widths, the whole layer on 1 x SEQ_TOKENS tokens,
+    then each rank's part at each n of SEQ_RANKS (``seq_rank_parts``), every
+    launch counted from 0; then the kernels timed at each rank's shapes and
+    the state pass alone."""
+    from repro_torch.models import lm
+    layers = seq_layers()
+    gen = torch.Generator("cuda").manual_seed(24)
+    out: dict = {}
+    prefill: dict = {}
+    paths = []
+    for arch, (cfg, params, leaves, layer) in layers.items():
+        shape = (1, SEQ_TOKENS, cfg.d_model)
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dense = cfg.family == "dense"
+        zero_counts()
+        whole = seq_layer_run(layer, leaves, x, dy)
+        if dense:          # the keys' and values' gradients of one rank
+            one = SeqRanks(1)
+            with one.patched():
+                one.enter(0, record=True)
+                with torch.no_grad():
+                    layer(leaves, x)
+                one.enter(0, record=False)
+                seq_layer_run(layer, leaves, x, dy)
+            whole = (*whole, {c: one.total[c][0] for c in (0, 1)})
+        for n in SEQ_RANKS:
+            errs = seq_rank_parts(layer, leaves, x, dy, n, whole,
+                                  (0, 1) if dense else ())
+            out[f"{arch} n{n}"] = errs
+            assert errs["late"] == 0.0, f"[seq] {arch} n{n}: {errs}"
+            for k in SEQ_PART_REL:
+                if k == "dkv":
+                    bad = [e for e in ("dk", "dv") if e in errs
+                           and errs[e] > SEQ_PART_REL[k]]
+                else:
+                    bad = [k] if errs[k] > SEQ_PART_REL[k] else []
+                assert not bad, \
+                    f"[seq] {arch} n{n} {bad}: {errs} > {SEQ_PART_REL}"
+        launches = read_counts()
+        # the whole layer; each rank's forward without autograd (the
+        # recorded pass) and with it, and its backward; deepseek's one-rank
+        # pass for the keys' gradients besides
+        calls = 1 + sum(SEQ_RANKS)
+        fwd = 1 + 2 * sum(SEQ_RANKS) + (2 if dense else 0)
+        want = {"flash_attn_fwd": fwd if dense else 0,
+                "flash_attn_bwd": calls + 1 if dense else 0,
+                "moe_gmm": 0, "moe_gmm_bwd": 0,
+                "ssd_intra_chunk": 0 if dense else fwd,
+                "ssd_intra_chunk_bwd": 0 if dense else calls}
+        assert launches == want, (arch, launches, want)
+        paths.append({"arch": cfg.name, "n_layers": 1,
+                      "path": "sequence-split rank parts",
+                      "launches": launches})
+        tokens = torch.randint(0, cfg.vocab, (1, SEQ_TOKENS), generator=gen,
+                               device="cuda")
+        zero_counts()
+        with torch.no_grad():
+            whole = lm.prefill(params, {"tokens": tokens}, cfg)
+        for n in SEQ_RANKS:
+            errs = seq_prefill_parts(cfg, params, tokens, n, whole)
+            prefill[f"{arch} n{n}"] = errs
+            assert errs["pos_equal"], f"[seq] prefill {arch} n{n}: {errs}"
+            bad = {k: v for k, v in errs.items()
+                   if k in SEQ_PREFILL_REL and v > SEQ_PREFILL_REL[k]}
+            assert not bad, \
+                f"[seq] prefill {arch} n{n} {bad} > {SEQ_PREFILL_REL}"
+        launches = read_counts()
+        # the whole prompt, and each rank's twice
+        fwd = 1 + 2 * sum(SEQ_RANKS)
+        want = {"flash_attn_fwd": fwd if dense else 0, "flash_attn_bwd": 0,
+                "moe_gmm": 0, "moe_gmm_bwd": 0,
+                "ssd_intra_chunk": 0 if dense else fwd,
+                "ssd_intra_chunk_bwd": 0}
+        assert launches == want, (arch, launches, want)
+        paths.append({"arch": cfg.name, "n_layers": 1,
+                      "path": "sequence-split prefill",
+                      "launches": launches})
+        del whole
+    (dcfg, *_), (scfg, *_) = layers.values()
+    del layers
+    timed = seq_kernel_ms(dcfg, scfg, gen)
+    state = {f"n{n}": seq_state_pass_ms(scfg, SEQ_TOKENS // n, n, gen)
+             for n in SEQ_RANKS}
+    tag = "[seq]"
+    for key, errs in out.items():
+        say(f"{tag} {key} ({SEQ_TOKENS} tokens, bf16): " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in errs.items()) + f" (bounds {SEQ_PART_REL})")
+    for key, errs in prefill.items():
+        say(f"{tag} prefill {key} ({SEQ_TOKENS} tokens, bf16): " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in errs.items()) + f" (bounds {SEQ_PREFILL_REL})")
+    for key, t in timed["flash"].items():
+        say(f"{tag} flash {key}: forward {t['fwd_ms']:.4f} ms (graph "
+            f"{t['fwd_graph_ms']:.4f}), forward + backward "
+            f"{t['fwd_bwd_ms']:.4f} ms (device {t['fwd_bwd_device_ms']:.4f})"
+            f" [{card}]")
+    for n in SEQ_RANKS:
+        ranks_ms = [timed["flash"][k]["fwd_bwd_device_ms"]
+                    for k in timed["flash"] if k.startswith(f"n{n} ")]
+        say(f"{tag} flash at {n} ranks: the last rank's forward + backward "
+            f"{ranks_ms[-1] / (sum(ranks_ms) / n):.3f} x the mean rank's "
+            f"(device) [{card}]")
+    for key, t in timed["ssd"].items():
+        say(f"{tag} SSD {key} {t['shape']}: forward {t['fwd_ms']:.4f} ms "
+            f"(graph {t['fwd_graph_ms']:.4f}), forward + backward "
+            f"{t['fwd_bwd_ms']:.4f} ms (device {t['fwd_bwd_device_ms']:.4f})"
+            f" [{card}]")
+    for key, t in state.items():
+        say(f"{tag} state pass {key}: ssd_chunked at {t['tokens']} tokens "
+            f"({t['chunks']} chunks) {t['ssd_chunked_ms']:.4f} ms (graph "
+            f"{t['ssd_chunked_graph_ms']:.4f}), with the incoming state "
+            f"added {t['with_state_ms']:.4f} ms (graph "
+            f"{t['with_state_graph_ms']:.4f}, +"
+            f"{t['state_add_graph_ms']:.4f}); the last rank's fold "
+            f"{t['fold_ms']:.4f} ms (graph {t['fold_graph_ms']:.4f}) "
+            f"[{card}]")
+    return {"card": card, "errors": out, "prefill_errors": prefill,
+            "timed": timed, "state_pass": state, "paths": paths}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -4208,6 +4674,10 @@ def main(argv: list[str]) -> int:
     if "--fsdp-only" in argv:
         fsdp = phase_fsdp(card, None)
         say(json.dumps({"fsdp": fsdp}))
+        return 0
+    if "--seq-only" in argv:
+        seq = phase_seq_split(card)
+        say(json.dumps({"sequence_split": seq}))
         return 0
     build = phase_build()
     flash_err = phase_kernels()
@@ -4247,12 +4717,13 @@ def main(argv: list[str]) -> int:
     ep = phase_expert_parallel(card, moe_train["ms_per_step"])
     tp = phase_tensor_parallel(card, paths[0]["tokens"])
     fsdp = phase_fsdp(card, paths[0]["tokens"])
+    seq = phase_seq_split(card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
                    p["launches"][name]
                    for p in paths + ep["paths"] + tp["paths"]
-                   + fsdp["paths"]}
+                   + fsdp["paths"] + seq["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -4371,6 +4842,7 @@ def main(argv: list[str]) -> int:
                                   "expert_parallel": ep,
                                   "tensor_parallel": tp,
                                   "fsdp": fsdp,
+                                  "sequence_split": seq,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

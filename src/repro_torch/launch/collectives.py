@@ -27,6 +27,15 @@ Function over one axis of a DeviceMesh (``mesh.get_group(axis)``):
     scatter_sum  its transpose: the ranks' tensors summed and each rank's
                  part kept forward, the parts gathered backward
 
+and, over a sequence whose contiguous slices lie on the ranks of one or
+more axes (an "fsdp" batch smaller than the mesh, ``models/common.
+seq_split``), on ``gather_leaf``, whose backward sums what every rank's
+later work read:
+
+    seq_halo     the rows just before this rank's slice (a causal conv's
+                 halo), zeros before the first token
+    seq_last     the last rank's tensor, on every rank
+
 "tp" mode gathers a leaf that every rank of "model" uses whole on the same
 rows (mamba's, llava's projector) with ``seq_gather``: there every rank's
 gradient of the whole leaf is the same, and the rank keeps its own slice.
@@ -226,6 +235,28 @@ def gather_leaf(x: torch.Tensor, mesh, dim: int,
     gradient of the whole leaf, of which the rank keeps its part.  Over an
     axis of one rank both are copies."""
     return _LeafGather.apply(x, dim, _groups(mesh, axes))
+
+
+def seq_halo(x: torch.Tensor, mesh, axes, index: int,
+             rows: int) -> torch.Tensor:
+    """The ``rows`` rows of a sequence just before the slice ``x`` (B, s,
+    ...) that the rank at ``index`` of ``axes`` holds (``models/common.
+    seq_rank``), zeros before the first token: a causal conv's halo.  Each
+    rank's last min(s, rows) rows are gathered (``gather_leaf``), so the
+    halo's gradient flows back, summed, to the ranks whose rows they are.
+    Every rank runs the same ops on the gathered rows, the first rank too,
+    so that every rank's backward meets the reduce-scatter."""
+    m = min(x.shape[1], rows)
+    tails = gather_leaf(x.narrow(1, x.shape[1] - m, m), mesh, 1, axes)
+    zeros = tails.new_zeros((tails.shape[0], rows, *tails.shape[2:]))
+    return torch.cat([zeros, tails], dim=1).narrow(1, index * m, rows)
+
+
+def seq_last(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The last rank's ``x`` over ``axes`` (the end of a split sequence),
+    alike on every rank; backward, every rank's gradient summed into the
+    last rank's."""
+    return gather_leaf(x[None], mesh, 0, axes)[-1]
 
 
 def scatter_sum(x: torch.Tensor, mesh, dim: int, axes="model") -> torch.Tensor:

@@ -29,8 +29,13 @@ reduce-scatter the gradients, ``models/common.gather_layer``; the experts stay
 split over "model").  ``shard_batch`` gives its rows of a batch, over the data
 axes ("tp") or over every axis ("fsdp"); ZeRO-1's moments
 (``opt_shardings(..., zero1=True)``) are built by ``optim/adamw.AdamW.init``.
-The fsdp batch smaller than the mesh, whose sequence the rules split, is not
-carried out (ROADMAP.md, item 9b (viii)).  The reference's ``constraint`` and
+An fsdp batch smaller than the mesh has its rows over a prefix of the axes
+and its sequence over the rest (``split_batch``): each rank holds one
+contiguous slice of its rows' sequence, and the models attend across the
+slices and pass the SSM state along them (``models/attention.py``,
+``models/ssm.py``; the dense, SSM and hybrid families; the MoE, the
+encoder-decoder and the VLM raise, ROADMAP.md item 9b (viii)).  The
+reference's ``constraint`` and
 the models' ``maybe_constrain`` are hints to GSPMD's partitioner; eager
 PyTorch has no partitioner, so they have no counterpart.
 """
@@ -414,23 +419,41 @@ def shard_params(params: dict, mesh, mode: str = "tp",
             for n, p in params.items()}
 
 
+def split_axes(specs: dict, mesh) -> tuple[tuple, tuple]:
+    """(rows, seq): the axes over which ``batch_shardings``' ``specs`` of a
+    whole batch put its rows (dim 0) and its sequence (dim 1), each in the
+    mesh's order.  rows is () where the whole batch lies on every rank;
+    seq is () but for an "fsdp" batch smaller than the mesh, whose rows lie
+    over a prefix of the axes and whose sequence over the rest."""
+    mesh = MeshSpec.of(mesh)
+
+    def named(dim: int) -> tuple:
+        axes = {a for spec in specs.values() if len(spec) > dim
+                for a in _axes_of(spec[dim])}
+        return tuple(a for a in mesh.axis_names if a in axes)
+    return named(0), named(1)
+
+
+def split_batch(batch: dict, mesh, mode: str = "tp"
+                ) -> tuple[dict, tuple, tuple]:
+    """(this rank's part of ``batch``, rows, seq) from one
+    ``batch_shardings`` of the whole batch in ``mode``: the part as
+    ``shard_batch`` cuts it, and the axes its rows and its sequence lie
+    over (``split_axes``).  The one source of the split that the steps
+    install (``launch/steps.py``, ``Model.on_mesh``)."""
+    specs = batch_shardings(batch, mesh, mode)
+    coord = coordinate(mesh)
+    return ({k: local_slice(v, specs[k], mesh, coord)
+             for k, v in batch.items()}, *split_axes(specs, mesh))
+
+
 def shard_batch(batch: dict, mesh, mode: str = "tp") -> dict:
-    """This rank's rows of ``batch`` (``batch_shardings`` in ``mode``): over
-    the data axes in "tp" mode when the batch divides them, else the whole
-    batch, as the reference's expert-parallel blocks take it
+    """This rank's part of ``batch`` (``batch_shardings`` in ``mode``):
+    its rows over the data axes in "tp" mode when the batch divides them,
+    else the whole batch, as the reference's expert-parallel blocks take it
     (``repro/models/mlp.py:106-108``); over every axis in "fsdp" mode, or
     the whole batch where no prefix of the axes divides it.  An "fsdp"
-    batch smaller than the mesh, whose sequence the rules put over the
-    axes that are left, raises: sequence parallelism is ROADMAP.md's item
-    9b (viii)."""
-    specs = batch_shardings(batch, mesh, mode)
-    for k, spec in specs.items():
-        if len(spec) > 1 and spec[1] is not None:
-            raise ValueError(
-                f"{k} {_shape(batch[k])}: \"fsdp\" puts its rows over "
-                f"{spec[0]} and its sequence over {spec[1]} (a batch smaller "
-                f"than the mesh); the port does not split the sequence "
-                f"(ROADMAP.md, item 9b (viii))")
-    coord = coordinate(mesh)
-    return {k: local_slice(v, specs[k], mesh, coord)
-            for k, v in batch.items()}
+    batch smaller than the mesh gives the rank its rows over a prefix of
+    the axes and one contiguous slice of their sequence over the rest, in
+    ``local_slice``'s order (``split_batch`` gives the axes besides)."""
+    return split_batch(batch, mesh, mode)[0]

@@ -9,7 +9,7 @@ import torch.distributed as dist
 from ..models import Model
 from ..optim import AdamW
 from .mesh import MeshSpec
-from .shardings import row_axes, spec_axes
+from .shardings import row_axes, spec_axes, split_batch
 
 
 def make_train_step(model: Model, opt: AdamW):
@@ -21,9 +21,14 @@ def make_train_step(model: Model, opt: AdamW):
     "grad_norm" (0-d tensors).  ``batch`` is what ``Model.train_loss``
     takes: tokens and labels, and frames (whisper) or patches (llava).
 
-    On a mesh (``model.mesh``) the batch is the rank's rows
-    (``launch/shardings.shard_batch`` in the model's mode) and the forward
-    and backward run under ``model.on_mesh(train=True)``.  In "tp" mode
+    On a mesh (``model.mesh``) ``batch`` is the whole batch, as the
+    reference's step takes it; the step keeps the rank's part
+    (``launch/shardings.split_batch`` in the model's mode: its rows, and
+    in "fsdp" mode its slice of their sequence where the batch is smaller
+    than the mesh) and runs the forward and backward under
+    ``model.on_mesh(split=...)`` of the axes that part lies over.  Every rank holds as many
+    tokens as every other, so the mean of the ranks' losses is the
+    batch's.  In "tp" mode
     every gradient and the loss's metrics are then averaged over the batch
     axes when they hold more than one rank (data parallelism); tensor and
     expert parallelism leave each rank of "model" the gradient of its
@@ -53,10 +58,12 @@ def make_train_step(model: Model, opt: AdamW):
             t.div_(n)
 
     def train_step(state, batch):
+        batch, split = _shard(model, batch)
+        on_mesh = model.on_mesh(train=True, split=split)
         params = state["params"]
         for p in params.values():
             p.grad = None
-        with model.on_mesh(train=True):
+        with on_mesh:
             loss, metrics = model.train_loss(batch)
             loss.backward()
         grads = {n_: p.grad for n_, p in params.items()}
@@ -76,13 +83,30 @@ def make_train_step(model: Model, opt: AdamW):
     return train_step
 
 
+def _shard(model: Model, batch: dict) -> tuple[dict, tuple | None]:
+    """The rank's part of a whole batch on the model's mesh and the axes
+    its rows and its sequence lie over (``split_batch``); the batch and
+    None without a mesh."""
+    if model.mesh is None:
+        return batch, None
+    part, rows, seq = split_batch(batch, model.mesh, model.mode)
+    return part, (rows, seq)
+
+
 def make_prefill_step(model: Model):
     """The prompt in, as the reference's ``make_prefill_step``
     (``repro/launch/steps.py:28-33``): returns (the greedy next token of
-    each row, (B,) int64, and the cache)."""
+    each row, (B,) int64, and the cache).  On a mesh ``batch`` is the
+    whole batch, sharded as ``make_train_step`` shards it: the rank's rows
+    come back, and where the sequence is split each rank of its axes
+    returns the whole prompt's token and cache (k/v of every position, the
+    mamba states at its end, ``pos`` its length), which decode reads as
+    that of an unsplit prefill."""
     def prefill_step(batch):
-        logits, cache = model.prefill(batch)
-        return model.greedy(logits), cache
+        batch, split = _shard(model, batch)
+        with model.on_mesh(split=split):
+            logits, cache = model.prefill(batch)
+            return model.greedy(logits), cache
 
     return prefill_step
 

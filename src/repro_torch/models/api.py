@@ -30,6 +30,15 @@ a training batch (``shard_batch(batch, mesh, mode)``: over the data axes
 in "tp" mode, over every axis in "fsdp" mode); the serving methods take
 the same rows on every rank.  In "tp" mode the logits are the rank's
 vocabulary slice; ``greedy`` takes the token of the whole vocabulary.
+
+An "fsdp" batch smaller than the mesh splits each row's sequence over the
+axes its rows leave.  The steps that shard a whole batch
+(``launch/steps.py``) install the axes of its rows and of its sequence as
+``launch/shardings.split_batch`` cut it (``on_mesh(split=...)``), and the
+methods called inside keep them: each rank
+runs its slice of its rows, for the dense, SSM and hybrid families.  The
+MoE, the encoder-decoder and the VLM raise there, on every rank before any
+collective (ROADMAP.md item 9b (viii)).
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ from torch import nn
 from ..launch.collectives import vocab_argmax
 from ..launch.shardings import row_axes, shard_params, sharded_specs
 from . import encdec, lm
-from .common import SHARDING_MODE, dtype_of, require_device, use_mesh
+from .common import (SHARDING_MODE, ambient_mesh, ambient_rows,
+                     ambient_seq, dtype_of, require_device, use_mesh)
 from .config import ArchConfig
 
 
@@ -60,6 +70,14 @@ def _tree_of(mod: nn.Module) -> dict:
     for name, child in mod.named_children():
         tree[name] = _tree_of(child)
     return tree
+
+
+# the families whose whole sequence a rank needs, and why
+_WHOLE_SEQUENCE = {
+    "moe": "the dispatch's capacity is per row over the whole sequence",
+    "encdec": "the encoder's frames are a second sequence to split",
+    "vlm": "the patch prefix is a second sequence to split",
+}
 
 
 class Model(nn.Module):
@@ -93,13 +111,30 @@ class Model(nn.Module):
                                                              self.mode)
         _populate(self, _unflatten(self._shard(full)))
 
-    def on_mesh(self, train: bool = False):
-        """``use_mesh`` of the model's mesh in the mode it was built in;
-        with ``train``, the rows split as ``shard_batch`` splits a training
-        batch in that mode (over every axis in "fsdp" mode)."""
-        rows = row_axes(self.mesh, self.mode) if train and self.mesh \
-            else None
-        return use_mesh(self.mesh, self.mode, rows)
+    def on_mesh(self, train: bool = False, split: tuple | None = None):
+        """``use_mesh`` of the model's mesh in the mode it was built in,
+        with the axes its batch lies over.  ``split`` = (rows, seq): the
+        axes of the rank's rows and of its slice of their sequence, as a
+        step cut the whole batch (``launch/shardings.split_batch``).
+        Without it, inside a ``use_mesh`` of the model's own mesh (a
+        step's) the split installed there is kept whole; elsewhere the
+        rows lie as ``shard_batch`` lays out a training batch with
+        ``train`` (over every axis in "fsdp" mode), else over the data
+        axes, and no sequence is split.  A split sequence raises for the
+        families that do not carry it out, before any collective."""
+        if split is None and self.mesh is not None:
+            split = (ambient_rows(), ambient_seq()) \
+                if ambient_mesh() is self.mesh else \
+                (row_axes(self.mesh, self.mode) if train else None, ())
+        rows, seq = split or (None, ())
+        if seq and self.cfg.family in _WHOLE_SEQUENCE:
+            raise ValueError(
+                f"{self.cfg.name}: the batch's sequence is split over "
+                f"{tuple(seq)} (an \"fsdp\" batch smaller than the "
+                f"mesh), which the {self.cfg.family} family does not "
+                f"carry out: {_WHOLE_SEQUENCE[self.cfg.family]} "
+                f"(ROADMAP.md, item 9b (viii))")
+        return use_mesh(self.mesh, self.mode, rows, seq)
 
     def _shard(self, state: dict) -> dict:
         """The rank's part of a whole flat state (all of it off a mesh)."""

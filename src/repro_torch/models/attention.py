@@ -25,16 +25,23 @@ share; the whole kv weights enter through "f", so their gradients add the
 ranks' shares.  Decode caches hold the kv heads the rank projects, as
 ``launch/shardings.cache_shardings`` lays them out.  In "fsdp" mode the
 layer's leaves arrive gathered whole (``common.gather_layer``) and each
-rank attends with every head on its own rows, with no collective here."""
+rank attends with every head on its own rows, with no collective here;
+where a batch smaller than the mesh splits the sequence over the ranks of
+some axes (``common.seq_split``: rank r of n holds tokens [r s, (r+1) s)),
+the keys and values are gathered over them (``collectives.gather_leaf``,
+whose backward sums every rank's share of their gradient) and the rank's s
+queries, rotated at their global positions, attend to keys [0, (r+1) s)
+through flash with T = (r+1) s: the kernel's diagonal offset T - S is the
+rank's start, and a window reaches across the ranks' boundaries."""
 from __future__ import annotations
 
 import torch
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ref import NEG_INF
-from ..launch.collectives import all_reduce, copy_to
+from ..launch.collectives import all_reduce, copy_to, gather_leaf
 from ..launch.mesh import coordinate
-from .common import apply_rope, normal_init, tp_split
+from .common import apply_rope, normal_init, seq_split, tp_split
 from .config import ArchConfig
 
 
@@ -131,11 +138,20 @@ def full_attention(params, x, positions, cfg: ArchConfig, window: int = 0,
 
     Returns (output, (k, v)) so prefill can seed the decode cache; under
     "tp" the rank's query heads attend and (k, v) are the kv heads it
-    projects."""
+    projects.  Under a sequence split (``common.seq_split``) ``positions``
+    are the rank's global ones and (k, v) are the whole sequence's."""
     mesh, params, kv = _split(params, cfg)
     q, k, v = _qkv(params, _enter(x, mesh), positions, cfg)
-    out = flash_attention(q, _read(k, kv), _read(v, kv), causal=causal,
-                          window=window)
+    keys, values = k, v
+    split = seq_split()
+    if split is not None:
+        seq_mesh, axes, r, _ = split
+        s = k.shape[1]
+        k, v = (gather_leaf(t, seq_mesh, 1, axes) for t in (k, v))
+        end = (r + 1) * s if causal else k.shape[1]
+        keys, values = k[:, :end], v[:, :end]
+    out = flash_attention(q, _read(keys, kv), _read(values, kv),
+                          causal=causal, window=window)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return _leave(y, mesh), (k, v)
 

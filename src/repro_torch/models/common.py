@@ -8,7 +8,7 @@ import functools
 import torch
 
 from ..launch.collectives import gather_leaf, seq_gather
-from ..launch.mesh import MeshSpec, batch_axes
+from ..launch.mesh import MeshSpec, batch_axes, coordinate
 from ..launch.shardings import fsdp_gathers, model_dim, param_spec
 
 
@@ -112,10 +112,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 # (``use_mesh``), and the models read the installed one, so a later
 # ``set_sharding_mode`` changes no model already built.
 SHARDING_MODE = ["tp"]
-# the mesh, mode and row axes of ``use_mesh``: plain globals, not context
-# variables, because the autograd engine runs a CUDA backward (and remat's
-# recompute inside it) on threads of its own
-_AMBIENT = [(None, None, ())]
+# the mesh, mode, row axes and sequence axes of ``use_mesh``: plain
+# globals, not context variables, because the autograd engine runs a CUDA
+# backward (and remat's recompute inside it) on threads of its own
+_AMBIENT = [(None, None, (), ())]
 
 
 def set_sharding_mode(mode: str) -> None:
@@ -125,19 +125,23 @@ def set_sharding_mode(mode: str) -> None:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None):
+def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None,
+             seq: tuple = ()):
     """Run the model on ``mesh`` (a DeviceMesh, or None for one process) in
     sharding ``mode`` (default: ``SHARDING_MODE``'s), the counterpart of
     the reference's ``with mesh:``.  ``rows`` names the axes over which the
-    batch's rows are split (``launch/shardings.row_axes``); by default the
-    data axes, the rows alike on every rank of "model" (serving, and "tp"
-    training).  A training step's backward belongs inside too: remat
+    batch's rows are split (``launch/shardings.split_batch``, or
+    ``row_axes`` of a training batch); by default the data axes, the rows
+    alike on every rank of "model" (serving).  ``seq`` names the axes over
+    which each row's sequence is split (``split_batch`` of an "fsdp" batch
+    smaller than the mesh), each rank holding one contiguous slice
+    (``seq_rank``); by default none.  A training step's backward belongs inside too: remat
     recomputes the forward there."""
     prev = _AMBIENT[0]
     if rows is None:
         rows = () if mesh is None else batch_axes(mesh)
     _AMBIENT[0] = (mesh, SHARDING_MODE[0] if mode is None else mode,
-                   tuple(rows))
+                   tuple(rows), tuple(seq) if mesh is not None else ())
     try:
         yield mesh
     finally:
@@ -159,6 +163,35 @@ def ambient_rows() -> tuple:
     return _AMBIENT[0][2]
 
 
+def ambient_seq() -> tuple:
+    """The axes over which ``use_mesh`` says the sequence is split."""
+    return _AMBIENT[0][3]
+
+
+def seq_rank(mesh, axes, coord: dict[str, int] | None = None
+             ) -> tuple[int, int]:
+    """(index, count): which of ``count`` contiguous slices of a sequence
+    split over ``axes`` the rank at ``coord`` ({axis: index}; this
+    process's on a DeviceMesh by default) holds, the first axis the major
+    one, as ``launch/shardings.local_slice`` cuts a dim and
+    ``collectives.gather_leaf`` joins it."""
+    spec = MeshSpec.of(mesh)
+    coord = coordinate(mesh) if coord is None else coord
+    index, count = 0, 1
+    for a in axes:
+        index, count = index * spec.shape[a] + coord[a], count * spec.shape[a]
+    return index, count
+
+
+def seq_split():
+    """(mesh, axes, index, count) of the sequence split that ``use_mesh``
+    installed (``seq_rank``), or None where each rank holds whole rows."""
+    mesh, _, _, seq = _AMBIENT[0]
+    if mesh is None or not seq:
+        return None
+    return (mesh, seq, *seq_rank(mesh, seq))
+
+
 @functools.lru_cache(maxsize=None)
 def _split_dim(name: str, whole: tuple, mesh: MeshSpec) -> int | None:
     return model_dim(param_spec(name, whole, mesh))
@@ -172,7 +205,7 @@ def tp_split(name: str, whole: tuple, leaf: torch.Tensor | None = None):
     rank's share of the split dim.  At one rank of "model" every dim the
     rules would split counts as split, so that a (1, 1) mesh runs the
     tensor-parallel path and its collectives."""
-    mesh, mode, _ = _AMBIENT[0]
+    mesh, mode = _AMBIENT[0][:2]
     if mesh is None or mode != "tp":
         return None
     spec = MeshSpec.of(mesh)
@@ -206,7 +239,7 @@ _gathers = functools.lru_cache(maxsize=None)(fsdp_gathers)
 
 def fsdp_mesh():
     """The ambient mesh where its mode is "fsdp", else None."""
-    mesh, mode, _ = _AMBIENT[0]
+    mesh, mode = _AMBIENT[0][:2]
     return mesh if mode == "fsdp" else None
 
 

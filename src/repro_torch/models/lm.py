@@ -40,7 +40,13 @@ gather_layer``; the backward reduce-scatters their gradients), a leaf split
 on its stacked layer dim is gathered once a forward before the layers are
 unbound (``common.gather_layers``), and the embedding, the head,
 ``final_norm``, the projector and zamba2's shared block are gathered at each
-use.
+use.  Where a batch smaller than the mesh splits the sequence over the
+ranks of some axes (``common.seq_split``, the dense, SSM and hybrid
+families), each rank runs its slice of every row: positions from its
+start, attention to every earlier token (``attention.full_attention``),
+mamba layers from the state the earlier slices leave (``ssm.py``); the
+loss is the mean over the rank's labels, and a prefill's cache and last
+logits are the whole sequence's on every rank.
 """
 from __future__ import annotations
 
@@ -52,13 +58,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..launch.collectives import (all_reduce, copy_to,
+from ..launch.collectives import (all_reduce, copy_to, seq_last,
                                   vocab_cross_entropy)
 from ..launch.mesh import MeshSpec, coordinate
 from .attention import decode_attention, full_attention, init_attn_params
 from .common import (cross_entropy_loss, dtype_of, fsdp_whole,
                      gather_layer, gather_layers, gathering, normal_init,
-                     rms_norm, tp_split, tp_whole, whole_shapes)
+                     rms_norm, seq_split, tp_split, tp_whole, whole_shapes)
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
@@ -311,6 +317,15 @@ def _block_forward(lp, h, positions, window: int, cfg: ArchConfig):
     return h + y, aux, kv
 
 
+def seq_positions(n: int, device) -> torch.Tensor:
+    """(1, n): the positions of a sequence of ``n`` tokens, from the rank's
+    start where a sequence split holds it (``common.seq_split``: rank r of
+    the slices of ``n`` tokens starts at r n)."""
+    split = seq_split()
+    start = 0 if split is None else split[2] * n
+    return torch.arange(start, start + n, device=device)[None, :]
+
+
 # ------------------------------------------------------------ full forward
 def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
             last: int = 0, patches=None):
@@ -321,9 +336,15 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
     ``last > 0``: logits of the last ``last`` positions only (1 for prefill,
     the text positions for the VLM's loss); the final norm and the head act
     per position, so these are the full logits' last rows.
-    ``patches``: the VLM's (B,P,1024) patch features, prepended."""
+    ``patches``: the VLM's (B,P,1024) patch features, prepended.
+
+    Under a sequence split (``common.seq_split``) ``tokens`` are the rank's
+    slice: the logits are its positions', the last ``last`` ones (at most
+    a slice) the last rank's on every rank, and the cache's k/v the whole
+    sequence's."""
     h = _embed(params, tokens, cfg, patches)
-    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    split = seq_split()
+    positions = seq_positions(h.shape[1], h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     per_layer: dict[str, list] = {}
 
@@ -364,6 +385,8 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
                 cache[key] = cache[key].unflatten(0, _lead(cfg))
     if last > 0:
         h = h[:, -last:, :]
+        if split is not None:
+            h = seq_last(h, split[0], split[1])
     return _logits(params, h, cfg), aux, cache
 
 
@@ -396,6 +419,9 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     logits, _, cache = forward(params, tokens, cfg, collect_cache=True,
                                last=1, patches=patches)
     b, seqlen = tokens.shape
+    split = seq_split()
+    if split is not None:           # the rank's slice: the whole prompt's
+        seqlen *= split[3]
     if cfg.family == "vlm":
         seqlen += patches.shape[1]
     if "k" in cache and pad_to and pad_to > seqlen:

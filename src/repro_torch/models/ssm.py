@@ -19,6 +19,18 @@ columns of ``in_proj`` do not fall on the ranks' boundaries.  In "fsdp"
 mode the layer's leaves arrive gathered whole (``common.gather_layer``;
 ``A_log``, ``D`` and ``dt_bias``, whose layers the rule may split, once a
 forward by ``common.gather_layers``).
+
+Where a batch smaller than the mesh splits the sequence (``common.
+seq_split``: rank r of n holds one contiguous slice), the conv reads the
+previous slice's last ``ssm_conv - 1`` inputs (``collectives.seq_halo``)
+and the scan takes the state across the ranks by its linearity in its
+initial state: each rank runs ``ssd_chunked`` on its slice from a zero
+state, launching the SSD kernel at its own chunks, and returns its final
+state h_r and its total decay a_r = exp(sum dt A); both are gathered over
+the sequence's axes, the state entering rank r is the fold h_in = sum_{j<r}
+(prod_{j<i<r} a_i) h_j, and the rank adds (C_t . h_in) exp(cum_t), cum
+taken from its own start, to y and a_r h_in to its final state.  A
+prefill's cache is the last rank's, on every rank.
 """
 from __future__ import annotations
 
@@ -28,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ssd_intra_chunk
-from .common import normal_init, rms_norm, tp_whole
+from ..launch.collectives import gather_leaf, seq_halo, seq_last
+from .common import normal_init, rms_norm, seq_split, tp_whole
 from .config import ArchConfig
 
 
@@ -80,21 +93,28 @@ def _split_proj(zxbcdt, cfg: ArchConfig):
             zxbcdt[..., 2 * di + 2 * n:])
 
 
-def _causal_conv(xbc, w, b):
-    """Depthwise causal conv along seq.  xbc (B,S,C), w (K,C).  Written as
-    the reference's K shifted multiply-adds (no cuDNN, so no TF32)."""
+def _causal_conv(xbc, w, b, halo=None):
+    """Depthwise causal conv along seq.  xbc (B,S,C), w (K,C); ``halo``
+    (B,K-1,C) the inputs before the first row (zeros by default).  Written
+    as the reference's K shifted multiply-adds (no cuDNN, so no TF32)."""
     k, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = F.pad(xbc, (0, 0, k - 1, 0)) if halo is None else \
+        torch.cat([halo.to(xbc.dtype), xbc], dim=1)
     out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
     return F.silu(out + b)
 
 
-def ssd_chunked(xh, dt, a_log, bmat, cmat, chunk: int, h_init=None):
+def ssd_chunked(xh, dt, a_log, bmat, cmat, chunk: int, h_init=None,
+                carry=None):
     """Chunked SSD.
 
     xh (B,S,H,P), dt (B,S,H) post-softplus, a_log (H,) with A = -exp(a_log),
     bmat/cmat (B,S,N).  Returns (y (B,S,H,P) in xh's dtype, h_final
-    (B,H,N,P) f32)."""
+    (B,H,N,P) f32).  ``carry(h, a)``, given, maps this scan's final state
+    from ``h_init`` and its total decay exp(sum dt A) (B,H) to a state h_in
+    entering before the first step, whose share the scan adds to y and to
+    the final state: a split sequence's earlier slices (the module's
+    docstring)."""
     bsz, s, h, p = xh.shape
     n = bmat.shape[-1]
     l = min(chunk, s)
@@ -130,6 +150,14 @@ def ssd_chunked(xh, dt, a_log, bmat, cmat, chunk: int, h_init=None):
     h_prevs = torch.stack(h_prevs, dim=1)                  # (B,nc,H,N,P)
     y_inter = torch.einsum("bcin,bchnp->bcihp", cc, h_prevs) \
         * torch.exp(cum)[..., None]
+    if carry is not None:
+        tot = cum[:, :, -1, :]                             # (B,nc,H)
+        decay = torch.exp(tot.sum(dim=1))                  # (B,H)
+        h_in = carry(hcur, decay)
+        run = cum + (torch.cumsum(tot, dim=1) - tot)[:, :, None, :]
+        y_inter = y_inter + torch.einsum("bcin,bhnp->bcihp", cc, h_in) \
+            * torch.exp(run)[..., None]
+        hcur = hcur + decay[..., None, None] * h_in
     y = (y_intra + y_inter).reshape(bsz, s, h, p)[:, :orig_s]
     return y.to(xh.dtype), hcur
 
@@ -140,13 +168,19 @@ def mamba_forward(params, x, cfg: ArchConfig, return_state: bool = False):
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     params = _whole(params, cfg)
     zxbcdt = torch.einsum("bsd,dk->bsk", x, params["in_proj"])
-    z, xbc, dt = _split_proj(zxbcdt, cfg)
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    z, xbc_raw, dt = _split_proj(zxbcdt, cfg)
+    split = seq_split()
+    halo = carry = None
+    if split is not None:
+        mesh, axes, r, nr = split
+        halo = seq_halo(xbc_raw, mesh, axes, r, cfg.ssm_conv - 1)
+        carry = _carry(mesh, axes, r, nr)
+    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"], halo)
     xs, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     dt = F.softplus(dt.float() + params["dt_bias"])
     xh = xs.reshape(*xs.shape[:2], h, p)
     y, h_final = ssd_chunked(xh, dt, params["A_log"], bmat, cmat,
-                             cfg.ssm_chunk)
+                             cfg.ssm_chunk, carry=carry)
     y = y + (params["D"][:, None] * xh.float()).to(y.dtype)
     y = y.reshape(*y.shape[:2], di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm"],
@@ -154,8 +188,32 @@ def mamba_forward(params, x, cfg: ArchConfig, return_state: bool = False):
     out = torch.einsum("bsk,kd->bsd", y, params["out_proj"])
     if not return_state:
         return out, None
+    if split is not None:    # the whole sequence's end: the last rank's
+        return out, (seq_halo(xbc_raw, mesh, axes, nr, cfg.ssm_conv - 1),
+                     seq_last(h_final, mesh, axes).to(x.dtype))
     return out, (xbc_raw_tail(x, params["in_proj"], cfg),
                  h_final.to(x.dtype))
+
+
+def _carry(mesh, axes, index: int, count: int):
+    """``ssd_chunked``'s ``carry`` for the rank at ``index`` of ``count``
+    along a sequence split over ``axes``: every rank's final state and
+    total decay gathered, and the fold of those before it, sum_{j<index}
+    (prod_{j<i<index} a_i) h_j.  Every rank folds all ``count`` entries,
+    those from ``index`` on masked to leave the sum as it is, so that every
+    rank's backward meets the gathers' reduce-scatters."""
+    def carry(h, a):
+        hs = gather_leaf(h[None], mesh, 0, axes)           # (n,B,H,N,P)
+        decays = gather_leaf(a[None], mesh, 0, axes)       # (n,B,H)
+        before = torch.arange(count, device=h.device) < index
+        hs = hs * before[:, None, None, None, None]
+        decays = torch.where(before[:, None, None], decays, 1.0)
+        h_in = torch.zeros_like(h)
+        for j in range(count):
+            h_in = h_in * decays[j][..., None, None] + hs[j]
+        return h_in
+
+    return carry
 
 
 def xbc_raw_tail(x, in_proj, cfg: ArchConfig):

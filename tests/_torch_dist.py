@@ -93,14 +93,11 @@ def train_run(model, data, arch: str) -> dict:
     as AdamW receives them."""
     import torch
 
-    from repro_torch.launch.shardings import shard_batch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW, AdamWConfig
     toks = torch.tensor(data[f"{arch}/tokens"])
     batch = {"tokens": toks[:, :-1].contiguous(),
              "labels": toks[:, 1:].contiguous()}
-    if model.mesh is not None:
-        batch = shard_batch(batch, model.mesh, model.mode)
     opt = AdamW(AdamWConfig(**OPT))
     grads = []
     update = opt.update

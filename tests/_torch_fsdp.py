@@ -22,6 +22,7 @@ import os
 
 import numpy as np
 
+import _torch_seq as ts
 import _torch_tp as tt
 
 AXES = ("data", "model")
@@ -119,16 +120,14 @@ def make_inputs(path) -> None:
 
 
 def train_run(model, data, arch: str, zero1: bool = False) -> dict:
-    """TRAIN_STEPS ``make_train_step`` steps on the batch (the rank's rows
-    of it in the model's mode on a mesh): the losses and grad norms, the
+    """TRAIN_STEPS ``make_train_step`` steps on the whole batch (of which
+    the step keeps the rank's part in the model's mode on a mesh): the
+    losses and grad norms, the
     step-1 gradients as AdamW receives them, both moments after step 1 and
     at the end, and the parameters at the end."""
-    from repro_torch.launch.shardings import shard_batch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW, AdamWConfig
     b = tt.batch(data, arch)
-    if model.mesh is not None:
-        b = shard_batch(b, model.mesh, model.mode)
     opt = AdamW(AdamWConfig(**OPT))
     out: dict = {}
     update = opt.update
@@ -182,16 +181,23 @@ def _order(mesh, res: dict, key: str) -> None:
 
 
 def _small_batch(mesh, data, res: dict, key: str) -> None:
-    """``shard_batch`` in "fsdp" mode of ``small_rows``: the error's
-    text."""
-    from repro_torch.launch.shardings import shard_batch
+    """A batch of ``small_rows`` in "fsdp" mode: where the rules split its
+    sequence, the training and prefill steps of the families that do not
+    carry the split out, each error's text (``_torch_seq.refusals``);
+    where they replicate it ((2, 1)), whether ``shard_batch`` leaves it
+    whole."""
+    import torch
+
+    from repro_torch.launch.shardings import split_batch
     b = tt.batch(data, "deepseek-7b")
     rows = small_rows(tuple(mesh.shape))
-    try:
-        shard_batch({k: v[:rows] for k, v in b.items()}, mesh, "fsdp")
-        res[f"{key}/small"] = np.array("no error")
-    except ValueError as e:
-        res[f"{key}/small"] = np.array(str(e))
+    small = {k: v[:rows] for k, v in b.items()}
+    part, _, seq = split_batch(small, mesh, "fsdp")
+    if seq:
+        ts.refusals(mesh, res, key)
+        return
+    res[f"{key}/small_whole"] = np.array(
+        all(torch.equal(part[k], small[k]) for k in small))
 
 
 def _fsdp_cases(world: int, data, res: dict) -> None:

@@ -124,16 +124,14 @@ def batch(data, arch: str) -> dict:
 
 
 def train_run(model, data, arch: str) -> dict:
-    """TRAIN_STEPS ``make_train_step`` steps on the batch (the rank's rows
-    of it on a mesh): the losses and grad norms, and the step-1 loss's
+    """TRAIN_STEPS ``make_train_step`` steps on the whole batch (of which
+    the step keeps the rank's rows on a mesh): the losses and grad norms,
+    and the step-1 loss's
     gradients as AdamW receives them (on a mesh: averaged over the data
     axes, nothing summed over "model")."""
-    from repro_torch.launch.shardings import shard_batch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW, AdamWConfig
     b = batch(data, arch)
-    if model.mesh is not None:
-        b = shard_batch(b, model.mesh, model.mode)
     opt = AdamW(AdamWConfig(**OPT))
     grads = []
     update = opt.update
@@ -370,14 +368,12 @@ def _one_step_state(model, data, zero1: bool = False) -> dict:
     """{"params", "opt"} after one ``make_train_step`` step on the rank's
     rows (f32 AdamW moments, nonzero; ZeRO-1's with ``zero1``), as a
     checkpoint takes it."""
-    from repro_torch.launch.shardings import shard_batch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW, AdamWConfig
     opt = AdamW(AdamWConfig(**OPT))
     params = dict(model.named_parameters())
     st = {"params": params, "opt": opt.init(params, model, zero1)}
-    st, _ = make_train_step(model, opt)(
-        st, shard_batch(batch(data, CKPT_ARCH), model.mesh, model.mode))
+    st, _ = make_train_step(model, opt)(st, batch(data, CKPT_ARCH))
     return st
 
 

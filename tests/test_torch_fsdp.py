@@ -259,19 +259,26 @@ def test_a_batch_smaller_than_the_mesh_raises(runs, shape):
     """A batch of half as many rows as the mesh has ranks, whose sequence
     the fsdp ``batch_shardings`` puts over the axes left (every mesh here
     but (2, 1), where no prefix of the axes divides one row and the rules
-    replicate it), raises on every rank, naming ROADMAP.md's item
-    9b (viii); a replicated batch stays whole on every rank."""
+    replicate it): the families that do not carry the split out, the MoE
+    (llama4-scout), the encoder-decoder (whisper) and the VLM (llava),
+    raise in ``make_train_step`` and ``make_prefill_step`` on every rank,
+    naming ROADMAP.md's item 9b (viii) (the dense, SSM and hybrid families
+    split the sequence: tests/test_torch_seq_split.py); a replicated batch
+    stays whole on every rank."""
     from repro_torch.launch.shardings import batch_shardings
     t = tf.tag(shape)
     spec = batch_shardings({"t": (tf.small_rows(shape), 16)},
                            MeshSpec(tf.AXES, shape), "fsdp")["t"]
     assert (spec == ()) == (shape == (2, 1)), spec
     for res in ranks(runs, shape):
-        msg = str(res[f"{t}/small"])
-        if spec:
-            assert spec[1] is not None and "9b (viii)" in msg, msg
-        else:
-            assert msg == "no error", msg
+        if not spec:
+            assert bool(res[f"{t}/small_whole"])
+            continue
+        assert spec[1] is not None
+        for arch in tf.ts.REFUSED:
+            for step in ("train", "prefill"):
+                msg = str(res[f"{t}/{arch}/refused/{step}"])
+                assert "9b (viii)" in msg, (arch, step, msg)
 
 
 def test_gather_part_order(runs, shape):
