@@ -227,8 +227,23 @@ result line):
    mamba prefill cache) held to the whole prompt's within bf16 bounds, pos
    exactly.  Then flash's
    forward and backward timed at each rank's (S, T), the SSD kernel at
-   each rank's chunks, and the state pass alone.  The path's flash and
-   SSD launches join the kernel line's totals.
+   each rank's chunks, and the state pass alone.  Then the families with
+   a second layout, the ranks in threads of this process that take turns
+   at each collective (``SeqThreads``: the collectives torch ops on the
+   ranks' parts, so that one backward runs every rank's): llama4-scout's
+   MoE layer 0 on 1 x 4096 tokens (each rank routes its slice, the
+   all-to-all hands each rank its 16 / n experts' slots; at E / k, where
+   nothing drops, y, dx, aux and the gradients against the whole layer;
+   at its own 1.25 each rank's y against the dense dispatch of its slice
+   alone); whisper-medium's encoder and decoder layers on 1500 frames +
+   448 tokens and the prefill of a one-plus-one-layer model, its frames
+   split as the tokens and whole beside them; llava-next's one-layer
+   train_loss (the patches and tokens joined and cut into each rank's
+   slice, the text CE over each rank's text positions) on 2880 patches +
+   1216 tokens and its prefill: each against the whole within bf16
+   bounds; then flash and the grouped FFN timed at those ranks' shapes.
+   The path's flash, grouped-FFN and SSD launches join the kernel line's
+   totals.
 
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
@@ -4520,12 +4535,555 @@ def seq_kernel_ms(cfg_dense, cfg_ssm, gen) -> dict:
     return {"flash": flash, "ssd": ssd}
 
 
+# phase 11's second part: the families whose sequence split carries a
+# second layout, at published widths in bf16 on 1 x SEQ_TOKENS positions,
+# the ranks in threads of this process (SeqThreads): llama4-scout's MoE
+# layer 0 (the all-to-all path on each rank's slice, at a capacity factor
+# that drops nothing, E / k, against the whole layer, and at its own 1.25
+# against the dense dispatch of each slice alone, the slice's capacity
+# 160 at 2 ranks and 80 at 4); whisper-medium's encoder and decoder layers
+# on 1500 frames + 448 tokens, and the prefill of a one-plus-one-layer
+# model, its frames split as its tokens and whole beside them; llava-next's
+# embedding, layer 0 and text CE (the one-layer model's train_loss) on
+# 2880 patches + 1216 tokens, and its prefill
+SEQ_MOE_NO_DROP_CF = 16.0          # llama4-scout's E / k
+SEQ_WHISPER = (1500, 448)          # frames, decoder tokens
+SEQ_LLAVA = (2880, 1216)           # patches, tokens: 4096 positions
+# bounds on ||the ranks' parts joined - whole|| / ||whole|| in bf16 (the
+# gradients summed over the ranks; a prefill's worst rank), about twice
+# what a sound run on the H100 gave (PERF.md, findings, PR 29): the MoE's
+# dx 2.0e-10 (held at 1e-6), experts' gradients 1.90e-5, router's
+# 1.42e-6; whisper's dx 1.61e-3, the encoder output's gradient 5.24e-3,
+# weight gradients 5.44e-3; llava's gradients 5.77e-3.  y, aux, the
+# slices' y, llava's loss and every prefill came out bit-identical, which
+# no bound requires: y keeps SEQ_PART_REL's 1e-3, the prefills
+# SEQ_PREFILL_REL's 1e-2, and aux and llava's loss (f32 sums) the CPU
+# tests' 1e-6 and 1e-5
+SEQ_FAMILY_REL = {
+    LLAMA4: {"y": 1e-3, "aux": 1e-6, "dx": 1e-6, "grad": 4e-5,
+             "router": 3e-6, "slices": 1e-3},
+    WHISPER: {"y": 1e-3, "dx": 4e-3, "denc": 1.1e-2, "grad": 1.1e-2,
+              "logits": 1e-2, "cache": 1e-2},
+    LLAVA: {"loss": 1e-5, "grad": 1.2e-2, "logits": 1e-2, "cache": 1e-2}}
+
+
+class SeqThreads:
+    """The ranks of a sequence split over the ``n`` ranks of "model", each
+    in a thread of this process, one at a time: a rank runs until its next
+    collective (``exchange``), then the next rank does, so that at each
+    collective every rank's part is there.  The collectives are
+    differentiable torch ops on the ranks' parts (``gather_leaf`` a cat,
+    ``all_to_all`` a cat of each rank's share of every rank's tensor,
+    ``all_reduce`` a sum), so one backward from the main thread over every
+    rank's output runs every rank's backward and each collective's as its
+    transpose, as the port's do across processes.  Under ``patched`` the
+    port's code sees a (1, n) mesh of ("data", "model") in "fsdp" mode
+    with the sequence over "model" (``common.use_mesh``; its leaves whole,
+    so ``fsdp_mesh`` is None) and the batch leaves ``whole`` whole."""
+
+    def __init__(self, n: int):
+        import threading
+        self.n, self.turn, self.parts, self.failed = n, 0, {}, None
+        self.cond = threading.Condition()
+        self.local = threading.local()
+
+    def _wait(self, r: int) -> None:
+        with self.cond:
+            while self.turn != r and self.failed is None:
+                self.cond.wait()
+            if self.failed is not None:
+                raise RuntimeError("another rank failed")
+
+    def _pass(self, r: int) -> None:
+        with self.cond:
+            self.turn = (r + 1) % self.n
+            self.cond.notify_all()
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` in each rank's thread, in turns (with grad as the
+        calling thread has it); the results in rank order."""
+        import threading
+        out = [None] * self.n
+        grad = torch.is_grad_enabled()
+        self.turn, self.parts, self.failed = 0, {}, None
+
+        def body(r):
+            self.local.rank, self.local.call = r, 0
+            try:
+                self._wait(r)
+                with torch.set_grad_enabled(grad):
+                    out[r] = fn(r)
+            except BaseException as e:      # noqa: BLE001 (re-raised below)
+                with self.cond:
+                    self.failed = self.failed or e
+                    self.cond.notify_all()
+                return
+            self._pass(r)
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise RuntimeError("[seq] a rank hung at a collective")
+        if self.failed is not None:
+            raise self.failed
+        return out
+
+    def exchange(self, x) -> list:
+        """Every rank's ``x`` of this collective, in rank order."""
+        from repro_torch.models import common
+        r = self.local.rank
+        call, self.local.call = self.local.call, self.local.call + 1
+        self.parts.setdefault(call, [None] * self.n)[r] = x
+        ambient = common._AMBIENT[0]
+        self._pass(r)
+        self._wait(r)
+        common._AMBIENT[0] = ambient
+        return self.parts[call]
+
+    def gather(self, x, mesh, dim: int, axes="model"):
+        return torch.cat(self.exchange(x), dim)
+
+    def all_to_all(self, x, mesh, axis: str, split_dim: int,
+                   concat_dim: int):
+        r = self.local.rank
+        return torch.cat([p.chunk(self.n, split_dim)[r]
+                          for p in self.exchange(x)], concat_dim)
+
+    def all_reduce(self, x, mesh, axes, grad_scale: float = 1.0):
+        return torch.stack(self.exchange(x)).sum(dim=0)
+
+    def seq_rank(self, mesh, axes, coord=None):
+        return (self.local.rank, self.n) if axes else (0, 1)
+
+    def patched(self, whole: tuple = ()):
+        from contextlib import ExitStack
+        from unittest import mock
+
+        import repro_torch.launch.collectives as collectives
+        from repro_torch.launch.mesh import MeshSpec
+        from repro_torch.models import attention, common, encdec, lm, mlp, ssm
+        stack = ExitStack()
+        for mod in (collectives, attention, ssm, mlp, encdec, lm):
+            stack.enter_context(mock.patch.object(mod, "gather_leaf",
+                                                  self.gather))
+        for name in ("all_to_all", "all_reduce"):
+            stack.enter_context(mock.patch.object(mlp, name,
+                                                  getattr(self, name)))
+        stack.enter_context(mock.patch.object(common, "seq_rank",
+                                              self.seq_rank))
+        stack.enter_context(mock.patch.object(common, "fsdp_mesh",
+                                              lambda: None))
+        stack.enter_context(common.use_mesh(
+            MeshSpec(("data", "model"), (1, self.n)), "fsdp", rows=(),
+            seq=("model",), whole=whole))
+        return stack
+
+
+def seq_family_model(arch: str, **over):
+    """The published config of ``arch`` with ``over`` replaced and remat
+    off (the phase's backward runs outside the ranks' threads), bf16, seed
+    0 on the card: (cfg, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch).replace(remat="none", **over)
+    model = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    return cfg, model.params
+
+
+def seq_errs(got: dict, want: dict) -> dict:
+    """leaf_rel of each of ``got`` against ``want``; a dict of tensors is
+    held by its worst leaf (``worst_leaf`` names it)."""
+    errs = {}
+    for k, g in got.items():
+        if isinstance(g, dict):
+            by = {n: leaf_rel(g[n], want[k][n]) for n in g}
+            errs[k] = max(by.values())
+            errs[f"worst_{k}"] = max(by, key=by.get)
+        else:
+            errs[k] = leaf_rel(g, want[k])
+    return errs
+
+
+def seq_hold(tag: str, errs: dict, bounds: dict) -> None:
+    bad = {k: v for k, v in errs.items() if k in bounds and v > bounds[k]}
+    assert not bad, f"[seq] {tag} {bad}: {errs} > {bounds}"
+
+
+def seq_moe(gen) -> dict:
+    """llama4-scout's MoE layer 0 at published widths (router and 16
+    experts, top-1) on 1 x SEQ_TOKENS tokens: y, dx and the experts'
+    gradients through y, and aux and the router's gradient through aux
+    (top-1's combine weight is p / p = 1, so the router's gradient through
+    y is rounding noise), of each n of SEQ_RANKS ranks (each rank its slice
+    and its 16 / n experts; a rank's experts' gradients are its slices of
+    the leaves, the router's summed, each rank's aux weighing 1 / n)
+    against the whole layer's at E / k; then at the config's own capacity
+    factor each rank's y against the dense dispatch of its slice alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.mlp import (init_moe_params, moe_capacity,
+                                        moe_forward)
+    cfg = get_config(LLAMA4).replace(n_layers=1)
+    nodrop = cfg.replace(capacity_factor=SEQ_MOE_NO_DROP_CF)
+    leaves = init_moe_params(torch.Generator("cuda").manual_seed(0), cfg,
+                             torch.bfloat16, "cuda")
+    shape = (1, SEQ_TOKENS, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    lv = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+    experts = {k: v for k, v in lv.items() if k != "router"}
+
+    def grads(ys, auxes, xx, dys):
+        g = torch.autograd.grad(ys, [xx, *experts.values()], dys,
+                                retain_graph=True)
+        router, = torch.autograd.grad(torch.stack(auxes).mean(),
+                                      [lv["router"]])
+        return {"y": torch.cat([y.detach() for y in ys], 1),
+                "aux": auxes[0].detach(), "dx": g[0],
+                "grad": dict(zip(experts, g[1:])), "router": router}
+
+    xx = x.detach().clone().requires_grad_()
+    y, aux = moe_forward(lv, xx, nodrop)
+    whole = grads([y], [aux], xx, [dy])
+    out = {}
+    for n in SEQ_RANKS:
+        e = cfg.n_experts // n
+        ranks = SeqThreads(n)
+        xx = x.detach().clone().requires_grad_()
+        xs, dys = xx.chunk(n, 1), dy.chunk(n, 1)
+
+        def own(r, e=e):
+            return {k: v if k == "router" else v[r * e:(r + 1) * e]
+                    for k, v in lv.items()}
+
+        with ranks.patched():
+            res = ranks.run(lambda r, xs=xs: moe_forward(own(r), xs[r],
+                                                         nodrop))
+        auxes = [r_[1] for r_ in res]
+        errs = seq_errs(grads([r_[0] for r_ in res], auxes, xx, dys), whole)
+        errs["aux_alike"] = all(torch.equal(auxes[0], a) for a in auxes)
+        with ranks.patched(), torch.no_grad():
+            res = ranks.run(lambda r, xs=xs: moe_forward(
+                own(r), xs[r].detach(), cfg))
+        with torch.no_grad():
+            want = [moe_forward(lv, s.detach(), cfg)[0] for s in xs]
+        errs["slices"] = max(leaf_rel(g[0], w) for g, w in zip(res, want))
+        errs["capacity"] = moe_capacity(cfg, SEQ_TOKENS // n)
+        out[f"n{n}"] = errs
+        assert errs["aux_alike"], f"[seq] moe n{n}: {errs}"
+        seq_hold(f"moe n{n}", errs, SEQ_FAMILY_REL[LLAMA4])
+    return out
+
+
+def seq_layer_parts(layer, lv: dict, x, dy, shared: dict | None = None,
+                    n: int = 1) -> dict:
+    """``layer(lv, x, *shared)`` forward and backward for the cotangent
+    ``dy``: whole (``n`` 1, no mesh) or as ``n`` sequence ranks hold x
+    (SeqThreads), every rank reading the same ``shared`` tensors.  y and dx
+    joined in rank order, the gradients of ``shared`` ("d" + name) and of
+    the leaves (``grad``) summed over the ranks by the one backward."""
+    shared = shared or {}
+    xx = x.detach().clone().requires_grad_()
+    sh = {k: v.detach().clone().requires_grad_() for k, v in shared.items()}
+    if n == 1:
+        ys, dys = [layer(lv, xx, *sh.values())], [dy]
+    else:
+        ranks = SeqThreads(n)
+        xs, dys = xx.chunk(n, 1), dy.chunk(n, 1)
+        with ranks.patched():
+            ys = ranks.run(lambda r: layer(lv, xs[r], *sh.values()))
+    grads = torch.autograd.grad(ys, [xx, *sh.values(), *lv.values()], dys)
+    out = {"y": torch.cat([y.detach() for y in ys], 1), "dx": grads[0]}
+    out.update({f"d{k}": g for k, g in zip(sh, grads[1:])})
+    out["grad"] = dict(zip(lv, grads[1 + len(sh):]))
+    return out
+
+
+def seq_prefill_ranks(prefill, batch: dict, n: int, split: tuple,
+                      whole: tuple = ()) -> list:
+    """``prefill(batch_r)`` of each of ``n`` sequence ranks in SeqThreads
+    without autograd, rank r given its slice of each leaf of ``split``
+    (dim 1) and the others whole; ``whole`` names the leaves that the
+    port is told lie whole."""
+    parts = {k: v.chunk(n, 1) if k in split else [v] * n
+             for k, v in batch.items()}
+    ranks = SeqThreads(n)
+    with ranks.patched(whole), torch.no_grad():
+        return ranks.run(lambda r: prefill({k: v[r]
+                                            for k, v in parts.items()}))
+
+
+def seq_prefill_errs(got: list, want: tuple) -> dict:
+    """The worst relative error over the ranks of each of the last logits
+    and the cache's leaves against the whole prompt's ``want``, and
+    whether every rank's pos equals it."""
+    want_logits, want_cache = want
+    errs: dict = {"pos_equal": True}
+    for logits, cache in got:
+        for k, w in {"logits": want_logits, **want_cache}.items():
+            g = logits if k == "logits" else cache[k]
+            if k == "pos":
+                errs["pos_equal"] &= torch.equal(g, w)
+                continue
+            errs[k] = max(errs.get(k, 0.0), leaf_rel(g, w))
+    errs["cache"] = max(v for k, v in errs.items()
+                        if k not in ("logits", "pos_equal"))
+    return errs
+
+
+def seq_leaves(tree: dict) -> dict:
+    """Copies of a layer's leaves that require grad, by dotted name."""
+    from repro_torch.models.api import flatten
+    return {k: v.detach().clone().requires_grad_()
+            for k, v in flatten(tree).items()}
+
+
+def seq_whisper(gen) -> dict:
+    """whisper-medium at published widths, one encoder and one decoder
+    layer, bf16, on 1 x (1500 frames + 448 tokens): its encoder layer (each
+    rank's frames at their positions, non-causal over every frame) and its
+    decoder layer (causal over the earlier ranks' tokens, cross-attention
+    over every frame: the encoder output read by every rank, its gradient
+    summed) against the whole layers at each n of SEQ_RANKS; then
+    ``encdec.prefill`` of the model, its frames split as the tokens are and
+    whole beside them, every rank's last logits and cache against the
+    whole prompt's."""
+    from repro_torch.models import encdec
+    from repro_torch.models.api import _unflatten
+    from repro_torch.models.lm import _layer, seq_positions
+    cfg, params = seq_family_model(WHISPER, n_layers=1, enc_layers=1)
+    t, s = SEQ_WHISPER
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def enc_layer(lv, x):
+        return encdec._enc_layer(_unflatten(lv), x,
+                                 seq_positions(x.shape[1], x.device), cfg)
+
+    def dec_layer(lv, x, enc_out):
+        return encdec._dec_layer(_unflatten(lv), x,
+                                 seq_positions(x.shape[1], x.device),
+                                 enc_out, cfg)[0]
+
+    cases = {"encoder": (enc_layer, seq_leaves(_layer(params["enc_layers"],
+                                                      0)),
+                         draw(1, t, cfg.d_model), draw(1, t, cfg.d_model),
+                         None),
+             "decoder": (dec_layer, seq_leaves(_layer(params["dec_layers"],
+                                                      0)),
+                         draw(1, s, cfg.d_model), draw(1, s, cfg.d_model),
+                         {"enc": draw(1, t, cfg.d_model)})}
+    out: dict = {}
+    for key, (layer, lv, x, dy, shared) in cases.items():
+        whole = seq_layer_parts(layer, lv, x, dy, shared)
+        for n in SEQ_RANKS:
+            errs = seq_errs(seq_layer_parts(layer, lv, x, dy, shared, n),
+                            whole)
+            out[f"{key} n{n}"] = errs
+            seq_hold(f"whisper {key} n{n}", errs, SEQ_FAMILY_REL[WHISPER])
+        del whole
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, s), generator=gen,
+                                     device="cuda"),
+             "frames": 0.1 * torch.randn((1, t, cfg.d_model), generator=gen,
+                                         device="cuda")}
+
+    def prefill(b):
+        return encdec.prefill(params, b, cfg)
+
+    with torch.no_grad():
+        want = prefill(batch)
+    for n in SEQ_RANKS:
+        for frames, split, whole in (("split", ("tokens", "frames"), ()),
+                                     ("whole", ("tokens",), ("frames",))):
+            errs = seq_prefill_errs(seq_prefill_ranks(
+                prefill, batch, n, split, whole), want)
+            out[f"prefill n{n} frames {frames}"] = errs
+            assert errs["pos_equal"], f"[seq] whisper prefill n{n}: {errs}"
+            seq_hold(f"whisper prefill n{n} frames {frames}", errs,
+                     SEQ_FAMILY_REL[WHISPER])
+    return out
+
+
+def seq_llava(gen) -> dict:
+    """llava-next at published widths cut to one layer, bf16, on 1 x (2880
+    patches + 1216 tokens) = 4096 positions: ``lm.train_loss`` (the
+    projected patches and the embeddings joined and cut into each rank's
+    contiguous slice, layer 0, the head on the rank's text positions and
+    its CE summed over them over its count of labels) of each n of
+    SEQ_RANKS ranks, the mean of the ranks' losses and its gradients in
+    every leaf against the whole batch's; then ``lm.prefill``, every rank's
+    last logits and cache against the whole prompt's."""
+    from repro_torch.models import lm
+    from repro_torch.models.api import flatten
+    cfg, params = seq_family_model(LLAVA, n_layers=1)
+    p, s = SEQ_LLAVA
+    toks = torch.randint(0, cfg.vocab, (1, s + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "patches": 0.1 * torch.randn((1, p, lm.PATCH_DIM),
+                                          generator=gen, device="cuda")}
+    leaves = flatten(params)
+    loss = lm.train_loss(params, batch, cfg)[0]
+    whole = {"loss": loss.detach(),
+             "grad": dict(zip(leaves, torch.autograd.grad(
+                 loss, list(leaves.values()))))}
+    out: dict = {}
+    for n in SEQ_RANKS:
+        parts = {k: v.chunk(n, 1) for k, v in batch.items()}
+        ranks = SeqThreads(n)
+        with ranks.patched():
+            losses = ranks.run(lambda r: lm.train_loss(
+                params, {k: v[r] for k, v in parts.items()}, cfg)[0])
+        loss = torch.stack(losses).sum() / n
+        errs = seq_errs({"loss": loss.detach(), "grad": dict(zip(
+            leaves, torch.autograd.grad(loss, list(leaves.values()))))},
+            whole)
+        size = (p + s) // n
+        errs["text_positions"] = [min(size, max(0, (r + 1) * size - p))
+                                  for r in range(n)]
+        out[f"n{n}"] = errs
+        seq_hold(f"llava n{n}", errs, SEQ_FAMILY_REL[LLAVA])
+    del whole
+    pre = {k: v for k, v in batch.items() if k != "labels"}
+
+    def prefill(b):
+        return lm.prefill(params, b, cfg)
+
+    with torch.no_grad():
+        want = prefill(pre)
+    for n in SEQ_RANKS:
+        errs = seq_prefill_errs(seq_prefill_ranks(
+            prefill, pre, n, ("tokens", "patches")), want)
+        out[f"prefill n{n}"] = errs
+        assert errs["pos_equal"], f"[seq] llava prefill n{n}: {errs}"
+        seq_hold(f"llava prefill n{n}", errs, SEQ_FAMILY_REL[LLAVA])
+    return out
+
+
+def seq_family_kernel_ms(gen) -> dict:
+    """Flash at each rank's shapes of this part (bf16): whisper's encoder
+    (S = 1500 / n non-causal against T = 1500 frames, 16 heads x 64), its
+    cross-attention (448 / n rows against 1500 frames) and llava's layer
+    (4096 / n rows, 32 heads on 8 kv x 128, causal against T = (r + 1) S);
+    and the grouped FFN at each rank's experts, (1, 16 / n, n C, 5120,
+    8192) swiglu with C the slice's capacity at 1.25 (every row filled):
+    forward (graph) and forward + backward (device) ms, n = 1 the whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import grouped_ffn
+    from repro_torch.models.mlp import moe_capacity
+    t, s = SEQ_WHISPER
+    flash, gmm = {}, {}
+    for n in (1, *SEQ_RANKS):
+        shapes = {f"whisper encoder n{n}": (t // n, t, 16, 16, 64, False),
+                  f"whisper cross n{n}": (s // n, t, 16, 16, 64, False)}
+        size = SEQ_TOKENS // n
+        shapes.update({f"llava n{n} r{r}": (size, (r + 1) * size, 32, 8,
+                                            128, True) for r in range(n)})
+        for key, (sq, tk, h, k, hd, causal) in shapes.items():
+            q, kk, v = (x.requires_grad_() for x in
+                        qkv(1, sq, tk, h, k, hd, torch.bfloat16, gen))
+            do = torch.randn_like(q)
+
+            def fwd(q=q, kk=kk, v=v, causal=causal):
+                return flash_attention(q.detach(), kk.detach(), v.detach(),
+                                       causal=causal)
+
+            def fwd_bwd(q=q, kk=kk, v=v, do=do, causal=causal):
+                o = flash_attention(q, kk, v, causal=causal)
+                torch.autograd.grad(o, (q, kk, v), do)
+
+            flash[key] = {"shape": [1, sq, tk, h, k, hd], "causal": causal,
+                          "fwd_graph_ms": graph_ms(fwd),
+                          "fwd_bwd_device_ms": device_ms(fwd_bwd)}
+        cfg = get_config(LLAMA4)
+        c = moe_capacity(cfg, SEQ_TOKENS // n)
+        shape = (1, cfg.n_experts // n, n * c, cfg.d_model, cfg.d_ff)
+        *ops, dy = gmm_bwd_inputs(shape, "swiglu", torch.bfloat16, None,
+                                  gen)
+        ops = [x.requires_grad_() for x in ops]
+
+        def gmm_fwd_bwd(ops=ops, dy=dy):
+            torch.autograd.grad(grouped_ffn(*ops, act="swiglu"), ops, dy)
+
+        gmm[f"n{n}"] = {
+            "shape": list(shape),
+            "fwd_graph_ms": graph_ms(lambda ops=ops: grouped_ffn(
+                *[x.detach() for x in ops], act="swiglu")),
+            "fwd_bwd_device_ms": device_ms(gmm_fwd_bwd, iters=5)}
+    return {"flash": flash, "gmm": gmm}
+
+
+# the launches of phase 11's second part: llama4's MoE (the whole layer's
+# forward and backward; per n, each rank's forward and backward without
+# drops, each rank's forward at 1.25 and each slice's dense dispatch);
+# whisper (the whole encoder and decoder layers' 1 + 2 forwards and
+# backwards and the whole prefill's 3; per n, each rank's, and each
+# rank's prefill with its frames split and whole); llava (the whole train
+# step's and prefill's one a layer; per n each rank's)
+def seq_family_launches() -> dict:
+    ranks = sum(SEQ_RANKS)
+    zero = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "moe_gmm": 0,
+            "moe_gmm_bwd": 0, "ssd_intra_chunk": 0,
+            "ssd_intra_chunk_bwd": 0}
+    return {
+        LLAMA4: {**zero, "moe_gmm": 1 + 3 * ranks,
+                 "moe_gmm_bwd": 1 + ranks},
+        WHISPER: {**zero, "flash_attn_fwd": 6 + 9 * ranks,
+                  "flash_attn_bwd": 3 + 3 * ranks},
+        LLAVA: {**zero, "flash_attn_fwd": 2 + 2 * ranks,
+                "flash_attn_bwd": 1 + ranks}}
+
+
+def phase_seq_families(card: str, gen) -> dict:
+    """Phase 11's second part (see SEQ_MOE_NO_DROP_CF above): llama4-
+    scout's MoE layer, whisper's layers and prefill, llava's train_loss
+    and prefill, each rank's part against the whole, every launch counted
+    from 0 a family; then the kernels timed at the ranks' shapes."""
+    errors, paths = {}, []
+    want = seq_family_launches()
+    tag = "[seq]"
+    for arch, run in ((LLAMA4, seq_moe), (WHISPER, seq_whisper),
+                      (LLAVA, seq_llava)):
+        zero_counts()
+        errors[arch] = run(gen)
+        for key, errs in errors[arch].items():
+            say(f"{tag} {arch} {key} (bf16): " + ", ".join(
+                f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in errs.items())
+                + f" (bounds {SEQ_FAMILY_REL[arch]})")
+        launches = read_counts()
+        assert launches == want[arch], (arch, launches, want[arch])
+        paths.append({"arch": arch, "n_layers": 1,
+                      "path": "sequence-split family parts",
+                      "launches": launches})
+        gc.collect()
+        torch.cuda.empty_cache()
+    timed = seq_family_kernel_ms(gen)
+    for key, t in timed["flash"].items():
+        say(f"{tag} flash {key} {t['shape']} causal {t['causal']}: forward "
+            f"(graph) {t['fwd_graph_ms']:.4f} ms, forward + backward "
+            f"(device) {t['fwd_bwd_device_ms']:.4f} ms [{card}]")
+    for key, t in timed["gmm"].items():
+        say(f"{tag} grouped FFN {key} {t['shape']}: forward (graph) "
+            f"{t['fwd_graph_ms']:.4f} ms, forward + backward (device) "
+            f"{t['fwd_bwd_device_ms']:.4f} ms [{card}]")
+    return {"errors": errors, "timed": timed, "paths": paths}
+
+
 def phase_seq_split(card: str) -> dict:
     """Phase 11 (see SEQ_* above): for deepseek-7b's and mamba2-780m's
     layer 0 at published widths, the whole layer on 1 x SEQ_TOKENS tokens,
     then each rank's part at each n of SEQ_RANKS (``seq_rank_parts``), every
     launch counted from 0; then the kernels timed at each rank's shapes and
-    the state pass alone."""
+    the state pass alone; then the MoE, whisper and llava
+    (``phase_seq_families``)."""
     from repro_torch.models import lm
     layers = seq_layers()
     gen = torch.Generator("cuda").manual_seed(24)
@@ -4642,8 +5200,11 @@ def phase_seq_split(card: str) -> dict:
             f"{t['state_add_graph_ms']:.4f}); the last rank's fold "
             f"{t['fold_ms']:.4f} ms (graph {t['fold_graph_ms']:.4f}) "
             f"[{card}]")
+    families = phase_seq_families(card, gen)
     return {"card": card, "errors": out, "prefill_errors": prefill,
-            "timed": timed, "state_pass": state, "paths": paths}
+            "timed": timed, "state_pass": state,
+            "families": {k: families[k] for k in ("errors", "timed")},
+            "paths": paths + families["paths"]}
 
 
 def main(argv: list[str]) -> int:

@@ -32,9 +32,11 @@ axes ("tp") or over every axis ("fsdp"); ZeRO-1's moments
 An fsdp batch smaller than the mesh has its rows over a prefix of the axes
 and its sequence over the rest (``split_batch``): each rank holds one
 contiguous slice of its rows' sequence, and the models attend across the
-slices and pass the SSM state along them (``models/attention.py``,
-``models/ssm.py``; the dense, SSM and hybrid families; the MoE, the
-encoder-decoder and the VLM raise, ROADMAP.md item 9b (viii)).  The
+slices, pass the SSM state along them and route the MoE's slices as the
+reference's blocks (``models/attention.py``, ``models/ssm.py``,
+``models/mlp.py``); a leaf whose second dim the axes do not divide
+(whisper's frames) lies whole on every rank beside the split tokens
+(``split_axes``).  The
 reference's ``constraint`` and
 the models' ``maybe_constrain`` are hints to GSPMD's partitioner; eager
 PyTorch has no partitioner, so they have no counterpart.
@@ -419,28 +421,38 @@ def shard_params(params: dict, mesh, mode: str = "tp",
             for n, p in params.items()}
 
 
-def split_axes(specs: dict, mesh) -> tuple[tuple, tuple]:
-    """(rows, seq): the axes over which ``batch_shardings``' ``specs`` of a
-    whole batch put its rows (dim 0) and its sequence (dim 1), each in the
-    mesh's order.  rows is () where the whole batch lies on every rank;
+def split_axes(specs: dict, mesh) -> tuple[tuple, tuple, tuple]:
+    """(rows, seq, whole): the axes over which ``batch_shardings``' ``specs``
+    of a whole batch put its rows (dim 0) and its sequence (dim 1), each in
+    the mesh's order, and the names of the leaves that lie whole on every
+    rank beside them.  rows is () where the whole batch lies on every rank;
     seq is () but for an "fsdp" batch smaller than the mesh, whose rows lie
-    over a prefix of the axes and whose sequence over the rest."""
+    over a prefix of the axes and whose sequence over the rest.  Every leaf
+    the rules split there is split as every other (the same rows, and
+    their sequence over the same axes, ``batch_shardings``' first cut that
+    divides the rows); a leaf whose second dim no cut divides (whisper's
+    1500 frames on 16 ranks of "model") lies whole, rows and all: whole
+    names those, () where no leaf is split."""
     mesh = MeshSpec.of(mesh)
 
     def named(dim: int) -> tuple:
         axes = {a for spec in specs.values() if len(spec) > dim
                 for a in _axes_of(spec[dim])}
         return tuple(a for a in mesh.axis_names if a in axes)
-    return named(0), named(1)
+    rows, seq = named(0), named(1)
+    whole = tuple(k for k, spec in specs.items() if not spec_axes(spec)) \
+        if rows or seq else ()
+    return rows, seq, whole
 
 
 def split_batch(batch: dict, mesh, mode: str = "tp"
-                ) -> tuple[dict, tuple, tuple]:
-    """(this rank's part of ``batch``, rows, seq) from one
+                ) -> tuple[dict, tuple, tuple, tuple]:
+    """(this rank's part of ``batch``, rows, seq, whole) from one
     ``batch_shardings`` of the whole batch in ``mode``: the part as
-    ``shard_batch`` cuts it, and the axes its rows and its sequence lie
-    over (``split_axes``).  The one source of the split that the steps
-    install (``launch/steps.py``, ``Model.on_mesh``)."""
+    ``shard_batch`` cuts it (a leaf that lies whole, whole), the axes its
+    rows and its sequence lie over and the leaves that lie whole
+    (``split_axes``).  The one source of the split that the steps install
+    (``launch/steps.py``, ``Model.on_mesh``)."""
     specs = batch_shardings(batch, mesh, mode)
     coord = coordinate(mesh)
     return ({k: local_slice(v, specs[k], mesh, coord)

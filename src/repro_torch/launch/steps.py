@@ -26,9 +26,12 @@ def make_train_step(model: Model, opt: AdamW):
     (``launch/shardings.split_batch`` in the model's mode: its rows, and
     in "fsdp" mode its slice of their sequence where the batch is smaller
     than the mesh) and runs the forward and backward under
-    ``model.on_mesh(split=...)`` of the axes that part lies over.  Every rank holds as many
-    tokens as every other, so the mean of the ranks' losses is the
-    batch's.  In "tp" mode
+    ``model.on_mesh(split=...)`` of the axes that part lies over.  Each
+    rank's loss is its share of the batch's: the mean over its labels,
+    which every rank holds as many of, or for the VLM under a sequence
+    split, whose ranks hold other numbers of text positions, their sum
+    over the rank's own count of labels (``lm.train_loss``); so the mean of
+    the ranks' losses is the batch's.  In "tp" mode
     every gradient and the loss's metrics are then averaged over the batch
     axes when they hold more than one rank (data parallelism); tensor and
     expert parallelism leave each rank of "model" the gradient of its
@@ -84,13 +87,13 @@ def make_train_step(model: Model, opt: AdamW):
 
 
 def _shard(model: Model, batch: dict) -> tuple[dict, tuple | None]:
-    """The rank's part of a whole batch on the model's mesh and the axes
-    its rows and its sequence lie over (``split_batch``); the batch and
-    None without a mesh."""
+    """The rank's part of a whole batch on the model's mesh, and the axes
+    its rows and its sequence lie over with the leaves that lie whole
+    (``split_batch``); the batch and None without a mesh."""
     if model.mesh is None:
         return batch, None
-    part, rows, seq = split_batch(batch, model.mesh, model.mode)
-    return part, (rows, seq)
+    part, *split = split_batch(batch, model.mesh, model.mode)
+    return part, tuple(split)
 
 
 def make_prefill_step(model: Model):

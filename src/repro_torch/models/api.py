@@ -33,12 +33,15 @@ vocabulary slice; ``greedy`` takes the token of the whole vocabulary.
 
 An "fsdp" batch smaller than the mesh splits each row's sequence over the
 axes its rows leave.  The steps that shard a whole batch
-(``launch/steps.py``) install the axes of its rows and of its sequence as
-``launch/shardings.split_batch`` cut it (``on_mesh(split=...)``), and the
-methods called inside keep them: each rank
-runs its slice of its rows, for the dense, SSM and hybrid families.  The
-MoE, the encoder-decoder and the VLM raise there, on every rank before any
-collective (ROADMAP.md item 9b (viii)).
+(``launch/steps.py``) install the axes of its rows and of its sequence, and
+the leaves that lie whole beside them, as ``launch/shardings.split_batch``
+cut it (``on_mesh(split=...)``), and the methods called inside keep them:
+each rank runs its slice of its rows, in every family.  The MoE routes the
+reference's blocks (``mlp.py``); whisper's encoder runs its frames split
+as the tokens are or whole on every rank (``encdec.py``); llava's ranks
+hold contiguous slices of its patches and tokens joined, and a batch whose
+patches lie whole raises on every rank before any collective (``lm.py``,
+ROADMAP.md item 9b (viii)).
 """
 from __future__ import annotations
 
@@ -49,7 +52,8 @@ from ..launch.collectives import vocab_argmax
 from ..launch.shardings import row_axes, shard_params, sharded_specs
 from . import encdec, lm
 from .common import (SHARDING_MODE, ambient_mesh, ambient_rows,
-                     ambient_seq, dtype_of, require_device, use_mesh)
+                     ambient_seq, ambient_whole, dtype_of, require_device,
+                     use_mesh)
 from .config import ArchConfig
 
 
@@ -70,14 +74,6 @@ def _tree_of(mod: nn.Module) -> dict:
     for name, child in mod.named_children():
         tree[name] = _tree_of(child)
     return tree
-
-
-# the families whose whole sequence a rank needs, and why
-_WHOLE_SEQUENCE = {
-    "moe": "the dispatch's capacity is per row over the whole sequence",
-    "encdec": "the encoder's frames are a second sequence to split",
-    "vlm": "the patch prefix is a second sequence to split",
-}
 
 
 class Model(nn.Module):
@@ -113,28 +109,21 @@ class Model(nn.Module):
 
     def on_mesh(self, train: bool = False, split: tuple | None = None):
         """``use_mesh`` of the model's mesh in the mode it was built in,
-        with the axes its batch lies over.  ``split`` = (rows, seq): the
-        axes of the rank's rows and of its slice of their sequence, as a
-        step cut the whole batch (``launch/shardings.split_batch``).
-        Without it, inside a ``use_mesh`` of the model's own mesh (a
-        step's) the split installed there is kept whole; elsewhere the
-        rows lie as ``shard_batch`` lays out a training batch with
-        ``train`` (over every axis in "fsdp" mode), else over the data
-        axes, and no sequence is split.  A split sequence raises for the
-        families that do not carry it out, before any collective."""
+        with the axes its batch lies over.  ``split`` = (rows, seq, whole):
+        the axes of the rank's rows and of its slice of their sequence,
+        and the leaves that lie whole beside them, as a step cut the whole
+        batch (``launch/shardings.split_batch``).  Without it, inside a
+        ``use_mesh`` of the model's own mesh (a step's) the split
+        installed there is kept whole; elsewhere the rows lie as
+        ``shard_batch`` lays out a training batch with ``train`` (over
+        every axis in "fsdp" mode), else over the data axes, and no
+        sequence is split."""
         if split is None and self.mesh is not None:
-            split = (ambient_rows(), ambient_seq()) \
+            split = (ambient_rows(), ambient_seq(), ambient_whole()) \
                 if ambient_mesh() is self.mesh else \
-                (row_axes(self.mesh, self.mode) if train else None, ())
-        rows, seq = split or (None, ())
-        if seq and self.cfg.family in _WHOLE_SEQUENCE:
-            raise ValueError(
-                f"{self.cfg.name}: the batch's sequence is split over "
-                f"{tuple(seq)} (an \"fsdp\" batch smaller than the "
-                f"mesh), which the {self.cfg.family} family does not "
-                f"carry out: {_WHOLE_SEQUENCE[self.cfg.family]} "
-                f"(ROADMAP.md, item 9b (viii))")
-        return use_mesh(self.mesh, self.mode, rows, seq)
+                (row_axes(self.mesh, self.mode) if train else None, (), ())
+        rows, seq, whole = split or (None, (), ())
+        return use_mesh(self.mesh, self.mode, rows, seq, whole)
 
     def _shard(self, state: dict) -> dict:
         """The rank's part of a whole flat state (all of it off a mesh)."""

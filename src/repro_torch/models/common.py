@@ -86,16 +86,19 @@ def normal_init(generator: torch.Generator | None, shape, std: float,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       z_loss: float = 0.0) -> torch.Tensor:
+                       z_loss: float = 0.0,
+                       count: int | None = None) -> torch.Tensor:
     """Mean CE over all positions; logits (B,S,V), labels (B,S) int.  f32
-    logits, logsumexp minus the gold logit, plus ``z_loss * lse^2``."""
+    logits, logsumexp minus the gold logit, plus ``z_loss * lse^2``.  With
+    ``count`` the sum over the positions divided by it (0 where there are
+    none, still in the autograd graph)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * lse.square()
-    return loss.mean()
+    return loss.mean() if count is None else loss.sum() / count
 
 
 # "tp" (the default): every leaf that the rules split over "model" is held
@@ -112,10 +115,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 # (``use_mesh``), and the models read the installed one, so a later
 # ``set_sharding_mode`` changes no model already built.
 SHARDING_MODE = ["tp"]
-# the mesh, mode, row axes and sequence axes of ``use_mesh``: plain
-# globals, not context variables, because the autograd engine runs a CUDA
-# backward (and remat's recompute inside it) on threads of its own
-_AMBIENT = [(None, None, (), ())]
+# the mesh, mode, row axes, sequence axes and whole batch leaves of
+# ``use_mesh``: plain globals, not context variables, because the autograd
+# engine runs a CUDA backward (and remat's recompute inside it) on threads
+# of its own
+_AMBIENT = [(None, None, (), (), ())]
 
 
 def set_sharding_mode(mode: str) -> None:
@@ -126,7 +130,7 @@ def set_sharding_mode(mode: str) -> None:
 
 @contextlib.contextmanager
 def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None,
-             seq: tuple = ()):
+             seq: tuple = (), whole: tuple = ()):
     """Run the model on ``mesh`` (a DeviceMesh, or None for one process) in
     sharding ``mode`` (default: ``SHARDING_MODE``'s), the counterpart of
     the reference's ``with mesh:``.  ``rows`` names the axes over which the
@@ -135,15 +139,34 @@ def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None,
     alike on every rank of "model" (serving).  ``seq`` names the axes over
     which each row's sequence is split (``split_batch`` of an "fsdp" batch
     smaller than the mesh), each rank holding one contiguous slice
-    (``seq_rank``); by default none.  A training step's backward belongs inside too: remat
-    recomputes the forward there."""
+    (``seq_rank``); by default none.  ``whole`` names the batch's leaves
+    that lie whole on every rank beside a split sequence (``split_batch``:
+    whisper's frames where the axes do not divide them; ``batch_split``).
+    A training step's backward belongs inside too: remat recomputes the
+    forward there."""
     prev = _AMBIENT[0]
     if rows is None:
         rows = () if mesh is None else batch_axes(mesh)
+    seq = tuple(seq) if mesh is not None else ()
     _AMBIENT[0] = (mesh, SHARDING_MODE[0] if mode is None else mode,
-                   tuple(rows), tuple(seq) if mesh is not None else ())
+                   tuple(rows), seq, tuple(whole) if seq else ())
     try:
         yield mesh
+    finally:
+        _AMBIENT[0] = prev
+
+
+@contextlib.contextmanager
+def whole_sequence():
+    """Within it no sequence is split (``seq_split`` is None); the mesh,
+    the mode and the rows stay: a model part that runs a leaf which lies
+    whole beside a split sequence (whisper's encoder on its rows' whole
+    frames).  Enter it inside a remat unit, so that the recompute runs
+    under it too."""
+    prev = _AMBIENT[0]
+    _AMBIENT[0] = (*prev[:3], (), ())
+    try:
+        yield
     finally:
         _AMBIENT[0] = prev
 
@@ -168,6 +191,12 @@ def ambient_seq() -> tuple:
     return _AMBIENT[0][3]
 
 
+def ambient_whole() -> tuple:
+    """The batch leaves that ``use_mesh`` says lie whole on every rank
+    beside the split sequence."""
+    return _AMBIENT[0][4]
+
+
 def seq_rank(mesh, axes, coord: dict[str, int] | None = None
              ) -> tuple[int, int]:
     """(index, count): which of ``count`` contiguous slices of a sequence
@@ -186,10 +215,30 @@ def seq_rank(mesh, axes, coord: dict[str, int] | None = None
 def seq_split():
     """(mesh, axes, index, count) of the sequence split that ``use_mesh``
     installed (``seq_rank``), or None where each rank holds whole rows."""
-    mesh, _, _, seq = _AMBIENT[0]
+    mesh, _, _, seq, _ = _AMBIENT[0]
     if mesh is None or not seq:
         return None
     return (mesh, seq, *seq_rank(mesh, seq))
+
+
+def batch_split(key: str):
+    """``seq_split`` where the batch's leaf ``key`` is split as the tokens
+    are; None where no sequence is split or where that leaf lies whole on
+    every rank beside them (``use_mesh``'s ``whole``)."""
+    return None if key in _AMBIENT[0][4] else seq_split()
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of ``x``, a batch leaf that lies whole on every rank
+    beside a split sequence: the part of its dim 0 that the rows' axes
+    give the rank (``seq_rank`` of ``ambient_rows``, as ``local_slice``
+    cuts the tokens)."""
+    mesh, _, rows = _AMBIENT[0][:3]
+    if mesh is None or not rows:
+        return x
+    index, count = seq_rank(mesh, rows)
+    size = x.shape[0] // count
+    return x.narrow(0, index * size, size)
 
 
 @functools.lru_cache(maxsize=None)

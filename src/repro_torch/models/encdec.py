@@ -33,6 +33,21 @@ the MLPs and the vocabulary are split over "model" as in ``lm``
 its remat unit (``common.gather_layer``), and the embedding, ``enc_pos``,
 ``enc_norm``, ``final_norm`` and the head are gathered at each use, as in
 ``lm``.
+
+Under a sequence split (an "fsdp" batch smaller than the mesh,
+``common.seq_split``) each rank holds a slice of its rows' tokens, and
+its rows' frames either split as the tokens are or whole (the rules'
+layout of each leaf, ``common.batch_split``: 1500 frames divide no axis
+of 16).  Split frames: the encoder runs the rank's frames at their
+positions, its attention gathering the keys and values over the frames'
+axes, and its output is gathered over them, so that each rank's decoder
+slice reads every frame of its rows.  Whole frames: each rank encodes its
+rows' whole frames with no split installed (``common.whole_sequence``),
+every rank of the sequence's axes alike; each copy takes the gradient of
+its own decoder slice, and the step sums them.  The decoder runs the
+rank's tokens at their positions, its self-attention as ``lm``'s; a
+prefill's last logits, k/v and xk/xv are the whole prompt's on every
+rank.
 """
 from __future__ import annotations
 
@@ -42,11 +57,13 @@ import torch.nn.functional as F
 from .attention import (cross_attention, decode_attention,
                         decode_cross_attention, encode_kv, full_attention,
                         init_attn_params)
-from .common import (dtype_of, fsdp_whole, gather_layer, gather_layers, gathering,
-                     normal_init, rms_norm, whole_shapes)
+from ..launch.collectives import gather_leaf, seq_last
+from .common import (batch_split, dtype_of, fsdp_whole, gather_layer,
+                     gather_layers, gathering, normal_init, own_rows,
+                     rms_norm, seq_split, whole_sequence, whole_shapes)
 from .config import ArchConfig
 from .lm import (_layer, _logits, _maybe_ckpt, _unbind, ce_loss,
-                 embed_tokens, kv_heads)
+                 embed_tokens, kv_heads, seq_positions)
 from .mlp import init_mlp_params, mlp_forward
 
 
@@ -107,19 +124,42 @@ def _enc_layer(lp, h, positions, cfg: ArchConfig):
                            cfg.mlp_act, cfg.d_ff)
 
 
+def _unsplit(fn):
+    """``fn`` run with no sequence split (``common.whole_sequence``); inside
+    the remat unit, so that the recompute runs the same way."""
+    def run(*args):
+        with whole_sequence():
+            return fn(*args)
+
+    return run
+
+
 def encode(params, frames, cfg: ArchConfig) -> torch.Tensor:
-    """frames (B,T,D) stub embeddings -> encoder output (B,T,D)."""
-    t, d = frames.shape[1], cfg.d_model
+    """frames (B,T,D) stub embeddings -> encoder output (B,T,D).
+
+    Under a sequence split the output is that of every frame of the
+    rank's rows: the rank's frames run at their positions and the output
+    is gathered over the frames' axes; frames that lie whole on every rank
+    are taken at the rank's rows and run whole (see the module's
+    docstring)."""
+    d = cfg.d_model
+    split = batch_split("frames")
+    whole = split is None and seq_split() is not None
+    if whole:
+        frames = own_rows(frames)
+    t = frames.shape[1]
     pos = fsdp_whole("enc_pos", (cfg.enc_len, d), params["enc_pos"])
-    h = frames.to(dtype_of(cfg.compute_dtype)) + pos[None, :t]
-    positions = torch.arange(t, device=frames.device)[None, :]
-    layer = _maybe_ckpt(gathering(_enc_layer, _shapes(cfg), "enc_layers"),
-                        cfg)
+    start = 0 if split is None else split[2] * t
+    h = frames.to(dtype_of(cfg.compute_dtype)) + pos[None, start:start + t]
+    positions = torch.arange(start, start + t, device=frames.device)[None]
+    fn = gathering(_enc_layer, _shapes(cfg), "enc_layers")
+    layer = _maybe_ckpt(_unsplit(fn) if whole else fn, cfg)
     for lp in _unbind(gather_layers(params["enc_layers"], "enc_layers",
                                     _shapes(cfg))):
         h = layer(lp, h, positions, cfg)
-    return rms_norm(h, fsdp_whole("enc_norm", (d,), params["enc_norm"]),
-                    cfg.norm_eps)
+    h = rms_norm(h, fsdp_whole("enc_norm", (d,), params["enc_norm"]),
+                 cfg.norm_eps)
+    return h if split is None else gather_leaf(h, split[0], 1, split[1])
 
 
 def _dec_layer(lp, h, positions, enc_out, cfg: ArchConfig):
@@ -141,9 +181,14 @@ def _dec_layer(lp, h, positions, enc_out, cfg: ArchConfig):
 def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
                 collect_cache: bool = False, last_only: bool = False):
     """The decoder over the whole token sequence.  Returns (logits,
-    cache|None); ``last_only``: logits of the final position only."""
+    cache|None); ``last_only``: logits of the final position only.
+
+    Under a sequence split ``tokens`` are the rank's slice, at its
+    positions, and ``enc_out`` every frame of the rank's rows (``encode``);
+    the last position's logits are the last rank's on every rank, and the
+    cache's k/v the whole sequence's."""
     h = embed_tokens(params, tokens, cfg).to(dtype_of(cfg.compute_dtype))
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = seq_positions(tokens.shape[1], tokens.device)
     per_layer: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
     layer = _maybe_ckpt(gathering(_dec_layer, _shapes(cfg), "dec_layers"),
                         cfg)
@@ -157,6 +202,9 @@ def dec_forward(params, tokens, enc_out, cfg: ArchConfig,
              if collect_cache else None)
     if last_only:
         h = h[:, -1:, :]
+        split = seq_split()
+        if split is not None:
+            h = seq_last(h, split[0], split[1])
     return _logits(params, h, cfg), cache
 
 
@@ -174,11 +222,15 @@ def train_loss(params, batch, cfg: ArchConfig):
 def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     """Encode ``batch["frames"]``, run the decoder over ``batch["tokens"]``;
     return (last_logits, cache).  ``pad_to`` reserves decode slots on axis
-    2 of ``k``/``v`` (``xk``/``xv`` keep the encoder's length)."""
+    2 of ``k``/``v`` (``xk``/``xv`` keep the encoder's length).  Under a
+    sequence split every rank returns the whole prompt's."""
     enc_out = encode(params, batch["frames"], cfg)
     logits, cache = dec_forward(params, batch["tokens"], enc_out, cfg,
                                 collect_cache=True, last_only=True)
     b, s = batch["tokens"].shape
+    split = seq_split()
+    if split is not None:           # the rank's slice: the whole prompt's
+        s *= split[3]
     if pad_to and pad_to > s:
         pad = (0, 0, 0, 0, 0, pad_to - s)     # last dims first: hd, K, T
         cache["k"] = F.pad(cache["k"], pad)

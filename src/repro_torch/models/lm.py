@@ -41,12 +41,17 @@ on its stacked layer dim is gathered once a forward before the layers are
 unbound (``common.gather_layers``), and the embedding, the head,
 ``final_norm``, the projector and zamba2's shared block are gathered at each
 use.  Where a batch smaller than the mesh splits the sequence over the
-ranks of some axes (``common.seq_split``, the dense, SSM and hybrid
-families), each rank runs its slice of every row: positions from its
-start, attention to every earlier token (``attention.full_attention``),
-mamba layers from the state the earlier slices leave (``ssm.py``); the
-loss is the mean over the rank's labels, and a prefill's cache and last
-logits are the whole sequence's on every rank.
+ranks of some axes (``common.seq_split``), each rank runs its slice of
+every row: positions from its start, attention to every earlier token
+(``attention.full_attention``), mamba layers from the state the earlier
+slices leave (``ssm.py``), the MoE over the reference's blocks
+(``mlp.py``); the loss is the mean over the rank's labels, and a
+prefill's cache and last logits are the whole sequence's on every rank.
+The VLM's ranks hold its patches split as its tokens are, and each rank
+takes one contiguous slice of the patches and tokens joined
+(``_embed``), so a rank may hold patches only; its loss is the sum over
+the rank's text positions divided by its count of labels, the rank's
+share of the batch's mean.
 """
 from __future__ import annotations
 
@@ -58,11 +63,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..launch.collectives import (all_reduce, copy_to, seq_last,
-                                  vocab_cross_entropy)
+from ..launch.collectives import (all_reduce, copy_to, gather_leaf,
+                                  seq_last, vocab_cross_entropy)
 from ..launch.mesh import MeshSpec, coordinate
 from .attention import decode_attention, full_attention, init_attn_params
-from .common import (cross_entropy_loss, dtype_of, fsdp_whole,
+from .common import (batch_split, cross_entropy_loss, dtype_of, fsdp_whole,
                      gather_layer, gather_layers, gathering, normal_init,
                      rms_norm, seq_split, tp_split, tp_whole, whole_shapes)
 from .config import ArchConfig
@@ -203,13 +208,16 @@ def _logits(params, h, cfg: ArchConfig):
     return torch.einsum("bsd,dv->bsv", h, head)
 
 
-def ce_loss(logits, labels, cfg: ArchConfig) -> torch.Tensor:
+def ce_loss(logits, labels, cfg: ArchConfig,
+            count: int | None = None) -> torch.Tensor:
     """Mean CE of ``_logits``' output: ``cross_entropy_loss``, over the
-    vocabulary's slices under "tp"."""
+    vocabulary's slices under "tp"; with ``count``, the sum over the
+    positions divided by it."""
     mesh = vocab_mesh(cfg)
     if mesh is None:
-        return cross_entropy_loss(logits, labels)
-    return vocab_cross_entropy(logits, labels, mesh)
+        return cross_entropy_loss(logits, labels, count=count)
+    loss = vocab_cross_entropy(logits, labels, mesh)
+    return loss if count is None else loss * (labels.numel() / count)
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
@@ -229,16 +237,43 @@ def embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
 
 def _embed(params, tokens, cfg: ArchConfig, patches=None):
     """Token embeddings; the VLM prepends its ``patches`` (B,P,1024) through
-    the projector, in the parameters' dtype."""
-    h = embed_tokens(params, tokens, cfg)
+    the projector, in the parameters' dtype.
+
+    Under a sequence split the VLM's patches and tokens are the rank's
+    slices of its rows' (split as the tokens are), and the rank's part of
+    the joined sequence of L = P + S positions is one contiguous slice,
+    [r L/n, (r+1) L/n), which flash's causal offset and ``seq_positions``
+    read: the projected patches and the embeddings are gathered over the
+    sequence's axes, joined and cut (the gathers' backward reduce-scatters
+    their gradients).  Patches that lie whole beside split tokens (P not a
+    multiple of the n slices, so neither is P + S) raise on every rank,
+    before any collective."""
+    split = seq_split()
     if cfg.family == "vlm":
         if patches is None:
             raise ValueError("vlm needs patch embeddings")
+        if split is not None and batch_split("patches") is None:
+            p, n = patches.shape[1], split[3]
+            raise ValueError(
+                f"{cfg.name}: {p} patches lie whole on every rank beside "
+                f"tokens split over {tuple(split[1])} into {n} slices of "
+                f"{tokens.shape[1]}; {p} + {tokens.shape[1] * n} positions "
+                f"do not cut into {n} contiguous slices (ROADMAP.md, item "
+                f"9b (viii))")
+    h = embed_tokens(params, tokens, cfg)
+    if cfg.family == "vlm":
         whole = (PATCH_DIM, cfg.d_model)
         proj = fsdp_whole("projector", whole, tp_whole(
             "projector", whole, params["projector"]))
         pe = torch.einsum("bpv,vd->bpd", patches.to(h.dtype), proj)
-        h = torch.cat([pe, h], dim=1)
+        if split is None:
+            h = torch.cat([pe, h], dim=1)
+        else:
+            mesh, axes, r, n = split
+            size = pe.shape[1] + h.shape[1]
+            h = torch.cat([gather_leaf(pe, mesh, 1, axes),
+                           gather_leaf(h, mesh, 1, axes)], dim=1)
+            h = h.narrow(1, r * size, size)
     return h.to(dtype_of(cfg.compute_dtype))
 
 
@@ -328,19 +363,22 @@ def seq_positions(n: int, device) -> torch.Tensor:
 
 # ------------------------------------------------------------ full forward
 def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
-            last: int = 0, patches=None):
+            last: int = 0, patches=None, text: int = 0):
     """Full-sequence forward.  Returns (logits, aux, cache|None); aux is the
     MoE load-balancing loss summed over the layers in layer order, in f32
     (0 for the other families), as the reference's scan carry sums it.
 
-    ``last > 0``: logits of the last ``last`` positions only (1 for prefill,
-    the text positions for the VLM's loss); the final norm and the head act
-    per position, so these are the full logits' last rows.
-    ``patches``: the VLM's (B,P,1024) patch features, prepended.
+    ``last > 0``: logits of the last ``last`` positions only (1 for prefill);
+    the final norm and the head act per position, so these are the full
+    logits' last rows.  ``text > 0``: logits of the positions among the
+    whole sequence's last ``text`` (the VLM's text, for its loss) that the
+    rank holds.  ``patches``: the VLM's (B,P,1024) patch features,
+    prepended.
 
     Under a sequence split (``common.seq_split``) ``tokens`` are the rank's
     slice: the logits are its positions', the last ``last`` ones (at most
-    a slice) the last rank's on every rank, and the cache's k/v the whole
+    a slice) the last rank's on every rank, those of ``text`` the rank's
+    own (none on a rank of patches only), and the cache's k/v the whole
     sequence's."""
     h = _embed(params, tokens, cfg, patches)
     split = seq_split()
@@ -387,7 +425,17 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
         h = h[:, -last:, :]
         if split is not None:
             h = seq_last(h, split[0], split[1])
+    elif text > 0:
+        h = h[:, _text_start(h.shape[1], text, split):, :]
     return _logits(params, h, cfg), aux, cache
+
+
+def _text_start(n: int, text: int, split) -> int:
+    """Where, among the rank's ``n`` positions, those of the whole
+    sequence's last ``text`` begin (``n`` where it holds none of them)."""
+    start, whole = (0, n) if split is None else \
+        (split[2] * n, split[3] * n)
+    return min(max(whole - text - start, 0), n)
 
 
 # ------------------------------------------------------------------- train
@@ -398,12 +446,29 @@ def train_loss(params, batch, cfg: ArchConfig):
     224-232``).  Returns (total, {"ce", "aux"}); differentiate ``total``.
     The VLM runs ``batch["patches"]`` before the tokens and takes CE on the
     last ``labels.shape[1]`` positions only, the text, as the reference's
-    ``logits[:, -labels.shape[1]:]`` does; the head runs on those alone."""
+    ``logits[:, -labels.shape[1]:]`` does; the head runs on those alone.
+
+    Under a sequence split the VLM's ranks hold other numbers of text
+    positions (``_embed``; none on a rank of patches only): each rank's
+    labels are cut anew from its rows' gathered over the sequence's axes,
+    to its own text positions, and its CE is their sum divided by its
+    count of labels, so that the mean over the ranks, which the step
+    takes, is the batch's mean."""
     labels = batch["labels"]
-    logits, aux, _ = forward(
-        params, batch["tokens"], cfg, patches=batch.get("patches"),
-        last=labels.shape[1] if cfg.family == "vlm" else 0)
-    loss = ce_loss(logits, labels, cfg)
+    split = seq_split() if cfg.family == "vlm" else None
+    text = 0 if cfg.family != "vlm" else \
+        labels.shape[1] * (1 if split is None else split[3])
+    logits, aux, _ = forward(params, batch["tokens"], cfg,
+                             patches=batch.get("patches"), text=text)
+    if split is None:
+        loss = ce_loss(logits, labels, cfg)
+    else:
+        mesh, axes, r, n = split
+        every = gather_leaf(labels, mesh, 1, axes)            # (B, S)
+        p = n * batch["patches"].shape[1]
+        first = max(r * (batch["tokens"].shape[1] * n + p) // n, p) - p
+        loss = ce_loss(logits, every.narrow(1, first, logits.shape[1]), cfg,
+                       count=labels.numel())
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -419,11 +484,11 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     logits, _, cache = forward(params, tokens, cfg, collect_cache=True,
                                last=1, patches=patches)
     b, seqlen = tokens.shape
+    if cfg.family == "vlm":
+        seqlen += patches.shape[1]
     split = seq_split()
     if split is not None:           # the rank's slice: the whole prompt's
         seqlen *= split[3]
-    if cfg.family == "vlm":
-        seqlen += patches.shape[1]
     if "k" in cache and pad_to and pad_to > seqlen:
         pad = (0, 0, 0, 0, 0, pad_to - seqlen)   # last dims first: hd, K, T
         cache["k"] = F.pad(cache["k"], pad)

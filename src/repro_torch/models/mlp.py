@@ -34,6 +34,14 @@ experts' shares back to the rows' ranks; the router, gathered whole by the
 layer (``common.gather_layer``), enters no "f": its reduce-scatter already
 sums every rank's share.
 
+An "fsdp" batch smaller than the mesh splits each row's sequence over the
+axes its rows leave (``common.seq_split``), "model" always among them:
+the all-to-all path routes the reference's block, which is the rank's
+part where the rows divide the data axes and is gathered and cut from the
+ranks' parts where they do not (``_moe_a2a_seq``); the dense dispatch
+keeps each row's capacity and slots over its whole sequence (``_route``'s
+``split``).
+
 In "tp" mode the MLP (the dense one, arctic's ``dense_mlp``, llama4's
 ``shared_mlp``, whisper's and zamba2's shared block's) is Megatron's column
 and row split over "model" where it divides the hidden dim
@@ -53,8 +61,8 @@ from ..launch.collectives import (all_reduce, all_to_all, copy_to,
                                   gather_leaf, scatter_sum, seq_gather,
                                   seq_slice)
 from ..launch.mesh import MeshSpec, batch_axes, coordinate
-from .common import (ambient_mesh, ambient_mode, ambient_rows, normal_init,
-                     tp_split)
+from .common import (ambient_mesh, ambient_mode, ambient_rows, ambient_seq,
+                     normal_init, seq_rank, seq_split, tp_split)
 from .config import ArchConfig
 
 
@@ -129,23 +137,32 @@ def moe_forward(params, x, cfg: ArchConfig):
     (S, k) order; the rest are dropped (weight 0).  ``aux_loss`` is the
     Switch load-balancing loss.  The path is chosen as the reference's
     ``moe_forward`` chooses it (``repro/models/mlp.py:69-79``), without its
-    ``kernel_mode`` condition: the port has no kernel mode."""
+    ``kernel_mode`` condition: the port has no kernel mode.  Under a
+    sequence split x is the rank's slice of its rows, and the test is on
+    the whole sequence's length."""
     mesh = ambient_mesh()
     if mesh is None:
         return _moe_dense_dispatch(params, x, cfg)
     nm = MeshSpec.of(mesh).shape.get("model", 0)
     if nm and cfg.n_experts % nm == 0:
-        if ambient_mode() == "fsdp" and x.shape[1] % nm == 0:
+        split = seq_split()
+        seq = x.shape[1] * (1 if split is None else split[3])
+        if ambient_mode() == "fsdp" and seq % nm == 0:
             return _moe_expert_parallel_a2a(params, x, cfg, mesh)
         return _moe_expert_parallel(params, x, cfg, mesh)
     return _moe_dense_dispatch(params, x, cfg, mesh)
 
 
-def _route(x, router, cfg: ArchConfig, cap: int):
+def _route(x, router, cfg: ArchConfig, cap: int, split=None):
     """Route the tokens of x (B,S,D): the softmax probabilities (B,S,E),
     the top-k expert ids (B,S,k), and per (row, token, choice) in (S, k)
     order the expert (B,S*k), its slot, whether it fits the capacity and
-    its combine weight (renormalised top-k probability, 0 if dropped)."""
+    its combine weight (renormalised top-k probability, 0 if dropped).
+
+    ``split`` (``common.seq_split``): x is the rank's slice of its rows'
+    sequence, and a pair fits where its slot over the row's whole sequence
+    does, the pairs of the earlier slices first (``_earlier``); the slot
+    returned is the one among the slice's own pairs, less than S."""
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     logits = torch.einsum("bsd,de->bse", x.float(), router.float())
@@ -157,9 +174,28 @@ def _route(x, router, cfg: ArchConfig, cap: int):
     pos_in_e = torch.cumsum(onehot, dim=1) - onehot
     slot = pos_in_e.gather(-1, flat_e[..., None])[..., 0]        # (B,T)
     keep = slot < cap
+    if split is not None:
+        keep = slot + _earlier(onehot.sum(dim=1), split).gather(
+            -1, flat_e) < cap
     slot = torch.where(keep, slot, 0)
     w = top_p.reshape(b, s * k) * keep                           # (B,T)
     return probs, top_i, flat_e, slot, keep, w
+
+
+def _earlier(counts, split):
+    """(B, E): each row's pairs of each expert in the slices of its
+    sequence before the rank's, from every rank's ``counts`` (B, E) of its
+    own, gathered over the sequence's axes (integers: no gradient).  Every
+    rank gathers, the first too."""
+    mesh, axes, index, _ = split
+    return gather_leaf(counts[None], mesh, 0, axes)[:index].sum(dim=0)
+
+
+def _token_axes(mesh) -> tuple:
+    """The axes whose ranks hold other tokens: the rows' and the
+    sequence's, in the mesh's order."""
+    held = (*ambient_rows(), *ambient_seq())
+    return tuple(a for a in MeshSpec.of(mesh).axis_names if a in held)
 
 
 def _aux(probs, top_i, e: int, mesh=None, axes: tuple = (),
@@ -214,20 +250,31 @@ def _experts(params, buf, cfg: ArchConfig):
 def _moe_dense_dispatch(params, x, cfg: ArchConfig, mesh=None):
     """One process's dispatch over every expert (or, under a mesh whose
     "model" axis does not divide the experts, each rank's over every
-    expert, aux over the batch axes: the experts whole, or in "tp" mode
-    their hidden slice, the tokens and combine weights then entering
-    through "f" and the ranks' shares of y summed)."""
+    expert, aux over the axes whose ranks hold other tokens: the experts
+    whole, or in "tp" mode their hidden slice, the tokens and combine
+    weights then entering through "f" and the ranks' shares of y summed).
+
+    Under a sequence split (``common.seq_split``) this is the reference's
+    GSPMD dispatch of the whole rows: the capacity is the whole sequence's
+    and a pair's slot counts over the row's whole sequence (``_route``),
+    so the pairs kept are one process's.  Each expert row is independent,
+    so the rank fills a buffer of its own pairs at their slots among its
+    own, of which an expert takes at most S_loc, and runs the grouped FFN
+    on it."""
     e, k = cfg.n_experts, cfg.top_k
-    cap = moe_capacity(cfg, x.shape[1])
+    split = None if mesh is None else seq_split()
+    s = x.shape[1]
+    cap = moe_capacity(cfg, s * (1 if split is None else split[3]))
     probs, top_i, flat_e, slot, keep, w = _route(x, params["router"], cfg,
-                                                 cap)
-    aux = _aux(probs, top_i, e, mesh, ambient_rows() if mesh else ())
-    split = tp_split("moe.w_in", (e, cfg.d_model, cfg.d_ff), params["w_in"])
-    if split is not None:
-        x, w = copy_to(x, split, "model"), copy_to(w, split, "model")
-    buf, b_idx = _dispatch(x, flat_e, slot, keep, e, cap, k)
+                                                 cap, split)
+    aux = _aux(probs, top_i, e, mesh, _token_axes(mesh) if mesh else ())
+    mp = tp_split("moe.w_in", (e, cfg.d_model, cfg.d_ff), params["w_in"])
+    if mp is not None:
+        x, w = copy_to(x, mp, "model"), copy_to(w, mp, "model")
+    buf, b_idx = _dispatch(x, flat_e, slot, keep, e,
+                           cap if split is None else min(cap, s), k)
     y = _combine(_experts(params, buf, cfg), b_idx, flat_e, slot, w, k)
-    return (y if split is None else all_reduce(y, split, "model")), aux
+    return (y if mp is None else all_reduce(y, mp, "model")), aux
 
 
 def _local_experts(params, cfg: ArchConfig, nm: int) -> int:
@@ -316,7 +363,11 @@ def _moe_expert_parallel_a2a(params, x, cfg: ArchConfig, mesh):
     gives each rank its data group's rows at its slice of the sequence
     (B/nb, S/nm, D), and the reverse one gives the rank its rows back; the
     router, gathered whole by the layer, enters as it is (its gather's
-    reduce-scatter sums the ranks' shares)."""
+    reduce-scatter sums the ranks' shares).  Under a sequence split see
+    ``_moe_a2a_seq``."""
+    split = seq_split()
+    if split is not None:
+        return _moe_a2a_seq(params, x, cfg, mesh, split)
     e, k = cfg.n_experts, cfg.top_k
     nm = MeshSpec.of(mesh).shape["model"]
     _local_experts(params, cfg, nm)
@@ -344,3 +395,64 @@ def _moe_expert_parallel_a2a(params, x, cfg: ArchConfig, mesh):
     if rows:
         return all_to_all(y, mesh, "model", split_dim=0, concat_dim=1), aux
     return seq_gather(y, mesh, "model", 1), aux
+
+
+def _moe_a2a_seq(params, x, cfg: ArchConfig, mesh, split):
+    """The all-to-all path over a split sequence: x (B_loc, s, D) is the
+    rank's slice of its rows (``common.seq_split``), "model" among the
+    sequence's axes.  The reference routes the block ``P(bspec, "model")``
+    (``repro/models/mlp.py:104-109``): its rows over the data axes where
+    the rows divide them, and model slice m of the sequence, S/nm tokens,
+    at the slice's capacity ``moe_capacity(cfg, S // nm)``, slots counted
+    within the slice.
+
+    Where the sequence lies over "model" alone (the rows over every data
+    axis), that block is the rank's part, routed as it comes and returned
+    as the rank's slice of y.  Otherwise (the rows over a prefix of the
+    data axes, the sequence over the rest and "model": a one-row batch on
+    (pod, data, model)) the block is every row of model slice m, which
+    other ranks' parts make up: the rank gathers x over the rows' and the
+    sequence's axes and cuts the slice out, every rank of the same "model"
+    coordinate routing the same block, then gathers the blocks' y over
+    "model" and cuts out its own part.  A first design: a leaner exchange
+    would send each block only its tokens (ROADMAP.md item 10).
+
+    The router enters as it is and aux is a mean over every rank: each
+    rank's loss reads its own tokens' y, so its gradient is its share,
+    which the router's gather sums (``_aux``'s ``n_summed`` 1).  Every
+    gather's backward reduce-scatters, so the blocks' gradients reach the
+    ranks whose tokens they are."""
+    _, seq, index, count = split
+    e, k = cfg.n_experts, cfg.top_k
+    nm = MeshSpec.of(mesh).shape["model"]
+    _local_experts(params, cfg, nm)
+    rows = ambient_rows()
+    block = tuple(seq) == ("model",)
+    if block:
+        def part():
+            return x
+    else:
+        whole = gather_leaf(x, mesh, 0, rows) if rows else x
+        whole = gather_leaf(whole, mesh, 1, seq)
+        s = whole.shape[1] // nm
+        m = coordinate(mesh)["model"]
+
+        def part():
+            return whole.narrow(1, m * s, s)
+    # taken twice, as ``_moe_expert_parallel_a2a`` takes it
+    cap = moe_capacity(cfg, part().shape[1])
+    probs, top_i, flat_e, slot, keep, w = _route(part(), params["router"],
+                                                 cfg, cap)
+    aux = _aux(probs, top_i, e, mesh, MeshSpec.of(mesh).axis_names)
+    buf, b_idx = _dispatch(part(), flat_e, slot, keep, e, cap, k)
+    recv = all_to_all(buf, mesh, "model", split_dim=1, concat_dim=2)
+    back = all_to_all(_experts(params, recv, cfg), mesh, "model",
+                      split_dim=2, concat_dim=1)
+    y = _combine(back, b_idx, flat_e, slot, w, k)
+    if block:
+        return y, aux
+    y = gather_leaf(y, mesh, 1, "model")
+    if rows:
+        r, nr = seq_rank(mesh, rows)
+        y = y.narrow(0, r * x.shape[0], x.shape[0])
+    return y.narrow(1, index * x.shape[1], x.shape[1]), aux

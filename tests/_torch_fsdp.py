@@ -22,7 +22,6 @@ import os
 
 import numpy as np
 
-import _torch_seq as ts
 import _torch_tp as tt
 
 AXES = ("data", "model")
@@ -181,21 +180,18 @@ def _order(mesh, res: dict, key: str) -> None:
 
 
 def _small_batch(mesh, data, res: dict, key: str) -> None:
-    """A batch of ``small_rows`` in "fsdp" mode: where the rules split its
-    sequence, the training and prefill steps of the families that do not
-    carry the split out, each error's text (``_torch_seq.refusals``);
-    where they replicate it ((2, 1)), whether ``shard_batch`` leaves it
-    whole."""
+    """A batch of ``small_rows`` in "fsdp" mode: the axes that
+    ``split_batch`` puts its rows and its sequence over, and where the
+    rules replicate it ((2, 1)), whether it stays whole."""
     import torch
 
     from repro_torch.launch.shardings import split_batch
     b = tt.batch(data, "deepseek-7b")
     rows = small_rows(tuple(mesh.shape))
     small = {k: v[:rows] for k, v in b.items()}
-    part, _, seq = split_batch(small, mesh, "fsdp")
-    if seq:
-        ts.refusals(mesh, res, key)
-        return
+    part, row_ax, seq, _ = split_batch(small, mesh, "fsdp")
+    res[f"{key}/small_rows"] = np.array(row_ax)
+    res[f"{key}/small_seq"] = np.array(seq)
     res[f"{key}/small_whole"] = np.array(
         all(torch.equal(part[k], small[k]) for k in small))
 

@@ -1,5 +1,5 @@
-"""Helpers of tests/test_torch_seq_split.py (and of test_torch_fsdp.py's
-refusal cases), importable by the processes they start.
+"""Helpers of tests/test_torch_seq_split.py, importable by the processes
+they start (tests/_torch_seq_families.py reuses them).
 
 The "fsdp" layout of a batch smaller than the mesh: ``small_rows(shape)``
 rows of SEQ tokens on (1, 2), (1, 4) and (2, 2), whose rows the rules put
@@ -29,9 +29,6 @@ ALL_MESHES = [s for w in (2, 4) for s in MESHES[w]]
 # the dense (gemma3-27b: a window of 8 over 16 tokens, which crosses the
 # ranks' boundaries), SSM and hybrid families, which carry the split out
 ARCHS = ("deepseek-7b", "gemma3-27b", "mamba2-780m", "zamba2-2.7b")
-# the families that raise under a split sequence, naming 9b (viii)
-REFUSED = ("llama4-scout-17b-a16e", "whisper-medium",
-           "llava-next-mistral-7b")
 # the MoE's prefill in "fsdp" mode on a batch of as many rows as the mesh
 # has ranks, its rows over every axis, "model" too (the all-to-all's row
 # exchange): llama4-scout's smoke config at a capacity no row's pairs
@@ -136,53 +133,6 @@ def prefill_run(model, data, arch: str, rows: int) -> dict:
     return out
 
 
-def refused_batch(cfg, rows: int) -> dict:
-    """Zeros of a whole batch of ``rows`` x SEQ tokens, with the frames or
-    patches the family's batch carries."""
-    import torch
-
-    from repro_torch.models.lm import PATCH_DIM
-    toks = torch.zeros((rows, SEQ), dtype=torch.int64)
-    out = {"tokens": toks, "labels": toks}
-    if cfg.family == "encdec":
-        out["frames"] = torch.zeros((rows, cfg.enc_len, cfg.d_model))
-    if cfg.family == "vlm":
-        out["patches"] = torch.zeros((rows, cfg.n_patches, PATCH_DIM))
-    return out
-
-
-def refusals(mesh, res: dict, key: str) -> None:
-    """For each REFUSED arch, a model in "fsdp" mode on ``mesh`` (its
-    leaves on meta: nothing is computed) given ``small_rows`` of the mesh
-    through ``make_train_step`` and ``make_prefill_step``: the error's text
-    of each, or "no error" where the rules leave the batch whole."""
-    from repro_torch.configs import get_smoke
-    from repro_torch.launch.steps import make_prefill_step, make_train_step
-    from repro_torch.models import Model
-    from repro_torch.models.common import set_sharding_mode
-    from repro_torch.optim import AdamW, AdamWConfig
-    rows = small_rows(tuple(mesh.shape))
-    for arch in REFUSED:
-        cfg = get_smoke(arch)
-        set_sharding_mode("fsdp")
-        try:
-            model = Model(cfg, device="cpu", mesh=mesh)
-        finally:
-            set_sharding_mode("tp")
-        state = {"params": dict(model.named_parameters()), "opt": None}
-        b = refused_batch(cfg, rows)
-        for step, run in (
-                ("train", lambda: make_train_step(model, AdamW(AdamWConfig(
-                    **OPT)))(state, b)),
-                ("prefill", lambda: make_prefill_step(model)(
-                    {k: v for k, v in b.items() if k != "labels"}))):
-            try:
-                run()
-                res[f"{key}/{arch}/refused/{step}"] = np.array("no error")
-            except ValueError as e:
-                res[f"{key}/{arch}/refused/{step}"] = np.array(str(e))
-
-
 def worker(rank: int, world: int, store: str, inputs: str,
            out_dir: str) -> None:
     """One rank of a gloo group of ``world``: every case of that world
@@ -216,13 +166,10 @@ def worker(rank: int, world: int, store: str, inputs: str,
         for shape in MESHES.get(world, ()):
             mesh = make_mesh(shape, AXES, device="cpu")
             t = tag(shape)
-            # the refusals first: a rank that did not raise would hang the
-            # cases after them
-            refusals(mesh, res, t)
             rows = small_rows(shape)
             for arch in ARCHS:
-                _, row_ax, seq_ax = split_batch(batch(data, arch, rows),
-                                                mesh, "fsdp")
+                _, row_ax, seq_ax, _ = split_batch(batch(data, arch, rows),
+                                                   mesh, "fsdp")
                 res[f"{t}/{arch}/rows"] = np.array(row_ax)
                 res[f"{t}/{arch}/seq"] = np.array(seq_ax)
                 for run in (train_run, prefill_run):

@@ -256,29 +256,26 @@ def test_served_tokens_match_one_process(runs, served_arch, serve_shape):
 
 
 def test_a_batch_smaller_than_the_mesh_raises(runs, shape):
-    """A batch of half as many rows as the mesh has ranks, whose sequence
-    the fsdp ``batch_shardings`` puts over the axes left (every mesh here
-    but (2, 1), where no prefix of the axes divides one row and the rules
-    replicate it): the families that do not carry the split out, the MoE
-    (llama4-scout), the encoder-decoder (whisper) and the VLM (llava),
-    raise in ``make_train_step`` and ``make_prefill_step`` on every rank,
-    naming ROADMAP.md's item 9b (viii) (the dense, SSM and hybrid families
-    split the sequence: tests/test_torch_seq_split.py); a replicated batch
-    stays whole on every rank."""
+    """A batch of half as many rows as the mesh has ranks: the fsdp
+    ``batch_shardings`` puts its rows over "data" and its sequence over
+    "model", as every rank's ``split_batch`` read it (every mesh here but
+    (2, 1), where no prefix of the axes divides one row and the rules
+    replicate it: the batch stays whole on every rank).  Every family
+    carries the split out there (tests/test_torch_seq_split.py,
+    tests/test_torch_seq_split_families.py)."""
     from repro_torch.launch.shardings import batch_shardings
     t = tf.tag(shape)
     spec = batch_shardings({"t": (tf.small_rows(shape), 16)},
                            MeshSpec(tf.AXES, shape), "fsdp")["t"]
     assert (spec == ()) == (shape == (2, 1)), spec
     for res in ranks(runs, shape):
+        rows = tuple(res[f"{t}/small_rows"])
+        seq = tuple(res[f"{t}/small_seq"])
         if not spec:
-            assert bool(res[f"{t}/small_whole"])
+            assert bool(res[f"{t}/small_whole"]) and rows == seq == ()
             continue
-        assert spec[1] is not None
-        for arch in tf.ts.REFUSED:
-            for step in ("train", "prefill"):
-                msg = str(res[f"{t}/{arch}/refused/{step}"])
-                assert "9b (viii)" in msg, (arch, step, msg)
+        assert spec[1] is not None and not bool(res[f"{t}/small_whole"])
+        assert rows == ("data",) and seq == ("model",), (rows, seq)
 
 
 def test_gather_part_order(runs, shape):

@@ -7,9 +7,9 @@ rows.  f32 smoke configs of deepseek-7b, gemma3-27b (a window of 8 that
 reaches across the ranks' boundaries), mamba2-780m and zamba2-2.7b: their
 attention gathers the keys and values over the sequence's axes and their
 mamba layers take the conv's halo and the state the earlier slices leave.
-The MoE, the encoder-decoder and the VLM raise on every rank; the MoE's
-prefill on a batch that divides the mesh, its rows over every axis, holds
-to one process.
+The MoE's prefill on a batch that divides the mesh, its rows over every
+axis, holds to one process.  The MoE, whisper and llava under the split,
+and deepseek-7b on three axes: tests/test_torch_seq_split_families.py.
 
 The ``runs`` fixture runs everything once: one process on 1 and 2 rows at
 world 1, every mesh of world 2 and 4 (``_torch_seq.worker``, one spawned
@@ -47,8 +47,7 @@ JAX_REL = 1e-4
 
 
 def pytest_generate_tests(metafunc):
-    for name, values in (("arch", ts.ARCHS), ("refused_arch", ts.REFUSED),
-                         ("step", ("train", "prefill"))):
+    for name, values in (("arch", ts.ARCHS),):
         if name in metafunc.fixturenames:
             metafunc.parametrize(name, values)
     for name, shapes in (("shape", ts.ALL_MESHES),
@@ -163,11 +162,12 @@ def test_rank_order_on_three_axes(sizes, rows):
     seq = 16
     whole = {"tokens": torch.arange(rows * seq).reshape(rows, seq)}
     cut = batch_shardings(whole, spec, "fsdp")["tokens"]
-    rows_ax, axes = split_axes({"tokens": cut}, spec)
+    rows_ax, axes, whole_leaves = split_axes({"tokens": cut}, spec)
     assert axes and set(axes) == set(
         cut[1] if isinstance(cut[1], tuple) else (cut[1],))
-    assert rows_ax + axes == spec.axis_names
-    assert split_axes(batch_shardings(whole, spec, "tp"), spec)[1] == ()
+    assert rows_ax + axes == spec.axis_names and whole_leaves == ()
+    assert split_axes(batch_shardings(whole, spec, "tp"), spec)[1:] == \
+        ((), ())
     seen = set()
     for pos in np.ndindex(*sizes):
         coord = dict(zip(spec.axis_names, map(int, pos)))
@@ -281,18 +281,6 @@ def test_prefill_matches_jax_gspmd(runs, arch, shape):
                 np.testing.assert_array_equal(got, want, err_msg=k)
             else:
                 assert leaf_rel(got, want) < JAX_REL, (k, r)
-
-
-def test_refused_families_raise_on_every_rank(runs, refused_arch, shape,
-                                              step):
-    """The MoE (llama4-scout), the encoder-decoder (whisper) and the VLM
-    (llava) given a small batch whose sequence the rules split: the
-    training and the prefill step raise on every rank naming ROADMAP.md's
-    item 9b (viii), before any collective (the worker ran every case after
-    them on the same group, which a rank left behind would have hung)."""
-    for res in ranks(runs, shape):
-        msg = str(res[f"{ts.tag(shape)}/{refused_arch}/refused/{step}"])
-        assert "9b (viii)" in msg and "sequence is split" in msg, msg
 
 
 def test_moe_prefill_with_rows_over_every_axis(runs, moe_shape):
