@@ -10,6 +10,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --tp-only
     python3 chip_smoke.py --fsdp-only
     python3 chip_smoke.py --seq-only
+    python3 chip_smoke.py --dryrun-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -245,9 +246,29 @@ result line):
    The path's flash, grouped-FFN and SSD launches join the kernel line's
    totals.
 
+12. the mesh dry run (``launch/dryrun.py --multi-pod``): (a) the
+   reference's own cells counted as the last rank of its production meshes
+   holds them, each in a process of its own (a world of the "fake" backend
+   must be its process's only group), all started together: deepseek-7b's
+   train_4k, prefill_32k and decode_32k on (16, 16) and (2, 16, 16) in
+   "tp" and "fsdp", llama4-scout's train_4k in "fsdp" (the all-to-all),
+   mamba2-780m's prefill_32k in "fsdp" (the state pass over a split
+   sequence) and whisper-medium's train_4k on (2, 16, 16) in "fsdp" (whole
+   frames beside split tokens); every cell must be ok, and its terms,
+   collective link bytes by kind and axis, peak and fit are printed (data-
+   sheet estimates, no measurement).  (b) On the card, a (1, 1) NCCL mesh:
+   one training step of deepseek-7b's 2 layers in "fsdp" and in "tp" with
+   ZeRO-1, and of llama4-scout's 2 layers in "fsdp", each counted on the
+   card, list the same collective calls by kind and axis as the same step
+   counted on meta over a fake world of one (in a process of its own);
+   ``make_serve_step`` on the mesh, in both modes, with the whole tokens
+   and the rank's part of the cache, gives deepseek-7b's greedy tokens and
+   cache bit for bit against no mesh.  The path's launches join the kernel
+   line's totals.
+
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
-the tokens to hold), ``--seq-only`` phase 11.
+the tokens to hold), ``--seq-only`` phase 11, ``--dryrun-only`` phase 12.
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -5207,6 +5228,242 @@ def phase_seq_split(card: str) -> dict:
             "paths": paths + families["paths"]}
 
 
+# ------------------------------------------------------------- phase 12
+# the mesh dry run: (arch, shape, multi-pod, mode) of each cell of (a), at
+# the published configs and full depth
+MESH_CELLS = [("deepseek-7b", shape, multi_pod, mode)
+              for shape in ("train_4k", "prefill_32k", "decode_32k")
+              for multi_pod in (False, True) for mode in ("tp", "fsdp")] + [
+    (LLAMA4, "train_4k", False, "fsdp"),
+    (MAMBA2, "prefill_32k", False, "fsdp"),
+    (WHISPER, "train_4k", True, "fsdp")]
+# (b): the training steps counted at world 1 on the card and on meta, and
+# the decode steps held against no mesh
+WORLD_ONE_STEPS = (("deepseek fsdp", "fsdp", False),
+                   ("deepseek tp + ZeRO-1", "tp", True),
+                   ("llama4 fsdp", "fsdp", False))
+MESH_DECODE_ROWS, MESH_DECODE_PROMPT, MESH_DECODE_STEPS = 4, 64, 4
+MESH_TIMEOUT = 600
+
+
+def world_one_step(key: str, mesh, device: str) -> dict:
+    """One ``make_train_step`` step of WORLD_ONE_STEPS' ``key`` on the
+    (1, 1) ``mesh`` on ``device`` ("cuda": seed-0 weights and tokens;
+    "meta": shapes alone, over a fake world), counted: the collectives by
+    kind and axis, and the launches on the card."""
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.roofline import Counter
+    mode, zero1 = {k: (m, z) for k, m, z in WORLD_ONE_STEPS}[key]
+    cfg = ep_config() if key.startswith("llama4") else tp_config()
+    set_sharding_mode(mode)
+    try:
+        model = Model(cfg, device=device, mesh=mesh)
+    finally:
+        set_sharding_mode("tp")
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    if device == "meta":
+        batch = {k: torch.empty(shape, dtype=torch.int64, device="meta")
+                 for k in ("tokens", "labels")}
+    else:
+        model.init(torch.Generator("cuda").manual_seed(0))
+        gen = torch.Generator("cuda").manual_seed(21)
+        toks = torch.randint(0, cfg.vocab, (shape[0], shape[1] + 1),
+                             device="cuda", generator=gen)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+    opt = AdamW(AdamWConfig(moment_dtype="bfloat16"))
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt": opt.init(params, model, zero1=zero1)}
+    step = make_train_step(model, opt)
+    zero_counts()
+    with Counter(device, mesh) as c:
+        step(state, batch)
+    s = c.summary()
+    return {"layers": cfg.n_layers, "launches": read_counts(),
+            **{k: s[k] for k in ("collective_calls", "collective_counts",
+                                 "collective_by_axis", "flops")}}
+
+
+def world_one_meta(out: str) -> int:
+    """(b)'s meta side, run as ``chip_smoke.py --world-one-meta OUT`` in a
+    process of its own: each step of WORLD_ONE_STEPS counted on meta over
+    a fake world of one, into OUT (JSON)."""
+    from repro_torch.launch.mesh import MeshSpec, fake_world
+    res = {}
+    with fake_world(MeshSpec(("data", "model"), (1, 1))) as mesh:
+        for key, _, _ in WORLD_ONE_STEPS:
+            res[key] = world_one_step(key, mesh, "meta")
+            res[key].pop("launches")
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def mesh_decode(mesh) -> dict:
+    """deepseek-7b's 2 layers at full width: a prefill of MESH_DECODE_ROWS
+    random prompts without a mesh, then MESH_DECODE_STEPS
+    ``make_serve_step`` steps from its cache without a mesh and on the
+    (1, 1) ``mesh`` in each mode (the whole tokens and the rank's part of
+    the cache, ``Model.cache_part``): {layout: (tokens, cache)}."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
+    cfg = tp_config()
+    state = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0)).state_dict()
+    gen = torch.Generator("cuda").manual_seed(23)
+    prompts = torch.randint(0, cfg.vocab, (MESH_DECODE_ROWS,
+                                           MESH_DECODE_PROMPT),
+                            device="cuda", generator=gen)
+    whole = Model(cfg, device="cuda").load_state(
+        {k: v.clone() for k, v in state.items()})
+    logits, cache0 = whole.prefill(
+        {"tokens": prompts}, pad_to=MESH_DECODE_PROMPT + MESH_DECODE_STEPS)
+    tok0 = whole.greedy(logits)[:, None]
+    out = {}
+    for layout, m, mode in (("none", None, "tp"), ("tp", mesh, "tp"),
+                            ("fsdp", mesh, "fsdp")):
+        set_sharding_mode(mode)
+        try:
+            model = whole if m is None else Model(
+                cfg, device="cuda", mesh=m).load_state(
+                    {k: v.clone() for k, v in state.items()})
+        finally:
+            set_sharding_mode("tp")
+        cache = model.cache_part({k: v.clone() for k, v in cache0.items()})
+        step, tok, toks = make_serve_step(model), tok0, []
+        with torch.no_grad():
+            for _ in range(MESH_DECODE_STEPS):
+                tok, cache = step(tok, cache)
+                toks.append(tok)
+        out[layout] = (torch.cat(toks, dim=1), cache)
+    return out
+
+
+def mesh_row_line(r: dict) -> str:
+    rep, mem, c = r["roofline"], r["memory"], r["counts"]
+    return (f"{r['arch']} x {r['shape']} on {r['mesh']} "
+            f"{r['sharding_mode']}, rank {r['rank']} ({r['n_layers']} "
+            f"layers; rows over {r['layout']['rows']}, sequence over "
+            f"{r['layout']['seq']}): compute {rep['compute_s'] * 1e3:.2f} "
+            f"ms, memory {rep['memory_s'] * 1e3:.2f} ms, collective "
+            f"{rep['collective_s'] * 1e3:.2f} ms at NVLink's rate ("
+            + ", ".join(f"{a} {v * 1e3:.2f}" for a, v in
+                        r["collective_s_by_axis"].items())
+            + f" by axis), bound {r['bound_s'] * 1e3:.2f} ms; link GB by "
+            "kind " + ", ".join(
+                f"{k} {v / 1e9:.3f} ({c['collective_counts'][k]} calls)"
+                for k, v in c["collective_by_kind"].items())
+            + "; by axis " + ", ".join(
+                f"{a} {v / 1e9:.3f}" for a, v in
+                c["collective_by_axis"].items())
+            + f"; peak {mem['peak_bytes'] / 1e9:.2f} GB, "
+            + ("fits" if mem["fits"] else "does not fit") + " 80 GB")
+
+
+def phase_mesh_dryrun(card: str) -> dict:
+    """Phase 12 (see MESH_CELLS and WORLD_ONE_STEPS above)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    tag = "[mesh dry run]"
+    t0 = time.perf_counter()
+    out = ROOT / "chiprun_out" / "mesh_dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(kernel_model.__file__).resolve().parents[2]),
+         os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod", "on" if multi_pod else "off",
+         "--sharding-mode", mode, "--out", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape, multi_pod, mode in MESH_CELLS]
+    meta_json = out / "world_one_meta.json"
+    procs.append(subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--world-one-meta",
+         str(meta_json)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+    try:
+        # (b) on the card while the cells count
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                    rank=0, world_size=1)
+            try:
+                mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+                card_steps = {}
+                for key, _, _ in WORLD_ONE_STEPS:
+                    card_steps[key] = world_one_step(key, mesh, "cuda")
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                zero_counts()
+                decoded = mesh_decode(mesh)
+                decode_launches = read_counts()
+            finally:
+                dist.destroy_process_group()
+        for p in procs:
+            _, err = p.communicate(timeout=MESH_TIMEOUT)
+            assert p.returncode == 0, f"{tag} {p.args}: {err[-3000:]}"
+    finally:
+        for p in procs:
+            p.kill()
+    rows = []
+    for arch, shape, multi_pod, mode in MESH_CELLS:
+        mesh_tag = "2x16x16" if multi_pod else "16x16"
+        row = json.loads((out / f"{arch}__{shape}__{mesh_tag}__{mode}.json")
+                         .read_text())
+        assert row["status"] == "ok", (arch, shape, mesh_tag, mode, row)
+        rows.append(row)
+        say(f"{tag} (a) {mesh_row_line(row)} (data-sheet estimate)")
+    meta_steps = json.loads(meta_json.read_text())
+    zero_ln = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "moe_gmm": 0,
+               "moe_gmm_bwd": 0, "ssd_intra_chunk": 0,
+               "ssd_intra_chunk_bwd": 0}
+    paths = []
+    for key, res in card_steps.items():
+        meta = meta_steps[key]
+        for k in ("collective_calls", "collective_counts",
+                  "collective_by_axis"):
+            assert res[k] == meta[k], f"{tag} {key}: {k} card {res[k]} " \
+                f"meta {meta[k]}"
+        n = res["layers"]
+        want = {**zero_ln, "flash_attn_fwd": 2 * n, "flash_attn_bwd": n}
+        if key.startswith("llama4"):
+            want.update(moe_gmm=2 * n, moe_gmm_bwd=n)
+        assert res["launches"] == want, (key, res["launches"], want)
+        say(f"{tag} (b) {key}, {n} layers, one step at world 1 on NCCL, a "
+            f"(1, 1) mesh: the card's collective calls by kind and axis "
+            f"equal the meta count's over a fake world of one: "
+            f"{res['collective_calls']}; FLOPs card {res['flops']} meta "
+            f"{meta['flops']}; launches {res['launches']} [{card}]")
+        paths.append({"arch": LLAMA4 if key.startswith("llama4")
+                      else TRAIN_ARCH, "n_layers": n,
+                      "path": f"mesh dry run (b) {key}",
+                      "launches": res["launches"]})
+    ref_tok, ref_cache = decoded.pop("none")
+    for layout, (toks, cache) in decoded.items():
+        assert torch.equal(toks, ref_tok), f"{tag} {layout}: tokens differ"
+        for k, v in ref_cache.items():
+            assert torch.equal(cache[k], v), f"{tag} {layout}: cache {k}"
+    n = tp_config().n_layers
+    want = {**zero_ln, "flash_attn_fwd": n}
+    assert decode_launches == want, (decode_launches, want)
+    say(f"{tag} (b) make_serve_step of deepseek-7b's {n} layers at full "
+        f"width on the (1, 1) mesh, \"tp\" and \"fsdp\", the whole tokens "
+        f"and the rank's part of the cache: {MESH_DECODE_STEPS} steps of "
+        f"{MESH_DECODE_ROWS} rows, tokens and cache bit for bit against no "
+        f"mesh ({ref_tok[0].tolist()} ...) [{card}]")
+    paths.append({"arch": TRAIN_ARCH, "n_layers": n,
+                  "path": "mesh dry run (b) serve", "launches":
+                  decode_launches})
+    wall = time.perf_counter() - t0
+    say(f"{tag} phase 12: {len(rows)} cells ok, {wall:.1f} s")
+    return {"cells": rows, "world_one": {"card": card_steps,
+                                         "meta": meta_steps},
+            "wall_s": wall, "paths": paths}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -5216,6 +5473,8 @@ def main(argv: list[str]) -> int:
                                .resolve()))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch.configs import get_config
+    if "--world-one-meta" in argv:      # phase 12's process on meta
+        return world_one_meta(argv[argv.index("--world-one-meta") + 1])
 
     card = phase_info()
     if "--ssd-only" in argv:
@@ -5239,6 +5498,11 @@ def main(argv: list[str]) -> int:
     if "--seq-only" in argv:
         seq = phase_seq_split(card)
         say(json.dumps({"sequence_split": seq}))
+        return 0
+    if "--dryrun-only" in argv:
+        dry = phase_mesh_dryrun(card)
+        say(json.dumps({"mesh_dryrun": {k: v for k, v in dry.items()
+                                        if k != "cells"}}))
         return 0
     build = phase_build()
     flash_err = phase_kernels()
@@ -5279,12 +5543,13 @@ def main(argv: list[str]) -> int:
     tp = phase_tensor_parallel(card, paths[0]["tokens"])
     fsdp = phase_fsdp(card, paths[0]["tokens"])
     seq = phase_seq_split(card)
+    dry = phase_mesh_dryrun(card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
                    p["launches"][name]
                    for p in paths + ep["paths"] + tp["paths"]
-                   + fsdp["paths"] + seq["paths"]}
+                   + fsdp["paths"] + seq["paths"] + dry["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -5404,6 +5669,7 @@ def main(argv: list[str]) -> int:
                                   "tensor_parallel": tp,
                                   "fsdp": fsdp,
                                   "sequence_split": seq,
+                                  "mesh_dryrun": dry,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

@@ -15,8 +15,11 @@ kernel, and nothing else.
 A meta tensor (the dry run) gets the CUDA path's outputs, shapes and dtypes,
 without arithmetic and without a launch: the launch counts do not move.
 Under a ``roofline.counting.Counter`` every call books its
-``roofline.kernel_model`` work over every row (the plain version's aten
-work on the CPU).
+``roofline.kernel_model`` work (the plain version's aten work on the CPU):
+over every row, or given ``pairs``, the (token, choice) pairs the caller
+routed into buf, over min(pairs, B·E·C) rows and min(E, pairs) experts'
+weights, the most those pairs can fill and reach.  A count from shapes
+cannot see the routing, which may leave fewer experts live.
 
 The JAX wrapper's ``bf`` (the TPU's F block) has no counterpart: the CUDA
 kernels pick their own tiles and mask the ragged edge."""
@@ -97,18 +100,23 @@ def _fwd(buf, w_in, w_gate, w_out, act: str) -> torch.Tensor:
     return out
 
 
-def _work(model, buf, w_in, act: str):
-    """``model``'s (flops, bytes) over every row of buf, deferred."""
-    return lambda: model(*buf.shape, w_in.shape[-1], act, buf.dtype)
+def _work(model, buf, w_in, act: str, pairs: int | None):
+    """``model``'s (flops, bytes), deferred: over every row of buf, or
+    over the rows and experts ``pairs`` routed pairs can fill and reach."""
+    b, e, c, _ = buf.shape
+    live = {} if pairs is None else {"live_rows": min(pairs, b * e * c),
+                                     "live_experts": min(e, pairs)}
+    return lambda: model(*buf.shape, w_in.shape[-1], act, buf.dtype, **live)
 
 
-def _forward(buf, w_in, w_gate, w_out, act: str) -> torch.Tensor:
+def _forward(buf, w_in, w_gate, w_out, act: str,
+             pairs: int | None = None) -> torch.Tensor:
     """The forward without a graph."""
     if counting.active is None:
         return _fwd(buf, w_in, w_gate, w_out, act)
     return counting.call("moe_gmm", buf.device,
-                         _work(kernel_model.moe_gmm, buf, w_in, act), _fwd,
-                         buf, w_in, w_gate, w_out, act)
+                         _work(kernel_model.moe_gmm, buf, w_in, act, pairs),
+                         _fwd, buf, w_in, w_gate, w_out, act)
 
 
 def _bwd(buf, w_in, w_gate, w_out, dy, act: str):
@@ -141,10 +149,11 @@ class GroupedFFN(torch.autograd.Function):
     ``w_gate``, which is not read, is zeros."""
 
     @staticmethod
-    def forward(ctx, buf, w_in, w_gate, w_out, act: str):
+    def forward(ctx, buf, w_in, w_gate, w_out, act: str,
+                pairs: int | None = None):
         ctx.save_for_backward(buf, w_in, w_gate, w_out)
-        ctx.act = act
-        return _forward(buf, w_in, w_gate, w_out, act)
+        ctx.act, ctx.pairs = act, pairs
+        return _forward(buf, w_in, w_gate, w_out, act, pairs)
 
     @staticmethod
     def backward(ctx, dy):
@@ -155,18 +164,20 @@ class GroupedFFN(torch.autograd.Function):
         else:
             grads = counting.call("moe_gmm_bwd", buf.device,
                                   _work(kernel_model.moe_gmm_bwd, buf, w_in,
-                                        ctx.act),
+                                        ctx.act, ctx.pairs),
                                   _bwd, *args)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
-                w_out: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+                w_out: torch.Tensor, act: str = "swiglu",
+                pairs: int | None = None) -> torch.Tensor:
     """buf (B,E,C,D); w_in/w_gate (E,D,F); w_out (E,F,D) -> (B,E,C,D).
 
     Per (b, e): silu(X W_gate) * (X W_in) then W_out (swiglu), or
     gelu_tanh(X W_in) W_out (gelu; ``w_gate`` is not read).  f32 sums; the
-    output is in buf's dtype."""
+    output is in buf's dtype.  ``pairs``, the routed (token, choice) pairs
+    that buf holds at most, is read by a counter's booking alone."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}; got {act!r}")
     mats = _operands(buf, w_in, w_gate, w_out, act)
@@ -177,8 +188,8 @@ def grouped_ffn(buf: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
                          f"{[str(x.device) for x in mats]}")
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (buf, w_in, w_gate, w_out)):
-        return GroupedFFN.apply(buf, w_in, w_gate, w_out, act)
-    return _forward(buf, w_in, w_gate, w_out, act)
+        return GroupedFFN.apply(buf, w_in, w_gate, w_out, act, pairs)
+    return _forward(buf, w_in, w_gate, w_out, act, pairs)
 
 
 grouped_ffn.launches = 0

@@ -54,17 +54,32 @@ are: NCCL for CUDA, gloo for the CPU (``launch/mesh.py``).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 from torch.distributed._functional_collectives import (
     all_to_all_single_autograd, wait_tensor)
 
 from ..kernels._layout import dense_strides
+from ..roofline import counting
 
 
-def _sum(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+class _Axis(NamedTuple):
+    """A mesh axis's process group and its name, which a counter books the
+    collective under (two axes of one rank share the world's group)."""
+    group: object
+    name: str
+
+
+def _axis(mesh, axis: str) -> _Axis:
+    return _Axis(mesh.get_group(axis), axis)
+
+
+def _sum(x: torch.Tensor, ax: _Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=group)
+    with counting.backend(ax.name):
+        dist.all_reduce(out, op=op, group=ax.group)
     return out
 
 
@@ -75,35 +90,37 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 
 
-def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _gather(x: torch.Tensor, dim: int, ax: _Axis) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order: gathered
     into one buffer, the ranks' parts one after another, then laid along
     ``dim`` by whole blocks (no copy when ``dim`` is 0 or the group has
     one rank)."""
     x = x.contiguous()
-    dim, n = dim % x.dim(), dist.get_world_size(group)
+    dim, n = dim % x.dim(), dist.get_world_size(ax.group)
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-    _ALL_GATHER(out, x, group=group)
+    with counting.backend(ax.name):
+        _ALL_GATHER(out, x, group=ax.group)
     return dense_strides(out.view(n, *x.shape).movedim(0, dim)
                          .flatten(dim, dim + 1).contiguous())
 
 
-def _scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _scatter(x: torch.Tensor, dim: int, ax: _Axis) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks, cut along ``dim`` into one
     part a rank in rank order, and this rank's part (contiguous): the parts
     laid one after another, whole blocks copied (no copy when ``dim`` is 0
     or the group has one rank), reduce-scattered into the rank's part."""
-    dim, n = dim % x.dim(), dist.get_world_size(group)
+    dim, n = dim % x.dim(), dist.get_world_size(ax.group)
     parts = x.unflatten(dim, (n, -1)).movedim(dim, 0).contiguous()
     out = parts.new_empty(parts.shape[1:])
-    _REDUCE_SCATTER(out, parts.flatten(0, 1), group=group)
+    with counting.backend(ax.name):
+        _REDUCE_SCATTER(out, parts.flatten(0, 1), group=ax.group)
     return out
 
 
-def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
+def _own(x: torch.Tensor, dim: int, ax: _Axis) -> torch.Tensor:
+    n = dist.get_world_size(ax.group)
     size = x.shape[dim] // n
-    return x.narrow(dim, dist.get_rank(group) * size, size)
+    return x.narrow(dim, dist.get_rank(ax.group) * size, size)
 
 
 class _AllReduce(torch.autograd.Function):
@@ -187,7 +204,7 @@ class _ScatterSum(torch.autograd.Function):
 
 
 def _groups(mesh, axes) -> tuple:
-    return tuple(mesh.get_group(a) for a in
+    return tuple(_axis(mesh, a) for a in
                  ((axes,) if isinstance(axes, str) else tuple(axes)))
 
 
@@ -196,13 +213,13 @@ def all_reduce(x: torch.Tensor, mesh, axes,
     """The sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
     names of ``mesh``); the gradient passes back times ``grad_scale``."""
     for axis in (axes,) if isinstance(axes, str) else tuple(axes):
-        x = _AllReduce.apply(x, mesh.get_group(axis), grad_scale)
+        x = _AllReduce.apply(x, _axis(mesh, axis), grad_scale)
         grad_scale = 1.0
     return x
 
 
 def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    return _CopyTo.apply(x, mesh.get_group(axis))
+    return _CopyTo.apply(x, _axis(mesh, axis))
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
@@ -213,18 +230,19 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     group = mesh.get_group(axis)
     n = dist.get_world_size(group)
     parts = x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
-    out = wait_tensor(all_to_all_single_autograd(parts.contiguous(), None,
-                                                 None, group))
+    with counting.backend(axis):
+        out = wait_tensor(all_to_all_single_autograd(parts.contiguous(),
+                                                     None, None, group))
     return dense_strides(out.movedim(0, concat_dim).flatten(
         concat_dim, concat_dim + 1).contiguous())
 
 
 def seq_slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    return _SeqSlice.apply(x, dim, mesh.get_group(axis))
+    return _SeqSlice.apply(x, dim, _axis(mesh, axis))
 
 
 def seq_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    return _SeqGather.apply(x, dim, mesh.get_group(axis))
+    return _SeqGather.apply(x, dim, _axis(mesh, axis))
 
 
 def gather_leaf(x: torch.Tensor, mesh, dim: int,
@@ -305,9 +323,9 @@ def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     (the rank at position r holds ids [r V/nm, (r+1) V/nm)); labels (B, S)
     of the whole vocabulary.  Every rank returns the loss, and keeps the
     gradient of its own slice."""
-    group = mesh.get_group("model")
-    v0 = dist.get_rank(group) * logits.shape[-1]
-    return _VocabCrossEntropy.apply(logits, labels, group, v0)
+    ax = _axis(mesh, "model")
+    v0 = dist.get_rank(ax.group) * logits.shape[-1]
+    return _VocabCrossEntropy.apply(logits, labels, ax, v0)
 
 
 def vocab_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
@@ -315,4 +333,4 @@ def vocab_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
     "model": the slices gathered and ``torch.argmax`` taken on the whole
     rows, so ties go to the lowest id as on one process.  Alike on every
     rank."""
-    return torch.argmax(_gather(logits, -1, mesh.get_group("model")), dim=-1)
+    return torch.argmax(_gather(logits, -1, _axis(mesh, "model")), dim=-1)

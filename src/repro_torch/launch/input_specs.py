@@ -3,12 +3,17 @@ reference's ``launch/input_specs.py``, with no memory.
 
 ``batch_specs(cfg, shape)`` returns the batch dict for train/prefill, or the
 decode step's tokens; ``cache_specs(cfg, shape)`` the decode cache, built by
-``Model(cfg, device="meta").init_decode_cache``.  Modality frontends are
+``Model(cfg, device="meta").init_decode_cache``, or with a mesh the rank's
+part of it (``launch/shardings.decode_cache_specs``).  The steps take the
+whole batch on a mesh and cut the rank's part themselves;
+``rank_bytes`` gives the bytes of that part.  Modality frontends are
 stubs, as in the reference: whisper gets precomputed frame embeddings,
 llava gets patch features.  Tokens are int64, as the port's batches are
 (``models/api.py``); the reference's are int32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,6 +22,7 @@ from ..models.common import dtype_of
 from ..models.config import ArchConfig
 from ..models.lm import PATCH_DIM
 from .shapes_util import ShapeSpec
+from .shardings import batch_shardings, decode_cache_specs, local_shape
 
 META = torch.device("meta")
 
@@ -45,6 +51,24 @@ def batch_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     return out
 
 
-def cache_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
-    return Model(cfg, device=META).init_decode_cache(shape.global_batch,
-                                                     shape.seq_len)
+def cache_specs(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
+                mode: str = "tp") -> dict:
+    """The whole decode cache, or on ``mesh`` the rank's part of it in
+    ``mode``'s layout."""
+    whole = Model(cfg, device=META).init_decode_cache(shape.global_batch,
+                                                      shape.seq_len)
+    if mesh is None:
+        return whole
+    specs = decode_cache_specs(whole, cfg, mesh, mode)
+    return {k: _spec(local_shape(v.shape, specs[k], mesh), v.dtype)
+            for k, v in whole.items()}
+
+
+def rank_bytes(batch: dict, mesh, mode: str = "tp") -> int:
+    """The bytes of the rank's part of a whole ``batch`` that a step on
+    ``mesh`` keeps, ``batch_shardings`` in ``mode`` (a decode step's tokens
+    lie in "tp" mode's layout whatever the model's mode, as
+    ``make_serve_step`` cuts them)."""
+    specs = batch_shardings(batch, mesh, mode)
+    return sum(math.prod(local_shape(v.shape, specs[k], mesh))
+               * v.element_size() for k, v in batch.items())

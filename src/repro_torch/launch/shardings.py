@@ -286,6 +286,40 @@ def cache_shardings(cache: dict, cfg: ArchConfig, mesh) -> dict:
     return out
 
 
+def decode_cache_specs(cache: dict, cfg: ArchConfig, mesh,
+                       mode: str = "tp") -> dict:
+    """The port's layout of a decode cache on ``mesh`` in ``mode``: its
+    rows over the batch axes as ``cache_shardings`` puts them (where they
+    divide the batch; ``pos`` too, which the reference leaves whole beside
+    its GSPMD rows), and in "tp" mode its kv heads over "model" as
+    ``cache_shardings`` does (the heads the rank projects).  Where the
+    rules ask for more, the port keeps the cache whole: the positions of a
+    batch the batch axes do not divide (context-parallel decode), the conv
+    and ssm states' channels and heads (mamba's projections are gathered
+    whole, ROADMAP.md 9b (vi)-(vii)), and in "fsdp" mode the kv heads."""
+    _check_mode(mode)
+    rules = cache_shardings(cache, cfg, mesh)
+    baxes = _spec((batch_axes(MeshSpec.of(mesh)),))[0]
+    out = {}
+    for key, leaf in cache.items():
+        shape = _shape(leaf)
+        if key == "pos":
+            b = _axis_size(MeshSpec.of(mesh), _axes_of(baxes))
+            out[key] = (baxes,) if shape[0] % b == 0 and shape[0] >= b \
+                else ()
+            continue
+        spec = list(rules[key]) + [None] * (len(shape) - len(rules[key]))
+        for d, entry in enumerate(spec):
+            if entry == "model" and (mode == "fsdp" or key in ("conv",
+                                                               "ssm")):
+                spec[d] = None
+            elif entry is not None and entry != "model" and (
+                    key in ("k", "v", "xk", "xv") and d == 2):
+                spec[d] = None                    # positions: kept whole
+        out[key] = _spec(spec) if any(e is not None for e in spec) else ()
+    return out
+
+
 # ------------------------------------------------- from specs to the ranks
 def _axes_of(entry) -> tuple[str, ...]:
     if entry is None:

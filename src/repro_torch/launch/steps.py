@@ -8,6 +8,7 @@ import torch.distributed as dist
 
 from ..models import Model
 from ..optim import AdamW
+from ..roofline import counting
 from .mesh import MeshSpec
 from .shardings import row_axes, spec_axes, split_batch
 
@@ -57,7 +58,8 @@ def make_train_step(model: Model, opt: AdamW):
         for key, t in tensors.items():
             for a in axes:
                 if a not in summed.get(key, ()):
-                    dist.all_reduce(t, group=mesh.get_group(a))
+                    with counting.backend(a):
+                        dist.all_reduce(t, group=mesh.get_group(a))
             t.div_(n)
 
     def train_step(state, batch):
@@ -115,9 +117,34 @@ def make_prefill_step(model: Model):
 
 
 def make_serve_step(model: Model):
-    """One decode step: token in, greedy token out, cache updated in place."""
+    """One decode step, as the reference's ``make_serve_step``
+    (``repro/launch/steps.py:36-41``): token in, greedy token out, cache
+    updated in place.
+
+    On a mesh ``tokens`` is the whole batch's (B, 1), and ``cache`` the
+    rank's part (``Model.cache_part``, or the cache of a prefill step's
+    rows): the step keeps the rank's rows as the reference's decode cell
+    lays its tokens out (``repro/launch/dryrun.py:97-98``: the rows over
+    the batch axes where they divide B, else whole on every rank), in
+    "tp" mode's layout whatever the model's mode, installs them
+    (``model.on_mesh(split=(rows, (), ()))``) and returns the rank's greedy
+    tokens (B_loc, 1) and cache.  A cache of every row (the serving
+    engine's, which serves the same requests on every rank) decodes every
+    row."""
     def serve_step(tokens, cache):
-        logits, cache = model.decode_step(tokens, cache)
-        return model.greedy(logits)[:, None], cache
+        split = None
+        if model.mesh is not None:
+            part, *axes = split_batch({"tokens": tokens}, model.mesh, "tp")
+            rows, held = part["tokens"].shape[0], cache["pos"].shape[0]
+            if held == rows:
+                tokens, split = part["tokens"], tuple(axes)
+            elif held != tokens.shape[0]:
+                raise ValueError(f"a cache of {held} rows beside "
+                                 f"{tokens.shape[0]} tokens: want the "
+                                 f"rank's {rows} rows (Model.cache_part) or "
+                                 f"every row")
+        with model.on_mesh(split=split):
+            logits, cache = model.decode_step(tokens, cache)
+            return model.greedy(logits)[:, None], cache
 
     return serve_step

@@ -49,7 +49,9 @@ import torch
 from torch import nn
 
 from ..launch.collectives import vocab_argmax
-from ..launch.shardings import row_axes, shard_params, sharded_specs
+from ..launch.mesh import coordinate, mesh_device
+from ..launch.shardings import (decode_cache_specs, local_slice, row_axes,
+                                shard_params, sharded_specs)
 from . import encdec, lm
 from .common import (SHARDING_MODE, ambient_mesh, ambient_rows,
                      ambient_seq, ambient_whole, dtype_of, require_device,
@@ -97,8 +99,8 @@ class Model(nn.Module):
         self.device = require_device(device)
         self.mesh = mesh
         self.mode = SHARDING_MODE[0]
-        if mesh is not None and mesh.device_type != self.device.type:
-            raise ValueError(f"a {mesh.device_type} mesh cannot run a model "
+        if mesh is not None and mesh_device(mesh) != self.device.type:
+            raise ValueError(f"a {mesh_device(mesh)} mesh cannot run a model "
                              f"on {self.device}")
         self._mod = encdec if cfg.family == "encdec" else lm
         full = flatten(self._mod.init_params(cfg, None, "meta"))
@@ -197,6 +199,19 @@ class Model(nn.Module):
         with self.on_mesh():
             return self._mod.init_decode_cache(self.cfg, batch, max_len,
                                                dtype, self.device)
+
+    def cache_part(self, cache: dict) -> dict:
+        """This rank's part of a whole decode cache (every row, every kv
+        head), as ``make_serve_step`` takes it on the model's mesh: its
+        rows over the batch axes and, in "tp" mode, its kv heads
+        (``launch/shardings.decode_cache_specs``); the cache itself off a
+        mesh."""
+        if self.mesh is None:
+            return cache
+        specs = decode_cache_specs(cache, self.cfg, self.mesh, self.mode)
+        coord = coordinate(self.mesh)
+        return {k: local_slice(v, specs[k], self.mesh, coord)
+                for k, v in cache.items()}
 
     @torch.no_grad()
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ import torch
 from ..launch.collectives import gather_leaf, seq_gather
 from ..launch.mesh import MeshSpec, batch_axes, coordinate
 from ..launch.shardings import fsdp_gathers, model_dim, param_spec
+from ..roofline import counting
 
 
 def require_device(device) -> torch.device:
@@ -362,8 +363,10 @@ def gather_layers(tree: dict, prefix: str, shapes: dict,
 @functools.lru_cache(maxsize=None)
 def whole_shapes(init, cfg) -> dict:
     """{dotted name: whole shape} of the tree that ``init(cfg, None,
-    "meta")`` describes (a family module's ``init_params``)."""
+    "meta")`` describes (a family module's ``init_params``), built outside
+    a counter's booking."""
     out: dict = {}
-    _walk(init(cfg, None, "meta"), "",
-          lambda n, v: out.__setitem__(n, tuple(v.shape)))
+    with counting.unbooked():
+        tree = init(cfg, None, "meta")
+    _walk(tree, "", lambda n, v: out.__setitem__(n, tuple(v.shape)))
     return out

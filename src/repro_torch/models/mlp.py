@@ -242,9 +242,12 @@ def _combine(h, b_idx, flat_e, slot, w, k: int):
     return y_tok.reshape(b, t // k, k, d).sum(dim=2)
 
 
-def _experts(params, buf, cfg: ArchConfig):
+def _experts(params, buf, cfg: ArchConfig, tokens: int):
+    """The grouped FFN on buf, which holds some of the pairs of ``tokens``
+    routed tokens: B·S·k pairs at most, which a counter books
+    (``grouped_ffn``'s ``pairs``)."""
     return grouped_ffn(buf, params["w_in"], params["w_gate"],
-                       params["w_out"], cfg.mlp_act)
+                       params["w_out"], cfg.mlp_act, tokens * cfg.top_k)
 
 
 def _moe_dense_dispatch(params, x, cfg: ArchConfig, mesh=None):
@@ -273,7 +276,8 @@ def _moe_dense_dispatch(params, x, cfg: ArchConfig, mesh=None):
         x, w = copy_to(x, mp, "model"), copy_to(w, mp, "model")
     buf, b_idx = _dispatch(x, flat_e, slot, keep, e,
                            cap if split is None else min(cap, s), k)
-    y = _combine(_experts(params, buf, cfg), b_idx, flat_e, slot, w, k)
+    y = _combine(_experts(params, buf, cfg, x.shape[0] * s), b_idx, flat_e,
+                 slot, w, k)
     return (y if mp is None else all_reduce(y, mp, "model")), aux
 
 
@@ -311,7 +315,8 @@ def _moe_expert_parallel(params, x, cfg: ArchConfig, mesh):
     gate = keep & local
     buf, b_idx = _dispatch(copy_to(x, mesh, "model"), le, slot, gate, e_loc,
                            cap, k)
-    y = _combine(_experts(params, buf, cfg), b_idx, le, slot,
+    y = _combine(_experts(params, buf, cfg, x.shape[0] * x.shape[1]), b_idx,
+                 le, slot,
                  copy_to(w, mesh, "model") * gate, k)
     return all_reduce(y, mesh, "model"), aux
 
@@ -340,9 +345,10 @@ def _moe_rows_gathered(params, x, cfg: ArchConfig, mesh):
     local = (flat_e >= e0) & (flat_e < e0 + e_loc)
     le = torch.where(local, flat_e - e0, 0)
     gate = keep & local
-    buf, b_idx = _dispatch(gather_leaf(x, mesh, 0), le, slot, gate, e_loc,
-                           cap, k)
-    y = _combine(_experts(params, buf, cfg), b_idx, le, slot,
+    xs = gather_leaf(x, mesh, 0)
+    buf, b_idx = _dispatch(xs, le, slot, gate, e_loc, cap, k)
+    y = _combine(_experts(params, buf, cfg, xs.shape[0] * xs.shape[1]),
+                 b_idx, le, slot,
                  gather_leaf(w, mesh, 0) * gate, k)
     return scatter_sum(y, mesh, 0), aux
 
@@ -389,8 +395,9 @@ def _moe_expert_parallel_a2a(params, x, cfg: ArchConfig, mesh):
                n_summed)
     buf, b_idx = _dispatch(part(), flat_e, slot, keep, e, cap, k)
     recv = all_to_all(buf, mesh, "model", split_dim=1, concat_dim=2)
-    back = all_to_all(_experts(params, recv, cfg), mesh, "model",
-                      split_dim=2, concat_dim=1)
+    # the experts take the pairs of every rank's slice of the block
+    back = all_to_all(_experts(params, recv, cfg, nm * flat_e.numel() // k),
+                      mesh, "model", split_dim=2, concat_dim=1)
     y = _combine(back, b_idx, flat_e, slot, w, k)
     if rows:
         return all_to_all(y, mesh, "model", split_dim=0, concat_dim=1), aux
@@ -446,8 +453,8 @@ def _moe_a2a_seq(params, x, cfg: ArchConfig, mesh, split):
     aux = _aux(probs, top_i, e, mesh, MeshSpec.of(mesh).axis_names)
     buf, b_idx = _dispatch(part(), flat_e, slot, keep, e, cap, k)
     recv = all_to_all(buf, mesh, "model", split_dim=1, concat_dim=2)
-    back = all_to_all(_experts(params, recv, cfg), mesh, "model",
-                      split_dim=2, concat_dim=1)
+    back = all_to_all(_experts(params, recv, cfg, nm * flat_e.numel() // k),
+                      mesh, "model", split_dim=2, concat_dim=1)
     y = _combine(back, b_idx, flat_e, slot, w, k)
     if block:
         return y, aux

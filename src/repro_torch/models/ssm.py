@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssd import ssd_intra_chunk
 from ..launch.collectives import gather_leaf, seq_halo, seq_last
+from ..roofline import counting
 from .common import normal_init, rms_norm, seq_split, tp_whole
 from .config import ArchConfig
 
@@ -74,9 +75,11 @@ def init_mamba_params(generator, cfg: ArchConfig, dtype, device,
 
 @functools.lru_cache(maxsize=None)
 def _whole_shapes(cfg: ArchConfig) -> dict:
-    """{leaf: whole shape} of one layer's parameters."""
-    return {k: tuple(v.shape) for k, v in
-            init_mamba_params(None, cfg, torch.float32, "meta").items()}
+    """{leaf: whole shape} of one layer's parameters, built outside a
+    counter's booking."""
+    with counting.unbooked():
+        leaves = init_mamba_params(None, cfg, torch.float32, "meta")
+    return {k: tuple(v.shape) for k, v in leaves.items()}
 
 
 def _whole(params, cfg: ArchConfig) -> dict:

@@ -20,11 +20,24 @@ Rules, per aten op:
   host-side ops (the RNG state remat stashes) are not device work.
 
 Kinds: "products" (ops with a FLOP formula), each hand-written kernel by
-name, "optimizer" (``AdamW.update``), and "rest".  A kernel call on the card
+name, "optimizer" (``AdamW.update``), "collectives" (the HBM traffic of a
+collective's result, as the reference's ``hbm_bytes += cb(ins.shape)``
+books it) and "rest".  A kernel call on the card
 or on meta books its ``kernel_model`` work through ``call`` (or
 ``record_kernel``) and none of the aten ops inside it (the wrapper's
 allocations); on the CPU its plain version's aten ops are booked under the
 kernel's name, so the other kinds compare across devices.
+
+Collectives (``c10d`` all-reduce, all-gather and reduce-scatter, the
+functional all-to-all), on any process group (NCCL, gloo, or the "fake"
+backend of the mesh dry run), are booked under the reference's kind names at
+its ring costs for the group's n ranks (``repro/roofline/hlo_analysis.py::
+_collective_link_bytes``): all-reduce 2 (n-1)/n of its size, all-gather and
+all-to-all (n-1)/n of the result, reduce-scatter (n-1) times the result
+shard.  These link bytes are counted by kind, by mesh axis (the axis the
+port's collectives name, ``backend``; else the group's axis on ``mesh``,
+else its description) and by (kind, axis) calls; a group of one rank books
+its call and 0 link bytes.
 
 When no counter is active the kernel wrappers pay one check of ``active``
 and nothing else.
@@ -35,11 +48,13 @@ import contextlib
 import weakref
 
 import torch
+from torch.distributed import distributed_c10d
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 PRODUCTS, OPTIMIZER, REST = "products", "optimizer", "rest"
+COLLECTIVES = "collectives"
 KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "moe_gmm", "moe_gmm_bwd",
            "ssd_intra_chunk", "ssd_intra_chunk_bwd")
 _ALLOCATIONS = {torch.ops.aten.empty.memory_format,
@@ -47,7 +62,22 @@ _ALLOCATIONS = {torch.ops.aten.empty.memory_format,
                 torch.ops.aten.empty_like.default,
                 torch.ops.aten.new_empty.default,
                 torch.ops.aten.new_empty_strided.default}
-_BOOK, _SKIP = "book", "skip"
+_BOOK, _SKIP, _BACKEND, _UNBOOKED = "book", "skip", "backend", "unbooked"
+# the collectives' ops, torch 2.13's renamed entry points included
+# (``dist.all_gather_single`` and ``reduce_scatter_single`` dispatch as the
+# old ``_base_`` ops), under the reference's kind names
+_COLLECTIVE_OPS = {"c10d::allreduce_": "all-reduce",
+                   "c10d::_allgather_base_": "all-gather",
+                   "c10d::_reduce_scatter_base_": "reduce-scatter",
+                   "_c10d_functional::all_reduce": "all-reduce",
+                   "_c10d_functional::all_gather_into_tensor": "all-gather",
+                   "_c10d_functional::reduce_scatter_tensor":
+                       "reduce-scatter",
+                   "_c10d_functional::all_to_all_single": "all-to-all"}
+# a functional collective's completion, no work of its own (a backend may
+# hand back a new tensor or the same one)
+_COMPLETIONS = {"_c10d_functional::wait_tensor",
+                "_c10d_functional::_wrap_tensor_autograd"}
 
 # the counter aten ops run under, or None (set by Counter's enter and exit)
 active: "Counter | None" = None
@@ -55,6 +85,42 @@ active: "Counter | None" = None
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def ring_bytes(kind: str, n: int, result_bytes: int) -> float:
+    """A collective's link bytes per device at the reference's ring costs,
+    ``result_bytes`` its result's (an all-reduce's tensor, an all-gather's
+    whole output, a reduce-scatter's shard, an all-to-all's output)."""
+    frac = (n - 1) / max(n, 1)
+    if kind == "all-reduce":
+        return 2.0 * frac * result_bytes
+    if kind == "reduce-scatter":
+        return float((n - 1) * result_bytes)
+    return frac * result_bytes          # all-gather, all-to-all
+
+
+def _group(func, args, kwargs):
+    """The process group a collective op runs on, from its schema's
+    "process_group" (a boxed group) or "group_name" (a registered name)."""
+    for i, a in enumerate(func._schema.arguments):
+        v = args[i] if i < len(args) else kwargs.get(a.name)
+        if a.name == "process_group":
+            return torch._C._distributed_c10d.ProcessGroup.unbox(v)
+        if a.name == "group_name":
+            return distributed_c10d._resolve_process_group(v)
+    raise RuntimeError(f"{func}: no process group among its arguments")
+
+
+def _result(func, args, kwargs, out) -> torch.Tensor:
+    """The collective's result tensor: the in-place ops' output operand
+    (``output_tensor``, or the all-reduce's tensor), else what it returns."""
+    names = [a.name for a in func._schema.arguments]
+    for name in ("output_tensor", "tensors"):
+        if name in names:
+            i = names.index(name)
+            v = args[i] if i < len(args) else kwargs[name]
+            return v[0] if isinstance(v, (list, tuple)) else v
+    return out
 
 
 def _mutates(func) -> bool:
@@ -66,11 +132,19 @@ class Counter(TorchDispatchMode):
     """Counts the aten ops that run under it on ``device`` (a device or its
     type: "meta", "cpu", "cuda")."""
 
-    def __init__(self, device) -> None:
+    def __init__(self, device, mesh=None) -> None:
         super().__init__()
         self.device_type = torch.device(device).type
         self.kinds: dict[str, dict[str, int]] = {}
         self.calls: dict[str, int] = {}
+        # link bytes by kind and by axis, calls by kind and by (kind, axis)
+        self.collective_by_kind: dict[str, float] = {}
+        self.collective_by_axis: dict[str, float] = {}
+        self.collective_counts: dict[str, int] = {}
+        self.collective_calls: dict[str, int] = {}
+        # the axis of each of ``mesh``'s groups, by the group's name
+        self._axes = {} if mesh is None else {
+            mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
         self.live = 0
         self.peak = 0
         self._regions: list[tuple[str, str]] = []
@@ -103,16 +177,43 @@ class Counter(TorchDispatchMode):
     def bytes(self) -> int:
         return sum(k["bytes"] for k in self.kinds.values())
 
+    def _add_collective(self, kind: str, axis: str,
+                        link_bytes: float) -> None:
+        self.collective_by_kind[kind] = \
+            self.collective_by_kind.get(kind, 0.0) + link_bytes
+        self.collective_by_axis[axis] = \
+            self.collective_by_axis.get(axis, 0.0) + link_bytes
+        self.collective_counts[kind] = self.collective_counts.get(kind, 0) + 1
+        key = f"{kind}/{axis}"
+        self.collective_calls[key] = self.collective_calls.get(key, 0) + 1
+
     def summary(self) -> dict:
         return {"flops": self.flops, "bytes": self.bytes,
                 "kinds": {k: dict(v) for k, v in sorted(self.kinds.items())},
                 "calls": dict(sorted(self.calls.items())),
-                "peak_bytes": self.peak}
+                "peak_bytes": self.peak,
+                "collective_bytes": sum(self.collective_by_kind.values()),
+                "collective_by_kind": dict(sorted(
+                    self.collective_by_kind.items())),
+                "collective_counts": dict(sorted(
+                    self.collective_counts.items())),
+                "collective_by_axis": dict(sorted(
+                    self.collective_by_axis.items())),
+                "collective_calls": dict(sorted(
+                    self.collective_calls.items()))}
 
     # ------------------------------------------------------------- the mode
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        coll = _COLLECTIVE_OPS.get(func._schema.name)
+        region = self._regions[-1] if self._regions else None
+        mode = None if region is None else region[0]
+        if coll is not None and mode == _SKIP:
+            raise RuntimeError(f"{func} inside {region[1]}: a kernel's call "
+                               f"runs no collective")
         out = func(*args, **kwargs)
+        if mode == _UNBOOKED:
+            return out
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
@@ -123,10 +224,14 @@ class Counter(TorchDispatchMode):
         fresh = [t for t in outs
                  if id(t.untyped_storage()) not in in_storages]
         self._track(fresh)
-        region = self._regions[-1] if self._regions else None
-        if region is not None and region[0] == _SKIP:
+        if coll is not None:
+            self._collective(coll, func, args, kwargs, out,
+                             region[1] if mode == _BACKEND else "")
             return out
-        if func in _ALLOCATIONS or (not fresh and not _mutates(func)):
+        if mode in (_SKIP, _BACKEND):
+            return out
+        if func in _ALLOCATIONS or func._schema.name in _COMPLETIONS or (
+                not fresh and not _mutates(func)):
             return out                      # allocations, views, aliases
         packet = func._overloadpacket
         flops = (flop_registry[packet](*args, **kwargs, out_val=out)
@@ -138,6 +243,20 @@ class Counter(TorchDispatchMode):
             kind = PRODUCTS if packet in flop_registry else REST
         self.add(kind, flops, nbytes)
         return out
+
+    def _collective(self, kind: str, func, args, kwargs, out,
+                    axis: str) -> None:
+        """Book one collective: its link bytes at the ring cost of its
+        group's size, by kind and by ``axis`` (else the group's axis on the
+        counter's mesh, else its description), and its result's HBM
+        traffic."""
+        group = _group(func, args, kwargs)
+        res = _result(func, args, kwargs, out)
+        nbytes = _nbytes(res)
+        axis = axis or self._axes.get(group.group_name, group.group_desc)
+        self._add_collective(kind, axis,
+                             ring_bytes(kind, group.size(), nbytes))
+        self.add(COLLECTIVES, 0, nbytes)
 
     def _track(self, fresh: list) -> None:
         """Live bytes of the storages the step allocates, each freed when
@@ -181,6 +300,26 @@ def region(name: str):
     if active is None:
         return contextlib.nullcontext()
     return active.region(_BOOK, name)
+
+
+def backend(axis: str = ""):
+    """A context around a collective's call on mesh axis ``axis``: the
+    collective is booked under that axis (two axes of one rank share the
+    world's group), and its backend's own aten work is the collective's,
+    not booked (gloo's reduce-scatter copies the rank's part out when the
+    call waits, after its op has returned)."""
+    if active is None:
+        return contextlib.nullcontext()
+    return active.region(_BACKEND, axis)
+
+
+def unbooked():
+    """A context whose aten work is neither booked nor held live: a
+    model's shapes built on meta once for a cache, which is not the step's
+    work nor its memory."""
+    if active is None:
+        return contextlib.nullcontext()
+    return active.region(_UNBOOKED, "unbooked")
 
 
 def call(name: str, device: torch.device, work, fn, *args):

@@ -12,7 +12,13 @@ analytic) is reported alongside to expose remat and redundant work.
 
 The constants are NVIDIA's data-sheet peaks for the SXM part (dense rates,
 no sparsity, at the full 700 W power limit): estimates from the data sheet,
-not measurements.  The collective term stays 0 on one card.
+not measurements.  The collective term is 0 on one card.  On a production
+mesh (the mesh dry run) the report's collective term prices every link
+byte at NVLink's rate, as the reference prices its ICI; an NVLink Switch
+System's domain reaches 256 H100s, one (16, 16) pod.  The "pod" axis of
+(2, 16, 16) crosses pods over the network instead: ``collective_s_by_axis``
+prices it at ``POD_BW``, one 400 Gb/s NDR InfiniBand port a card (a
+data-sheet rate too), and the others at ``NVLINK_BW``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ PEAK_F32_FLOPS = 67e12      # f32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12            # HBM3 B/s
 HBM_BYTES = 80e9            # device memory
 NVLINK_BW = 450e9           # B/s per direction to the host's other cards
+POD_BW = 50e9               # B/s per direction, one NDR port a card
 
 
 @dataclasses.dataclass
@@ -65,6 +72,14 @@ class RooflineReport:
 
     def row(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def collective_s_by_axis(by_axis: dict[str, float]) -> dict[str, float]:
+    """Seconds of each mesh axis's link bytes (``Counter``'s
+    ``collective_by_axis``): "pod" at ``POD_BW``, every other axis at
+    ``NVLINK_BW`` (data-sheet rates)."""
+    return {a: b / (POD_BW if a == "pod" else NVLINK_BW)
+            for a, b in by_axis.items()}
 
 
 def model_flops(cfg: ArchConfig, kind: str, batch: int, seq: int) -> float:

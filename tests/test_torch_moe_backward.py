@@ -218,7 +218,7 @@ def test_cuda_backward_launches_kernel_and_never_the_plain_version(
         ctx = types.SimpleNamespace(saved_tensors=tuple(arrs[:4]), act=act)
         dy = arrs[4].transpose(0, 1).contiguous().transpose(0, 1)
         grads = GroupedFFN.backward(ctx, dy)
-        assert grads[4] is None and len(grads) == 5
+        assert grads[4] is None and grads[5] is None and len(grads) == 6
     assert calls == [("kernel", "swiglu", True), ("kernel", "gelu", False)]
     assert grouped_ffn.backward_launches == before + 2
     # gelu: the kernel leaves w_gate alone, its gradient is zeros

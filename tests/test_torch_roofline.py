@@ -5,6 +5,7 @@ prints; and the counter (``counting.Counter``): its rules, the FLOPs it
 counts for deepseek's smoke steps against the reference's HLO count, and the
 same count on meta as on the CPU for every family."""
 import dataclasses
+import math
 
 import pytest
 
@@ -285,9 +286,14 @@ class _Spy:
                         b, s, t, h, kh, hd, causal, window, q.dtype))
             elif fn.__name__ == "grouped_ffn":
                 shape = (*x.shape, args[1].shape[-1], args[4], x.dtype)
-                self.add("moe_gmm", kernel_model.moe_gmm(*shape))
+                # the routed pairs bound the rows and experts booked
+                pairs = args[5]
+                live = dict(live_rows=min(pairs, math.prod(x.shape[:3])),
+                            live_experts=min(x.shape[1], pairs))
+                self.add("moe_gmm", kernel_model.moe_gmm(*shape, **live))
                 if grad:
-                    self.add("moe_gmm_bwd", kernel_model.moe_gmm_bwd(*shape))
+                    self.add("moe_gmm_bwd",
+                             kernel_model.moe_gmm_bwd(*shape, **live))
             else:
                 shape = (*x.shape, args[3].shape[-1], x.dtype)
                 self.add("ssd_intra_chunk", kernel_model.ssd(*shape))
