@@ -11,6 +11,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --fsdp-only
     python3 chip_smoke.py --seq-only
     python3 chip_smoke.py --dryrun-only
+    python3 chip_smoke.py --cp-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -264,11 +265,32 @@ result line):
    ``make_serve_step`` on the mesh, in both modes, with the whole tokens
    and the rank's part of the cache, gives deepseek-7b's greedy tokens and
    cache bit for bit against no mesh.  The path's launches join the kernel
-   line's totals.
+   line's totals.  (a) also counts gemma3-27b's long_500k on (16, 16) in
+   both modes.
+13. context-parallel decode and fsdp's kv heads (the decode cache as the
+   reference's ``cache_shardings`` lays it), the ranks of one axis as
+   threads of this process (``CpThreads``): (a) gemma3-27b at its
+   published widths cut to 6 of 62 layers (5 windowed, 1 global), a bf16
+   cache of T = 524288 positions from a seed, pos near its end: 4 decode
+   steps on the whole cache, then each layer fed the same input on 16
+   ranks' positions (T/16 each; every rank but the last holds no position
+   of the windowed layers): y within bf16 bounds of the whole, the written
+   rows bit for bit on the owning rank only; then the chain through
+   ``make_serve_step`` on the threads' (16, 1) mesh in "tp" and in "fsdp",
+   each rank's cache ``Model.cache_part``'s of the whole one (the step
+   installs the positions' split): logits within bf16 bounds, every rank
+   alike; times of the whole step, one rank's partial and the combine.
+   (b) zamba2-2.7b's shared attention block (hd 80, 32 kv heads) at T =
+   524288 over 16 ranks.  (c) deepseek-7b's decode_32k rank (8 rows,
+   32768 positions) with its 32 kv heads over 16 ranks of "model", y
+   summed in rank order.  (d) a batch of one on a (1, 1) NCCL mesh,
+   ``make_serve_step`` in both modes, tokens and cache bit for bit against
+   no mesh (one rank divides the batch: nothing is split there).
 
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
-the tokens to hold), ``--seq-only`` phase 11, ``--dryrun-only`` phase 12.
+the tokens to hold), ``--seq-only`` phase 11, ``--dryrun-only`` phase 12,
+``--cp-only`` phase 13.
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -5236,7 +5258,9 @@ MESH_CELLS = [("deepseek-7b", shape, multi_pod, mode)
               for multi_pod in (False, True) for mode in ("tp", "fsdp")] + [
     (LLAMA4, "train_4k", False, "fsdp"),
     (MAMBA2, "prefill_32k", False, "fsdp"),
-    (WHISPER, "train_4k", True, "fsdp")]
+    (WHISPER, "train_4k", True, "fsdp"),
+    ("gemma3-27b", "long_500k", False, "tp"),
+    ("gemma3-27b", "long_500k", False, "fsdp")]
 # (b): the training steps counted at world 1 on the card and on meta, and
 # the decode steps held against no mesh
 WORLD_ONE_STEPS = (("deepseek fsdp", "fsdp", False),
@@ -5301,9 +5325,9 @@ def world_one_meta(out: str) -> int:
     return 0
 
 
-def mesh_decode(mesh) -> dict:
-    """deepseek-7b's 2 layers at full width: a prefill of MESH_DECODE_ROWS
-    random prompts without a mesh, then MESH_DECODE_STEPS
+def mesh_decode(mesh, rows: int = MESH_DECODE_ROWS) -> dict:
+    """deepseek-7b's 2 layers at full width: a prefill of ``rows`` random
+    prompts without a mesh, then MESH_DECODE_STEPS
     ``make_serve_step`` steps from its cache without a mesh and on the
     (1, 1) ``mesh`` in each mode (the whole tokens and the rank's part of
     the cache, ``Model.cache_part``): {layout: (tokens, cache)}."""
@@ -5314,8 +5338,7 @@ def mesh_decode(mesh) -> dict:
     state = Model(cfg, device="cuda").init(
         torch.Generator("cuda").manual_seed(0)).state_dict()
     gen = torch.Generator("cuda").manual_seed(23)
-    prompts = torch.randint(0, cfg.vocab, (MESH_DECODE_ROWS,
-                                           MESH_DECODE_PROMPT),
+    prompts = torch.randint(0, cfg.vocab, (rows, MESH_DECODE_PROMPT),
                             device="cuda", generator=gen)
     whole = Model(cfg, device="cuda").load_state(
         {k: v.clone() for k, v in state.items()})
@@ -5464,6 +5487,445 @@ def phase_mesh_dryrun(card: str) -> dict:
             "wall_s": wall, "paths": paths}
 
 
+# ------------------------------------------------------------- phase 13
+# context-parallel decode of a batch of one: gemma3-27b at its published
+# widths cut to CP_LAYERS of its 62 layers (5 windowed layers of 1024, then
+# 1 global), long_500k's T positions over the CP_RANKS ranks of (16, 16)'s
+# data axis, pos CP_BACK before the end of T, so that every rank but the
+# last holds no position of the windowed layers
+CP_ARCH, CP_LAYERS, CP_T, CP_RANKS = "gemma3-27b", 6, 524288, 16
+CP_STEPS, CP_BACK = 4, 8
+# (c): deepseek-7b's 2 layers at decode_32k, the rank's 8 rows of 128 on
+# (16, 16), its kv heads over the 16 ranks of "model"
+CP_HEADS_LAYERS, CP_HEADS_ROWS, CP_HEADS_T = 2, 8, 32768
+# leaf_rel bounds of bf16 against the whole cache's bf16: y and the
+# written k/v rows of a layer fed the same input, and the logits after
+# the layers (each layer's y from other roundings feeds the next)
+CP_REL = {"y": 1e-2, "rows": 2e-2, "logits": 3e-2}
+
+
+class CpThreads(SeqThreads):
+    """``SeqThreads`` over one axis of a mesh of ("data", "model"): the
+    ``n`` ranks of ``axis``, one of size 1 beside it (``mesh``).  The
+    collectives over ``axis`` gather (``gather_leaf``, so
+    ``collectives.gather_parts``) or sum (``all_reduce``, in rank order)
+    the ranks' tensors; over the other axis they are the identity, as on
+    one rank.  Under ``patched`` the port's code sees that mesh in ``mode``
+    with its leaves whole (``fsdp_mesh`` None; in "tp" mode one rank of
+    "model" holds them whole) and the decode cache's leaves ``cache``
+    ((leaf, axes), ...) split over positions; given ``model`` (its leaves
+    whole), the model is on that mesh in ``mode``, so that its entry points
+    run as a rank's."""
+
+    def __init__(self, n: int, axis: str):
+        from repro_torch.launch.mesh import MeshSpec
+        super().__init__(n)
+        self.axis = axis
+        self.mesh = MeshSpec(("data", "model"),
+                             (n, 1) if axis == "data" else (1, n))
+
+    def _on(self, axes) -> bool:
+        return self.axis in ((axes,) if isinstance(axes, str) else
+                             tuple(axes))
+
+    def gather(self, x, mesh, dim: int, axes="model"):
+        return torch.cat(self.exchange(x), dim) if self._on(axes) else x
+
+    def all_reduce(self, x, mesh, axes, grad_scale: float = 1.0):
+        if not self._on(axes):
+            return x
+        parts = self.exchange(x)
+        out = parts[0]
+        for p in parts[1:]:            # in rank order
+            out = out + p
+        return out
+
+    def seq_rank(self, mesh, axes, coord=None):
+        return (self.local.rank, self.n) if self._on(axes) else (0, 1)
+
+    def coordinate(self, mesh) -> dict:
+        return {a: self.local.rank if a == self.axis else 0
+                for a in ("data", "model")}
+
+    def patched(self, cache: tuple = (), mode: str = "fsdp", model=None):
+        from contextlib import ExitStack
+        from unittest import mock
+
+        import repro_torch.launch.collectives as collectives
+        from repro_torch.launch import shardings
+        from repro_torch.models import api, attention, common, lm, mlp
+        stack = ExitStack()
+        patches = [(collectives, "gather_leaf", self.gather),
+                   (common, "seq_rank", self.seq_rank),
+                   (common, "fsdp_mesh", lambda: None)]
+        patches += [(mod, "coordinate", self.coordinate)
+                    for mod in (shardings, api, attention, lm, mlp)]
+        patches += [(mod, name, fn) for mod in (attention, lm, mlp)
+                    for name, fn in (("all_reduce", self.all_reduce),
+                                     ("copy_to", lambda x, mesh, axis: x),
+                                     ("gather_leaf", self.gather))]
+        if self.axis == "data":        # the vocabulary whole on one rank
+            patches.append((api, "vocab_argmax",
+                            lambda x, mesh: torch.argmax(x, dim=-1)))
+        for mod, name, fn in patches:
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        if model is not None:
+            prev = model.mesh, model.mode
+            model.mesh, model.mode = self.mesh, mode
+
+            def restore():
+                model.mesh, model.mode = prev
+            stack.callback(restore)
+        stack.enter_context(common.use_mesh(self.mesh, mode, rows=(),
+                                            cache=cache))
+        return stack
+
+
+def cp_kv(shape, gen) -> tuple:
+    """A bf16 decode cache's k and v of ``shape`` drawn from ``gen``."""
+    return tuple(torch.randn(shape, dtype=torch.bfloat16, device="cuda",
+                             generator=gen) for _ in range(2))
+
+
+def cp_slices(x: torch.Tensor, n: int, dim: int) -> list:
+    """The n contiguous parts of ``x`` along ``dim``, views."""
+    return list(x.chunk(n, dim=dim))
+
+
+def cp_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal`` one slice of dim 0 at a time (a cache of tens of GB
+    would need as many bytes again at once)."""
+    return a.shape == b.shape and all(torch.equal(x, y)
+                                      for x, y in zip(a, b))
+
+
+def cp_layer_hold(tag: str, lp, x, whole: tuple, parts: tuple, pos, cfg,
+                  window: int, threads: CpThreads, dim: int) -> dict:
+    """One decode attention layer fed ``x``: on the whole cache ``whole``
+    (k, v: (B, T, K, hd)) without a mesh, and on ``parts`` (k, v; the same
+    values) cut into the threads' ranks along ``dim`` (1: positions, 2: kv
+    heads), each rank's ``decode_attention`` under ``threads.patched``.  Holds
+    every rank's y alike, within CP_REL of the whole's, and returns the
+    errors."""
+    from repro_torch.models import attention
+    y_whole, _ = attention.decode_attention(lp, x, whole[0], whole[1], pos,
+                                            cfg, window=window)
+    ks, vs = (cp_slices(t, threads.n, dim) for t in parts)
+    cache = (("k", ("data",)),) if threads.axis == "data" else ()
+    with threads.patched(cache):
+        ys = threads.run(lambda r: attention.decode_attention(
+            lp, x, ks[r], vs[r], pos, cfg, window=window)[0])
+    for r, y in enumerate(ys):
+        assert torch.equal(y, ys[0]), f"{tag}: rank {r}'s y differs"
+    err = leaf_rel(ys[0], y_whole)
+    assert torch.isfinite(ys[0]).all() and err < CP_REL["y"], (tag, err)
+    return {"y": err}
+
+
+def cp_serve(model, threads: CpThreads, mode: str, cache: dict,
+             toks) -> list:
+    """``make_serve_step(model)`` on the threads' mesh in ``mode``, each
+    rank in its thread: its cache ``Model.cache_part``'s of the whole
+    ``cache`` (its own ``pos``: a leaf the part does not split is the
+    whole's, and the ranks share one process), ``toks[s]`` fed at step s.
+    Per rank: (each step's logits, the greedy tokens, the final part)."""
+    from unittest import mock
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import lm
+    real, logits = lm.decode_step, [[] for _ in range(threads.n)]
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        logits[threads.local.rank].append(out[0])
+        return out
+
+    def rank(r):
+        part = model.cache_part(cache)
+        part["pos"] = part["pos"].clone()
+        step, out = make_serve_step(model), []
+        for tok in toks:
+            got, part = step(tok, part)
+            out.append(got)
+        return torch.cat(out, dim=1), part
+
+    with torch.no_grad(), threads.patched(mode=mode, model=model), \
+            mock.patch.object(lm, "decode_step", spy):
+        parts = threads.run(rank)
+    return [(logits[r], *parts[r]) for r in range(threads.n)]
+
+
+def cp_gemma(card: str, gen) -> dict:
+    """(a): gemma3-27b's CP_LAYERS layers at T = CP_T, CP_STEPS steps."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, attention, lm
+    tag = "[context parallel] (a)"
+    cfg = get_config(CP_ARCH).replace(n_layers=CP_LAYERS)
+    windows = [lm._window(cfg, i) for i in range(CP_LAYERS)]
+    assert windows == [cfg.sliding_window] * 5 + [0], windows
+    n, t = CP_RANKS, CP_T
+    assert CP_STEPS <= CP_BACK and \
+        t - CP_BACK - cfg.sliding_window >= t - t // n
+    model = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    params = model.params
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"{tag} {CP_ARCH} at its published widths ({widths(cfg)}), cut to "
+        f"{CP_LAYERS} of its 62 layers (windows {windows}), batch 1, T = "
+        f"{t} over {n} ranks of {t // n}: cache "
+        f"{2 * CP_LAYERS * t * cfg.n_kv_heads * cfg.head_dim * 2 / 1e9:.2f}"
+        f" GB, weights {weights / 1e9:.2f} GB")
+    shape = (CP_LAYERS, 1, t, cfg.n_kv_heads, cfg.head_dim)
+    k0, v0 = cp_kv(shape, gen)
+    pos0 = t - CP_BACK
+    rows = slice(pos0, pos0 + CP_STEPS)
+    kept = (k0[:, :, rows].clone(), v0[:, :, rows].clone())
+    pk, pv = k0.clone(), v0.clone()
+    toks = torch.randint(0, cfg.vocab, (CP_STEPS, 1, 1), device="cuda",
+                         generator=gen)
+    # the whole cache without a mesh, each attention layer's input kept
+    whole = {"k": k0, "v": v0, "pos": torch.tensor([pos0], device="cuda")}
+    real, seen, logits = lm.decode_attention, [], []
+
+    def spy(p, x, *args, **kw):
+        seen.append(x.clone())
+        return real(p, x, *args, **kw)
+
+    with torch.no_grad(), mock.patch.object(lm, "decode_attention", spy):
+        for s in range(CP_STEPS):
+            logits.append(lm.decode_step(params, toks[s], whole, cfg)[0])
+    k1, v1 = whole["k"], whole["v"]
+    # each layer fed the whole run's input, its positions over the ranks
+    threads = CpThreads(n, "data")
+    errs = {"y": 0.0}
+    with torch.no_grad():
+        for s in range(CP_STEPS):
+            pos = torch.tensor([pos0 + s], device="cuda")
+            for i in range(CP_LAYERS):
+                lp = lm._layer(params["layers"], i)["attn"]
+                # the whole cache again: its row at pos is rewritten with
+                # the same bits, from the same input
+                e = cp_layer_hold(f"{tag} step {s} layer {i}", lp,
+                                  seen[s * CP_LAYERS + i], (k1[i], v1[i]),
+                                  (pk[i], pv[i]), pos, cfg, windows[i],
+                                  threads, 1)
+                errs["y"] = max(errs["y"], e["y"])
+    # every written row bit-identical to the whole cache's, on its owning
+    # (the last) rank only: no other position of any rank changed
+    assert cp_equal(pk, k1) and cp_equal(pv, v1), \
+        f"{tag}: the ranks' parts differ from the whole cache"
+    # the chain through the entry point in each mode: make_serve_step on
+    # the threads' (n, 1) mesh, each rank's cache Model.cache_part's of the
+    # drawn cache, its positions' split installed by the step
+    want = (k1[:, :, rows].clone(), v1[:, :, rows].clone())
+    del whole, k0, v0, k1, v1
+    gc.collect()
+    torch.cuda.empty_cache()
+    pk[:, :, rows], pv[:, :, rows] = kept
+    drawn = {"k": pk, "v": pv, "pos": torch.tensor([pos0], device="cuda")}
+    s_loc, at = t // n, pos0 - (n - 1) * (t // n)
+    mine = slice(at, at + CP_STEPS)
+    errs["rows"] = 0.0
+    for mode in ("tp", "fsdp"):
+        ranks = cp_serve(model, threads, mode, drawn, toks)
+        for r, (got, toks_r, part) in enumerate(ranks):
+            for s in range(CP_STEPS):
+                assert torch.equal(got[s], ranks[0][0][s]), (tag, mode, r, s)
+            assert torch.equal(toks_r, ranks[0][1]), (tag, mode, r)
+            assert int(part["pos"][0]) == pos0 + CP_STEPS, (tag, mode, r)
+        errs[f"logits_{mode}"] = max(leaf_rel(ranks[0][0][s], logits[s])
+                                     for s in range(CP_STEPS))
+        assert errs[f"logits_{mode}"] < CP_REL["logits"], (tag, mode, errs)
+        for key, whole_leaf, rows_want in (("k", pk, want[0]),
+                                           ("v", pv, want[1])):
+            for r, (_, _, part) in enumerate(ranks):
+                got = part[key]
+                ref = whole_leaf[:, :, r * s_loc:(r + 1) * s_loc]
+                if r < n - 1:          # no row of pos0.. here: untouched
+                    assert cp_equal(got, ref), (tag, mode, key, r)
+                    continue
+                for other in (slice(0, at), slice(at + CP_STEPS, s_loc)):
+                    assert cp_equal(got[:, :, other], ref[:, :, other]), \
+                        (tag, mode, key)
+                assert torch.equal(got[0, :, mine], rows_want[0]), \
+                    (tag, mode, key)
+                errs["rows"] = max(errs["rows"],
+                                   leaf_rel(got[:, :, mine], rows_want))
+        del ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert errs["rows"] < CP_REL["rows"], (tag, errs)
+    say(f"{tag} {CP_STEPS} steps at pos {pos0}..{pos0 + CP_STEPS - 1}: "
+        f"each layer's y (its whole-cache input) within {errs['y']:.2e} of "
+        f"the whole cache's, every rank alike, the written rows bit for bit "
+        f"the whole cache's and no other position of any rank changed; the "
+        f"chain through make_serve_step on the ({n}, 1) mesh of {n} ranks, "
+        f"each rank's cache Model.cache_part's: logits within "
+        f"{errs['logits_tp']:.2e} (\"tp\") and {errs['logits_fsdp']:.2e} "
+        f"(\"fsdp\"), every rank alike, rows of layer 0 bit for bit and of "
+        f"layers 1+ within {errs['rows']:.2e} on the last rank only "
+        f"(bounds {CP_REL}) [{card}]")
+    # times: the whole-cache step, one global layer's whole attention
+    # against one rank's partial at T/n and the combine of n partials
+    lp = lm._layer(params["layers"], CP_LAYERS - 1)["attn"]
+    x = seen[CP_LAYERS - 1]
+    with torch.no_grad():
+        q, _, _ = attention._project(lp, x)
+        cols = torch.arange(t, device="cuda")[None, :]
+        mask = (cols <= pos0)[:, None, None, :]
+        kl, vl, ml = pk[-1][:, -s_loc:], pv[-1][:, -s_loc:], \
+            mask[..., -s_loc:]
+        part = torch.cat(attention.decode_partial(q, kl, vl, ml), dim=-1)
+        every = torch.stack([part] * n)
+
+        def step():
+            drawn["pos"].fill_(pos0)
+            lm.decode_step(params, toks[0], drawn, cfg)
+
+        times = {"step_ms": time_ms(step, 5, 1),
+                 "layer_whole_ms": time_ms(lambda: attention._sdpa(
+                     q, pk[-1], pv[-1], mask), 10),
+                 "layer_part_ms": time_ms(lambda: attention.decode_partial(
+                     q, kl, vl, ml), 10),
+                 "combine_ms": time_ms(lambda: attention.combine_partials(
+                     every[..., :1], every[..., 1:2], every[..., 2:]), 20)}
+    say(f"{tag} times: the whole-cache decode step of {CP_LAYERS} layers "
+        f"at T = {t} {times['step_ms']:.3f} ms; one global layer's "
+        f"attention over T {times['layer_whole_ms']:.3f} ms, one rank's "
+        f"partial at T/{n} = {t // n} {times['layer_part_ms']:.3f} ms, the "
+        f"combine of {n} partials {times['combine_ms']:.4f} ms [{card}]")
+    return {"errors": errs, "times": times, "layers": CP_LAYERS, "t": t,
+            "ranks": n}
+
+
+def cp_zamba2(card: str, gen) -> dict:
+    """(b): zamba2-2.7b's shared attention block at its published widths
+    (hd 80, 32 kv heads), one block at T = CP_T over CP_RANKS parts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import init_attn_params
+    tag = "[context parallel] (b)"
+    cfg = get_config("zamba2-2.7b")
+    n, t = CP_RANKS, CP_T
+    lp = init_attn_params(torch.Generator("cuda").manual_seed(0), cfg,
+                          torch.bfloat16, "cuda")
+    k0, v0 = cp_kv((1, t, cfg.n_kv_heads, cfg.head_dim), gen)
+    pk, pv = k0.clone(), v0.clone()
+    threads = CpThreads(n, "data")
+    err = 0.0
+    with torch.no_grad():
+        for s in range(CP_STEPS):
+            pos = torch.tensor([t - CP_BACK + s], device="cuda")
+            x = torch.randn((1, 1, cfg.d_model), dtype=torch.bfloat16,
+                            device="cuda", generator=gen)
+            err = max(err, cp_layer_hold(f"{tag} step {s}", lp, x, (k0, v0),
+                                         (pk, pv), pos, cfg, 0, threads,
+                                         1)["y"])
+    assert cp_equal(pk, k0) and cp_equal(pv, v0), \
+        f"{tag}: the ranks' parts differ from the whole cache"
+    say(f"{tag} zamba2-2.7b's shared block at its published widths "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} "
+        f"kv x {cfg.head_dim}), one block's cache of T = {t} over {n} "
+        f"ranks, {CP_STEPS} steps: y within {err:.2e} of the whole cache's "
+        f"(bound {CP_REL['y']}), the written rows bit for bit, no other "
+        f"position changed [{card}]")
+    return {"y": err}
+
+
+def cp_heads(card: str, gen) -> dict:
+    """(c): fsdp's kv heads over "model": deepseek-7b's CP_HEADS_LAYERS
+    layers at full width, CP_HEADS_ROWS rows of CP_HEADS_T positions, each
+    of the CP_RANKS ranks of "model" attending with its heads' slices of
+    the layer's weights, y summed in rank order."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.attention import init_attn_params
+    tag = "[context parallel] (c)"
+    cfg = get_config("deepseek-7b")
+    n, b, t = CP_RANKS, CP_HEADS_ROWS, CP_HEADS_T
+    threads = CpThreads(n, "model")
+    errs = {"y": 0.0, "rows": 0.0}
+    with torch.no_grad():
+        for i in range(CP_HEADS_LAYERS):
+            lp = init_attn_params(torch.Generator("cuda").manual_seed(i),
+                                  cfg, torch.bfloat16, "cuda")
+            k0, v0 = cp_kv((b, t, cfg.n_kv_heads, cfg.head_dim), gen)
+            pk, pv = k0.clone(), v0.clone()
+            pos = torch.randint(t // 2, t, (b,), device="cuda",
+                                generator=gen)
+            x = torch.randn((b, 1, cfg.d_model), dtype=torch.bfloat16,
+                            device="cuda", generator=gen)
+            e = cp_layer_hold(f"{tag} layer {i}", lp, x, (k0, v0), (pk, pv),
+                              pos, cfg, lm._window(cfg, i), threads, 2)
+            errs["y"] = max(errs["y"], e["y"])
+            at = torch.arange(b, device="cuda")
+            for got, want in ((pk, k0), (pv, v0)):
+                errs["rows"] = max(errs["rows"], leaf_rel(got[at, pos],
+                                                          want[at, pos]))
+                got[at, pos] = want[at, pos]
+                assert cp_equal(got, want), f"{tag}: other rows changed"
+            del k0, v0, pk, pv
+    assert errs["rows"] < CP_REL["rows"], (tag, errs)
+    say(f"{tag} deepseek-7b at full width, {CP_HEADS_LAYERS} layers, the "
+        f"decode_32k rank's {b} rows of {t} positions, its "
+        f"{cfg.n_kv_heads} kv heads over {n} ranks of \"model\" "
+        f"({cfg.n_kv_heads // n} each, {cfg.n_heads // n} query heads): y "
+        f"summed in rank order within {errs['y']:.2e} of the whole layer's, "
+        f"the written rows within {errs['rows']:.2e} (bounds {CP_REL}) "
+        f"[{card}]")
+    return errs
+
+
+def phase_context_parallel(card: str) -> dict:
+    """Phase 13 (see CP_ARCH and the constants above): (a) gemma3-27b, (b)
+    zamba2-2.7b's shared block, (c) fsdp's kv heads, (d) a batch of one on
+    a (1, 1) NCCL mesh in both modes bit for bit against no mesh (the rows'
+    path at one row: one rank divides the batch)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    tag = "[context parallel]"
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(31)
+    out = {"gemma3": cp_gemma(card, gen)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zamba2"] = cp_zamba2(card, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["heads"] = cp_heads(card, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            zero_counts()
+            decoded = mesh_decode(mesh, rows=1)
+            launches = read_counts()
+        finally:
+            dist.destroy_process_group()
+    ref_tok, ref_cache = decoded.pop("none")
+    for layout, (toks, cache) in decoded.items():
+        assert torch.equal(toks, ref_tok), f"{tag} (d) {layout}: tokens"
+        for k, v in ref_cache.items():
+            assert torch.equal(cache[k], v), f"{tag} (d) {layout}: {k}"
+    n = tp_config().n_layers
+    say(f"{tag} (d) make_serve_step of deepseek-7b's {n} layers at full "
+        f"width on the (1, 1) NCCL mesh, \"tp\" and \"fsdp\" (its kv heads "
+        f"the rank's), a batch of one, which one rank of \"data\" divides, "
+        f"so that nothing is split (the rows' path at one row): "
+        f"{MESH_DECODE_STEPS} steps, tokens and cache bit for bit against "
+        f"no mesh ({ref_tok[0].tolist()}) [{card}]")
+    wall = time.perf_counter() - t0
+    out.update(wall_s=wall, paths=[{"arch": TRAIN_ARCH, "n_layers": n,
+                                    "path": "context parallel (d) serve",
+                                    "launches": launches}])
+    say(f"{tag} phase 13: {wall:.1f} s [{card}]")
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -5503,6 +5965,10 @@ def main(argv: list[str]) -> int:
         dry = phase_mesh_dryrun(card)
         say(json.dumps({"mesh_dryrun": {k: v for k, v in dry.items()
                                         if k != "cells"}}))
+        return 0
+    if "--cp-only" in argv:
+        cp = phase_context_parallel(card)
+        say(json.dumps({"context_parallel": cp}))
         return 0
     build = phase_build()
     flash_err = phase_kernels()
@@ -5544,12 +6010,14 @@ def main(argv: list[str]) -> int:
     fsdp = phase_fsdp(card, paths[0]["tokens"])
     seq = phase_seq_split(card)
     dry = phase_mesh_dryrun(card)
+    cp = phase_context_parallel(card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
                    p["launches"][name]
                    for p in paths + ep["paths"] + tp["paths"]
-                   + fsdp["paths"] + seq["paths"] + dry["paths"]}
+                   + fsdp["paths"] + seq["paths"] + dry["paths"]
+                   + cp["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -5670,6 +6138,7 @@ def main(argv: list[str]) -> int:
                                   "fsdp": fsdp,
                                   "sequence_split": seq,
                                   "mesh_dryrun": dry,
+                                  "context_parallel": cp,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

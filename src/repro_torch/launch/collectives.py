@@ -35,6 +35,11 @@ later work read:
     seq_halo     the rows just before this rank's slice (a causal conv's
                  halo), zeros before the first token
     seq_last     the last rank's tensor, on every rank
+    gather_parts every rank's tensor, stacked in rank order on every
+                 rank: context-parallel decode's partial softmax sums
+                 (``models/attention.py``), combined in that order, so
+                 that every rank gets the same bits, which an
+                 all-reduce's order of addition may not give
 
 "tp" mode gathers a leaf that every rank of "model" uses whole on the same
 rows (mamba's, llava's projector) with ``seq_gather``: there every rank's
@@ -275,6 +280,14 @@ def seq_last(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     alike on every rank; backward, every rank's gradient summed into the
     last rank's."""
     return gather_leaf(x[None], mesh, 0, axes)[-1]
+
+
+def gather_parts(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """(n, *x.shape): the ``x`` of every rank of ``axes`` (a name, or a
+    tuple of names with the first axis the major one), stacked in rank
+    order (``models/common.seq_rank``'s), alike on every rank: one
+    all-gather an axis, booked under it."""
+    return gather_leaf(x[None], mesh, 0, axes)
 
 
 def scatter_sum(x: torch.Tensor, mesh, dim: int, axes="model") -> torch.Tensor:

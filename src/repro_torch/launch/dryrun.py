@@ -61,6 +61,8 @@ import os
 import time
 import traceback
 
+import torch
+
 from ..configs import ARCHS, SHAPES, applicable, get_config, get_smoke
 from ..models import Model
 from ..models.common import set_sharding_mode
@@ -204,14 +206,15 @@ def run_cell(arch: str, shape_name: str, verbose: bool = True,
     fake world of its own for the cell's span."""
     t0 = time.time()
     if multi_pod is None:
-        head = {"arch": arch, "shape": shape_name, "mesh": MESH}
+        head = {"arch": arch, "shape": shape_name, "mesh": MESH,
+                "torch": torch.__version__}
         world = contextlib.nullcontext()
     else:
         spec = production_spec(multi_pod=multi_pod)
         rank = spec.size - 1 if rank is None else rank
         head = {"arch": arch, "shape": shape_name, "mesh": mesh_tag(multi_pod),
                 "chips": spec.size, "sharding_mode": mode, "zero1": zero1,
-                "rank": rank}
+                "rank": rank, "torch": torch.__version__}
         world = fake_world(spec, rank)
     try:
         with world as mesh:

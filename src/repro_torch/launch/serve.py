@@ -52,9 +52,12 @@ def pad_len(cfg: ArchConfig, s: int, gen: int) -> int:
 
 def generate(model: Model, batch: dict, gen: int) -> torch.Tensor:
     """Prefill the batch, then ``gen - 1`` greedy decode steps; (B, gen)
-    tokens on the model's device."""
+    tokens on the model's device.  On a mesh the prefill's cache is cut to
+    the rank's kv heads (``Model.own_heads``: an "fsdp" prefill hands over
+    every head)."""
     pad_to = pad_len(model.cfg, batch["tokens"].shape[1], gen)
     logits, cache = model.prefill(batch, pad_to=pad_to)
+    cache = model.own_heads(cache)
     tok = model.greedy(logits)[:, None]
     out = [tok]
     for _ in range(gen - 1):

@@ -288,35 +288,31 @@ def cache_shardings(cache: dict, cfg: ArchConfig, mesh) -> dict:
 
 def decode_cache_specs(cache: dict, cfg: ArchConfig, mesh,
                        mode: str = "tp") -> dict:
-    """The port's layout of a decode cache on ``mesh`` in ``mode``: its
-    rows over the batch axes as ``cache_shardings`` puts them (where they
-    divide the batch; ``pos`` too, which the reference leaves whole beside
-    its GSPMD rows), and in "tp" mode its kv heads over "model" as
-    ``cache_shardings`` does (the heads the rank projects).  Where the
-    rules ask for more, the port keeps the cache whole: the positions of a
-    batch the batch axes do not divide (context-parallel decode), the conv
-    and ssm states' channels and heads (mamba's projections are gathered
-    whole, ROADMAP.md 9b (vi)-(vii)), and in "fsdp" mode the kv heads."""
+    """The port's layout of a decode cache on ``mesh`` in ``mode``: the
+    k, v, xk and xv leaves as ``cache_shardings`` lays them, in both modes
+    (the rows over the batch axes where they divide the batch, else the
+    positions, context-parallel decode of a batch of one; the kv heads over
+    "model" where they divide it); the conv and ssm states' rows as the
+    rules lay them and their "model" dims whole (mamba's projections are
+    gathered whole, ROADMAP.md 9b (vi)-(vii)); ``pos`` over the batch axes
+    where they divide it (the reference leaves it whole beside its GSPMD
+    rows)."""
     _check_mode(mode)
     rules = cache_shardings(cache, cfg, mesh)
-    baxes = _spec((batch_axes(MeshSpec.of(mesh)),))[0]
+    spec_of = MeshSpec.of(mesh)
+    baxes = _spec((batch_axes(spec_of),))[0]
     out = {}
     for key, leaf in cache.items():
         shape = _shape(leaf)
         if key == "pos":
-            b = _axis_size(MeshSpec.of(mesh), _axes_of(baxes))
+            b = _axis_size(spec_of, _axes_of(baxes))
             out[key] = (baxes,) if shape[0] % b == 0 and shape[0] >= b \
                 else ()
-            continue
-        spec = list(rules[key]) + [None] * (len(shape) - len(rules[key]))
-        for d, entry in enumerate(spec):
-            if entry == "model" and (mode == "fsdp" or key in ("conv",
-                                                               "ssm")):
-                spec[d] = None
-            elif entry is not None and entry != "model" and (
-                    key in ("k", "v", "xk", "xv") and d == 2):
-                spec[d] = None                    # positions: kept whole
-        out[key] = _spec(spec) if any(e is not None for e in spec) else ()
+        elif key in ("conv", "ssm"):
+            out[key] = _spec(None if e == "model" else e
+                             for e in rules[key])
+        else:
+            out[key] = rules[key]
     return out
 
 

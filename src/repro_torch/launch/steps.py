@@ -7,9 +7,10 @@ import math
 import torch.distributed as dist
 
 from ..models import Model
+from ..models.lm import kv_heads
 from ..optim import AdamW
 from ..roofline import counting
-from .mesh import MeshSpec
+from .mesh import MeshSpec, batch_axes
 from .shardings import row_axes, spec_axes, split_batch
 
 
@@ -116,35 +117,73 @@ def make_prefill_step(model: Model):
     return prefill_step
 
 
-def make_serve_step(model: Model):
+def make_serve_step(model: Model, whole: bool = False):
     """One decode step, as the reference's ``make_serve_step``
     (``repro/launch/steps.py:36-41``): token in, greedy token out, cache
     updated in place.
 
     On a mesh ``tokens`` is the whole batch's (B, 1), and ``cache`` the
     rank's part (``Model.cache_part``, or the cache of a prefill step's
-    rows): the step keeps the rank's rows as the reference's decode cell
-    lays its tokens out (``repro/launch/dryrun.py:97-98``: the rows over
-    the batch axes where they divide B, else whole on every rank), in
-    "tp" mode's layout whatever the model's mode, installs them
-    (``model.on_mesh(split=(rows, (), ()))``) and returns the rank's greedy
-    tokens (B_loc, 1) and cache.  A cache of every row (the serving
-    engine's, which serves the same requests on every rank) decodes every
-    row."""
+    rows), as the reference's decode cell lays both out
+    (``repro/launch/dryrun.py:94-104``): the step keeps the rank's rows of
+    the tokens (over the batch axes where they divide B, else whole on
+    every rank; "tp" mode's layout whatever the model's mode), installs the
+    rows and the cache's positions where ``launch/shardings.
+    decode_cache_specs`` lays them over the batch axes (B not a multiple of
+    them: context-parallel decode, ``_positions``, ``model.on_mesh(split=
+    (rows, (), (), cache))``), and returns the rank's
+    greedy tokens (B_loc, 1) and cache.  The whole cache's positions are
+    taken to be the part's times the batch axes' ranks (xk/xv's the
+    config's encoder positions), as ``Model.cache_part`` cuts them.  With
+    ``whole`` the tokens and the cache are every row's and every position's
+    on every rank (``Model.init_decode_cache``'s, which the serving engine
+    keeps alike on every rank, or a cache the rules keep whole) and are
+    decoded whole.  A cache of other rows, or whose kv heads are not the
+    rank's (``Model.cache_part``'s, ``lm.kv_heads``), raises."""
     def serve_step(tokens, cache):
         split = None
         if model.mesh is not None:
-            part, *axes = split_batch({"tokens": tokens}, model.mesh, "tp")
-            rows, held = part["tokens"].shape[0], cache["pos"].shape[0]
-            if held == rows:
-                tokens, split = part["tokens"], tuple(axes)
-            elif held != tokens.shape[0]:
+            _check_heads(model, cache)
+        if model.mesh is not None and not whole:
+            part, rows, _, _ = split_batch({"tokens": tokens}, model.mesh,
+                                           "tp")
+            mine, held = part["tokens"].shape[0], cache["pos"].shape[0]
+            if held != mine:
                 raise ValueError(f"a cache of {held} rows beside "
                                  f"{tokens.shape[0]} tokens: want the "
-                                 f"rank's {rows} rows (Model.cache_part) or "
-                                 f"every row")
+                                 f"rank's {mine} rows (Model.cache_part), "
+                                 f"or whole=True for every row")
+            split = (rows, (), (), _positions(model, cache, tokens.shape[0]))
+            tokens = part["tokens"]
         with model.on_mesh(split=split):
             logits, cache = model.decode_step(tokens, cache)
             return model.greedy(logits)[:, None], cache
 
     return serve_step
+
+
+def _check_heads(model: Model, cache: dict) -> None:
+    """Raises unless the k/v leaves of ``cache`` hold the rank's kv heads
+    on the model's mesh (``lm.kv_heads``)."""
+    with model.on_mesh():
+        want = kv_heads(model.cfg)
+    for key in ("k", "v", "xk", "xv"):
+        if key in cache and cache[key].shape[3] != want:
+            raise ValueError(
+                f"a cache of {cache[key].shape[3]} kv heads in {key}: want "
+                f"the rank's {want} of {model.cfg.n_kv_heads} "
+                f"(Model.cache_part)")
+
+
+def _positions(model: Model, cache: dict, batch: int) -> tuple:
+    """((leaf, axes), ...): the k/v/xk/xv leaves of ``cache`` whose
+    positions lie over the batch axes, as ``cache_shardings`` lays a batch
+    of ``batch`` rows that they do not divide: k/v always, xk/xv where
+    they divide the encoder's positions; none where they divide it."""
+    axes = batch_axes(model.mesh)
+    n = math.prod(MeshSpec.of(model.mesh).shape[a] for a in axes)
+    if batch % n == 0 and batch >= n:
+        return ()
+    return tuple((key, axes) for key in ("k", "v", "xk", "xv")
+                 if key in cache and (key in ("k", "v")
+                                      or model.cfg.enc_len % n == 0))

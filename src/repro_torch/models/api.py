@@ -53,9 +53,9 @@ from ..launch.mesh import coordinate, mesh_device
 from ..launch.shardings import (decode_cache_specs, local_slice, row_axes,
                                 shard_params, sharded_specs)
 from . import encdec, lm
-from .common import (SHARDING_MODE, ambient_mesh, ambient_rows,
-                     ambient_seq, ambient_whole, dtype_of, require_device,
-                     use_mesh)
+from .common import (SHARDING_MODE, ambient_cache, ambient_mesh,
+                     ambient_rows, ambient_seq, ambient_whole, dtype_of,
+                     kv_split, require_device, use_mesh)
 from .config import ArchConfig
 
 
@@ -111,21 +111,24 @@ class Model(nn.Module):
 
     def on_mesh(self, train: bool = False, split: tuple | None = None):
         """``use_mesh`` of the model's mesh in the mode it was built in,
-        with the axes its batch lies over.  ``split`` = (rows, seq, whole):
-        the axes of the rank's rows and of its slice of their sequence,
-        and the leaves that lie whole beside them, as a step cut the whole
-        batch (``launch/shardings.split_batch``).  Without it, inside a
+        with the axes its batch lies over.  ``split`` = (rows, seq, whole)
+        or (rows, seq, whole, cache): the axes of the rank's rows and of
+        its slice of their sequence, and the leaves that lie whole beside
+        them, as a step cut the whole batch (``launch/shardings.
+        split_batch``), and the decode cache's leaves whose positions lie
+        over axes (``launch/steps.make_serve_step``).  Without it, inside a
         ``use_mesh`` of the model's own mesh (a step's) the split
         installed there is kept whole; elsewhere the rows lie as
         ``shard_batch`` lays out a training batch with ``train`` (over
         every axis in "fsdp" mode), else over the data axes, and no
         sequence is split."""
         if split is None and self.mesh is not None:
-            split = (ambient_rows(), ambient_seq(), ambient_whole()) \
-                if ambient_mesh() is self.mesh else \
+            split = (ambient_rows(), ambient_seq(), ambient_whole(),
+                     ambient_cache()) if ambient_mesh() is self.mesh else \
                 (row_axes(self.mesh, self.mode) if train else None, (), ())
-        rows, seq, whole = split or (None, (), ())
-        return use_mesh(self.mesh, self.mode, rows, seq, whole)
+        rows, seq, whole, *cache = split or (None, (), ())
+        return use_mesh(self.mesh, self.mode, rows, seq, whole,
+                        cache[0] if cache else ())
 
     def _shard(self, state: dict) -> dict:
         """The rank's part of a whole flat state (all of it off a mesh)."""
@@ -194,24 +197,41 @@ class Model(nn.Module):
     def init_decode_cache(self, batch: int, max_len: int,
                           dtype: torch.dtype | None = None) -> dict:
         """Zero cache; ``dtype`` defaults to the config's compute dtype.  On
-        a mesh it holds the kv heads the rank projects."""
+        a mesh it holds the rank's kv heads, every row and every position
+        (the serving engine's; ``cache_part`` cuts a rank's part)."""
         dtype = dtype_of(self.cfg.compute_dtype) if dtype is None else dtype
         with self.on_mesh():
             return self._mod.init_decode_cache(self.cfg, batch, max_len,
                                                dtype, self.device)
 
     def cache_part(self, cache: dict) -> dict:
-        """This rank's part of a whole decode cache (every row, every kv
-        head), as ``make_serve_step`` takes it on the model's mesh: its
-        rows over the batch axes and, in "tp" mode, its kv heads
-        (``launch/shardings.decode_cache_specs``); the cache itself off a
-        mesh."""
+        """This rank's part of a whole decode cache (every row, every
+        position, every kv head), as ``make_serve_step`` takes it on the
+        model's mesh (``launch/shardings.decode_cache_specs``, both modes):
+        its rows over the batch axes, or its positions where they do not
+        divide the batch (a batch of one: context-parallel decode), and its
+        kv heads over "model"; the cache itself off a mesh."""
         if self.mesh is None:
             return cache
         specs = decode_cache_specs(cache, self.cfg, self.mesh, self.mode)
         coord = coordinate(self.mesh)
         return {k: local_slice(v, specs[k], self.mesh, coord)
                 for k, v in cache.items()}
+
+    def own_heads(self, cache: dict) -> dict:
+        """``cache`` with every k/v leaf that holds every kv head (an
+        "fsdp" prefill's, whose rows lie over every axis) cut to the
+        rank's kv heads, as ``decode_cache_specs`` lays them over "model";
+        a leaf of the rank's heads, and every other leaf, as it is."""
+        with self.on_mesh():
+            split = kv_split(self.cfg)
+        k = self.cfg.n_kv_heads
+        if split is None or split[2] == 1:
+            return cache
+        own = k // split[2]
+        return {key: v.narrow(3, split[1] * own, own)
+                if key in ("k", "v", "xk", "xv") and v.shape[3] == k else v
+                for key, v in cache.items()}
 
     @torch.no_grad()
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,8 @@ import torch
 
 from ..launch.collectives import gather_leaf, seq_gather
 from ..launch.mesh import MeshSpec, batch_axes, coordinate
-from ..launch.shardings import fsdp_gathers, model_dim, param_spec
+from ..launch.shardings import (cache_shardings, fsdp_gathers, model_dim,
+                                param_spec)
 from ..roofline import counting
 
 
@@ -116,11 +117,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 # (``use_mesh``), and the models read the installed one, so a later
 # ``set_sharding_mode`` changes no model already built.
 SHARDING_MODE = ["tp"]
-# the mesh, mode, row axes, sequence axes and whole batch leaves of
-# ``use_mesh``: plain globals, not context variables, because the autograd
-# engine runs a CUDA backward (and remat's recompute inside it) on threads
-# of its own
-_AMBIENT = [(None, None, (), (), ())]
+# the mesh, mode, row axes, sequence axes, whole batch leaves and the decode
+# cache's split positions of ``use_mesh``: plain globals, not context
+# variables, because the autograd engine runs a CUDA backward (and remat's
+# recompute inside it) on threads of its own
+_AMBIENT = [(None, None, (), (), (), ())]
 
 
 def set_sharding_mode(mode: str) -> None:
@@ -131,7 +132,7 @@ def set_sharding_mode(mode: str) -> None:
 
 @contextlib.contextmanager
 def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None,
-             seq: tuple = (), whole: tuple = ()):
+             seq: tuple = (), whole: tuple = (), cache: tuple = ()):
     """Run the model on ``mesh`` (a DeviceMesh, or None for one process) in
     sharding ``mode`` (default: ``SHARDING_MODE``'s), the counterpart of
     the reference's ``with mesh:``.  ``rows`` names the axes over which the
@@ -143,14 +144,18 @@ def use_mesh(mesh, mode: str | None = None, rows: tuple | None = None,
     (``seq_rank``); by default none.  ``whole`` names the batch's leaves
     that lie whole on every rank beside a split sequence (``split_batch``:
     whisper's frames where the axes do not divide them; ``batch_split``).
-    A training step's backward belongs inside too: remat recomputes the
-    forward there."""
+    ``cache`` names the decode cache's leaves whose positions lie over
+    axes, ((leaf, axes), ...) (``launch/steps.make_serve_step`` of a batch
+    the batch axes do not divide: context-parallel decode, ``cache_split``);
+    by default none.  A training step's backward belongs inside too: remat
+    recomputes the forward there."""
     prev = _AMBIENT[0]
     if rows is None:
         rows = () if mesh is None else batch_axes(mesh)
     seq = tuple(seq) if mesh is not None else ()
     _AMBIENT[0] = (mesh, SHARDING_MODE[0] if mode is None else mode,
-                   tuple(rows), seq, tuple(whole) if seq else ())
+                   tuple(rows), seq, tuple(whole) if seq else (),
+                   tuple(cache) if mesh is not None else ())
     try:
         yield mesh
     finally:
@@ -165,7 +170,7 @@ def whole_sequence():
     frames).  Enter it inside a remat unit, so that the recompute runs
     under it too."""
     prev = _AMBIENT[0]
-    _AMBIENT[0] = (*prev[:3], (), ())
+    _AMBIENT[0] = (*prev[:3], (), (), prev[5])
     try:
         yield
     finally:
@@ -198,6 +203,12 @@ def ambient_whole() -> tuple:
     return _AMBIENT[0][4]
 
 
+def ambient_cache() -> tuple:
+    """The decode cache's leaves whose positions ``use_mesh`` says lie over
+    axes: ((leaf, axes), ...)."""
+    return _AMBIENT[0][5]
+
+
 def seq_rank(mesh, axes, coord: dict[str, int] | None = None
              ) -> tuple[int, int]:
     """(index, count): which of ``count`` contiguous slices of a sequence
@@ -216,10 +227,22 @@ def seq_rank(mesh, axes, coord: dict[str, int] | None = None
 def seq_split():
     """(mesh, axes, index, count) of the sequence split that ``use_mesh``
     installed (``seq_rank``), or None where each rank holds whole rows."""
-    mesh, _, _, seq, _ = _AMBIENT[0]
+    mesh, seq = _AMBIENT[0][0], _AMBIENT[0][3]
     if mesh is None or not seq:
         return None
     return (mesh, seq, *seq_rank(mesh, seq))
+
+
+def cache_split(key: str):
+    """(mesh, axes, index, count) where the positions of the decode cache's
+    leaf ``key`` lie over ``axes`` (``use_mesh``'s ``cache``): the rank at
+    ``index`` of ``count`` (``seq_rank``) holds positions [index t,
+    (index + 1) t) of its leaf's t; None where the rank holds every
+    position."""
+    mesh, cache = _AMBIENT[0][0], dict(_AMBIENT[0][5])
+    if mesh is None or key not in cache:
+        return None
+    return (mesh, cache[key], *seq_rank(mesh, cache[key]))
 
 
 def batch_split(key: str):
@@ -282,6 +305,25 @@ def tp_whole(name: str, whole: tuple, leaf: torch.Tensor) -> torch.Tensor:
     return seq_gather(leaf, mesh, "model", _split_dim(name, tuple(whole),
                                                       MeshSpec.of(mesh))
                       - len(whole))
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_dim(cfg, mesh: MeshSpec) -> int | None:
+    whole = (1, 1, 1, cfg.n_kv_heads, cfg.head_dim)
+    return model_dim(cache_shardings({"k": whole}, cfg, mesh)["k"])
+
+
+def kv_split(cfg):
+    """(mesh, index, count) where the decode cache's kv heads lie over the
+    ambient mesh's "model" ranks (``launch/shardings.cache_shardings``, in
+    both modes: where "model" divides the kv heads, at one rank of it too,
+    as ``tp_split`` counts a split): the rank at ``index`` of ``count``
+    (``seq_rank``) holds kv heads [index K/count, (index + 1) K/count);
+    else None."""
+    mesh = _AMBIENT[0][0]
+    if mesh is None or _kv_dim(cfg, MeshSpec.of(mesh)) is None:
+        return None
+    return (mesh, *seq_rank(mesh, ("model",)))
 
 
 _gathers = functools.lru_cache(maxsize=None)(fsdp_gathers)

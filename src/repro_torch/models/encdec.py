@@ -244,7 +244,10 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     """One decode step.  tokens (B,1) int.  Returns (logits, cache): each
     layer's new k/v row is written into ``cache["k"]``/``cache["v"]`` **in
     place** and ``cache["pos"]`` is incremented (the JAX version returns a
-    new cache)."""
+    new cache).  On a mesh the self-attention's and the cross-attention's
+    caches may lie split over the ranks' positions, as
+    ``launch/steps.make_serve_step`` installs them
+    (``attention.decode_attention``, ``decode_cross_attention``)."""
     h = embed_tokens(params, tokens[:, :1], cfg).to(
         dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
@@ -267,7 +270,8 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
-    """Fresh (zero) decode cache, with the rank's kv heads under "tp"."""
+    """Fresh (zero) decode cache, with the rank's kv heads on a mesh
+    (``lm.kv_heads``) and every row and position."""
     def zeros(t):
         return torch.zeros((cfg.n_layers, batch, t, kv_heads(cfg),
                             cfg.head_dim), dtype=dtype, device=device)

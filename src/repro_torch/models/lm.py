@@ -65,11 +65,12 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..launch.collectives import (all_reduce, copy_to, gather_leaf,
                                   seq_last, vocab_cross_entropy)
-from ..launch.mesh import MeshSpec, coordinate
+from ..launch.mesh import coordinate
 from .attention import decode_attention, full_attention, init_attn_params
 from .common import (batch_split, cross_entropy_loss, dtype_of, fsdp_whole,
-                     gather_layer, gather_layers, gathering, normal_init,
-                     rms_norm, seq_split, tp_split, tp_whole, whole_shapes)
+                     gather_layer, gather_layers, gathering, kv_split,
+                     normal_init, rms_norm, seq_split, tp_split, tp_whole,
+                     whole_shapes)
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
@@ -514,7 +515,13 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     into ``cache["k"]``/``cache["v"]`` (and each mamba layer's new conv and
     ssm states into ``cache["conv"]``/``cache["ssm"]``) and ``cache["pos"]``
     is incremented -- and the same dict is returned (the JAX version returns
-    a new one)."""
+    a new one).  On a mesh the cache is the rank's part in the layout
+    ``launch/steps.make_serve_step`` installs: where its positions lie over
+    ranks (a batch of one), each attention layer -- gemma3's windowed ones
+    and the hybrid's shared block included -- writes and attends at the
+    rank's global positions (``attention.decode_attention``); the mamba
+    states of such a batch are whole on every rank, as the rules leave
+    them."""
     h = embed_tokens(params, tokens[:, :1], cfg).to(
         dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
@@ -546,18 +553,20 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
 
 
 def kv_heads(cfg: ArchConfig) -> int:
-    """The kv heads a rank's decode cache holds: K/nm where "tp" mode
-    splits them over "model", else all K (``cache_shardings``' layout)."""
-    mesh = tp_split("wk", (cfg.d_model, cfg.n_kv_heads, cfg.head_dim))
-    return cfg.n_kv_heads if mesh is None else \
-        cfg.n_kv_heads // MeshSpec.of(mesh).shape["model"]
+    """The kv heads a rank's decode cache holds: K/nm where
+    ``cache_shardings`` lays them over "model" (``common.kv_split``), in
+    both modes, else all K."""
+    split = kv_split(cfg)
+    return cfg.n_kv_heads if split is None else cfg.n_kv_heads // split[2]
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
     """Fresh (zero) decode cache; the mamba states do not depend on
-    ``max_len``.  Under "tp" the kv heads are the rank's (``kv_heads``);
-    the conv and ssm states stay whole on every rank."""
+    ``max_len``.  On a mesh the kv heads are the rank's (``kv_heads``)
+    and every row and every position is kept (the serving engine's, alike
+    on every rank; ``Model.cache_part`` cuts a rank's part); the conv and
+    ssm states stay whole on every rank."""
     cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
     if cfg.family in ("ssm", "hybrid"):
         lead = _lead(cfg)

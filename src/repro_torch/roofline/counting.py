@@ -145,6 +145,14 @@ class Counter(TorchDispatchMode):
         # the axis of each of ``mesh``'s groups, by the group's name
         self._axes = {} if mesh is None else {
             mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+        # the "rest" kind's bytes by aten op, which tell two torch versions'
+        # counts apart.  One such difference: the backward of
+        # ``torch.topk`` (``models/mlp.py``'s router) allocates its zeros by
+        # ``aten.zeros`` on torch 2.11 and by ``aten.new_zeros`` on 2.13,
+        # whose template operand (the top values' gradient) is booked too:
+        # llama4-scout's train_4k fsdp rank books 786432 bytes more on 2.13
+        # (48 layers of a (16, 256, 1) f32 gradient into (16, 256, 16))
+        self.rest_by_op: dict[str, int] = {}
         self.live = 0
         self.peak = 0
         self._regions: list[tuple[str, str]] = []
@@ -200,7 +208,8 @@ class Counter(TorchDispatchMode):
                 "collective_by_axis": dict(sorted(
                     self.collective_by_axis.items())),
                 "collective_calls": dict(sorted(
-                    self.collective_calls.items()))}
+                    self.collective_calls.items())),
+                "rest_by_op": dict(sorted(self.rest_by_op.items()))}
 
     # ------------------------------------------------------------- the mode
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -241,6 +250,9 @@ class Counter(TorchDispatchMode):
             kind = region[1]
         else:
             kind = PRODUCTS if packet in flop_registry else REST
+        if kind == REST:
+            name = str(packet)
+            self.rest_by_op[name] = self.rest_by_op.get(name, 0) + nbytes
         self.add(kind, flops, nbytes)
         return out
 

@@ -75,7 +75,7 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.cache = model.init_decode_cache(slots, max_len)
-        self._decode = make_serve_step(model)
+        self._decode = make_serve_step(model, whole=True)
         self._queue: list[Request] = []
         self._active: dict[int, dict] = {}      # slot -> request state
         self._free = list(range(slots))
@@ -155,11 +155,12 @@ class ServingEngine:
                 self._retire(slot)
 
     def _splice(self, slot: int, cache1) -> None:
-        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v (the
-        kv heads the rank projects, on a mesh) and of the SSM family's conv
-        and ssm states, axis 2 of the hybrid's (nb, pb, B, ...) conv and ssm
-        states."""
+        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v (on
+        a mesh the rank's kv heads, ``Model.own_heads``: an "fsdp" prefill
+        hands over every head) and of the SSM family's conv and ssm states,
+        axis 2 of the hybrid's (nb, pb, B, ...) conv and ssm states."""
         hybrid = self.cfg.family == "hybrid"
+        cache1 = self.model.own_heads(cache1)
         for key, big in self.cache.items():
             if key == "pos":
                 big[slot] = cache1["pos"][0]

@@ -7,17 +7,23 @@ case of its meshes on meta, as the mesh dry run counts a rank; then it joins
 a gloo group and counts the same cases on the CPU with real tensors, and runs
 the decode cases: ``make_serve_step`` on each mesh of SERVE_MESHES with the
 whole tokens and the rank's part of a whole prefill cache, and in "tp" the
-chain from ``make_prefill_step`` to it.  It writes
+chain from ``make_prefill_step`` to it; and on each mesh of CP_MESHES the
+context-parallel cases: CP_ARCHS at a batch of one, CP_STEPS chained
+``make_serve_step`` steps from the rank's part of a one-process prefill's
+cache of CP_LEN positions, the positions over "data".  It writes
 ``dm_w<world>rank<r>.json`` (the counts) and ``.npz`` (the decode outputs).
 
 ``jax_reference`` runs the JAX package on 4 forced host devices: each
 SERVE_ARCHS' prefill of the prompts and its serve step jitted with the
 reference's decode cell's shardings (``tok_shard`` from ``batch_shardings``
-in "tp" mode, ``cache_shardings``) on each mesh of SERVE_MESHES; and
+in "tp" mode, ``cache_shardings``) on each mesh of SERVE_MESHES, and each
+CP_ARCHS' CP_STEPS chained steps of it on each mesh of CP_MESHES beside
+one device's ``decode_step`` logits; and
 deepseek-7b's train, prefill and decode steps on FLOPS_MESH in "tp" with its
 shardings, measured by ``repro.roofline.analyze``.  ``jax_state_bytes``
 (512 forced host devices) gives each arch's per-device parameter and
-optimizer-state bytes on both production meshes from ``shard_shape``.
+optimizer-state bytes on both production meshes from ``shard_shape``, and
+the decode cache's bytes by leaf of CACHE_CELLS.
 """
 from __future__ import annotations
 
@@ -48,6 +54,19 @@ PROMPT = 8            # the prompts: the first PROMPT tokens of tt's batch
 PAD = 4               # decode slots past the prompt
 FLOPS_ARCH = "deepseek-7b"
 FLOPS_MESH = (2, 2)
+# context-parallel decode of a batch of one: CP_PROMPT tokens prefilled
+# into a cache of CP_LEN positions, then CP_STEPS chained steps, so that
+# each rank of "data" holds CP_LEN / 2 positions, ``pos`` crosses from the
+# prompt's rank to the next, and gemma3's windowed layers (window 8) leave
+# rank 0 no position at the last step; whisper's 32 encoder positions lie
+# over "data" too
+CP_ARCHS = ("gemma3-27b", "zamba2-2.7b", "deepseek-7b", "whisper-medium")
+CP_MESHES = [(2, 1), (2, 2)]
+CP_PROMPT, CP_LEN, CP_STEPS = 8, 16, 8
+INPUT_ARCHS = SERVE_ARCHS + ("gemma3-27b",)
+# the per-rank decode-cache bytes held against the reference's shard_shape
+CACHE_CELLS = (("mamba2-780m", "long_500k"), ("zamba2-2.7b", "long_500k"),
+               ("gemma3-27b", "long_500k"), ("deepseek-7b", "decode_32k"))
 
 
 def tag(shape) -> str:
@@ -207,6 +226,57 @@ def serve_cases(data, mesh, shape, res: dict) -> None:
                     res[f"serve/{t}/{arch}/chain/cache/{k}"] = v.numpy()
 
 
+def cp_prompt(data, arch: str) -> dict:
+    """The context-parallel cases' batch of one: the first CP_PROMPT tokens
+    of tt's first row, and its frames."""
+    b = prompts(data, arch)
+    return {k: v[:1, :CP_PROMPT] if k == "tokens" else v[:1]
+            for k, v in b.items()}
+
+
+def cp_cases(data, mesh, shape, res: dict) -> None:
+    """Each CP_ARCHS' batch of one on ``mesh``: a one-process prefill of
+    ``cp_prompt`` into CP_LEN positions, CP_STEPS chained
+    ``make_serve_step`` steps without a mesh (its tokens and logits), then
+    in both modes the same steps from the rank's part of that cache
+    (``Model.cache_part``): the rank's tokens, logits and cache."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
+    t = tag(shape)
+    for arch in CP_ARCHS:
+        cfg = tt.smoke(arch, get_smoke)
+        whole = Model(cfg, device="cpu").load_state(tt.state(data, arch))
+        logits, cache0 = whole.prefill(cp_prompt(data, arch), pad_to=CP_LEN)
+        tok0 = whole.greedy(logits)[:, None]
+        models = {"one": whole}
+        for mode in MODES:
+            set_sharding_mode(mode)
+            try:
+                models[mode] = Model(cfg, device="cpu", mesh=mesh
+                                     ).load_state(tt.state(data, arch))
+            finally:
+                set_sharding_mode("tp")
+        for key, model in models.items():
+            cache = model.cache_part({k: v.clone() for k, v in
+                                      cache0.items()})
+            seen: list = []
+            greedy = model.greedy
+            model.greedy = lambda x, g=greedy: (seen.append(x.clone()),
+                                                g(x))[1]
+            step, tok, toks = make_serve_step(model), tok0, []
+            for _ in range(CP_STEPS):
+                tok, cache = step(tok, cache)
+                toks.append(tok)
+            pre = f"cp/{t}/{arch}/{key}"
+            res[f"{pre}/tok"] = np.stack([x.numpy() for x in toks])
+            res[f"{pre}/logits"] = np.stack([x.numpy() for x in seen])
+            if key != "one":
+                for k, v in cache.items():
+                    res[f"{pre}/cache/{k}"] = v.numpy()
+
+
 def worker(rank: int, world: int, store: str, inputs: str,
            out_dir: str) -> None:
     """One rank of a world of ``world``: the meta counts in a fake world,
@@ -237,6 +307,8 @@ def worker(rank: int, world: int, store: str, inputs: str,
                         *case, mesh, "cpu")
             if shape in SERVE_MESHES:
                 serve_cases(data, mesh, shape, res)
+            if shape in CP_MESHES:
+                cp_cases(data, mesh, shape, res)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"dm_w{world}rank{rank}.json"), "w") as f:
@@ -296,6 +368,39 @@ def jax_reference(inputs: str, out: str) -> None:
             with jax.set_mesh(mesh):
                 jobs.append((f"{arch}/{tag(shape)}", fn.lower(
                     tree, tok0, cache0), (tree, tok0, cache0)))
+    # the context-parallel cases: CP_STEPS chained steps of the serve step
+    # jitted with cache_shardings (the positions of a batch of one over
+    # "data"), and one device's decode_step for the logits
+    cp_jobs: list = []        # (key, lowered, (tree, tok0, cache0))
+    for arch in CP_ARCHS:
+        cfg = tt.smoke(arch, get_smoke).replace(kernel_mode="ref")
+        jm = Model(cfg)
+        tree = tt._tree(data, arch)
+        batch = {"tokens": data[f"{arch}/tokens"][:1, :CP_PROMPT]}
+        for key in ("frames", "patches"):
+            if f"{arch}/{key}" in data.files:
+                batch[key] = data[f"{arch}/{key}"][:1]
+        logits, cache0 = jm.prefill(tree, batch, pad_to=CP_LEN)
+        tok0 = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
+        step = steps.make_serve_step(jm)
+        for shape in CP_MESHES:
+            mesh = meshes[shape]
+            sh = cache_shardings(shapes_of(cache0), cfg, mesh)
+            fn = jax.jit(step, in_shardings=(
+                param_shardings(shapes_of(tree), mesh, "tp"),
+                batch_shardings({"tokens": shapes_of(tok0)}, mesh)["tokens"],
+                sh), out_shardings=(None, sh))
+            with jax.set_mesh(mesh):
+                cp_jobs.append((f"cp/{arch}/{tag(shape)}", fn.lower(
+                    tree, tok0, cache0), (tree, tok0, cache0)))
+        dec = jax.jit(jm.decode_step)
+        tok, cache, seen = tok0, cache0, []
+        for _ in range(CP_STEPS):
+            lg, cache = dec(tree, tok, cache)
+            seen.append(lg)
+            tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)[:, None]
+        res[f"cp/{arch}/one/logits"] = np.stack(seen)
+    jobs += cp_jobs
     # deepseek-7b's steps on FLOPS_MESH in "tp" with the reference's
     # shardings, as its dry run lowers them: per-device FLOPs of the HLO
     cfg = tt.smoke(FLOPS_ARCH, get_smoke).replace(remat="full",
@@ -337,6 +442,17 @@ def jax_reference(inputs: str, out: str) -> None:
     with ThreadPoolExecutor(4) as pool:
         compiled = list(pool.map(lambda lo: lo.compile(), everything))
     for (key, _, args), fn in zip(jobs, compiled):
+        if key.startswith("cp/"):
+            tree, tok, cache = args
+            toks = []
+            for _ in range(CP_STEPS):
+                tok, cache = fn(tree, tok, cache)
+                tok = np.asarray(tok)
+                toks.append(tok)
+            res[f"{key}/tok"] = np.stack(toks)
+            for k, v in cache.items():
+                res[f"{key}/cache/{k}"] = v
+            continue
         tok1, cache1 = fn(*args)
         res[f"{key}/tok1"] = tok1
         for k, v in cache1.items():
@@ -353,12 +469,15 @@ def jax_state_bytes(out: str) -> None:
     """Each arch's per-device parameter and optimizer-state bytes on both
     production meshes, each mode, with and without ZeRO-1: the sum over the
     leaves of ``NamedSharding.shard_shape`` times the item size, on
-    ``eval_shape`` trees (512 forced host devices; nothing compiled)."""
+    ``eval_shape`` trees (512 forced host devices; nothing compiled); and
+    each CACHE_CELLS decode cache's bytes by leaf, by ``cache_shardings``."""
     import jax
 
-    from repro.configs import ARCHS, get_config
+    from repro.configs import ARCHS, SHAPES, get_config
+    from repro.launch.input_specs import cache_specs
     from repro.launch.mesh import make_production_mesh
-    from repro.launch.shardings import opt_shardings, param_shardings
+    from repro.launch.shardings import (cache_shardings, opt_shardings,
+                                        param_shardings)
     from repro.models import Model
     from repro.optim import AdamW, AdamWConfig
 
@@ -384,5 +503,10 @@ def jax_state_bytes(out: str) -> None:
                                                    mode=mode))
                     res[f"{int(multi_pod)}/{arch}/{mode}/{int(zero1)}"] = \
                         (pb, ob)
+        for arch, shape in CACHE_CELLS:
+            cache = cache_specs(get_config(arch), SHAPES[shape])
+            sh = cache_shardings(cache, get_config(arch), mesh)
+            res[f"cache/{int(multi_pod)}/{arch}/{shape}"] = {
+                k: nbytes(v, sh[k]) for k, v in cache.items()}
     with open(out, "w") as f:
         json.dump(res, f)

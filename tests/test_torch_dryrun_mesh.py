@@ -13,6 +13,10 @@ the decode step's rows over the batch axes.
 - per-device FLOPs against the reference's HLO on a forced-host (2, 2);
 - ``make_serve_step`` on a mesh against JAX's serve step jitted with the
   reference's decode cell's shardings, and the chain from the prefill;
+- context-parallel decode of a batch of one, its positions over "data",
+  chained steps against JAX's serve step jitted with ``cache_shardings``;
+- each rank's decode-cache bytes against JAX's ``shard_shape``, and the
+  serve step's refusal of a cache of other kv heads;
 - the CLI, the sanity figure of "tp"'s all-reduces, the fake backend's
   refusal of a model off meta, and the grouped FFN booked over the experts
   the tokens can reach.
@@ -42,6 +46,7 @@ from repro_torch.launch.collectives import (_ALL_GATHER,  # noqa: E402
 from repro_torch.launch.mesh import (MeshSpec, fake_world,  # noqa: E402
                                      make_mesh, production_spec)
 from repro_torch.launch.shardings import (batch_shardings,  # noqa: E402
+                                          cache_shardings,
                                           decode_cache_specs, local_slice)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.roofline import Counter, counting  # noqa: E402
@@ -59,7 +64,7 @@ def runs(tmp_path_factory):
     npz)}: the gloo worlds 2 and 4 beside two JAX subprocesses."""
     d = tmp_path_factory.mktemp("dryrun_mesh")
     inputs = str(d / "inputs.npz")
-    tt.make_inputs(inputs, dm.SERVE_ARCHS)
+    tt.make_inputs(inputs, dm.INPUT_ARCHS)
     path = os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")])
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=path)
     jobs = [subprocess.Popen(
@@ -312,7 +317,8 @@ def test_decode_rows_match_jax(runs, shape, arch):
 
 
 def test_serve_step_refuses_a_cache_of_other_rows(tmp_path):
-    """A cache that holds neither the rank's rows nor every row raises."""
+    """A cache that does not hold the rank's rows raises (a cache of every
+    row passes ``make_serve_step(model, whole=True)``)."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch.steps import make_serve_step
     with fake_world(MeshSpec(dm.AXES, (2, 1))) as mesh:
@@ -322,6 +328,119 @@ def test_serve_step_refuses_a_cache_of_other_rows(tmp_path):
         with pytest.raises(ValueError, match="Model.cache_part"):
             make_serve_step(model)(torch.zeros(4, 1, dtype=torch.int64,
                                                device="meta"), cache)
+
+
+def test_serve_step_refuses_a_cache_of_other_kv_heads():
+    """A cache of every kv head where the rules lay them over "model"
+    raises naming ``Model.cache_part``, in both modes."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.common import set_sharding_mode
+    cfg = get_smoke("deepseek-7b")
+    for mode in dm.MODES:
+        with fake_world(MeshSpec(dm.AXES, (1, 2))) as mesh:
+            set_sharding_mode(mode)
+            try:
+                model = Model(cfg, device="meta", mesh=mesh)
+            finally:
+                set_sharding_mode("tp")
+            cache = Model(cfg, device="meta").init_decode_cache(4, 8)
+            assert cache["k"].shape[3] == cfg.n_kv_heads
+            with pytest.raises(ValueError, match="Model.cache_part"):
+                make_serve_step(model)(torch.zeros(
+                    4, 1, dtype=torch.int64, device="meta"), cache)
+            assert model.cache_part(cache)["k"].shape[3] == \
+                cfg.n_kv_heads // 2, mode
+
+
+# -------------------------------------------- context-parallel decode
+def _vocab_part(logits, cfg, shape, mode: str, r: int):
+    """The rank's slice of whole logits (..., V): its vocabulary slice over
+    "model" in "tp" mode, all of it in "fsdp" mode."""
+    if mode == "fsdp":
+        return logits
+    nm = shape[1]
+    part = cfg.vocab // nm
+    m = int(np.unravel_index(r, shape)[1])
+    return logits[..., m * part:(m + 1) * part]
+
+
+@pytest.mark.parametrize("arch", dm.CP_ARCHS)
+@pytest.mark.parametrize("shape", dm.CP_MESHES, ids=map(dm.tag,
+                                                       dm.CP_MESHES))
+def test_context_parallel_decode_matches_jax(runs, shape, arch):
+    """A batch of one on a mesh whose "data" axis does not divide it, in
+    both modes: each rank holds its CP_LEN / 2 positions of the cache
+    (``decode_cache_specs`` = ``cache_shardings``; on (2, 2) its kv heads
+    over "model"), CP_STEPS chained ``make_serve_step`` steps whose ``pos``
+    crosses from rank 0's positions to rank 1's and, at the last step,
+    leaves gemma3's windowed layers no position on rank 0.  Every step's
+    greedy tokens equal JAX's serve step jitted with ``cache_shardings``
+    and one process's; each rank's cache within CACHE_REL of JAX's part;
+    the logits within 1e-5 of one process's and 1e-4 of JAX's."""
+    from repro_torch.configs import get_smoke
+    jx = runs["jax"]
+    cfg = tt.smoke(arch, get_smoke)
+    w, t = int(np.prod(shape)), dm.tag(shape)
+    last = dm.CP_PROMPT + dm.CP_STEPS - 1
+    assert dm.CP_PROMPT - 1 < dm.CP_LEN // shape[0] <= last
+    if cfg.sliding_window:
+        assert last - cfg.sliding_window >= dm.CP_LEN // shape[0] - 1
+    want_tok = jx[f"cp/{arch}/{t}/tok"]
+    assert want_tok.shape == (dm.CP_STEPS, 1, 1)
+    keys = [k.rsplit("/", 1)[1] for k in jx.files
+            if k.startswith(f"cp/{arch}/{t}/cache/")]
+    whole = {k: jx[f"cp/{arch}/{t}/cache/{k}"] for k in keys}
+    one_logits = jx[f"cp/{arch}/one/logits"]
+    for r in range(w):
+        _, res = runs[w, r]
+        pre = f"cp/{t}/{arch}"
+        np.testing.assert_array_equal(res[f"{pre}/one/tok"], want_tok)
+        for mode in dm.MODES:
+            np.testing.assert_array_equal(res[f"{pre}/{mode}/tok"],
+                                          want_tok, err_msg=mode)
+            got = res[f"{pre}/{mode}/logits"]
+            assert _rel(got, _vocab_part(res[f"{pre}/one/logits"], cfg,
+                                         shape, mode, r)) < 1e-5, (r, mode)
+            assert _rel(got, _vocab_part(one_logits, cfg, shape, mode,
+                                         r)) < 1e-4, (r, mode)
+            part = _rank_part(whole, cfg, shape, mode, r)
+            for k in keys:
+                got = res[f"{pre}/{mode}/cache/{k}"]
+                assert got.shape == part[k].shape, (mode, k)
+                if k in ("k", "v"):
+                    assert got.shape[2] == dm.CP_LEN // shape[0], k
+                if k == "pos":
+                    np.testing.assert_array_equal(got, part[k])
+                else:
+                    assert _rel(got, part[k]) < CACHE_REL, (r, mode, k)
+
+
+@pytest.mark.parametrize("cell", dm.CACHE_CELLS, ids="/".join)
+def test_decode_cache_bytes_equal_jax_shard_shapes(runs, cell):
+    """The rank's decode cache of the mesh dry run (``input_specs.
+    cache_specs``, ``decode_cache_specs``) on (16, 16) and (2, 16, 16),
+    both modes: each k/v leaf's bytes equal ``NamedSharding.shard_shape``
+    of the reference's ``cache_shardings``; conv and ssm are the rules'
+    bytes times the "model" ranks they keep whole (ROADMAP.md 9b (vii)).
+    ``pos`` is not held: the port's is int64 and lies with the rows."""
+    from repro_torch.launch.input_specs import cache_specs
+    arch, shape_name = cell
+    cfg = get_config(arch)
+    for multi_pod in (False, True):
+        spec = production_spec(multi_pod=multi_pod)
+        want = runs["state"][f"cache/{int(multi_pod)}/{arch}/{shape_name}"]
+        rules = cache_shardings(cache_specs(cfg, SHAPES[shape_name]), cfg,
+                                spec)
+        for mode in dm.MODES:
+            got = {k: v.numel() * v.element_size() for k, v in cache_specs(
+                cfg, SHAPES[shape_name], spec, mode).items()}
+            assert set(got) == set(want), mode
+            got.pop("pos")
+            for k, v in got.items():
+                whole = spec.shape["model"] if "model" in rules[k] and \
+                    k in ("conv", "ssm") else 1
+                assert v == want[k] * whole, (multi_pod, mode, k)
 
 
 # ------------------------------------------------------------------- the CLI

@@ -193,3 +193,40 @@ def test_expert_parallel_and_shard_params_on_meta():
     assert spec == (None, "model", None, None)
     assert shardings.local_slice(w_in, spec, one, {"data": 0,
                                                    "model": 0}) is w_in
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_cache_layout_is_the_references(arch, mesh, mode):
+    """The port's decode-cache layout (``decode_cache_specs``) of a cache
+    of each shape's batch and length: every k, v, xk and xv leaf as the
+    reference's ``cache_shardings`` lays it (positions over the batch axes
+    for a batch of one, kv heads over "model", in both modes); conv and
+    ssm differ only by their "model" dim kept whole (ROADMAP.md 9b
+    (vi)-(vii)); the mesh dry run's layout names only those two."""
+    from repro_torch.launch import dryrun
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    spec = MESHES[mesh]
+    for shape in SHAPES.values():
+        if not applicable(cfg, shape)[0]:
+            continue
+        jc = jax_inputs.cache_specs(jcfg, shape)
+        pc = input_specs.cache_specs(cfg, shape)
+        want = {k: tuple(v.spec) for k, v in jax_sh.cache_shardings(
+            jc, jcfg, _abstract(spec)).items()}
+        got = shardings.decode_cache_specs(pc, cfg, spec, mode)
+        for key, rule in want.items():
+            if key in ("k", "v", "xk", "xv"):
+                assert got[key] == rule, (shape.name, key)
+            elif key in ("conv", "ssm"):
+                assert got[key] == tuple(None if e == "model" else e
+                                         for e in rule), (shape.name, key)
+        if shape.kind == "decode":
+            batch = input_specs.batch_specs(cfg, shape)
+            kept = dryrun._layout(cfg, shape, batch, spec,
+                                  mode)["cache_kept_whole"]
+            assert set(kept) <= {"conv", "ssm"}, (shape.name, kept)
+            if shape.global_batch == 1 and "k" in pc:
+                assert shardings.spec_axes(got["k"][2:3]) == \
+                    batch_axes(spec)
