@@ -12,6 +12,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --seq-only
     python3 chip_smoke.py --dryrun-only
     python3 chip_smoke.py --cp-only
+    python3 chip_smoke.py --mamba-tp-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -287,10 +288,37 @@ result line):
    ``make_serve_step`` in both modes, tokens and cache bit for bit against
    no mesh (one rank divides the batch: nothing is split there).
 
+14. mamba's projections split over "model" ("tp": each rank runs the mamba
+   block on its own heads from the rules' slices of ``in_proj``,
+   ``conv_w``, ``conv_b`` and ``out_proj``, which the column exchange cuts
+   into the columns its heads read; the conv and ssm decode states over
+   "model" as ``cache_shardings`` lays them, in both modes): (a) on a (1, 1)
+   NCCL mesh, where every split counts, 3 ``make_train_step`` steps of
+   mamba2-780m at full width and depth from one state, bit for bit those
+   without a mesh (every step-1 gradient leaf, the losses, the grad
+   norms), ms per step beside the unsharded step's; phase 5's mamba2
+   requests served on the mesh, greedy tokens equal to phase 5's.  (b)
+   The ranks of "model" as threads of this process (``MambaThreads``, on
+   ``CpThreads``): layer 0 of mamba2-780m at published widths, bf16, 1 x
+   4096 tokens, as each of 2, 4 and 16 ranks holds it (``shard_params`` at
+   each coordinate), forward and backward, the SSD kernels at 24, 12 and 3
+   heads; zamba2-2.7b's at 16 ranks (5 heads): y summed over the ranks,
+   dx and every leaf's gradient within bf16 bounds of the whole layer's.
+   (c) mamba2-780m at full depth on long_500k's rank, a batch of one: a
+   prefill, then 4 ``make_serve_step`` steps on 16 ranks of "model" as
+   threads in "tp" and "fsdp", each rank's cache ``Model.cache_part``'s:
+   logits every rank alike and within bf16 bounds of no mesh, each rank's
+   conv and ssm parts those of the whole cache.  Then the SSD forward and
+   backward timed at the ranks' head counts, and one layer's decode:
+   whole, the last of 16 ranks' share, and its collectives alone (as
+   local stand-ins: the machine has one card).  Phase 12's cells gain
+   mamba2-780m's and zamba2-2.7b's long_500k on (16, 16) in "tp".
+
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
 the tokens to hold), ``--seq-only`` phase 11, ``--dryrun-only`` phase 12,
-``--cp-only`` phase 13.
+``--cp-only`` phase 13, ``--mamba-tp-only`` phase 14 (serving phase 5's
+mamba2 requests without a mesh itself).
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -3578,13 +3606,13 @@ def layout_name(mesh, mode: str = "tp", zero1: bool = False) -> str:
 
 def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
              card: str | None = None, mode: str = "tp",
-             zero1: bool = False) -> dict:
+             zero1: bool = False, timed: int = TP_TIMED_STEPS) -> dict:
     """TP_STEPS ``make_train_step`` steps (AdamW, bf16 moments; ZeRO-1's
     with ``zero1``) of ``cfg`` from ``state`` on ``mesh`` (None: one
     process, no mesh) in sharding ``mode``, every launch counted from 0:
     losses, grad norms, the step-1 gradients as AdamW takes them (kept on
     the card; with ``ref``, each compared with ref's as it comes and only
-    the differences kept) and the peak memory; then TP_TIMED_STEPS timed
+    the differences kept) and the peak memory; then ``timed`` timed
     steps.  Given the ``card``'s name, one profiled step more.  Returns
     the model and its state too."""
     from repro_torch.launch.steps import make_train_step
@@ -3630,7 +3658,7 @@ def tp_steps(cfg, mesh, state: dict, batch: dict, ref: dict | None = None,
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     opt.update = update
-    for _ in range(TP_TIMED_STEPS):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t = time.perf_counter()
         st, met = step_fn(st, batch)
@@ -4631,16 +4659,14 @@ class SeqThreads:
         self.local = threading.local()
 
     def _wait(self, r: int) -> None:
-        with self.cond:
-            while self.turn != r and self.failed is None:
-                self.cond.wait()
-            if self.failed is not None:
-                raise RuntimeError("another rank failed")
+        self.sems[r].acquire()
+        if self.failed is not None:
+            raise RuntimeError("another rank failed")
 
     def _pass(self, r: int) -> None:
-        with self.cond:
-            self.turn = (r + 1) % self.n
-            self.cond.notify_all()
+        """The turn to the next rank, waking only its thread."""
+        self.turn = (r + 1) % self.n
+        self.sems[self.turn].release()
 
     def run(self, fn) -> list:
         """``fn(rank)`` in each rank's thread, in turns (with grad as the
@@ -4649,6 +4675,8 @@ class SeqThreads:
         out = [None] * self.n
         grad = torch.is_grad_enabled()
         self.turn, self.parts, self.failed = 0, {}, None
+        self.sems = [threading.Semaphore(0) for _ in range(self.n)]
+        self.sems[0].release()
 
         def body(r):
             self.local.rank, self.local.call = r, 0
@@ -4659,7 +4687,8 @@ class SeqThreads:
             except BaseException as e:      # noqa: BLE001 (re-raised below)
                 with self.cond:
                     self.failed = self.failed or e
-                    self.cond.notify_all()
+                for sem in self.sems:       # every waiting rank sees it
+                    sem.release()
                 return
             self._pass(r)
 
@@ -5260,7 +5289,9 @@ MESH_CELLS = [("deepseek-7b", shape, multi_pod, mode)
     (MAMBA2, "prefill_32k", False, "fsdp"),
     (WHISPER, "train_4k", True, "fsdp"),
     ("gemma3-27b", "long_500k", False, "tp"),
-    ("gemma3-27b", "long_500k", False, "fsdp")]
+    ("gemma3-27b", "long_500k", False, "fsdp"),
+    (MAMBA2, "long_500k", False, "tp"),
+    (ZAMBA2, "long_500k", False, "tp")]
 # (b): the training steps counted at world 1 on the card and on meta, and
 # the decode steps held against no mesh
 WORLD_ONE_STEPS = (("deepseek fsdp", "fsdp", False),
@@ -5926,6 +5957,593 @@ def phase_context_parallel(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 14
+# mamba's projections split over "model" in "tp" mode (models/ssm.py): each
+# rank runs the mamba block on its own heads from the rules' slices of
+# in_proj, conv_w, conv_b and out_proj (launch/collectives.exchange_columns
+# hands it the columns its heads read), and the conv and ssm decode states
+# lie over "model" as cache_shardings lays them, in both modes.  (b): layer
+# 0 of mamba2-780m as each of MT_RANKS ranks holds it (48 heads: 24, 12 and
+# 3 a rank), of zamba2-2.7b at MT_ZAMBA2_RANKS (80 heads: 5 a rank), on 1 x
+# MT_TOKENS tokens
+MT_RANKS, MT_ZAMBA2_RANKS, MT_TOKENS = (2, 4, 16), 16, 4096
+# (b): bounds on ||the ranks' result - whole|| / ||whole|| in bf16, set
+# before the first run: y and dx sum up to 16 shares, each rounded to bf16
+# before the sum (as a bf16 all-reduce does), and the gradient of the B
+# and C columns of in_proj and of the conv sums 16 ranks' shares; phase 9
+# measured y 2.35e-3 and dx 4.01e-3 at 4 ranks (PERF.md), and 16 shares
+# round about twice as often again
+MT_REL = {"y": 1.5e-2, "dx": 2e-2, "grad": 3e-2}
+# (a): the steps timed after the held ones, on each side
+MT_TIMED_STEPS = 2
+# (c): mamba2-780m at full depth on long_500k's rank (a batch of one, its
+# states' channels and heads over the 16 ranks of (16, 16)'s "model"): a
+# prefill of MT_PROMPT tokens, then MT_STEPS make_serve_step steps, in f32
+# and in bf16.  f32 holds the split's arithmetic: the logits and each
+# rank's final states within MT_F32_REL of no mesh (sums of 16 shares in
+# another order, 48 layers).  bf16 holds its rounding against a
+# yardstick: its distance from the f32 path without a mesh at most
+# MT_BF16_YARD times that of the bf16 path without a mesh (the 16 bf16
+# shares of y round some 31 times a layer where the whole layer rounds
+# once, at up to a quarter of y's size: phase (b)'s y 9.84e-3 at 16 ranks
+# against 2.86e-3 at 2).  An absolute bf16 bound of 3e-2 does not hold
+# over 48 random bf16 layers: the bf16 path without a mesh is itself some
+# 30 % from f32 there (PERF.md, findings)
+MT_PROMPT, MT_STEPS, MT_DECODE_RANKS = 64, 4, 16
+MT_F32_REL = 1e-4
+MT_BF16_YARD = 6.0
+
+
+class MambaThreads(CpThreads):
+    """``CpThreads`` over the ``n`` ranks of "model", whose collectives in
+    ``models/ssm.py`` and ``models/common.py`` are torch ops on the ranks'
+    parts too: the gathers a concatenation, the shares of y and of the
+    norm's statistic summed in rank order, "f" the identity, and the
+    column exchange each rank's ranges cut from every rank's slice, so
+    that one backward from the main thread runs every rank's, each
+    exchange's as its reverse (the gradient of a column several ranks read
+    summed into its holder); the greedy token of the vocabulary's slices
+    is taken over the slices joined.  ``api.mesh_device`` takes the
+    threads' mesh as the card's, so that a ``Model`` built in a rank's
+    thread on it keeps that rank's slices."""
+
+    def __init__(self, n: int):
+        super().__init__(n, "model")
+
+    def exchange_columns(self, x, mesh, axis: str, dim: int, want: tuple):
+        held, parts = x.shape[dim], self.exchange(x)
+        pieces = []
+        for a, b in want[self.local.rank]:
+            for q, part in enumerate(parts):
+                lo, hi = max(a, q * held), min(b, (q + 1) * held)
+                if lo < hi:
+                    pieces.append(part.narrow(dim, lo - q * held, hi - lo))
+        return torch.cat(pieces, dim)
+
+    def patched(self, cache: tuple = (), mode: str = "tp", model=None):
+        from unittest import mock
+
+        from repro_torch.models import api, common, ssm
+        stack = super().patched(cache, mode, model)
+        same = lambda x, mesh, axis: x              # noqa: E731
+        for mod, name, fn in ((ssm, "all_reduce", self.all_reduce),
+                              (ssm, "copy_to", same),
+                              (ssm, "gather_leaf", self.gather),
+                              (ssm, "exchange_columns",
+                               self.exchange_columns),
+                              (common, "all_reduce", self.all_reduce),
+                              (common, "copy_to", same),
+                              (api, "mesh_device", lambda mesh: "cuda"),
+                              (api, "vocab_argmax", self.vocab_argmax)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        return stack
+
+    def vocab_argmax(self, logits, mesh):
+        return torch.argmax(torch.cat(self.exchange(logits), -1), dim=-1)
+
+
+def mt_layer(cfg, leaves: dict, x, dy, nm: int | None) -> tuple:
+    """``ssm.mamba_forward`` of one layer's ``leaves`` on x (1, S, D),
+    forward and backward for the cotangent ``dy``: whole (``nm`` None), or
+    as each of ``nm`` ranks of "model" holds it in "tp" mode
+    (``shard_params`` at each coordinate; the leaves the rules replicate
+    one tensor that every rank's share of the gradient reaches), the
+    ranks in ``MambaThreads``.  (y, dx, {leaf: gradient}), a split leaf's
+    gradient the ranks' slices joined along its split dim; every rank's y
+    must be alike."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.shardings import (model_dim, param_spec,
+                                              shard_params)
+    from repro_torch.models import ssm
+    lv = {k: v.detach().clone().requires_grad_() for k, v in leaves.items()}
+    xx = x.detach().clone().requires_grad_()
+    if nm is None:
+        y = ssm.mamba_forward(lv, xx, cfg)[0]
+        y.backward(dy)
+        return y.detach(), xx.grad, {k: v.grad for k, v in lv.items()}
+    spec = MeshSpec(("data", "model"), (1, nm))
+    parts = []
+    for r in range(nm):
+        part = shard_params(lv, spec, "tp", {"data": 0, "model": r})
+        parts.append({k: v if v is lv[k] else v.detach().requires_grad_()
+                      for k, v in part.items()})
+    threads = MambaThreads(nm)
+    with threads.patched(mode="tp"):
+        ys = threads.run(lambda r: ssm.mamba_forward(parts[r], xx, cfg)[0])
+    assert all(torch.equal(y, ys[0]) for y in ys), "the ranks' y differ"
+    ys[0].backward(dy)
+    grads = {}
+    for k, v in lv.items():
+        d = model_dim(param_spec(k, v.shape, spec))
+        grads[k] = v.grad if d is None else torch.cat(
+            [p[k].grad for p in parts], dim=d)
+    return ys[0].detach(), xx.grad, grads
+
+
+def mt_rank_parts(card: str) -> dict:
+    """(b): layer 0 of mamba2-780m whole and at each of MT_RANKS ranks, of
+    zamba2-2.7b at MT_ZAMBA2_RANKS, bf16 at published widths (seed 0), on
+    1 x MT_TOKENS tokens: the ranks' y (summed in rank order), dx and every
+    leaf's gradient held to the whole layer's within MT_REL; the SSD
+    kernels launched at each rank's heads."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    heads: list = []
+    real = ssm.ssd_intra_chunk
+
+    def spy(xc, *args):
+        heads.append(xc.shape[3])
+        return real(xc, *args)
+
+    out, launches = {}, {}
+    zero_counts()
+    for arch, counts in ((MAMBA2, MT_RANKS), (ZAMBA2, (MT_ZAMBA2_RANKS,))):
+        cfg = get_config(arch).replace(remat="none")
+        gen = torch.Generator("cuda").manual_seed(0)
+        leaves = ssm.init_mamba_params(gen, cfg, torch.bfloat16, "cuda")
+        gen = torch.Generator("cuda").manual_seed(25)
+        x, dy = (torch.randn((1, MT_TOKENS, cfg.d_model), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        y, dx, grads = mt_layer(cfg, leaves, x, dy, None)
+        for nm in counts:
+            heads.clear()
+            with mock.patch.object(ssm, "ssd_intra_chunk", spy):
+                yr, dxr, gr = mt_layer(cfg, leaves, x, dy, nm)
+            assert heads == [cfg.ssm_heads // nm] * nm, (arch, nm, heads)
+            worst = {k: leaf_rel(gr[k], grads[k]) for k in grads}
+            errs = {"y": leaf_rel(yr, y), "dx": leaf_rel(dxr, dx),
+                    "grad": max(worst.values()),
+                    "worst_leaf": max(worst, key=worst.get),
+                    "heads": cfg.ssm_heads // nm}
+            for k in ("y", "dx", "grad"):
+                assert errs[k] <= MT_REL[k], \
+                    f"[mamba tp] (b) {arch} at {nm} ranks: {errs} > {MT_REL}"
+            out[f"{arch} nm{nm}"] = errs
+            del yr, dxr, gr
+        del leaves, x, dy, y, dx, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    n_parts = 2 + sum(MT_RANKS) + MT_ZAMBA2_RANKS
+    assert launches["ssd_intra_chunk"] == n_parts and \
+        launches["ssd_intra_chunk_bwd"] == n_parts, launches
+    return {"errors": out, "launches": launches}
+
+
+def mt_ssd_ms(gen) -> dict:
+    """The SSD forward and its backward at the heads of mamba2-780m's and
+    zamba2-2.7b's ranks ((b)'s), on 1 x MT_TOKENS tokens: the forward's
+    time as issued (CUDA events over 20 calls) and replayed from a CUDA
+    graph, the forward and backward's on the device alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    out = {}
+    for arch, counts in ((MAMBA2, (1, *MT_RANKS)),
+                         (ZAMBA2, (1, MT_ZAMBA2_RANKS))):
+        cfg = get_config(arch)
+        nc, l = MT_TOKENS // cfg.ssm_chunk, cfg.ssm_chunk
+        for nm in counts:
+            h = cfg.ssm_heads // nm
+            xc, dtc, cum, bc, cc = ssd_inputs(1, nc, l, h, cfg.ssm_head_dim,
+                                              cfg.ssm_state, True, gen)
+            ins = [t.detach().requires_grad_()
+                   for t in (xc, dtc, cum, bc, cc)]
+            dy, ds = ssd_cotangents((1, nc, l, h, cfg.ssm_head_dim,
+                                     cfg.ssm_state), "both", gen)
+
+            def fwd(xc=xc, dtc=dtc, cum=cum, bc=bc, cc=cc):
+                return ssd_intra_chunk(xc, dtc, cum, bc, cc)
+
+            def fwd_bwd(ins=ins, dy=dy, ds=ds):
+                y, st = ssd_intra_chunk(*ins)
+                torch.autograd.grad((y, st), ins, (dy, ds))
+
+            out[f"{arch.split('-')[0]} {h} heads"] = {
+                "shape": [1, nc, l, h, cfg.ssm_head_dim, cfg.ssm_state],
+                "fwd_ms": time_ms(fwd, 20), "fwd_graph_ms": graph_ms(fwd),
+                "fwd_bwd_device_ms": device_ms(fwd_bwd)}
+    return out
+
+
+def mt_decode_ms(card: str) -> dict:
+    """One mamba2-780m layer's decode of a batch of one (bf16, seed 0), as
+    issued (CUDA events over 50 calls) and replayed from a CUDA graph:
+    the whole layer; the last of MT_DECODE_RANKS ranks' share (its slices,
+    its parts of the states), the collectives as local stand-ins that write
+    what they would (a gather the n parts' bytes, a sum a copy: the one
+    card has no other rank); and those stand-ins alone."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.models import common, ssm
+    cfg = get_config(MAMBA2)
+    n, r = MT_DECODE_RANKS, MT_DECODE_RANKS - 1
+    gen = torch.Generator("cuda").manual_seed(0)
+    leaves = ssm.init_mamba_params(gen, cfg, torch.bfloat16, "cuda")
+    c = cfg.d_inner + 2 * cfg.ssm_state
+    gen = torch.Generator("cuda").manual_seed(26)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    x1 = draw(1, 1, cfg.d_model)
+    conv, st = draw(1, cfg.ssm_conv - 1, c), draw(
+        1, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    spec = MeshSpec(("data", "model"), (1, n))
+    part = shard_params(leaves, spec, "tp", {"data": 0, "model": r})
+    cl, hl = c // n, cfg.ssm_heads // n
+    conv_p = conv[..., r * cl:(r + 1) * cl].contiguous()
+    st_p = st[:, r * hl:(r + 1) * hl].contiguous()
+
+    def gather(x, mesh, dim: int, axes="model"):
+        return torch.cat([x] * n, dim)
+
+    def total(x, mesh, axes, grad_scale: float = 1.0):
+        return x.clone()
+
+    def same(x, mesh, axis):
+        return x
+
+    res = {}
+    with torch.no_grad():
+        whole = lambda: ssm.mamba_decode(leaves, x1, conv, st, cfg)  # noqa
+        res["whole_ms"] = time_ms(whole, 50)
+        res["whole_graph_ms"] = graph_ms(whole)
+        with ExitStack() as stack:
+            for mod, name, fn in (
+                    (ssm, "gather_leaf", gather), (ssm, "all_reduce", total),
+                    (ssm, "copy_to", same), (common, "all_reduce", total),
+                    (common, "copy_to", same),
+                    (common, "seq_rank", lambda mesh, axes, coord=None:
+                     (r, n) if axes else (0, 1))):
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            stack.enter_context(common.use_mesh(spec, "tp", rows=()))
+            share = lambda: ssm.mamba_decode(part, x1, conv_p, st_p,  # noqa
+                                             cfg)
+            res["share_ms"] = time_ms(share, 50)
+            res["share_graph_ms"] = graph_ms(share)
+        w = (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads) // n
+        row, cv = draw(1, 1, w), draw(1, cl)
+        ss = torch.zeros((1, 1, 1), device="cuda")
+        y = draw(1, 1, cfg.d_model)
+
+        def exchanges():
+            gather(row, None, 2)
+            gather(cv, None, 1)
+            total(ss, None, "model")
+            total(y, None, "model")
+        res["exchanges_ms"] = time_ms(exchanges, 50)
+        res["exchanges_graph_ms"] = graph_ms(exchanges)
+    return res
+
+
+def mt_chain(models: list, threads: MambaThreads, mode: str, cache: dict,
+             toks: list) -> list:
+    """``make_serve_step(models[r])`` on the threads' (1, n) mesh in
+    ``mode``, each rank in its thread: its cache ``Model.cache_part``'s of
+    the whole ``cache`` (its own ``pos``), ``toks[s]`` fed at step s.  Per
+    rank: (each step's logits, the final part)."""
+    from unittest import mock
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import lm
+    real, logits = lm.decode_step, [[] for _ in range(threads.n)]
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        logits[threads.local.rank].append(out[0].clone())
+        return out
+
+    def rank(r):
+        part = models[r].cache_part(cache)
+        part["pos"] = part["pos"].clone()
+        step = make_serve_step(models[r])
+        for tok in toks:
+            _, part = step(tok, part)
+        return part
+
+    with torch.no_grad(), threads.patched(
+            mode=mode, model=models[0] if mode == "fsdp" else None), \
+            mock.patch.object(lm, "decode_step", spy):
+        parts = threads.run(rank)
+    return [(logits[r], parts[r]) for r in range(threads.n)]
+
+
+def mt_whole(cfg, state: dict | None, prompt, feed: list | None = None
+             ) -> tuple:
+    """mamba2-780m of ``cfg`` without a mesh (seed 0, or ``state``): a
+    prefill of ``prompt``, then MT_STEPS decode steps, fed the greedy
+    tokens or ``feed``'s.  (the model, the prefill's cache, the tokens fed
+    at each step, each step's logits, the final cache, the prefill's
+    launches)."""
+    from repro_torch.models import Model
+    whole = Model(cfg, device="cuda")
+    if state is None:
+        whole.init(torch.Generator("cuda").manual_seed(0))
+    else:
+        whole.load_state(state)
+    zero_counts()
+    with torch.no_grad():
+        logits, cache0 = whole.prefill({"tokens": prompt})
+        launches = read_counts()
+        toks, want = [whole.greedy(logits)[:, None]], []
+        cache = {k: v.clone() for k, v in cache0.items()}
+        for s in range(MT_STEPS):
+            tok = toks[-1] if feed is None else feed[s]
+            lg, cache = whole.decode_step(tok, cache)
+            want.append(lg)
+            toks.append(whole.greedy(lg)[:, None])
+    return whole, cache0, feed or toks[:-1], want, cache, launches
+
+
+def mt_errors(got: list, want: list, cache: dict) -> dict:
+    """The worst leaf_rel over the steps of the ranks' logits (every rank
+    alike, or the ranks' vocabulary slices joined) against ``want``, and
+    over the ranks of each rank's final conv and ssm part against its
+    slice of ``cache``."""
+    n = len(got)
+    e = {"logits": 0.0, "conv": 0.0, "ssm": 0.0}
+    for s in range(MT_STEPS):
+        lgs = [g[0][s] for g in got]
+        if lgs[0].shape[-1] != want[s].shape[-1]:    # vocab slices
+            lgs = [torch.cat(lgs, -1)]
+        assert all(torch.equal(lg, lgs[0]) for lg in lgs), s
+        e["logits"] = max(e["logits"], leaf_rel(lgs[0], want[s]))
+    for r, (_, part) in enumerate(got):
+        for key, dim in (("conv", -1), ("ssm", -3)):
+            size = cache[key].shape[dim] // n
+            assert part[key].shape[dim] == size, key
+            e[key] = max(e[key], leaf_rel(
+                part[key], cache[key].narrow(dim, r * size, size)))
+    return e
+
+
+def mt_decode(card: str) -> dict:
+    """(c): mamba2-780m at full depth (seed 0; its f32 twin the same bf16
+    values in f32): a prefill of a batch of one without a mesh, MT_STEPS
+    steps of greedy decode without a mesh, then the same steps, fed the
+    same tokens, on MT_DECODE_RANKS ranks of "model" as threads, in "tp"
+    (each rank's ``Model`` holding its slices) and "fsdp" (whole leaves,
+    of which each rank cuts its own), each rank's cache
+    ``Model.cache_part``'s, every path fed the bf16 path's tokens.  In f32
+    the logits (every rank alike, or the
+    ranks' vocabulary slices joined) and each rank's final conv and ssm
+    parts within MT_F32_REL of no mesh's; in bf16 their distance from the
+    f32 path without a mesh within MT_BF16_YARD times the bf16 path's
+    without a mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import set_sharding_mode
+    n = MT_DECODE_RANKS
+    cfg16 = get_config(MAMBA2)
+    cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator("cuda").manual_seed(27)
+    prompt = torch.randint(0, cfg16.vocab, (1, MT_PROMPT), device="cuda",
+                           generator=gen)
+    whole16, cache16, toks16, want16, end16, launches = mt_whole(
+        cfg16, None, prompt)
+    state16 = whole16.state_dict()
+    whole32, cache32, toks32, want32, end32, more = mt_whole(
+        cfg32, {k: v.float() for k, v in state16.items()}, prompt, toks16)
+    launches = {k: v + more[k] for k, v in launches.items()}
+    threads = MambaThreads(n)
+    set_sharding_mode("tp")
+    out = {}
+    for dt, cfg, whole, cache0, toks, want, end in (
+            ("f32", cfg32, whole32, cache32, toks32, want32, end32),
+            ("bf16", cfg16, whole16, cache16, toks16, want16, end16)):
+        state = whole.state_dict()
+        with threads.patched(mode="tp"):
+            models = threads.run(lambda r, cfg=cfg, state=state: Model(
+                cfg, device="cuda", mesh=threads.mesh).load_state(state))
+        for mode, ms in (("tp", models), ("fsdp", [whole] * n)):
+            got = mt_chain(ms, threads, mode, cache0, toks)
+            if dt == "f32":
+                e = mt_errors(got, want, end)
+                bad = {k: v for k, v in e.items() if v > MT_F32_REL}
+            else:    # against the f32 path, beside the bf16 path's own
+                e = mt_errors(got, want32, end32)
+                yard = mt_errors([(want16, {k: end16[k].narrow(
+                    d, r * (end16[k].shape[d] // n),
+                    end16[k].shape[d] // n) for k, d in (("conv", -1),
+                                                         ("ssm", -3))})
+                                  for r in range(n)], want32, end32)
+                e.update({f"{k}_yardstick": v for k, v in yard.items()})
+                bad = {k: e[k] for k in yard
+                       if e[k] > MT_BF16_YARD * max(yard[k], MT_F32_REL)}
+            assert not bad, f"[mamba tp] (c) {dt} {mode}: {e}"
+            out[f"{dt} {mode}"] = e
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"errors": out, "launches": launches,
+            "rank_conv": [*end16["conv"].shape[:-1],
+                          end16["conv"].shape[-1] // n],
+            "rank_ssm": [*end16["ssm"].shape[:2], end16["ssm"].shape[2] // n,
+                         *end16["ssm"].shape[3:]]}
+
+
+def phase_mamba_tp(card: str, served: list | None) -> dict:
+    """Phase 14 (see MT_* above).  ``served``: phase 5's greedy tokens of
+    mamba2-780m without a mesh, which the mesh's engine must repeat (None
+    with ``--mamba-tp-only``: this phase's own engine without a mesh)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    tag = "[mamba tp]"
+    t0 = time.perf_counter()
+    cfg = get_config(MAMBA2)
+    n = cfg.n_layers
+    state = Model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0)).state_dict()
+    gen = torch.Generator("cuda").manual_seed(24)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         device="cuda", generator=gen)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    walls, mark = {}, time.perf_counter()
+
+    def lap(key: str) -> None:
+        nonlocal mark
+        now = time.perf_counter()
+        walls[key] = now - mark
+        mark = now
+
+    one = tp_serve(cfg, None, card) if served is None else None
+    lap("serve without a mesh")
+    ref = tp_steps(cfg, None, state, batch, timed=MT_TIMED_STEPS)
+    ref.pop("model"), ref.pop("state")
+    zero = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "moe_gmm": 0,
+            "moe_gmm_bwd": 0}
+    want = {**zero, "ssd_intra_chunk": 2 * n * TP_STEPS,
+            "ssd_intra_chunk_bwd": n * TP_STEPS}
+    assert ref["launches"] == want, (ref["launches"], want)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            tp = tp_steps(cfg, mesh, state, batch, ref=ref, card=card,
+                          timed=MT_TIMED_STEPS)
+            sliced = sorted(k for k in tp["model"].sharded
+                            if k.split(".")[-1] in ("in_proj", "conv_w",
+                                                    "conv_b", "out_proj"))
+            tp.pop("model"), tp.pop("state")
+            lap("(a) training")
+            serve = tp_serve(cfg, mesh, card)
+            lap("(a) serving")
+        finally:
+            dist.destroy_process_group()
+    del state, ref["grads"]
+    assert len(sliced) == 4, sliced
+    assert tp["launches"] == want, (tp["launches"], want)
+    bad = {k: v for k, v in tp["grads"].items() if v != 0.0}
+    assert not bad, f"{tag} step-1 gradients not bit-identical: {bad}"
+    assert tp["losses"] == ref["losses"] and \
+        tp["grad_norms"] == ref["grad_norms"], (tp, ref)
+    want_serve = {**zero, "ssd_intra_chunk": n * SERVE_REQUESTS,
+                  "ssd_intra_chunk_bwd": 0}
+    assert serve["launches"] == want_serve, serve["launches"]
+    served = one["tokens"] if served is None else served
+    assert serve["tokens"] == served, f"{tag} served tokens differ"
+    say(f"{tag} (a) mamba2-780m at full width and depth ({n} layers, "
+        f"{widths(cfg)}), bf16, remat {cfg.remat}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, {TP_STEPS} make_train_step steps (AdamW, bf16 "
+        f"moments) from one state: world 1 on NCCL, a (1, 1) mesh in \"tp\""
+        f" mode, the mamba block on its split path ({', '.join(sliced)} "
+        f"sliced, whole at one rank; the column exchanges, the norm's "
+        f"summed statistic and \"g\" on NCCL), bit-identical to the steps "
+        f"without a mesh in every step-1 gradient leaf, the losses "
+        + ", ".join(f"{v:.6f}" for v in tp["losses"]) + " and the grad "
+        "norms " + ", ".join(f"{v:.6f}" for v in tp["grad_norms"])
+        + f"; launches {tp['launches']} [{card}]")
+    for key, res in (("without a mesh", ref), ("tp (1, 1)", tp)):
+        prof = res.get("profile")
+        say(f"{tag} (a) {key}: {res['ms_per_step']:.2f} ms/step (median of "
+            f"steps {TP_STEPS + 1}-{TP_STEPS + MT_TIMED_STEPS}; steps "
+            + ", ".join(f"{t:.1f}" for t in res["step_ms"]) + " ms)"
+            + ("" if prof is None else
+               f"; profiled step: NCCL kernels "
+               f"{prof.get('groups', {}).get('nccl', 0.0):.3f} ms, device "
+               f"busy {prof.get('device_busy_ms', 0.0):.2f} ms")
+            + f" [{card}]")
+    say(f"{tag} (a) served {SERVE_REQUESTS} requests on the (1, 1) mesh: "
+        f"greedy tokens equal to " + ("this phase's engine without a mesh"
+                                      if one else "phase 5's")
+        + f"; decode {serve['decode_ms_per_step']:.2f} ms/step, prefill "
+        f"{serve['prefill_ms_per_request']:.2f} ms/request; launches "
+        f"{serve['launches']} [{card}]")
+    parts = mt_rank_parts(card)
+    lap("(b)")
+    for key, errs in parts["errors"].items():
+        say(f"{tag} (b) {key}: layer 0 at published widths, bf16, 1 x "
+            f"{MT_TOKENS} tokens, the SSD kernels at {errs['heads']} heads a "
+            f"rank: ||ranks - whole|| / ||whole|| y {errs['y']:.3e}, dx "
+            f"{errs['dx']:.3e}, worst gradient {errs['grad']:.3e} "
+            f"({errs['worst_leaf']}) (bounds {MT_REL}) [{card}]")
+    decode = mt_decode(card)
+    lap("(c)")
+    for key, e in decode["errors"].items():
+        dt, mode = key.split()
+        against = "no mesh's" if dt == "f32" else (
+            "the f32 path's without a mesh (the bf16 path without a mesh: "
+            f"logits {e['logits_yardstick']:.3e}, conv "
+            f"{e['conv_yardstick']:.3e}, ssm {e['ssm_yardstick']:.3e}; "
+            f"bound {MT_BF16_YARD} times those)")
+        say(f"{tag} (c) mamba2-780m at all {n} layers in {dt}, a batch of "
+            f"one after a {MT_PROMPT}-token prefill, {MT_STEPS} "
+            f"make_serve_step steps on {MT_DECODE_RANKS} ranks of \"model\" "
+            f"in \"{mode}\", each rank's states Model.cache_part's (conv "
+            f"{decode['rank_conv']}, ssm {decode['rank_ssm']}): logits "
+            f"every rank alike; logits {e['logits']:.3e}, final conv parts "
+            f"{e['conv']:.3e}, ssm parts {e['ssm']:.3e} from {against}"
+            + (f" (bound {MT_F32_REL})" if dt == "f32" else "")
+            + f" [{card}]")
+    gen = torch.Generator("cuda").manual_seed(28)
+    ssd = mt_ssd_ms(gen)
+    say(f"{tag} SSD on 1 x {MT_TOKENS} tokens (chunk 256) by heads a rank: "
+        + "; ".join(f"{k}: fwd {t['fwd_ms']:.4f} ms as issued, "
+                    f"{t['fwd_graph_ms']:.4f} on the device; fwd + bwd "
+                    f"{t['fwd_bwd_device_ms']:.4f} on the device"
+                    for k, t in ssd.items()) + f" [{card_line()}]")
+    dec = mt_decode_ms(card)
+    lap("timing")
+    say(f"{tag} one mamba2-780m layer's decode, batch 1: whole "
+        f"{dec['whole_ms']:.4f} ms as issued, {dec['whole_graph_ms']:.4f} "
+        f"on the device; rank {MT_DECODE_RANKS - 1} of {MT_DECODE_RANKS}'s "
+        f"share {dec['share_ms']:.4f} / {dec['share_graph_ms']:.4f} (its "
+        f"collectives as local stand-ins); those stand-ins alone "
+        f"{dec['exchanges_ms']:.4f} / {dec['exchanges_graph_ms']:.4f} "
+        f"[{card_line()}]")
+    wall = time.perf_counter() - t0
+    say(f"{tag} phase 14: {wall:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()) + f") [{card_line()}]")
+    paths = [{"arch": MAMBA2, "n_layers": n, "path": "mamba tp world 1 "
+              "train", "launches": tp["launches"]},
+             {"arch": MAMBA2, "n_layers": n, "path": "mamba tp world 1 "
+              "serve", "launches": serve["launches"]},
+             {"arch": MAMBA2, "n_layers": 1, "path": "mamba tp ranks' "
+              "layers", "launches": parts["launches"]},
+             {"arch": MAMBA2, "n_layers": n, "path": "mamba tp decode's "
+              "prefill", "launches": decode["launches"]}]
+    for res in (ref, tp):
+        res.pop("grads", None)
+    if one is not None:
+        one.pop("tokens")
+    serve.pop("tokens")
+    return {"card": card, "reference": ref, "tp": tp, "serve": serve,
+            "serve_reference": one, "rank_parts": parts,
+            "decode": decode, "ssd_ms": ssd, "decode_ms": dec,
+            "wall_s": wall, "wall_s_by_part": walls, "paths": paths}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -5970,6 +6588,10 @@ def main(argv: list[str]) -> int:
         cp = phase_context_parallel(card)
         say(json.dumps({"context_parallel": cp}))
         return 0
+    if "--mamba-tp-only" in argv:
+        mt = phase_mamba_tp(card, None)
+        say(json.dumps({"mamba_tp": mt}))
+        return 0
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
@@ -6011,13 +6633,14 @@ def main(argv: list[str]) -> int:
     seq = phase_seq_split(card)
     dry = phase_mesh_dryrun(card)
     cp = phase_context_parallel(card)
+    mt = phase_mamba_tp(card, paths[2]["tokens"])
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
                    p["launches"][name]
                    for p in paths + ep["paths"] + tp["paths"]
                    + fsdp["paths"] + seq["paths"] + dry["paths"]
-                   + cp["paths"]}
+                   + cp["paths"] + mt["paths"]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -6139,6 +6762,7 @@ def main(argv: list[str]) -> int:
                                   "sequence_split": seq,
                                   "mesh_dryrun": dry,
                                   "context_parallel": cp,
+                                  "mamba_tp": mt,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

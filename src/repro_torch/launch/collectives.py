@@ -26,6 +26,13 @@ Function over one axis of a DeviceMesh (``mesh.get_group(axis)``):
                  of the whole leaf are shares of the step's
     scatter_sum  its transpose: the ranks' tensors summed and each rank's
                  part kept forward, the parts gathered backward
+    exchange_columns
+                 a leaf held in contiguous slices of one dim: each rank
+                 gets the ranges of that dim it names (``column_plan``),
+                 wherever they lie, by one all-to-all of parts of unequal
+                 size; backward, the reverse exchange, the gradient of a
+                 column that several ranks took summed into its holder
+                 (mamba's packed projections, ``models/ssm.py``)
 
 and, over a sequence whose contiguous slices lie on the ranks of one or
 more axes (an "fsdp" batch smaller than the mesh, ``models/common.
@@ -42,7 +49,8 @@ later work read:
                  all-reduce's order of addition may not give
 
 "tp" mode gathers a leaf that every rank of "model" uses whole on the same
-rows (mamba's, llava's projector) with ``seq_gather``: there every rank's
+rows (llava's projector; mamba's where its heads do not divide "model")
+with ``seq_gather``: there every rank's
 gradient of the whole leaf is the same, and the rank keeps its own slice.
 
 and, over the vocabulary's slices of "model" (``lm.py``'s head in "tp"
@@ -59,12 +67,13 @@ are: NCCL for CUDA, gloo for the CPU (``launch/mesh.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed._functional_collectives import (
-    all_to_all_single_autograd, wait_tensor)
+    all_to_all_single, all_to_all_single_autograd, wait_tensor)
 
 from ..kernels._layout import dense_strides
 from ..roofline import counting
@@ -208,6 +217,66 @@ class _ScatterSum(torch.autograd.Function):
         return grad, None, None
 
 
+@functools.lru_cache(maxsize=None)
+def column_plan(index: int, held: int, want: tuple) -> tuple:
+    """The plan of ``exchange_columns`` for the rank at ``index`` of
+    ``len(want)`` ranks, each of which holds ``held`` contiguous columns of
+    a whole (rank q columns [q held, (q+1) held)) and wants the columns
+    ``want[q]``, ascending disjoint (start, stop) ranges of the whole:
+    (send, send_sizes, recv_sizes).  ``send`` is the (start, length) runs
+    of the rank's own columns in the order they go out: rank 0's first,
+    each rank's in the order of its ranges; ``send_sizes[s]`` counts those
+    that go to rank s, ``recv_sizes[q]`` those that come from rank q,
+    which arrive in rank order, so in the order of ``want[index]``."""
+    lo, hi = index * held, (index + 1) * held
+    send, send_sizes = [], []
+    for ranges in want:
+        size = 0
+        for a, b in ranges:
+            a, b = max(a, lo), min(b, hi)
+            if a < b:
+                send.append((a - lo, b - a))
+                size += b - a
+        send_sizes.append(size)
+    recv_sizes = tuple(sum(max(0, min(b, (q + 1) * held) - max(a, q * held))
+                           for a, b in want[index])
+                       for q in range(len(want)))
+    return tuple(send), tuple(send_sizes), recv_sizes
+
+
+def _all_to_all_v(x: torch.Tensor, dim: int, recv: tuple, send: tuple,
+                  ax: _Axis) -> torch.Tensor:
+    """``x``'s first send[0] entries of ``dim`` to rank 0, the next send[1]
+    to rank 1, ...; what arrives, recv[q] entries from rank q, laid along
+    ``dim`` in rank order.  Contiguous."""
+    with counting.backend(ax.name):
+        out = wait_tensor(all_to_all_single(
+            x.movedim(dim, 0).contiguous(), list(recv), list(send),
+            ax.group))
+    return dense_strides(out.movedim(0, dim).contiguous())
+
+
+class _ColumnExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax, plan):
+        send, send_sizes, recv_sizes = plan
+        ctx.dim, ctx.ax, ctx.plan, ctx.shape = dim, ax, plan, x.shape
+        out = torch.cat([x.narrow(dim, a, n) for a, n in send], dim) \
+            if send else x.narrow(dim, 0, 0)
+        return _all_to_all_v(out, dim, recv_sizes, send_sizes, ax)
+
+    @staticmethod
+    def backward(ctx, grad):
+        send, send_sizes, recv_sizes = ctx.plan
+        back = _all_to_all_v(grad, ctx.dim, send_sizes, recv_sizes, ctx.ax)
+        dx = back.new_zeros(ctx.shape)
+        at = 0
+        for a, n in send:            # a column sent to several ranks sums
+            dx.narrow(ctx.dim, a, n).add_(back.narrow(ctx.dim, at, n))
+            at += n
+        return dx, None, None, None
+
+
 def _groups(mesh, axes) -> tuple:
     return tuple(_axis(mesh, a) for a in
                  ((axes,) if isinstance(axes, str) else tuple(axes)))
@@ -240,6 +309,21 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
                                                      None, None, group))
     return dense_strides(out.movedim(0, concat_dim).flatten(
         concat_dim, concat_dim + 1).contiguous())
+
+
+def exchange_columns(x: torch.Tensor, mesh, axis: str, dim: int,
+                     want: tuple) -> torch.Tensor:
+    """The columns ``want[r]`` ((start, stop) ranges, ascending) of the
+    whole of which ``x`` is this rank's contiguous slice along ``dim`` over
+    ``axis`` (rank r of n holds [r s, (r+1) s) of n s), in their order,
+    for the rank at r; ``want`` lists every rank's ranges.  One
+    all-to-all (``column_plan``); backward, the reverse exchange, each of
+    this rank's columns' gradient summed over the ranks that took it.
+    Over an axis of one rank it copies the ranges."""
+    dim = dim % x.dim()
+    ax = _axis(mesh, axis)
+    plan = column_plan(dist.get_rank(ax.group), x.shape[dim], tuple(want))
+    return _ColumnExchange.apply(x, dim, ax, plan)
 
 
 def seq_slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:

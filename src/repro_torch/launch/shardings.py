@@ -288,31 +288,22 @@ def cache_shardings(cache: dict, cfg: ArchConfig, mesh) -> dict:
 
 def decode_cache_specs(cache: dict, cfg: ArchConfig, mesh,
                        mode: str = "tp") -> dict:
-    """The port's layout of a decode cache on ``mesh`` in ``mode``: the
-    k, v, xk and xv leaves as ``cache_shardings`` lays them, in both modes
-    (the rows over the batch axes where they divide the batch, else the
-    positions, context-parallel decode of a batch of one; the kv heads over
-    "model" where they divide it); the conv and ssm states' rows as the
-    rules lay them and their "model" dims whole (mamba's projections are
-    gathered whole, ROADMAP.md 9b (vi)-(vii)); ``pos`` over the batch axes
-    where they divide it (the reference leaves it whole beside its GSPMD
-    rows)."""
+    """The port's layout of a decode cache on ``mesh`` in ``mode``: every
+    leaf but ``pos`` as ``cache_shardings`` lays it, in both modes (the
+    rows over the batch axes where they divide the batch, else the k/v
+    positions, context-parallel decode of a batch of one; the kv heads,
+    the conv's channels and the ssm state's heads over "model" where they
+    divide it); ``pos`` over the batch axes where they divide it (the
+    reference leaves it whole beside its GSPMD rows)."""
     _check_mode(mode)
     rules = cache_shardings(cache, cfg, mesh)
     spec_of = MeshSpec.of(mesh)
     baxes = _spec((batch_axes(spec_of),))[0]
-    out = {}
-    for key, leaf in cache.items():
-        shape = _shape(leaf)
-        if key == "pos":
-            b = _axis_size(spec_of, _axes_of(baxes))
-            out[key] = (baxes,) if shape[0] % b == 0 and shape[0] >= b \
-                else ()
-        elif key in ("conv", "ssm"):
-            out[key] = _spec(None if e == "model" else e
-                             for e in rules[key])
-        else:
-            out[key] = rules[key]
+    out = dict(rules)
+    if "pos" in cache:
+        b = _axis_size(spec_of, _axes_of(baxes))
+        n = _shape(cache["pos"])[0]
+        out["pos"] = (baxes,) if n % b == 0 and n >= b else ()
     return out
 
 

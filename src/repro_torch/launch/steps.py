@@ -7,7 +7,8 @@ import math
 import torch.distributed as dist
 
 from ..models import Model
-from ..models.lm import kv_heads
+from ..models.common import state_whole
+from ..models.lm import kv_heads, state_parts
 from ..optim import AdamW
 from ..roofline import counting
 from .mesh import MeshSpec, batch_axes
@@ -138,8 +139,9 @@ def make_serve_step(model: Model, whole: bool = False):
     ``whole`` the tokens and the cache are every row's and every position's
     on every rank (``Model.init_decode_cache``'s, which the serving engine
     keeps alike on every rank, or a cache the rules keep whole) and are
-    decoded whole.  A cache of other rows, or whose kv heads are not the
-    rank's (``Model.cache_part``'s, ``lm.kv_heads``), raises."""
+    decoded whole.  A cache of other rows, or whose kv heads, conv
+    channels or ssm heads are not the rank's (``Model.cache_part``'s,
+    ``lm.kv_heads``, ``lm.state_parts``), raises."""
     def serve_step(tokens, cache):
         split = None
         if model.mesh is not None:
@@ -163,16 +165,23 @@ def make_serve_step(model: Model, whole: bool = False):
 
 
 def _check_heads(model: Model, cache: dict) -> None:
-    """Raises unless the k/v leaves of ``cache`` hold the rank's kv heads
-    on the model's mesh (``lm.kv_heads``)."""
+    """Raises unless the k/v leaves of ``cache`` hold the rank's kv heads,
+    and its conv and ssm leaves the rank's channels and heads, on the
+    model's mesh (``lm.kv_heads``, ``lm.state_parts``)."""
+    cfg = model.cfg
     with model.on_mesh():
-        want = kv_heads(model.cfg)
-    for key in ("k", "v", "xk", "xv"):
-        if key in cache and cache[key].shape[3] != want:
+        want = {key: (3, kv_heads(cfg), "kv heads", cfg.n_kv_heads)
+                for key in ("k", "v", "xk", "xv")}
+        if "conv" in cache:
+            for (key, (dim, whole)), n, what in zip(
+                    state_whole(cfg).items(), state_parts(cfg),
+                    ("channels", "ssm heads")):
+                want[key] = (dim, n, what, whole)
+    for key, (dim, n, what, whole) in want.items():
+        if key in cache and cache[key].shape[dim] != n:
             raise ValueError(
-                f"a cache of {cache[key].shape[3]} kv heads in {key}: want "
-                f"the rank's {want} of {model.cfg.n_kv_heads} "
-                f"(Model.cache_part)")
+                f"a cache of {cache[key].shape[dim]} {what} in {key}: want "
+                f"the rank's {n} of {whole} (Model.cache_part)")
 
 
 def _positions(model: Model, cache: dict, batch: int) -> tuple:

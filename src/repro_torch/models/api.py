@@ -55,7 +55,8 @@ from ..launch.shardings import (decode_cache_specs, local_slice, row_axes,
 from . import encdec, lm
 from .common import (SHARDING_MODE, ambient_cache, ambient_mesh,
                      ambient_rows, ambient_seq, ambient_whole, dtype_of,
-                     kv_split, require_device, use_mesh)
+                     kv_split, require_device, state_split, state_whole,
+                     use_mesh)
 from .config import ArchConfig
 
 
@@ -197,8 +198,9 @@ class Model(nn.Module):
     def init_decode_cache(self, batch: int, max_len: int,
                           dtype: torch.dtype | None = None) -> dict:
         """Zero cache; ``dtype`` defaults to the config's compute dtype.  On
-        a mesh it holds the rank's kv heads, every row and every position
-        (the serving engine's; ``cache_part`` cuts a rank's part)."""
+        a mesh it holds the rank's kv heads, conv channels and ssm heads,
+        every row and every position (the serving engine's; ``cache_part``
+        cuts a rank's part)."""
         dtype = dtype_of(self.cfg.compute_dtype) if dtype is None else dtype
         with self.on_mesh():
             return self._mod.init_decode_cache(self.cfg, batch, max_len,
@@ -206,11 +208,12 @@ class Model(nn.Module):
 
     def cache_part(self, cache: dict) -> dict:
         """This rank's part of a whole decode cache (every row, every
-        position, every kv head), as ``make_serve_step`` takes it on the
-        model's mesh (``launch/shardings.decode_cache_specs``, both modes):
-        its rows over the batch axes, or its positions where they do not
-        divide the batch (a batch of one: context-parallel decode), and its
-        kv heads over "model"; the cache itself off a mesh."""
+        position, every kv head, channel and head), as ``make_serve_step``
+        takes it on the model's mesh (``launch/shardings.
+        decode_cache_specs``, both modes): its rows over the batch axes, or
+        its positions where they do not divide the batch (a batch of one:
+        context-parallel decode), and its kv heads, conv channels and ssm
+        heads over "model"; the cache itself off a mesh."""
         if self.mesh is None:
             return cache
         specs = decode_cache_specs(cache, self.cfg, self.mesh, self.mode)
@@ -219,19 +222,28 @@ class Model(nn.Module):
                 for k, v in cache.items()}
 
     def own_heads(self, cache: dict) -> dict:
-        """``cache`` with every k/v leaf that holds every kv head (an
-        "fsdp" prefill's, whose rows lie over every axis) cut to the
-        rank's kv heads, as ``decode_cache_specs`` lays them over "model";
-        a leaf of the rank's heads, and every other leaf, as it is."""
+        """``cache`` with every leaf that holds all of what
+        ``decode_cache_specs`` lays over "model" (an "fsdp" prefill's,
+        whose rows lie over every axis) cut to the rank's part: the k/v
+        leaves to its kv heads, ``conv`` to its channels, ``ssm`` to its
+        heads; a leaf of the rank's part, and every other leaf, as it
+        is."""
+        cfg = self.cfg
+        dims = {**{k: (3, cfg.n_kv_heads) for k in ("k", "v", "xk", "xv")},
+                **state_whole(cfg)}
+        out = {}
         with self.on_mesh():
-            split = kv_split(self.cfg)
-        k = self.cfg.n_kv_heads
-        if split is None or split[2] == 1:
-            return cache
-        own = k // split[2]
-        return {key: v.narrow(3, split[1] * own, own)
-                if key in ("k", "v", "xk", "xv") and v.shape[3] == k else v
-                for key, v in cache.items()}
+            for key, v in cache.items():
+                split = None if key not in dims else (
+                    state_split(cfg, key) if key in ("conv", "ssm")
+                    else kv_split(cfg))
+                dim, whole = dims.get(key, (0, 0))
+                if split is not None and split[2] > 1 and \
+                        v.shape[dim] == whole:
+                    size = whole // split[2]
+                    v = v.narrow(dim, split[1] * size, size)
+                out[key] = v
+        return out
 
     @torch.no_grad()
     def greedy(self, logits: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ import functools
 
 import torch
 
-from ..launch.collectives import gather_leaf, seq_gather
+from ..launch.collectives import all_reduce, copy_to, gather_leaf, seq_gather
 from ..launch.mesh import MeshSpec, batch_axes, coordinate
 from ..launch.shardings import (cache_shardings, fsdp_gathers, model_dim,
                                 param_spec)
@@ -38,6 +38,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rms_norm_cols(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                  mesh=None) -> torch.Tensor:
+    """``rms_norm`` of rows of which ``x`` holds this rank's columns over
+    the "model" ranks of ``mesh`` (None: the whole rows), ``scale`` the
+    same columns of the scales: the f32 sum of squares of the rank's
+    columns, summed over "model" and divided by the whole row's width,
+    is the statistic of every rank's columns.  The sum goes through "g"
+    and then "f" (``all_reduce``, ``copy_to``): each rank uses it on its
+    own columns, so the gradient of each rank's share is the sum of every
+    rank's.  Without a mesh the same f32 sum over the row, divided by its
+    width."""
+    dt = x.dtype
+    x = x.float()
+    ss = x.square().sum(dim=-1, keepdim=True)
+    width = x.shape[-1]
+    if mesh is not None:
+        ss = copy_to(all_reduce(ss, mesh, "model"), mesh, "model")
+        width *= MeshSpec.of(mesh).shape["model"]
+    x = x * torch.rsqrt(ss / width + eps)
     return (x * (1.0 + scale.float())).to(dt)
 
 
@@ -324,6 +346,53 @@ def kv_split(cfg):
     if mesh is None or _kv_dim(cfg, MeshSpec.of(mesh)) is None:
         return None
     return (mesh, *seq_rank(mesh, ("model",)))
+
+
+def state_whole(cfg) -> dict:
+    """{"conv": (dim, size), "ssm": (dim, size)}: the dim of each mamba
+    decode state that ``cache_shardings`` may lay over "model" (the conv's
+    di + 2N channels, the ssm state's H heads) and its whole size."""
+    return {"conv": (-1, cfg.d_inner + 2 * cfg.ssm_state),
+            "ssm": (-3, cfg.ssm_heads)}
+
+
+@functools.lru_cache(maxsize=None)
+def _state_dims(cfg, mesh: MeshSpec) -> dict:
+    """{"conv": dim, "ssm": dim}: the dim of a mamba decode state that
+    ``cache_shardings`` lays over "model" (the conv's channels, the ssm
+    state's heads), None where it keeps it whole."""
+    lead = (1, 1) if cfg.family == "hybrid" else (1,)
+    c = cfg.d_inner + 2 * cfg.ssm_state
+    specs = cache_shardings(
+        {"conv": (*lead, 1, cfg.ssm_conv - 1, c),
+         "ssm": (*lead, 1, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)},
+        cfg, mesh)
+    return {k: model_dim(v) for k, v in specs.items()}
+
+
+def state_split(cfg, key: str):
+    """(mesh, index, count) where the decode cache's mamba state ``key``
+    ("conv": its di + 2N channels, "ssm": its H heads) lies over the
+    ambient mesh's "model" ranks (``launch/shardings.cache_shardings``, in
+    both modes; at one rank of "model" too, as ``kv_split`` counts): the
+    rank at ``index`` of ``count`` holds the contiguous part [index n /
+    count, (index + 1) n / count); else None."""
+    mesh = _AMBIENT[0][0]
+    if mesh is None or _state_dims(cfg, MeshSpec.of(mesh))[key] is None:
+        return None
+    return (mesh, *seq_rank(mesh, ("model",)))
+
+
+def mamba_split(cfg):
+    """(mesh, index, count) where both mamba decode states lie over the
+    ambient mesh's "model" ranks (``state_split``: H and di + 2N divide
+    them), else None.  There the rank at ``index`` of ``count`` runs the
+    mamba block on its heads [index H / count, (index + 1) H / count) in
+    "tp" mode (whose rules then split ``in_proj``, ``conv_w``, ``conv_b``
+    and ``out_proj`` over "model" too), and a decode step on them in both
+    modes (``models/ssm.py``)."""
+    split = state_split(cfg, "conv")
+    return split if split is not None and state_split(cfg, "ssm") else None
 
 
 _gathers = functools.lru_cache(maxsize=None)(fsdp_gathers)

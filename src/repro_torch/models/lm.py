@@ -20,6 +20,9 @@ Cache layouts (each with "pos": (B,) int64):
     ssm:                {"conv": (L,B,ck-1,di+2N), "ssm": (L,B,H,N,P)}
     hybrid:             mamba states (nb,pb,B,...) + shared-block KV
                         (nb,B,T,K,hd), nb = L // attn_every, pb = attn_every
+On a mesh a rank holds its kv heads, its conv channels and its ssm heads
+where ``launch/shardings.cache_shardings`` lays them over "model"
+(``kv_heads``, ``state_parts``).
 
 The hybrid's stacked leaves are (nb, pb, ...): block ``b`` runs its pb mamba
 layers, then the one ``shared`` attention + MLP block.  The VLM prepends its
@@ -69,8 +72,8 @@ from ..launch.mesh import coordinate
 from .attention import decode_attention, full_attention, init_attn_params
 from .common import (batch_split, cross_entropy_loss, dtype_of, fsdp_whole,
                      gather_layer, gather_layers, gathering, kv_split,
-                     normal_init, rms_norm, seq_split, tp_split, tp_whole,
-                     whole_shapes)
+                     normal_init, rms_norm, seq_split, state_split,
+                     state_whole, tp_split, tp_whole, whole_shapes)
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
 from .ssm import init_mamba_params, mamba_decode, mamba_forward
@@ -520,8 +523,9 @@ def decode_step(params, tokens, cache, cfg: ArchConfig):
     ranks (a batch of one), each attention layer -- gemma3's windowed ones
     and the hybrid's shared block included -- writes and attends at the
     rank's global positions (``attention.decode_attention``); the mamba
-    states of such a batch are whole on every rank, as the rules leave
-    them."""
+    states, which have no positions, lie over "model" as for any batch:
+    each rank holds its channels of the conv state and its heads of the
+    ssm state (``ssm.mamba_decode``)."""
     h = embed_tokens(params, tokens[:, :1], cfg).to(
         dtype_of(cfg.compute_dtype))
     pos = cache["pos"]
@@ -560,21 +564,33 @@ def kv_heads(cfg: ArchConfig) -> int:
     return cfg.n_kv_heads if split is None else cfg.n_kv_heads // split[2]
 
 
+def state_parts(cfg: ArchConfig) -> tuple[int, int]:
+    """(channels, heads): the conv channels and ssm heads a rank's decode
+    cache holds: (di + 2N) / nm and H / nm where ``cache_shardings`` lays
+    them over "model" (``common.state_split``), in both modes, else all
+    of them."""
+    out = []
+    for key, (_, n) in state_whole(cfg).items():
+        split = state_split(cfg, key)
+        out.append(n if split is None else n // split[2])
+    return tuple(out)
+
+
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype, device) -> dict:
     """Fresh (zero) decode cache; the mamba states do not depend on
-    ``max_len``.  On a mesh the kv heads are the rank's (``kv_heads``)
-    and every row and every position is kept (the serving engine's, alike
-    on every rank; ``Model.cache_part`` cuts a rank's part); the conv and
-    ssm states stay whole on every rank."""
+    ``max_len``.  On a mesh the kv heads, the conv channels and the ssm
+    heads are the rank's (``kv_heads``, ``state_parts``) and every row and
+    every position is kept (the serving engine's, alike on every rank;
+    ``Model.cache_part`` cuts a rank's part)."""
     cache = {"pos": torch.zeros((batch,), dtype=torch.int64, device=device)}
     if cfg.family in ("ssm", "hybrid"):
         lead = _lead(cfg)
-        c = cfg.d_inner + 2 * cfg.ssm_state
+        c, h = state_parts(cfg)
         cache["conv"] = torch.zeros((*lead, batch, cfg.ssm_conv - 1, c),
                                     dtype=dtype, device=device)
-        cache["ssm"] = torch.zeros((*lead, batch, cfg.ssm_heads,
-                                    cfg.ssm_state, cfg.ssm_head_dim),
+        cache["ssm"] = torch.zeros((*lead, batch, h, cfg.ssm_state,
+                                    cfg.ssm_head_dim),
                                    dtype=dtype, device=device)
     if cfg.family != "ssm":
         n_attn = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"

@@ -29,15 +29,18 @@ allocations); on the CPU its plain version's aten ops are booked under the
 kernel's name, so the other kinds compare across devices.
 
 Collectives (``c10d`` all-reduce, all-gather and reduce-scatter, the
-functional all-to-all), on any process group (NCCL, gloo, or the "fake"
-backend of the mesh dry run), are booked under the reference's kind names at
-its ring costs for the group's n ranks (``repro/roofline/hlo_analysis.py::
-_collective_link_bytes``): all-reduce 2 (n-1)/n of its size, all-gather and
-all-to-all (n-1)/n of the result, reduce-scatter (n-1) times the result
-shard.  These link bytes are counted by kind, by mesh axis (the axis the
-port's collectives name, ``backend``; else the group's axis on ``mesh``,
-else its description) and by (kind, axis) calls; a group of one rank books
-its call and 0 link bytes.
+functional all-to-all, whose parts may differ in size: the column exchange
+of ``launch/collectives.exchange_columns``), on any process group (NCCL,
+gloo, or the "fake" backend of the mesh dry run), are booked under the
+reference's kind names at its ring costs for the group's n ranks
+(``repro/roofline/hlo_analysis.py::_collective_link_bytes``): all-reduce 2
+(n-1)/n of its size, all-gather and all-to-all (n-1)/n of the result,
+reduce-scatter (n-1) times the result shard.  These link bytes are counted
+by kind, by mesh axis (the axis the port's collectives name, ``backend``;
+else the group's axis on ``mesh``, else its description) and by (kind,
+axis) calls; ``collective_shapes`` lists each call's (kind, axis, result
+shape) in order (not in the summary).  A group of one rank books its call
+and 0 link bytes.
 
 When no counter is active the kernel wrappers pay one check of ``active``
 and nothing else.
@@ -142,6 +145,7 @@ class Counter(TorchDispatchMode):
         self.collective_by_axis: dict[str, float] = {}
         self.collective_counts: dict[str, int] = {}
         self.collective_calls: dict[str, int] = {}
+        self.collective_shapes: list[tuple[str, str, tuple]] = []
         # the axis of each of ``mesh``'s groups, by the group's name
         self._axes = {} if mesh is None else {
             mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
@@ -268,6 +272,7 @@ class Counter(TorchDispatchMode):
         axis = axis or self._axes.get(group.group_name, group.group_desc)
         self._add_collective(kind, axis,
                              ring_bytes(kind, group.size(), nbytes))
+        self.collective_shapes.append((kind, axis, tuple(res.shape)))
         self.add(COLLECTIVES, 0, nbytes)
 
     def _track(self, fresh: list) -> None:

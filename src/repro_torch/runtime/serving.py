@@ -155,10 +155,12 @@ class ServingEngine:
                 self._retire(slot)
 
     def _splice(self, slot: int, cache1) -> None:
-        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v (on
-        a mesh the rank's kv heads, ``Model.own_heads``: an "fsdp" prefill
-        hands over every head) and of the SSM family's conv and ssm states,
-        axis 2 of the hybrid's (nb, pb, B, ...) conv and ssm states."""
+        """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v and
+        of the SSM family's conv and ssm states, axis 2 of the hybrid's
+        (nb, pb, B, ...) conv and ssm states.  On a mesh each leaf is the
+        rank's part (``Model.own_heads``: a "tp" prefill hands over the
+        rank's kv heads, channels and heads, an "fsdp" prefill every one,
+        which it cuts)."""
         hybrid = self.cfg.family == "hybrid"
         cache1 = self.model.own_heads(cache1)
         for key, big in self.cache.items():

@@ -54,6 +54,13 @@ GSPMD = ("deepseek-7b", "phi4-mini-3.8b")
 GSPMD_MESH = (2, 2)
 # the vocabulary-parallel cross-entropy's case: logits (B, S, V), f32
 CE_SHAPE = (2, 8, 512)
+# the archs whose mamba block each rank of "model" runs on its own heads:
+# on every mesh, the collectives of one training step counted, and the
+# decode states of a prefill of the training batch's first PROMPT_LEN
+# tokens and STATE_STEPS decode steps, whole in one process and each
+# rank's part on the mesh
+MAMBA = ("mamba2-780m", "zamba2-2.7b")
+STATE_STEPS = 3
 
 
 def tag(shape) -> str:
@@ -174,6 +181,61 @@ def serve_run(model, data, arch: str) -> np.ndarray:
     return np.array([c.tokens for c in done])
 
 
+def step_collectives(model, data, arch: str) -> np.ndarray:
+    """Every collective of one ``make_train_step`` step on the whole batch,
+    in order, as "kind/axis/result shape" (``roofline/counting``'s
+    ``collective_shapes``)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.roofline import Counter
+    opt = AdamW(AdamWConfig(**OPT))
+    params = dict(model.named_parameters())
+    st = {"params": params, "opt": opt.init(params)}
+    step = make_train_step(model, opt)
+    with Counter("cpu", model.mesh) as c:
+        step(st, batch(data, arch))
+    return np.array([f"{k}/{a}/{tag(s)}" for k, a, s in c.collective_shapes])
+
+
+def state_run(data, arch: str, mesh, res: dict, key: str) -> None:
+    """One process's prefill of the first PROMPT_LEN tokens of the training
+    batch and STATE_STEPS greedy decode steps: its conv and ssm states
+    after the prefill and after the steps (``key/whole/...``); then the
+    same on ``mesh`` in "tp" mode through ``make_prefill_step`` and
+    ``make_serve_step``, fed one process's tokens (the whole batch's):
+    the rank's states (``key/part/...``) and greedy tokens."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Model
+    import torch.nn.functional as F
+    cfg = train_cfg(arch)
+    prompt = {"tokens": batch(data, arch)["tokens"][:, :PROMPT_LEN]}
+    whole = Model(cfg, device="cpu").load_state(state(data, arch))
+    model = Model(cfg, device="cpu", mesh=mesh).load_state(state(data, arch))
+    pad = (0, 0, 0, 0, 0, STATE_STEPS)          # the hybrid's k/v slots
+    with torch.no_grad():
+        logits, cache = whole.prefill(prompt, pad_to=PROMPT_LEN + STATE_STEPS)
+        toks = [whole.greedy(logits)[:, None]]
+        got, part = make_prefill_step(model)(prompt)
+        part = {k: F.pad(v, pad) if k in ("k", "v") else v
+                for k, v in part.items()}
+        res[f"{key}/part/tok0"] = got.numpy()
+        step = make_serve_step(model)
+        for name, c in (("whole", cache), ("part", part)):
+            for leaf in ("conv", "ssm"):
+                res[f"{key}/{name}/prefill/{leaf}"] = c[leaf].numpy().copy()
+        for i in range(STATE_STEPS):
+            logits, cache = whole.decode_step(toks[-1], cache)
+            got, part = step(toks[-1], part)
+            res[f"{key}/part/tok{i + 1}"] = got.numpy()
+            toks.append(whole.greedy(logits)[:, None])
+    for name, c in (("whole", cache), ("part", part)):
+        for leaf in ("conv", "ssm"):
+            res[f"{key}/{name}/decode/{leaf}"] = c[leaf].numpy()
+    res[f"{key}/whole/tok"] = torch.cat(toks, dim=1).numpy()
+
+
 def _switched_losses(model, data, arch: str) -> np.ndarray:
     """The loss of the rank's rows in the mode the model was built in, and
     again after ``set_sharding_mode`` names the other mode ("fsdp": every
@@ -253,6 +315,12 @@ def worker(rank: int, world: int, store: str, inputs: str, out_dir: str,
                 res[f"{t}/{arch}/sharded"] = np.array(sorted(model.sharded))
                 for k, v in train_run(model, data, arch).items():
                     res[f"{t}/{arch}/train/{k}"] = v
+                if arch in MAMBA:
+                    res[f"{t}/{arch}/collectives"] = step_collectives(
+                        Model(train_cfg(arch), device="cpu",
+                              mesh=mesh).load_state(state(data, arch)),
+                        data, arch)
+                    state_run(data, arch, mesh, res, f"{t}/{arch}/states")
                 if arch in SERVED and shape in SERVE_MESHES:
                     res[f"{t}/{arch}/serve"] = serve_run(
                         Model(train_cfg(arch), device="cpu",

@@ -46,7 +46,6 @@ from repro_torch.launch.collectives import (_ALL_GATHER,  # noqa: E402
 from repro_torch.launch.mesh import (MeshSpec, fake_world,  # noqa: E402
                                      make_mesh, production_spec)
 from repro_torch.launch.shardings import (batch_shardings,  # noqa: E402
-                                          cache_shardings,
                                           decode_cache_specs, local_slice)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.roofline import Counter, counting  # noqa: E402
@@ -283,8 +282,9 @@ def test_decode_rows_match_jax(runs, shape, arch):
     """``make_serve_step`` on a mesh, in both modes, with the whole tokens
     and each rank's part of the cache: the rank's greedy tokens equal the
     rank's rows of JAX's serve step (jitted with ``tok_shard`` and
-    ``cache_shardings``), its cache within 1e-5 of JAX's part; in "tp"
-    the chain from ``make_prefill_step`` on the mesh too."""
+    ``cache_shardings``), its cache within 1e-5 of JAX's part (the mamba
+    archs' conv channels and ssm heads over "model" as JAX's are); in
+    "tp" the chain from ``make_prefill_step`` on the mesh too."""
     from repro_torch.configs import get_smoke
     jx = runs["jax"]
     cfg = tt.smoke(arch, get_smoke)
@@ -307,6 +307,10 @@ def test_decode_rows_match_jax(runs, shape, arch):
             for k in keys:
                 got = res[f"{pre}/{mode}/cache/{k}"]
                 assert got.shape == part[k].shape, (mode, k)
+                if k in ("conv", "ssm"):      # channels, heads over "model"
+                    dim = -1 if k == "conv" else -3
+                    assert got.shape[dim] * shape[1] == \
+                        whole1[k].shape[dim], (mode, k)
                 if k == "pos":
                     np.testing.assert_array_equal(got, part[k])
                 else:
@@ -351,6 +355,34 @@ def test_serve_step_refuses_a_cache_of_other_kv_heads():
                     4, 1, dtype=torch.int64, device="meta"), cache)
             assert model.cache_part(cache)["k"].shape[3] == \
                 cfg.n_kv_heads // 2, mode
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_serve_step_refuses_decode_states_of_every_rank(arch):
+    """A cache whose conv state holds every channel and whose ssm state
+    holds every head, where the rules lay them over "model", raises naming
+    ``Model.cache_part`` in both modes; ``Model.cache_part`` and
+    ``Model.own_heads`` cut it to the rank's half on (1, 2)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.common import set_sharding_mode
+    cfg = get_smoke(arch)
+    c = cfg.d_inner + 2 * cfg.ssm_state
+    for mode in dm.MODES:
+        with fake_world(MeshSpec(dm.AXES, (1, 2))) as mesh:
+            set_sharding_mode(mode)
+            try:
+                model = Model(cfg, device="meta", mesh=mesh)
+            finally:
+                set_sharding_mode("tp")
+            cache = Model(cfg, device="meta").init_decode_cache(4, 8)
+            assert cache["conv"].shape[-1] == c
+            with pytest.raises(ValueError, match="Model.cache_part"):
+                make_serve_step(model)(torch.zeros(
+                    4, 1, dtype=torch.int64, device="meta"), cache)
+            for part in (model.cache_part(cache), model.own_heads(cache)):
+                assert part["conv"].shape[-1] == c // 2, mode
+                assert part["ssm"].shape[-3] == cfg.ssm_heads // 2, mode
 
 
 # -------------------------------------------- context-parallel decode
@@ -420,9 +452,8 @@ def test_context_parallel_decode_matches_jax(runs, shape, arch):
 def test_decode_cache_bytes_equal_jax_shard_shapes(runs, cell):
     """The rank's decode cache of the mesh dry run (``input_specs.
     cache_specs``, ``decode_cache_specs``) on (16, 16) and (2, 16, 16),
-    both modes: each k/v leaf's bytes equal ``NamedSharding.shard_shape``
-    of the reference's ``cache_shardings``; conv and ssm are the rules'
-    bytes times the "model" ranks they keep whole (ROADMAP.md 9b (vii)).
+    both modes: each leaf's bytes, conv and ssm included, equal
+    ``NamedSharding.shard_shape`` of the reference's ``cache_shardings``.
     ``pos`` is not held: the port's is int64 and lies with the rows."""
     from repro_torch.launch.input_specs import cache_specs
     arch, shape_name = cell
@@ -430,17 +461,13 @@ def test_decode_cache_bytes_equal_jax_shard_shapes(runs, cell):
     for multi_pod in (False, True):
         spec = production_spec(multi_pod=multi_pod)
         want = runs["state"][f"cache/{int(multi_pod)}/{arch}/{shape_name}"]
-        rules = cache_shardings(cache_specs(cfg, SHAPES[shape_name]), cfg,
-                                spec)
         for mode in dm.MODES:
             got = {k: v.numel() * v.element_size() for k, v in cache_specs(
                 cfg, SHAPES[shape_name], spec, mode).items()}
             assert set(got) == set(want), mode
             got.pop("pos")
             for k, v in got.items():
-                whole = spec.shape["model"] if "model" in rules[k] and \
-                    k in ("conv", "ssm") else 1
-                assert v == want[k] * whole, (multi_pod, mode, k)
+                assert v == want[k], (multi_pod, mode, k)
 
 
 # ------------------------------------------------------------------- the CLI
