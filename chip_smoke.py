@@ -13,6 +13,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --dryrun-only
     python3 chip_smoke.py --cp-only
     python3 chip_smoke.py --mamba-tp-only
+    python3 chip_smoke.py --wow-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -314,11 +315,23 @@ result line):
    local stand-ins: the machine has one card).  Phase 12's cells gain
    mamba2-780m's and zamba2-2.7b's long_500k on (16, 16) in "tp".
 
+15. WOW's scheduler core (``repro_torch.core``; no kernel: the blocked
+   drain runs as torch ops) at ``device="cuda"`` held against itself at
+   ``device="cpu"``, decision for decision: (a) the batched-drain scenario
+   of ``benchmarks/scheduler_scale.py`` at 1024 nodes and 4096 ready
+   fan-in tasks, a cold round and 3 waves, flat and on the ``site``
+   topology (racks of 32, 4 a site, oversubscription 8): every round's
+   action stream equal, ms per ``schedule()`` and the step-1 and step-2/3
+   seconds on each device; (b) the mock RM driving ``make_adapter("wow",
+   ...)`` through a seeded fan-in DAG over 64 nodes with declines
+   (``decline_prob`` 0.3), on the virtual clock: the report and the action
+   stream equal on both devices.
+
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
 the tokens to hold), ``--seq-only`` phase 11, ``--dryrun-only`` phase 12,
 ``--cp-only`` phase 13, ``--mamba-tp-only`` phase 14 (serving phase 5's
-mamba2 requests without a mesh itself).
+mamba2 requests without a mesh itself), ``--wow-only`` phase 15.
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -3171,32 +3184,37 @@ def phase_winner(card: str) -> dict:
     """Phase 7c: the scheduler's winner twin (``repro_torch.core.
     torch_winner``) on the card against the numpy staged reduction, every
     draw bit-identical; one call at n = 4096 timed beside numpy's (host
-    clock; the twin copies its inputs to the card and its answer back)."""
+    clock; the twin's inputs lie on the card, its answer is read back)."""
     from repro_torch.core import torch_winner
     winner = torch_winner("cuda")
+
+    def on_card(key, ids):
+        return torch.from_numpy(key).cuda(), torch.from_numpy(ids).cuda()
+
     n = 0
     for key, ids in winner_draws():
-        got, want = winner(key, ids), winner_reference(key, ids)
+        got, want = winner(*on_card(key, ids)), winner_reference(key, ids)
         assert got == want, f"winner twin {got} != numpy {want} at n " \
             f"{len(key)} ({key.dtype})"
         n += 1
     key, ids = next(k for k in winner_draws() if len(k[0]) == 4096)
 
-    def per_call_ms(fn, calls=200):
-        fn(key, ids)
+    def per_call_ms(fn, *args, calls=200):
+        fn(*args)
         t = time.perf_counter()
         for _ in range(calls):
-            fn(key, ids)
+            fn(*args)
         return 1e3 * (time.perf_counter() - t) / calls
 
     res = {"draws": n, "sizes": list(WINNER_SIZES),
-           "twin_ms_4096": per_call_ms(winner),
-           "numpy_ms_4096": per_call_ms(winner_reference)}
+           "twin_ms_4096": per_call_ms(winner, *on_card(key, ids)),
+           "numpy_ms_4096": per_call_ms(winner_reference, key, ids)}
     say(f"[roofline] winner twin: {n} draws at n in {WINNER_SIZES} "
         f"(float64 keys with ties and inf, int64 keys near int64 max) "
         f"bit-identical to numpy's staged reduction; one call at n 4096: "
         f"twin {res['twin_ms_4096']:.4f} ms, numpy "
-        f"{res['numpy_ms_4096']:.4f} ms (host clock, copies included) "
+        f"{res['numpy_ms_4096']:.4f} ms (host clock, the twin's inputs on "
+        f"the card) "
         f"[{card}]")
     return res
 
@@ -6544,6 +6562,212 @@ def phase_mamba_tp(card: str, served: list | None) -> dict:
             "wall_s": wall, "wall_s_by_part": walls, "paths": paths}
 
 
+# ------------------------------------------------------------- phase 15
+# WOW's scheduler core on the card.  (a) benchmarks/scheduler_scale.py's
+# batched-drain scenario (`_bd_build` / `_bd_wave`, lines 632-690) at its
+# larger size: 1024 nodes of 128 GiB and 16 cores, 4096 ready fan-in tasks
+# of 48 GiB and 6 cores, each with two 1-4 GiB inputs on disjoint random
+# hosts replicated three ways, then WOW_WAVES waves; flat and on the
+# benchmark's `site` topology.  (b) the mock RM driving make_adapter("wow")
+# through a seeded fan-in DAG over WOW_RM_NODES nodes, on the virtual clock
+# so that the event order is the seed's alone.
+WOW_DRAIN = (1024, 4096)
+WOW_WAVES = 3
+WOW_TOPOS = {"flat": None,
+             "site": {"rack_size": 32, "racks_per_site": 4,
+                      "oversubscription": 8.0}}
+WOW_RM_NODES, WOW_RM_WIDTH, WOW_RM_STAGES, WOW_RM_FANIN = 64, 48, 4, 4
+WOW_RM_CFG = dict(decline_prob=0.3, external_load=0.3, seed=0)
+GIB = 1024 ** 3
+
+
+def wow_drain(device: str, n_nodes: int, n_ready: int, topo) -> dict:
+    """The drain scenario on ``device``: every schedule() round's actions
+    as tuples, the host ms of each round (the card synchronized after it),
+    the scheduler's phase seconds and its drain counters."""
+    import random
+
+    from repro_torch.bridge import actions_to_plain
+    from repro_torch.core import (DataPlacementService, FileSpec, NodeState,
+                                  TaskSpec, WowScheduler)
+    from repro_torch.sim import Topology, TopologySpec
+    rng = random.Random(0)
+    nodes = {i: NodeState(i, 128 * GIB, 16.0) for i in range(n_nodes)}
+    dps = DataPlacementService(seed=0)
+    if topo is not None:
+        dps.set_topology(Topology(TopologySpec(**topo), n_nodes, 100.0))
+    sched = WowScheduler(nodes, dps, device=device)
+    state = {"fid": 10 ** 6}
+
+    def submit(tid: int) -> None:
+        for _ in range(2):
+            hosts = rng.sample(range(n_nodes), 3)
+            dps.register_file(FileSpec(id=state["fid"],
+                                       size=rng.randint(1, 4) * GIB,
+                                       producer=-1), hosts[0])
+            for h in hosts[1:]:
+                dps.add_replica(state["fid"], h)
+            state["fid"] += 1
+        sched.submit(TaskSpec(id=tid, abstract="a", mem=48 * GIB, cores=6.0,
+                              inputs=(state["fid"] - 2, state["fid"] - 1),
+                              priority=rng.uniform(1, 10)))
+
+    t0 = time.perf_counter()
+    for t in range(n_ready):
+        submit(t)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    setup_s = time.perf_counter() - t0
+    rounds, round_ms = [], []
+
+    def timed_round() -> None:
+        t = time.perf_counter()
+        acts = sched.schedule()
+        sync()
+        round_ms.append(1e3 * (time.perf_counter() - t))
+        rounds.append(actions_to_plain(acts))
+
+    timed_round()
+    next_id = n_ready
+    for _ in range(WOW_WAVES):
+        finished = list(sched.running.items())
+        for tid, node in finished:
+            sched.on_task_finished(tid, node)
+        for cid in list(sched.active_cops):
+            sched.on_cop_finished(sched.active_cops[cid], ok=True)
+        for _ in range(len(finished)):
+            submit(next_id)
+            next_id += 1
+        timed_round()
+    on = {sched._cap_array.free_mem.device.type,
+          dps.matrix.pbytes.device.type}
+    assert on == {device}, f"[wow] the drain's tensors lie on {on}"
+    return {"rounds": rounds, "round_ms": round_ms, "setup_s": setup_s,
+            "phase_s": dict(sched.phase_s),
+            "drain_stats": dict(sched.drain_stats),
+            "cops": sched.cops_created, "tasks": sched.tasks_started}
+
+
+def wow_dag(seed: int = 0):
+    """A seeded fan-in DAG: WOW_RM_STAGES stages of WOW_RM_WIDTH tasks, each
+    task past the first stage reading WOW_RM_FANIN random outputs of the
+    stage before; sizes, shapes and priorities drawn from ``seed``."""
+    import random
+
+    from repro_torch.core import FileSpec, TaskSpec
+    rng = random.Random(seed)
+    tasks, files, prev = {}, {}, []
+    tid = 0
+    for s in range(WOW_RM_STAGES):
+        new = []
+        for w in range(WOW_RM_WIDTH):
+            files[tid] = FileSpec(id=tid, size=rng.randint(64, 1024) << 20,
+                                  producer=tid)
+            inputs = tuple(rng.sample(prev, WOW_RM_FANIN)) if prev else ()
+            tasks[tid] = TaskSpec(id=tid, abstract=f"s{s}",
+                                  mem=rng.randint(2, 16) * GIB,
+                                  cores=float(rng.randint(1, 8)),
+                                  inputs=inputs, outputs=(tid,),
+                                  priority=float(WOW_RM_STAGES - s)
+                                  + rng.random())
+            new.append(tid)
+            tid += 1
+        prev = new
+    return tasks, files
+
+
+def wow_mock_rm(device: str) -> dict:
+    """(b): the mock RM through make_adapter("wow", ...) on ``device``; each
+    schedule() call is logged and timed on the host clock, the card
+    synchronized before the clock is read."""
+    import dataclasses
+
+    from repro_torch.bridge import actions_to_plain
+    from repro_torch.core import NodeState, make_adapter
+    from repro_torch.runtime import MockResourceManager, MockRMConfig
+    from repro_torch.runtime.mockrm import run_on_virtual_clock
+    nodes = {i: NodeState(i, 64 * GIB, 16.0) for i in range(WOW_RM_NODES)}
+    ad = make_adapter("wow", nodes, seed=0, device=device)
+    tasks, files = wow_dag()
+    calls, actions = [], []
+    inner = ad.schedule
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed():
+        t = time.perf_counter()
+        acts = inner()
+        sync()
+        calls.append(time.perf_counter() - t)
+        actions.extend(acts)
+        return acts
+    ad.schedule = timed
+    rm = MockResourceManager(ad, tasks, files, MockRMConfig(**WOW_RM_CFG))
+    t0 = time.perf_counter()
+    report = run_on_virtual_clock(rm.run())
+    wall = time.perf_counter() - t0
+    assert report.completed == len(tasks) and report.declines > 0, report
+    return {"report": dataclasses.asdict(report),
+            "actions": actions_to_plain(actions), "wall_s": wall,
+            "schedule_calls": len(calls),
+            "ms_per_schedule": 1e3 * sum(calls) / max(len(calls), 1),
+            "drain_stats": dict(ad.sched.drain_stats)}
+
+
+def phase_wow(card: str) -> dict:
+    """Phase 15: WOW's scheduler core at ``device="cuda"`` held against
+    itself at ``device="cpu"``, decision for decision (see WOW_* above)."""
+    tag = "[wow]"
+    t0 = time.perf_counter()
+    n_nodes, n_ready = WOW_DRAIN
+    drains = {}
+    for topo, spec in WOW_TOPOS.items():
+        runs = {dev: wow_drain(dev, n_nodes, n_ready, spec)
+                for dev in ("cuda", "cpu")}
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        for i, (a, b) in enumerate(zip(gpu["rounds"], cpu["rounds"])):
+            assert a == b, f"{tag} (a) {topo} round {i}: the card's " \
+                f"{len(a)} actions differ from the CPU's {len(b)}"
+        assert len(gpu["rounds"]) == len(cpu["rounds"]) == WOW_WAVES + 1
+        assert gpu["drain_stats"] == cpu["drain_stats"]
+        assert gpu["drain_stats"]["step2_kernel"] > 0
+        n_act = [len(r) for r in gpu["rounds"]]
+        for dev, r in runs.items():
+            say(f"{tag} (a) {topo} {n_nodes} nodes x {n_ready} tasks on "
+                f"{dev}: ms per schedule() "
+                + ", ".join(f"{x:.1f}" for x in r["round_ms"])
+                + f" (mean {sum(r['round_ms']) / len(r['round_ms']):.1f}); "
+                f"step1 {r['phase_s']['step1_s']:.3f} s, steps 2-3 "
+                f"{r['phase_s']['step23_s']:.3f} s; set-up {r['setup_s']:.2f}"
+                f" s [{card}]")
+        say(f"{tag} (a) {topo}: every round's actions equal on cuda and cpu "
+            f"({n_act} actions, {gpu['cops']} COPs, {gpu['tasks']} starts; "
+            f"drain {gpu['drain_stats']})")
+        for r in runs.values():
+            r.pop("rounds")
+        drains[topo] = {"actions_per_round": n_act, **runs}
+    t_a = time.perf_counter() - t0
+    rms = {dev: wow_mock_rm(dev) for dev in ("cuda", "cpu")}
+    assert rms["cuda"]["report"] == rms["cpu"]["report"], rms
+    assert rms["cuda"]["actions"] == rms["cpu"]["actions"], \
+        f"{tag} (b) the mock RM's action streams differ"
+    assert rms["cuda"]["drain_stats"] == rms["cpu"]["drain_stats"]
+    rep = rms["cuda"]["report"]
+    for dev, r in rms.items():
+        say(f"{tag} (b) mock RM, {WOW_RM_NODES} nodes, "
+            f"{WOW_RM_STAGES}x{WOW_RM_WIDTH} fan-in DAG on {dev}: "
+            f"{r['wall_s']:.2f} s wall, {r['schedule_calls']} schedule() "
+            f"calls, {r['ms_per_schedule']:.2f} ms each [{card}]")
+    say(f"{tag} (b) report and {len(rms['cuda']['actions'])} actions equal "
+        f"on cuda and cpu: {rep}")
+    for r in rms.values():
+        r.pop("actions")
+    wall = time.perf_counter() - t0
+    say(f"{tag} phase 15: {wall:.1f} s ((a) {t_a:.1f}, (b) "
+        f"{wall - t_a:.1f}) [{card}]")
+    return {"card": card, "drain": drains, "drain_size": list(WOW_DRAIN),
+            "waves": WOW_WAVES, "mock_rm": rms, "wall_s": wall}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -6592,6 +6816,10 @@ def main(argv: list[str]) -> int:
         mt = phase_mamba_tp(card, None)
         say(json.dumps({"mamba_tp": mt}))
         return 0
+    if "--wow-only" in argv:
+        wow = phase_wow(card)
+        say(json.dumps({"wow": wow}))
+        return 0
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
@@ -6634,6 +6862,7 @@ def main(argv: list[str]) -> int:
     dry = phase_mesh_dryrun(card)
     cp = phase_context_parallel(card)
     mt = phase_mamba_tp(card, paths[2]["tokens"])
+    wow = phase_wow(card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
@@ -6763,6 +6992,7 @@ def main(argv: list[str]) -> int:
                                   "mesh_dryrun": dry,
                                   "context_parallel": cp,
                                   "mamba_tp": mt,
+                                  "wow": wow,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

@@ -1,5 +1,7 @@
-"""Weight bridge: the JAX package's parameter tree (and its optimizer
-state), as numpy arrays, into this package's state dicts.
+"""Bridges from the JAX package's state into this package's: the parameter
+tree (and its optimizer state), as numpy arrays, into state dicts; and the
+WOW core's cluster and workload state, as plain tuples or dicts, into the
+port's types (``wow_specs_from_plain``, ``actions_to_plain``).
 
     state = params_from_jax(jax.device_get(jax_model.init(key)))
     model = Model(cfg, device="cpu").load_state(state)
@@ -14,9 +16,12 @@ hands it numpy arrays.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .core.types import FileSpec, NodeState, TaskSpec
 from .models.api import flatten
 
 
@@ -39,4 +44,62 @@ def opt_state_from_jax(state: dict) -> dict:
     out = {k: params_from_jax(v) for k, v in state.items()
            if isinstance(v, dict)}
     out["count"] = _to_torch(state["count"]).to(torch.int32)
+    return out
+
+
+def _spec(cls, plain):
+    """One dataclass from a tuple of its fields in order, or a dict of
+    them by name (``dataclasses.astuple`` / ``asdict`` of either package's
+    instance)."""
+    if isinstance(plain, dict):
+        return cls(**plain)
+    return cls(*plain)
+
+
+def wow_specs_from_plain(*, nodes=(), tasks=(), files=(),
+                         replicas=None) -> dict:
+    """The WOW core's state in plain form as the port's types.
+
+    ``nodes``, ``tasks`` and ``files`` are iterables of ``NodeState``,
+    ``TaskSpec`` and ``FileSpec`` fields (tuples in field order, or dicts
+    by name); ``replicas`` maps a file id to the nodes holding it, the
+    first the one it was registered on.  Returns ``{"nodes": {id:
+    NodeState}, "tasks": {id: TaskSpec}, "files": {id: FileSpec},
+    "replicas": {file id: tuple of nodes}}``, each dict in the order given
+    (node order is the canonical enumeration order), sequences as tuples
+    and consumer sets as sets, as the reference's constructors hold them."""
+    out_nodes = {}
+    for plain in nodes:
+        n = _spec(NodeState, plain)
+        out_nodes[n.id] = n
+    out_tasks = {}
+    for plain in tasks:
+        t = _spec(TaskSpec, plain)
+        t.inputs = tuple(t.inputs)
+        t.outputs = tuple(t.outputs)
+        out_tasks[t.id] = t
+    out_files = {}
+    for plain in files:
+        f = _spec(FileSpec, plain)
+        f.consumers = set(f.consumers)
+        out_files[f.id] = f
+    out_reps = {fid: tuple(locs) for fid, locs in (replicas or {}).items()}
+    return {"nodes": out_nodes, "tasks": out_tasks, "files": out_files,
+            "replicas": out_reps}
+
+
+def actions_to_plain(actions) -> list[tuple]:
+    """Scheduler actions of either package as tuples, for comparing action
+    streams element for element: ``("task", task, node)`` for a
+    ``StartTask``; ``("cop", cop id, task, target, ((file, size, src, dst),
+    ...), price, total bytes)`` for a ``StartCop``."""
+    out = []
+    for a in actions:
+        if not hasattr(a, "plan"):           # StartTask
+            out.append(("task", a.task_id, a.node))
+            continue
+        p = a.plan
+        out.append(("cop", p.id, p.task_id, p.target,
+                    tuple(dataclasses.astuple(tr) for tr in p.transfers),
+                    p.price, p.total_bytes))
     return out

@@ -1,3 +1,5 @@
-from .pipeline import PrefetchingLoader, SyntheticCorpus
+from .pipeline import (MemmapCorpus, PrefetchingLoader, SyntheticCorpus,
+                       WowPrefetchPlanner)
 
-__all__ = ["PrefetchingLoader", "SyntheticCorpus"]
+__all__ = ["MemmapCorpus", "PrefetchingLoader", "SyntheticCorpus",
+           "WowPrefetchPlanner"]

@@ -26,6 +26,16 @@ def require_device(device) -> torch.device:
     return device
 
 
+def same_device(a, b) -> bool:
+    """``a`` and ``b`` name one device ("cuda" names the current card)."""
+    def resolved(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return resolved(a) == resolved(b)
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]

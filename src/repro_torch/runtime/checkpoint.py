@@ -12,8 +12,8 @@ and the dotted parameter names of a flat level are split at the dots
 (``params/layers/attn/wq``, ``opt/m/layers/attn/wq``, ``opt/count``).  The
 reference restores by position, in ``jax.tree`` order, which sorts the keys
 of every level; the port writes its leaves in that order and restores by
-name, checking each leaf's shape and dtype.  ``ReplicaPlacer`` (WOW's
-placement of shard replicas over hosts) stays in the JAX package.
+name, checking each leaf's shape and dtype.  ``ReplicaPlacer`` is WOW's
+placement of shard replicas over hosts, on the port's DPS.
 
 A checkpoint holds whole leaves, as the reference's does (its
 ``np.asarray`` gathers a sharded ``jax.Array``).  Given the ``model`` of a
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import DataPlacementService, FileSpec
 from ..launch.collectives import gather_leaf
 from ..launch.mesh import coordinate
 from ..launch.shardings import local_shape, local_slice, opt_shardings
@@ -196,3 +197,47 @@ class CheckpointManager:
             for fn in os.listdir(p):
                 os.remove(os.path.join(p, fn))
             os.rmdir(p)
+
+
+class ReplicaPlacer:
+    """DPS-planned checkpoint-shard replica placement across hosts (the
+    reference's ``repro/runtime/checkpoint.py::ReplicaPlacer``).
+
+    ``place(shards)`` spreads ``replicas`` copies of each shard over hosts
+    with the DPS greedy source/load balancing; ``survivors(lost)`` reports
+    which shards are still recoverable peer-locally after failures.
+    """
+
+    def __init__(self, n_hosts: int, replicas: int = 2, seed: int = 0):
+        self.n_hosts = n_hosts
+        self.replicas = min(replicas, n_hosts)
+        self.dps = DataPlacementService(seed=seed)
+
+    def place(self, shard_sizes: list[int]) -> dict[int, list[int]]:
+        """shard id -> host list, load-balanced by bytes."""
+        load = [0] * self.n_hosts
+        placement: dict[int, list[int]] = {}
+        order = sorted(range(len(shard_sizes)),
+                       key=lambda i: -shard_sizes[i])
+        for i in order:
+            hosts = sorted(range(self.n_hosts),
+                           key=lambda h: (load[h], h))[:self.replicas]
+            placement[i] = hosts
+            for h in hosts:
+                load[h] += shard_sizes[i]
+            self.dps.register_file(
+                FileSpec(id=i, size=shard_sizes[i], producer=-1), hosts[0])
+            for h in hosts[1:]:
+                self.dps.add_replica(i, h)
+        self.load = load
+        return placement
+
+    def survivors(self, lost_hosts: set[int]) -> tuple[int, int]:
+        """(#shards recoverable from surviving peers, #total)."""
+        ok = 0
+        total = 0
+        for fid in self.dps.file_ids():
+            total += 1
+            if self.dps.locations(fid) - lost_hosts:
+                ok += 1
+        return ok, total

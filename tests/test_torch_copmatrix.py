@@ -4,7 +4,8 @@ JAX twin (``repro/core/copmatrix.py::_jax_winner``).
 
 The twin is injected where the JAX one goes, ``BlockedDrainKernel.
 _winner_jit``, by patching ``_jax_winner`` and running the scheduler with
-``batched="jax"``: ``repro/core`` is not edited.  It must leave every
+``batched="jax"``: ``repro/core`` is not edited.  The twin reduces tensors,
+so the injected call wraps the reference's numpy rows.  It must leave every
 decision of the full simulation as the numpy reduction makes it."""
 import pytest
 
@@ -16,6 +17,10 @@ import repro.core.copmatrix as copmatrix  # noqa: E402
 from repro_torch.core import torch_winner  # noqa: E402
 
 BIG = np.iinfo(np.int64).max
+
+
+def _t(a):
+    return torch.from_numpy(a)
 
 
 def _sim_run(batched, *, workflow="group", scale=0.6, n_nodes=14, seed=0,
@@ -43,7 +48,7 @@ def torch_twin(monkeypatch):
 
     def counted(key, ids):
         calls.append(len(key))
-        return winner(key, ids)
+        return winner(_t(key), _t(ids))
 
     monkeypatch.setattr(copmatrix, "_jax_winner", lambda: counted)
     return calls
@@ -77,7 +82,8 @@ def _staged(key, ids) -> int:
 def test_padding_unit(kind):
     """tests/test_copmatrix.py::test_jax_winner_padding_unit's sizes, with
     float64 and int64 keys: the twin, the staged numpy reduction and the
-    JAX twin agree (the x64 flag the JAX twin sets is restored)."""
+    JAX twin, which pads to a power of two, agree (the x64 flag the JAX
+    twin sets is restored)."""
     winner = torch_winner("cpu")
     prev_x64 = jax.config.jax_enable_x64
     try:
@@ -88,7 +94,7 @@ def test_padding_unit(kind):
             key = key.astype(np.float64 if kind == "float" else np.int64)
             ids = rng.permutation(n).astype(np.int64)
             want = _staged(key, ids)
-            assert winner(key, ids) == want
+            assert winner(_t(key), _t(ids)) == want
             assert jax_winner(key, ids) == want
     finally:
         jax.config.update("jax_enable_x64", prev_x64)
@@ -96,7 +102,7 @@ def test_padding_unit(kind):
 
 def test_ties_inf_and_int64_edges():
     """Keys of +inf (every candidate, and beside finite ones), int64 keys
-    at int64 max (the pad key itself) and ids near it: a pad never wins."""
+    at int64 max (the JAX twin's pad key) and ids near it."""
     winner = torch_winner("cpu")
     inf = np.inf
     cases = [
@@ -109,7 +115,7 @@ def test_ties_inf_and_int64_edges():
     ]
     for key, ids in cases:
         ids = ids.astype(np.int64)
-        assert winner(key, ids) == _staged(key, ids), (key, ids)
+        assert winner(_t(key), _t(ids)) == _staged(key, ids), (key, ids)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float16,
@@ -117,7 +123,7 @@ def test_ties_inf_and_int64_edges():
 def test_other_dtypes_refused(dtype):
     winner = torch_winner("cpu")
     with pytest.raises(TypeError, match="float64 or int64"):
-        winner(np.zeros(4, dtype), np.arange(4, dtype=np.int64))
+        winner(_t(np.zeros(4, dtype)), _t(np.arange(4, dtype=np.int64)))
 
 
 def test_defaults_to_cuda(monkeypatch):
