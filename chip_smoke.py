@@ -14,6 +14,7 @@ card, and the numbers of its kernels there.
     python3 chip_smoke.py --cp-only
     python3 chip_smoke.py --mamba-tp-only
     python3 chip_smoke.py --wow-only
+    python3 chip_smoke.py --sim-only
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -326,12 +327,28 @@ result line):
    ...)`` through a seeded fan-in DAG over 64 nodes with declines
    (``decline_prob`` 0.3), on the virtual clock: the report and the action
    stream equal on both devices.
+16. WOW's simulator (``repro_torch.sim`` with ``repro_torch.workloads``; no
+   kernel: the flow network's dense fill runs as torch ops) at
+   ``device="cuda"`` held against itself at ``device="cpu"``: equal
+   ``SimResult``s (``dataclasses.asdict``) and ``action_log``s, nothing
+   caught.  (a) the paper's evaluation: every registry workflow under wow
+   on the default cluster (8 nodes, Ceph), at ``benchmarks/common.py``'s
+   scales, the ML pipelines at 1.0: makespans in simulated seconds, wall
+   seconds on each device; (b) ``benchmarks/scheduler_scale.py``'s
+   ``sim_throughput`` case, group on 1024 nodes at scale 10.24: wow flat,
+   wow and orig on the ``site`` topology (racks of 32, 4 a site,
+   oversubscription 8, core 2), orig's welded flows taking the dense fill
+   on the card (its count must be above 0): wall seconds and events per
+   second; (c) group with a node failure and a join under orig, cws and
+   wow, and a seeded open-loop stream of two tenants, one retrying, through
+   ``run_traffic`` under wow: ``TrafficResult``s equal too.
 
 ``--ep-only`` runs phase 8 alone, ``--tp-only`` phase 9, ``--fsdp-only``
 phase 10 (serving phase 5's deepseek requests without a mesh itself, for
 the tokens to hold), ``--seq-only`` phase 11, ``--dryrun-only`` phase 12,
 ``--cp-only`` phase 13, ``--mamba-tp-only`` phase 14 (serving phase 5's
-mamba2 requests without a mesh itself), ``--wow-only`` phase 15.
+mamba2 requests without a mesh itself), ``--wow-only`` phase 15,
+``--sim-only`` phase 16.
 ``--flash-bwd-only`` builds the flash kernels, prints the wgmma backward's
 registers and spills (none allowed),
 and runs the backward's part of phases 3 and 6 alone; ``--moe-bwd-only``
@@ -6768,6 +6785,152 @@ def phase_wow(card: str) -> dict:
             "waves": WOW_WAVES, "mock_rm": rms, "wall_s": wall}
 
 
+# ------------------------------------------------------------- phase 16
+# WOW's simulator on the card.  (a) the paper's evaluation: every registry
+# workflow under wow on SimConfig()'s cluster, at benchmarks/common.py's
+# SIM_SCALES (copied: benchmarks/ imports the JAX package), the ML
+# pipelines at 1.0; (b) benchmarks/scheduler_scale.py's sim_throughput
+# case (SIM_SIZES, line 286) at 1024 nodes, flat and on its `site`
+# topology (TOPO_CONFIGS, line 800); (c) churn and open-loop traffic.
+SIM_SCALES = {
+    "rnaseq": 0.1, "sarek": 0.06, "chipseq": 0.08, "rangeland": 0.04,
+    "syn_blast": 0.5, "syn_bwa": 0.5, "syn_cycles": 0.5, "syn_genome": 0.5,
+    "syn_montage": 0.5, "syn_seismology": 0.5, "syn_soykb": 0.5,
+    "all_in_one": 1.0, "chain": 1.0, "fork": 1.0, "group": 1.0,
+    "group_multiple": 1.0,
+}
+SIM_SIZE = (1024, 10.24)
+SIM_SITE = {"rack_size": 32, "racks_per_site": 4, "oversubscription": 8.0,
+            "core_oversubscription": 2.0}
+SIM_CHURN = {"scale": 0.25, "fail": (30.0, 1), "join": (45.0, 8)}
+
+
+def sim_once(device: str, workflow: str, scale: float, strategy: str,
+             cfg: dict | None = None, churn: dict | None = None,
+             traffic=None) -> dict:
+    """One simulation on ``device``: its result as a dict, its action log,
+    the wall seconds (the card synchronized before the clock is read) and
+    the flow network's dense fills."""
+    import dataclasses
+
+    from repro_torch.sim import SimConfig, Simulation, TopologySpec
+    from repro_torch.workloads import make_workflow
+    cfg = dict(cfg or {})
+    if cfg.get("topology") is not None:
+        cfg["topology"] = TopologySpec(**cfg["topology"])
+    wf = None if traffic is not None else make_workflow(workflow, scale=scale)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    sim = Simulation(wf, SimConfig(**cfg), strategy, traffic=traffic,
+                     device=device)
+    if churn:
+        sim.schedule_failure(*churn["fail"])
+        sim.schedule_join(*churn["join"])
+    res = sim.run()
+    sync()
+    wall = time.perf_counter() - t0
+    out = {"result": dataclasses.asdict(res), "log": sim.action_log,
+           "wall_s": wall, "steps": res.sim_steps,
+           "dense_fills": getattr(sim.fm, "dense_fills", 0)}
+    if traffic is not None:
+        out["traffic"] = dataclasses.asdict(sim.traffic_result())
+    return out
+
+
+def sim_pair(tag: str, *args, **kw) -> dict:
+    """``sim_once`` on the card and on the CPU; results and logs must be
+    equal.  Returns the card's record with the CPU's wall time beside it."""
+    runs = {dev: sim_once(dev, *args, **kw) for dev in ("cuda", "cpu")}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu["result"] == cpu["result"], \
+        f"[sim] {tag}: the card's SimResult differs from the CPU's"
+    assert gpu["log"] == cpu["log"], \
+        f"[sim] {tag}: the card's {len(gpu['log'])} actions differ from " \
+        f"the CPU's {len(cpu['log'])}"
+    assert gpu.get("traffic") == cpu.get("traffic"), \
+        f"[sim] {tag}: the card's TrafficResult differs from the CPU's"
+    assert gpu["dense_fills"] == cpu["dense_fills"]
+    rec = {k: gpu[k] for k in ("steps", "dense_fills")}
+    rec.update(makespan=gpu["result"]["makespan"], actions=len(gpu["log"]),
+               wall_s={dev: r["wall_s"] for dev, r in runs.items()},
+               events_per_s={dev: r["steps"] / r["wall_s"]
+                             for dev, r in runs.items()})
+    if "traffic" in gpu:
+        rec["traffic"] = {k: gpu["traffic"][k] for k in (
+            "arrivals", "admitted", "rejected", "completed", "retries",
+            "latency_p50", "latency_p99")}
+    return rec
+
+
+def phase_sim(card: str) -> dict:
+    """Phase 16: WOW's simulator at ``device="cuda"`` held against itself
+    at ``device="cpu"`` (see SIM_* above)."""
+    from repro_torch.sim import RetryPolicy, TenantSpec, TrafficConfig
+    from repro_torch.workloads import ALL_WORKFLOWS
+    tag = "[sim]"
+    t0 = time.perf_counter()
+    paper = {}
+    for name in ALL_WORKFLOWS:
+        scale = SIM_SCALES.get(name, 1.0)
+        r = paper[name] = sim_pair(name, name, scale, "wow")
+        say(f"{tag} (a) {name} x{scale} wow: makespan {r['makespan']!r} "
+            f"simulated s, {r['steps']} events, {r['actions']} actions; "
+            f"wall {r['wall_s']['cuda']:.3f} s cuda, "
+            f"{r['wall_s']['cpu']:.3f} s cpu [{card}]")
+    t_a = time.perf_counter() - t0
+    n_nodes, scale = SIM_SIZE
+    cluster = {}
+    for key, strategy, topo in (("wow flat", "wow", None),
+                                ("wow site", "wow", SIM_SITE),
+                                ("orig site", "orig", SIM_SITE)):
+        r = cluster[key] = sim_pair(key, "group", scale, strategy,
+                                    {"n_nodes": n_nodes, "topology": topo})
+        say(f"{tag} (b) group x{scale} on {n_nodes} nodes, {key}: makespan "
+            f"{r['makespan']!r} simulated s, {r['steps']} events, "
+            f"{r['dense_fills']} dense fills; wall "
+            f"{r['wall_s']['cuda']:.2f} s cuda "
+            f"({r['events_per_s']['cuda']:.1f} events/s), "
+            f"{r['wall_s']['cpu']:.2f} s cpu "
+            f"({r['events_per_s']['cpu']:.1f} events/s) [{card}]")
+    assert cluster["orig site"]["dense_fills"] > 0, \
+        f"{tag} (b) orig on the site topology took no dense fill"
+    t_b = time.perf_counter() - t0 - t_a
+    churn = {}
+    for strategy in ("orig", "cws", "wow"):
+        r = churn[strategy] = sim_pair(f"churn {strategy}", "group",
+                                       SIM_CHURN["scale"], strategy,
+                                       churn=SIM_CHURN)
+        say(f"{tag} (c) group x{SIM_CHURN['scale']} {strategy}, node "
+            f"{SIM_CHURN['fail'][1]} fails at {SIM_CHURN['fail'][0]} s and "
+            f"{SIM_CHURN['join'][1]} joins at {SIM_CHURN['join'][0]} s: "
+            f"makespan {r['makespan']!r} simulated s; wall "
+            f"{r['wall_s']['cuda']:.3f} s cuda, {r['wall_s']['cpu']:.3f} "
+            f"s cpu [{card}]")
+    traffic = TrafficConfig(
+        tenants=(TenantSpec("alice", weight=2.0, workflows=("chain", "fork"),
+                            scale=0.1, slo=300.0,
+                            retry=RetryPolicy(max_attempts=3, backoff=20.0)),
+                 TenantSpec("bob", weight=1.0, workflows=("group",),
+                            scale=0.1, slo=400.0)),
+        rate=0.2, n_arrivals=16, max_backlog=3, window=60.0, seed=0)
+    tr = sim_pair("traffic", None, None, "wow", {"n_nodes": 16},
+                  traffic=traffic)
+    assert tr["traffic"]["retries"] > 0, tr["traffic"]
+    say(f"{tag} (c) open-loop traffic, 2 tenants, 16 arrivals on 16 nodes, "
+        f"wow: {tr['traffic']}; wall {tr['wall_s']['cuda']:.3f} s cuda, "
+        f"{tr['wall_s']['cpu']:.3f} s cpu [{card}]")
+    wall = time.perf_counter() - t0
+    say(f"{tag} phase 16: {wall:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) "
+        f"{wall - t_a - t_b:.1f}); every result, log and TrafficResult "
+        f"equal on cuda and cpu [{card}]")
+    return {"card": card, "paper": paper, "scales": SIM_SCALES,
+            "cluster": cluster, "size": list(SIM_SIZE), "site": SIM_SITE,
+            "churn": churn, "traffic": tr, "wall_s": wall,
+            "wall_s_by_part": {"a": t_a, "b": t_b,
+                               "c": wall - t_a - t_b}}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing run", file=sys.stderr)
@@ -6820,6 +6983,11 @@ def main(argv: list[str]) -> int:
         wow = phase_wow(card)
         say(json.dumps({"wow": wow}))
         return 0
+    if "--sim-only" in argv:
+        sim = phase_sim(card)
+        say(json.dumps({"sim": {k: v for k, v in sim.items()
+                                if k != "paper"}}))
+        return 0
     build = phase_build()
     flash_err = phase_kernels()
     bwd_err = phase_flash_backward()
@@ -6863,6 +7031,7 @@ def main(argv: list[str]) -> int:
     cp = phase_context_parallel(card)
     mt = phase_mamba_tp(card, paths[2]["tokens"])
     wow = phase_wow(card)
+    sim = phase_sim(card)
 
     def launches(name):
         by_path = {f"{p['arch']} x{p['n_layers']} {p.get('path', 'serve')}":
@@ -6993,6 +7162,7 @@ def main(argv: list[str]) -> int:
                                   "context_parallel": cp,
                                   "mamba_tp": mt,
                                   "wow": wow,
+                                  "sim": sim,
                                   "kernels": kernels},
                                  indent=1))
     say(card)

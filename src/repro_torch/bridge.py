@@ -1,7 +1,9 @@
 """Bridges from the JAX package's state into this package's: the parameter
 tree (and its optimizer state), as numpy arrays, into state dicts; and the
 WOW core's cluster and workload state, as plain tuples or dicts, into the
-port's types (``wow_specs_from_plain``, ``actions_to_plain``).
+port's types (``wow_specs_from_plain``, ``actions_to_plain``), and either
+package's simulator ``Workflow`` to the same plain form
+(``workflow_to_plain``).
 
     state = params_from_jax(jax.device_get(jax_model.init(key)))
     model = Model(cfg, device="cpu").load_state(state)
@@ -86,6 +88,22 @@ def wow_specs_from_plain(*, nodes=(), tasks=(), files=(),
     out_reps = {fid: tuple(locs) for fid, locs in (replicas or {}).items()}
     return {"nodes": out_nodes, "tasks": out_tasks, "files": out_files,
             "replicas": out_reps}
+
+
+def workflow_to_plain(wf) -> dict:
+    """Either package's ``Workflow`` as tuples of its dataclass fields:
+    ``{"name", "tasks": (TaskSpec fields, ...), "files": ((id, size,
+    producer, consumers), ...), "edges": ((abstract, successors), ...)}``,
+    each in the workflow's dict order, consumers and successors sorted.
+    Equal plain forms are equal workflows."""
+    return {
+        "name": wf.name,
+        "tasks": tuple(dataclasses.astuple(t) for t in wf.tasks.values()),
+        "files": tuple((f.id, f.size, f.producer, tuple(sorted(f.consumers)))
+                       for f in wf.files.values()),
+        "edges": tuple((a, tuple(sorted(succ)))
+                       for a, succ in wf.abstract_edges.items()),
+    }
 
 
 def actions_to_plain(actions) -> list[tuple]:

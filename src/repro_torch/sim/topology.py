@@ -40,16 +40,13 @@ COP transfers with it and prefers minimum-distance sources; the scheduler's
 step-2 candidate order uses the weighted missing-byte cost (see DESIGN.md
 "Hierarchical topology").
 
-This is the reference's ``repro/sim/topology.py``.  The reference imports
-``LinkId`` from its flow-level network model, which the port does not hold
-yet; it is defined here as the same alias.
+This is the reference's ``repro/sim/topology.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 
-# a network link: (kind, index), e.g. ("up", node) or ("core", site)
-LinkId = tuple[str, int]
+from .network import LinkId
 
 
 @dataclasses.dataclass(frozen=True)
