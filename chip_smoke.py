@@ -245,8 +245,11 @@ result line):
    split as the tokens and whole beside them; llava-next's one-layer
    train_loss (the patches and tokens joined and cut into each rank's
    slice, the text CE over each rank's text positions) on 2880 patches +
-   1216 tokens and its prefill: each against the whole within bf16
-   bounds; then flash and the grouped FFN timed at those ranks' shapes.
+   1216 tokens and its prefill, and the same on 2878 patches lying whole
+   on each of 4 ranks beside the split tokens (4094 positions, the tail
+   padded to 4 x 1024; flash at each rank's (1024, (r+1) 1024)): each
+   against the whole within bf16 bounds, each family's seconds printed;
+   then flash and the grouped FFN timed at those ranks' shapes.
    The path's flash, grouped-FFN and SSD launches join the kernel line's
    totals.
 
@@ -4651,10 +4654,16 @@ def seq_kernel_ms(cfg_dense, cfg_ssm, gen) -> dict:
 # on 1500 frames + 448 tokens, and the prefill of a one-plus-one-layer
 # model, its frames split as its tokens and whole beside them; llava-next's
 # embedding, layer 0 and text CE (the one-layer model's train_loss) on
-# 2880 patches + 1216 tokens, and its prefill
+# 2880 patches + 1216 tokens, and its prefill, then on 2878 patches whole
 SEQ_MOE_NO_DROP_CF = 16.0          # llama4-scout's E / k
 SEQ_WHISPER = (1500, 448)          # frames, decoder tokens
 SEQ_LLAVA = (2880, 1216)           # patches, tokens: 4096 positions
+# llava-next with patches that no split divides, so they lie whole on every
+# rank beside the tokens split over SEQ_LLAVA_WHOLE_RANKS: 2878 + 1216 =
+# 4094 positions in slices of 1024, the last rank's 1022 real and 2 pads
+# (models/lm.py::_embed); flash runs at each rank's (1024, (r+1) 1024)
+SEQ_LLAVA_WHOLE = (2878, 1216)
+SEQ_LLAVA_WHOLE_RANKS = 4
 # bounds on ||the ranks' parts joined - whole|| / ||whole|| in bf16 (the
 # gradients summed over the ranks; a prefill's worst rank), about twice
 # what a sound run on the H100 gave (PERF.md, findings, PR 29): the MoE's
@@ -5073,6 +5082,77 @@ def seq_llava(gen) -> dict:
     return out
 
 
+def seq_llava_whole(gen) -> dict:
+    """llava-next at published widths cut to one layer, bf16, on 1 x (2878
+    patches + 1216 tokens) = 4094 positions over SEQ_LLAVA_WHOLE_RANKS
+    ranks, the patches whole on every rank (``common.batch_split``): the
+    joined sequence padded at its tail to 4 x 1024 (``lm._embed``).
+    ``lm.train_loss`` of each rank, the mean of the ranks' losses and its
+    gradients in every leaf, and ``lm.prefill``, every rank's last logits
+    (the holder of position 4093's) and cache (cut to 4094 positions),
+    against the whole batch's; the (q, k) shapes at which each rank's
+    attention called flash."""
+    from unittest import mock
+
+    from repro_torch.models import attention, lm
+    from repro_torch.models.api import flatten
+    cfg, params = seq_family_model(LLAVA, n_layers=1)
+    (p, s), n = SEQ_LLAVA_WHOLE, SEQ_LLAVA_WHOLE_RANKS
+    toks = torch.randint(0, cfg.vocab, (1, s + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "patches": 0.1 * torch.randn((1, p, lm.PATCH_DIM),
+                                          generator=gen, device="cuda")}
+    leaves = flatten(params)
+    loss = lm.train_loss(params, batch, cfg)[0]
+    whole = {"loss": loss.detach(),
+             "grad": dict(zip(leaves, torch.autograd.grad(
+                 loss, list(leaves.values()))))}
+    parts = {k: [v] * n if k == "patches" else v.chunk(n, 1)
+             for k, v in batch.items()}
+    shapes: set = set()
+    flash = attention.flash_attention
+
+    def recorded(q, k, *args, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, *args, **kw)
+
+    ranks = SeqThreads(n)
+    with ranks.patched(whole=("patches",)), \
+            mock.patch.object(attention, "flash_attention", recorded):
+        losses = ranks.run(lambda r: lm.train_loss(
+            params, {k: v[r] for k, v in parts.items()}, cfg)[0])
+    loss = torch.stack(losses).sum() / n
+    errs = seq_errs({"loss": loss.detach(), "grad": dict(zip(
+        leaves, torch.autograd.grad(loss, list(leaves.values()))))}, whole)
+    del whole
+    size = -(-(p + s) // n)
+    errs["pads"] = size * n - (p + s)
+    errs["text_positions"] = [min(size, max(0, min((r + 1) * size, p + s)
+                                            - max(r * size, p)))
+                              for r in range(n)]
+    want_shapes = {((1, size, cfg.n_heads, cfg.head_dim),
+                    (1, (r + 1) * size, cfg.n_kv_heads, cfg.head_dim))
+                   for r in range(n)}
+    assert shapes == want_shapes, (shapes, want_shapes)
+    errs["flash_shapes"] = sorted(shapes)
+    seq_hold(f"llava whole patches n{n}", errs, SEQ_FAMILY_REL[LLAVA])
+    out: dict = {f"n{n}": errs}
+    pre = {k: v for k, v in batch.items() if k != "labels"}
+
+    def prefill(b):
+        return lm.prefill(params, b, cfg)
+
+    with torch.no_grad():
+        want = prefill(pre)
+    errs = seq_prefill_errs(seq_prefill_ranks(
+        prefill, pre, n, ("tokens",), whole=("patches",)), want)
+    out[f"prefill n{n}"] = errs
+    assert errs["pos_equal"], f"[seq] llava whole prefill n{n}: {errs}"
+    seq_hold(f"llava whole prefill n{n}", errs, SEQ_FAMILY_REL[LLAVA])
+    return out
+
+
 def seq_family_kernel_ms(gen) -> dict:
     """Flash at each rank's shapes of this part (bf16): whisper's encoder
     (S = 1500 / n non-causal against T = 1500 frames, 16 heads x 64), its
@@ -5133,7 +5213,9 @@ def seq_family_kernel_ms(gen) -> dict:
 # whisper (the whole encoder and decoder layers' 1 + 2 forwards and
 # backwards and the whole prefill's 3; per n, each rank's, and each
 # rank's prefill with its frames split and whole); llava (the whole train
-# step's and prefill's one a layer; per n each rank's)
+# step's and prefill's one a layer; per n each rank's), and so with its
+# patches whole at SEQ_LLAVA_WHOLE_RANKS ranks
+LLAVA_WHOLE = f"{LLAVA} (patches whole)"
 def seq_family_launches() -> dict:
     ranks = sum(SEQ_RANKS)
     zero = {"flash_attn_fwd": 0, "flash_attn_bwd": 0, "moe_gmm": 0,
@@ -5145,31 +5227,41 @@ def seq_family_launches() -> dict:
         WHISPER: {**zero, "flash_attn_fwd": 6 + 9 * ranks,
                   "flash_attn_bwd": 3 + 3 * ranks},
         LLAVA: {**zero, "flash_attn_fwd": 2 + 2 * ranks,
-                "flash_attn_bwd": 1 + ranks}}
+                "flash_attn_bwd": 1 + ranks},
+        LLAVA_WHOLE: {**zero, "flash_attn_fwd": 2 + 2 * SEQ_LLAVA_WHOLE_RANKS,
+                      "flash_attn_bwd": 1 + SEQ_LLAVA_WHOLE_RANKS}}
 
 
 def phase_seq_families(card: str, gen) -> dict:
     """Phase 11's second part (see SEQ_MOE_NO_DROP_CF above): llama4-
     scout's MoE layer, whisper's layers and prefill, llava's train_loss
-    and prefill, each rank's part against the whole, every launch counted
-    from 0 a family; then the kernels timed at the ranks' shapes."""
+    and prefill (its patches split, then whole), each rank's part against
+    the whole, every launch counted from 0 a family; then the kernels timed
+    at the ranks' shapes."""
     errors, paths = {}, []
     want = seq_family_launches()
     tag = "[seq]"
-    for arch, run in ((LLAMA4, seq_moe), (WHISPER, seq_whisper),
-                      (LLAVA, seq_llava)):
+    for key_, arch, run in ((LLAMA4, LLAMA4, seq_moe),
+                            (WHISPER, WHISPER, seq_whisper),
+                            (LLAVA, LLAVA, seq_llava),
+                            (LLAVA_WHOLE, LLAVA, seq_llava_whole)):
         zero_counts()
-        errors[arch] = run(gen)
-        for key, errs in errors[arch].items():
-            say(f"{tag} {arch} {key} (bf16): " + ", ".join(
+        t0 = time.perf_counter()
+        errors[key_] = run(gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for key, errs in errors[key_].items():
+            say(f"{tag} {key_} {key} (bf16): " + ", ".join(
                 f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
                 for k, v in errs.items())
                 + f" (bounds {SEQ_FAMILY_REL[arch]})")
         launches = read_counts()
-        assert launches == want[arch], (arch, launches, want[arch])
+        say(f"{tag} {key_}: {seconds:.2f} s, launches {launches}")
+        assert launches == want[key_], (key_, launches, want[key_])
         paths.append({"arch": arch, "n_layers": 1,
-                      "path": "sequence-split family parts",
-                      "launches": launches})
+                      "path": "sequence-split family parts" + (
+                          ", patches whole" if key_ == LLAVA_WHOLE else ""),
+                      "launches": launches, "seconds": seconds})
         gc.collect()
         torch.cuda.empty_cache()
     timed = seq_family_kernel_ms(gen)

@@ -41,7 +41,8 @@ later work read:
 
     seq_halo     the rows just before this rank's slice (a causal conv's
                  halo), zeros before the first token
-    seq_last     the last rank's tensor, on every rank
+    seq_last     one rank's tensor (the last's, or the holder's of the
+                 last real position), on every rank
     gather_parts every rank's tensor, stacked in rank order on every
                  rank: context-parallel decode's partial softmax sums
                  (``models/attention.py``), combined in that order, so
@@ -359,11 +360,12 @@ def seq_halo(x: torch.Tensor, mesh, axes, index: int,
     return torch.cat([zeros, tails], dim=1).narrow(1, index * m, rows)
 
 
-def seq_last(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The last rank's ``x`` over ``axes`` (the end of a split sequence),
-    alike on every rank; backward, every rank's gradient summed into the
-    last rank's."""
-    return gather_leaf(x[None], mesh, 0, axes)[-1]
+def seq_last(x: torch.Tensor, mesh, axes, index: int = -1) -> torch.Tensor:
+    """The ``x`` of the rank at ``index`` over ``axes`` (``models/common.
+    seq_rank``'s order; the last rank, the end of a split sequence, by
+    default), alike on every rank; backward, every rank's gradient summed
+    into that rank's.  Every rank passes an ``x`` of the same shape."""
+    return gather_leaf(x[None], mesh, 0, axes)[index]
 
 
 def gather_parts(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -39,9 +39,9 @@ cut it (``on_mesh(split=...)``), and the methods called inside keep them:
 each rank runs its slice of its rows, in every family.  The MoE routes the
 reference's blocks (``mlp.py``); whisper's encoder runs its frames split
 as the tokens are or whole on every rank (``encdec.py``); llava's ranks
-hold contiguous slices of its patches and tokens joined, and a batch whose
-patches lie whole raises on every rank before any collective (``lm.py``,
-ROADMAP.md item 9b (viii)).
+hold contiguous slices of its patches and tokens joined, its patches split
+as the tokens are or whole on every rank, the joined sequence's tail
+padded where the ranks do not divide it (``lm.py``).
 """
 from __future__ import annotations
 

@@ -50,9 +50,10 @@ every row: positions from its start, attention to every earlier token
 slices leave (``ssm.py``), the MoE over the reference's blocks
 (``mlp.py``); the loss is the mean over the rank's labels, and a
 prefill's cache and last logits are the whole sequence's on every rank.
-The VLM's ranks hold its patches split as its tokens are, and each rank
-takes one contiguous slice of the patches and tokens joined
-(``_embed``), so a rank may hold patches only; its loss is the sum over
+The VLM's ranks hold its patches split as its tokens are, or whole beside
+them, and each rank takes one contiguous slice of the patches and tokens
+joined, the tail padded where the ranks do not divide them (``_embed``),
+so a rank may hold patches only, or pads only; its loss is the sum over
 the rank's text positions divided by its count of labels, the rank's
 share of the batch's mean.
 """
@@ -72,7 +73,7 @@ from ..launch.mesh import coordinate
 from .attention import decode_attention, full_attention, init_attn_params
 from .common import (batch_split, cross_entropy_loss, dtype_of, fsdp_whole,
                      gather_layer, gather_layers, gathering, kv_split,
-                     normal_init, rms_norm, seq_split, state_split,
+                     normal_init, own_rows, rms_norm, seq_split, state_split,
                      state_whole, tp_split, tp_whole, whole_shapes)
 from .config import ArchConfig
 from .mlp import init_mlp_params, init_moe_params, mlp_forward, moe_forward
@@ -239,44 +240,57 @@ def embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
     return all_reduce(rows.masked_fill(~own[..., None], 0), mesh, "model")
 
 
+def _joined_length(tokens, patches, cfg: ArchConfig) -> int:
+    """The real positions of the whole sequence: the VLM's patches, then
+    the tokens.  Under a sequence split ``tokens`` are the rank's slice of
+    its rows' (so are the patches where ``batch_split("patches")`` says
+    they are split as the tokens are; else they lie whole)."""
+    split = seq_split()
+    n = 1 if split is None else split[3]
+    size = tokens.shape[1] * n
+    if cfg.family == "vlm":
+        size += patches.shape[1] * (1 if batch_split("patches") is None
+                                    else n)
+    return size
+
+
 def _embed(params, tokens, cfg: ArchConfig, patches=None):
     """Token embeddings; the VLM prepends its ``patches`` (B,P,1024) through
     the projector, in the parameters' dtype.
 
-    Under a sequence split the VLM's patches and tokens are the rank's
-    slices of its rows' (split as the tokens are), and the rank's part of
-    the joined sequence of L = P + S positions is one contiguous slice,
-    [r L/n, (r+1) L/n), which flash's causal offset and ``seq_positions``
-    read: the projected patches and the embeddings are gathered over the
-    sequence's axes, joined and cut (the gathers' backward reduce-scatters
-    their gradients).  Patches that lie whole beside split tokens (P not a
-    multiple of the n slices, so neither is P + S) raise on every rank,
-    before any collective."""
+    Under a sequence split of n slices the VLM's rank holds one contiguous
+    slice of the joined sequence of L positions (``_joined_length``),
+    [r s, (r+1) s) with s = ceil(L / n), which flash's causal offset and
+    ``seq_positions`` read.  The token embeddings are gathered over the
+    sequence's axes, and so are the projected patches where they are split
+    as the tokens are; patches that lie whole on every rank (every row's:
+    the rank's rows are cut) are projected whole on every rank.  Patches
+    and tokens are joined, padded at the tail with zeros to n s positions
+    and cut; the gathers' backward reduce-scatters their gradients, and
+    the projector's gradient is the sum of each rank's own positions'.
+    The pads follow every real position, so a real position's causal
+    attention never reads one."""
     split = seq_split()
-    if cfg.family == "vlm":
-        if patches is None:
-            raise ValueError("vlm needs patch embeddings")
-        if split is not None and batch_split("patches") is None:
-            p, n = patches.shape[1], split[3]
-            raise ValueError(
-                f"{cfg.name}: {p} patches lie whole on every rank beside "
-                f"tokens split over {tuple(split[1])} into {n} slices of "
-                f"{tokens.shape[1]}; {p} + {tokens.shape[1] * n} positions "
-                f"do not cut into {n} contiguous slices (ROADMAP.md, item "
-                f"9b (viii))")
+    if cfg.family == "vlm" and patches is None:
+        raise ValueError("vlm needs patch embeddings")
     h = embed_tokens(params, tokens, cfg)
     if cfg.family == "vlm":
         whole = (PATCH_DIM, cfg.d_model)
         proj = fsdp_whole("projector", whole, tp_whole(
             "projector", whole, params["projector"]))
-        pe = torch.einsum("bpv,vd->bpd", patches.to(h.dtype), proj)
+        kept = split is not None and batch_split("patches") is None
+        pe = torch.einsum("bpv,vd->bpd", (own_rows(patches) if kept
+                                          else patches).to(h.dtype), proj)
         if split is None:
             h = torch.cat([pe, h], dim=1)
         else:
             mesh, axes, r, n = split
-            size = pe.shape[1] + h.shape[1]
-            h = torch.cat([gather_leaf(pe, mesh, 1, axes),
-                           gather_leaf(h, mesh, 1, axes)], dim=1)
+            if not kept:
+                pe = gather_leaf(pe, mesh, 1, axes)
+            h = torch.cat([pe, gather_leaf(h, mesh, 1, axes)], dim=1)
+            size = -(-h.shape[1] // n)
+            if size * n > h.shape[1]:
+                h = F.pad(h, (0, 0, 0, size * n - h.shape[1]))
             h = h.narrow(1, r * size, size)
     return h.to(dtype_of(cfg.compute_dtype))
 
@@ -380,10 +394,11 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
     prepended.
 
     Under a sequence split (``common.seq_split``) ``tokens`` are the rank's
-    slice: the logits are its positions', the last ``last`` ones (at most
-    a slice) the last rank's on every rank, those of ``text`` the rank's
-    own (none on a rank of patches only), and the cache's k/v the whole
-    sequence's."""
+    slice: the logits are its positions' (the VLM's padded tail included,
+    ``_embed``), the last ``last`` real ones (at most those of the rank
+    that holds the last) that rank's on every rank, those of ``text`` the
+    rank's own (none on a rank of patches or pads only), and the cache's
+    k/v the whole padded sequence's."""
     h = _embed(params, tokens, cfg, patches)
     split = seq_split()
     positions = seq_positions(h.shape[1], h.device)
@@ -425,21 +440,22 @@ def forward(params, tokens, cfg: ArchConfig, collect_cache: bool = False,
         for key in ("conv", "ssm"):
             if key in cache:      # (nb * pb, ...) -> (nb, pb, ...)
                 cache[key] = cache[key].unflatten(0, _lead(cfg))
-    if last > 0:
-        h = h[:, -last:, :]
-        if split is not None:
-            h = seq_last(h, split[0], split[1])
-    elif text > 0:
-        h = h[:, _text_start(h.shape[1], text, split):, :]
+    if split is None:
+        if last > 0:
+            h = h[:, -last:, :]
+        elif text > 0:
+            h = h[:, h.shape[1] - text:, :]
+    elif last > 0 or text > 0:
+        mesh, axes, r, _ = split
+        s, size = h.shape[1], _joined_length(tokens, patches, cfg)
+        if last > 0:    # every rank takes `last` rows: seq_last stacks them
+            end = min(max(size - r * s, last), s)
+            h = seq_last(h.narrow(1, end - last, last), mesh, axes,
+                         (size - 1) // s)
+        else:
+            lo, hi = (min(max(x - r * s, 0), s) for x in (size - text, size))
+            h = h[:, lo:hi, :]
     return _logits(params, h, cfg), aux, cache
-
-
-def _text_start(n: int, text: int, split) -> int:
-    """Where, among the rank's ``n`` positions, those of the whole
-    sequence's last ``text`` begin (``n`` where it holds none of them)."""
-    start, whole = (0, n) if split is None else \
-        (split[2] * n, split[3] * n)
-    return min(max(whole - text - start, 0), n)
 
 
 # ------------------------------------------------------------------- train
@@ -469,8 +485,9 @@ def train_loss(params, batch, cfg: ArchConfig):
     else:
         mesh, axes, r, n = split
         every = gather_leaf(labels, mesh, 1, axes)            # (B, S)
-        p = n * batch["patches"].shape[1]
-        first = max(r * (batch["tokens"].shape[1] * n + p) // n, p) - p
+        size = _joined_length(batch["tokens"], batch["patches"], cfg)
+        p = size - text
+        first = min(max(r * -(-size // n), p) - p, text)
         loss = ce_loss(logits, every.narrow(1, first, logits.shape[1]), cfg,
                        count=labels.numel())
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
@@ -479,7 +496,8 @@ def train_loss(params, batch, cfg: ArchConfig):
 # ----------------------------------------------------------------- serving
 def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     """Process the prompt (the VLM's patches first); return (last_logits,
-    cache).
+    cache).  Under a sequence split the cache's k/v hold the whole prompt's
+    positions, the VLM's padded tail (``_embed``) cut off.
 
     ``pad_to`` reserves decode slots on axis 2 of the (L,B,T,K,hd) or
     (nb,B,T,K,hd) cache; the mamba states have a fixed size and ignore it."""
@@ -487,12 +505,11 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int | None = None):
     patches = batch.get("patches")
     logits, _, cache = forward(params, tokens, cfg, collect_cache=True,
                                last=1, patches=patches)
-    b, seqlen = tokens.shape
-    if cfg.family == "vlm":
-        seqlen += patches.shape[1]
-    split = seq_split()
-    if split is not None:           # the rank's slice: the whole prompt's
-        seqlen *= split[3]
+    b = tokens.shape[0]
+    seqlen = _joined_length(tokens, patches, cfg)   # the whole prompt's
+    if "k" in cache and cache["k"].shape[2] > seqlen:   # the padded tail
+        cache["k"] = cache["k"][:, :, :seqlen].contiguous()
+        cache["v"] = cache["v"][:, :, :seqlen].contiguous()
     if "k" in cache and pad_to and pad_to > seqlen:
         pad = (0, 0, 0, 0, 0, pad_to - seqlen)   # last dims first: hd, K, T
         cache["k"] = F.pad(cache["k"], pad)

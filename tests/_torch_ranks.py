@@ -1,6 +1,7 @@
-"""The ranks of "model" as threads of one process, for the CPU tests of the
-mamba block split over "model" (tests/test_torch_mamba_split.py), which
-need no process group.
+"""The ranks of "model" as threads of one process, for the CPU tests that
+need no process group: the mamba block split over "model"
+(tests/test_torch_mamba_split.py) and llava's sequence split with a rank
+of pads only (tests/test_torch_seq_pads.py).
 
 Each rank runs ``fn(rank)`` in a thread of its own and meets the others at
 a barrier at each collective.  Under ``patched`` the port's collectives in
@@ -12,7 +13,10 @@ collective's as its transpose; ``all_to_all_v`` stands in for
 ``launch/collectives._all_to_all_v`` and keeps the column exchange's own
 autograd Function, whose backward then runs in each rank's thread.  The
 port's code sees a (1, n) mesh of ("data", "model") in ``mode`` and its
-rank over "model" (``common.seq_rank``).
+rank over "model" (``common.seq_rank``).  Under ``patched_seq`` it sees
+the sequence split over "model" in "fsdp" mode with every leaf whole
+(``fsdp_mesh`` None), and ``log`` keeps, rank by rank, the shape of each
+part that the rank handed a collective.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ class Ranks:
         self.barrier = threading.Barrier(n, timeout=120)
         self.box: list = [None] * n
         self.local = threading.local()
+        self.log: list = [[] for _ in range(n)]
 
     @property
     def rank(self) -> int:
@@ -66,6 +71,8 @@ class Ranks:
 
     def exchange(self, x) -> list:
         """Every rank's ``x`` of this collective, in rank order."""
+        self.log[self.rank].append(tuple(x.shape) if isinstance(
+            x, torch.Tensor) else len(x))
         self.box[self.rank] = x
         self.barrier.wait()
         parts = list(self.box)
@@ -122,4 +129,26 @@ class Ranks:
                 stack.enter_context(mock.patch.object(mod, name,
                                                       getattr(self, name)))
         stack.enter_context(common.use_mesh(self.mesh(), mode, rows=()))
+        return stack
+
+    def patched_seq(self, whole: tuple = ()) -> ExitStack:
+        """The sequence over the ranks of "model" of a (1, n) mesh in
+        "fsdp" mode, its leaves whole, the batch leaves ``whole`` whole
+        beside it: the port's gathers of the sequence (attention's k/v,
+        ``lm``'s embeddings and labels, ``collectives.seq_last``) among the
+        threads."""
+        from repro_torch.launch import collectives
+        from repro_torch.launch.mesh import MeshSpec
+        from repro_torch.models import attention, common, lm
+        stack = ExitStack()
+        for mod in (collectives, attention, lm):
+            stack.enter_context(mock.patch.object(mod, "gather_leaf",
+                                                  self.gather_leaf))
+        stack.enter_context(mock.patch.object(common, "seq_rank",
+                                              self.seq_rank))
+        stack.enter_context(mock.patch.object(common, "fsdp_mesh",
+                                              lambda: None))
+        stack.enter_context(common.use_mesh(
+            MeshSpec(AXES, (1, self.n)), "fsdp", rows=(), seq=("model",),
+            whole=whole))
         return stack

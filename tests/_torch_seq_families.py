@@ -6,10 +6,10 @@ families that carry a second layout besides the dense one: the MoE (the
 all-to-all path on the reference's blocks, and the dense dispatch where
 "model" does not divide the experts), whisper (its frames split as the
 tokens are, or whole on every rank) and llava (its patches and tokens
-joined and cut into contiguous slices), and deepseek-7b on the three-axis
-mesh.  Each CASE is a smoke config with fields replaced, the length of its
-frames or patches, and the meshes it runs on; ``rows_of(shape)`` rows of
-SEQ tokens a batch.
+joined and cut into contiguous slices, the tail padded where its
+patches lie whole), and deepseek-7b on the three-axis mesh.  Each CASE is
+a smoke config with fields replaced, the length of its frames or patches,
+and the meshes it runs on; ``rows_of(shape)`` rows of SEQ tokens a batch.
 
 ``make_inputs`` draws each case's weights (the port's init, seed 0), its
 tokens and its frames or patches once, into an npz that both sides read.
@@ -50,7 +50,10 @@ TWO = [(1, 2), (1, 4), (2, 2)]
 # whole rows'.  whisper's 32 frames split as its tokens; 31 divide no
 # sequence split and lie whole beside them (on (2, 2) with the rows split
 # over "data").  llava's 8 patches + 16 tokens on 4
-# ranks: rank 0 holds patches only; 6 patches lie whole and raise.
+# ranks: rank 0 holds patches only.  6 and 7 patches divide no split and lie
+# whole, rows and all: 6 + 16 = 22 positions in slices of 6 on (1, 4) (the
+# last rank 4 real and 2 pads), 7 + 16 = 23 in slices of 12 over "model"'s
+# 2 ranks on (2, 2), the rows over "data" (the last 11 real and a pad).
 CASES = {
     "llama4": (LLAMA4, {}, 0, [*TWO, (1, 2, 2)]),
     "llama4-no-drop": (LLAMA4, dict(capacity_factor=4.0), 0,
@@ -65,11 +68,11 @@ CASES = {
     "llava-6-patches": ("llava-next-mistral-7b", dict(n_patches=6), 6,
                         [(1, 4)]),
     "deepseek": ("deepseek-7b", {}, 0, [(1, 2, 2)]),
+    "llava-7-patches": ("llava-next-mistral-7b", dict(n_patches=7), 7,
+                        [(2, 2)]),
 }
 # the cases whose pairs the slices' capacity may drop: held to JAX alone
 DROPS = ("llama4", "arctic")
-# the cases whose batch lies whole and raises (no other run)
-REFUSED = ("llava-6-patches",)
 MOE = tuple(n for n, c in CASES.items() if c[0] in (LLAMA4, ARCTIC))
 # the inputs' seeds: one a smoke arch and length of frames or patches
 BASES = list(dict.fromkeys(c[:3:2] for c in CASES.values()))
@@ -223,26 +226,6 @@ def _runs(model_fn, b_train: dict, b_pre: dict, name: str) -> dict:
     return out
 
 
-def _refusals(mesh, data, name: str, res: dict, key: str) -> None:
-    """The training and the prefill step on a batch whose leaf lies whole
-    where the model cannot take it: each error's text, or "no error"."""
-    from repro_torch.launch.steps import make_prefill_step, make_train_step
-    from repro_torch.optim import AdamW, AdamWConfig
-    rows = rows_of(tuple(mesh.shape))
-    model = model_of(data, name, mesh)
-    st = {"params": dict(model.named_parameters()), "opt": None}
-    for step, run in (
-            ("train", lambda: make_train_step(model, AdamW(AdamWConfig(
-                **OPT)))(st, batch(data, name, rows))),
-            ("prefill", lambda: make_prefill_step(model)(
-                batch(data, name, rows, labels=False)))):
-        try:
-            run()
-            res[f"{key}/refused/{step}"] = np.array("no error")
-        except ValueError as e:
-            res[f"{key}/refused/{step}"] = np.array(str(e))
-
-
 def worker(rank: int, world: int, store: str, inputs: str,
            out_dir: str) -> None:
     """One rank of a gloo group of ``world``: every case of that world
@@ -260,8 +243,6 @@ def worker(rank: int, world: int, store: str, inputs: str,
     try:
         if world == 1:
             for name in CASES:
-                if name in REFUSED:
-                    continue
                 for rows in rows_needed(name):
                     for k, v in _runs(
                             lambda: model_of(data, name), batch(
@@ -272,14 +253,7 @@ def worker(rank: int, world: int, store: str, inputs: str,
         for shape in MESHES.get(world, ()):
             mesh = make_mesh(shape, axes_of(shape), device="cpu")
             t, rows = tag(shape), rows_of(shape)
-            # the refusals first: a rank that did not raise would hang the
-            # cases after them
             for name in cases_on(shape):
-                if name in REFUSED:
-                    _refusals(mesh, data, name, res, f"{t}/{name}")
-            for name in cases_on(shape):
-                if name in REFUSED:
-                    continue
                 b = batch(data, name, rows)
                 _, row_ax, seq_ax, whole = split_batch(b, mesh, "fsdp")
                 res[f"{t}/{name}/rows"] = np.array(row_ax)
@@ -326,8 +300,6 @@ def jax_reference(inputs: str, out: str) -> None:
 
     set_sharding_mode("fsdp")
     for name in CASES:
-        if name in REFUSED:
-            continue
         tree = tt._tree(data, name)
         jm = Model(cfg_of(name, get_smoke).replace(kernel_mode="ref",
                                                    remat="full"))

@@ -1,5 +1,6 @@
-"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package, and its entry points run on CUDA unless told otherwise."""
+"""Package rules of the PyTorch port: it (its examples and chip_smoke.py
+too) imports neither JAX nor the JAX package, and its entry points run on
+CUDA unless told otherwise."""
 import ast
 from pathlib import Path
 
@@ -24,7 +25,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + sorted(
+            (ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -41,6 +43,7 @@ def test_port_imports_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
     assert ROOT / "src" / "repro_torch" / "models" / "encdec.py" in files
+    assert len([f for f in files if f.parent.name == "examples"]) == 4
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files if _imported_roots(f) & FORBIDDEN}
     assert not bad, bad

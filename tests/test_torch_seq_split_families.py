@@ -14,7 +14,9 @@ steps (``tests/_torch_seq_families.py``: its CASES, their meshes and why).
 - whisper's frames split as its tokens (32 frames) or whole beside them
   (31 frames).
 - llava's 8 patches and 16 tokens in contiguous slices of 24 positions (on
-  4 ranks rank 0 holds patches only); 6 patches lie whole and raise.
+  4 ranks rank 0 holds patches only); 6 patches on (1, 4) and 7 on (2, 2)
+  lie whole beside the split tokens, rows and all, and the joined sequence
+  (22 and 23 positions) is cut into equal slices with its tail padded.
 
 The ``runs`` fixture runs everything once: one process at world 1, every
 mesh of world 2 and 4 (``_torch_seq_families.worker``, one spawned process
@@ -47,12 +49,12 @@ ROOT = Path(__file__).resolve().parents[1]
 ONE_REL = 1e-5
 JAX_REL = 1e-4
 AUX_REL = 1e-6
-RUN = [(n, s) for n, c in tf.CASES.items() for s in c[3]
-       if n not in tf.REFUSED]
+RUN = [(n, s) for n, c in tf.CASES.items() for s in c[3]]
 ONE = [(n, s) for n, s in RUN if n not in tf.DROPS]
 MOE = [(n, s) for n, s in ONE if n in tf.MOE]
-REFUSED = [(n, s) for n, c in tf.CASES.items() for s in c[3]
-           if n in tf.REFUSED]
+# the cases whose frames or patches divide no split and lie whole
+WHOLE = {"whisper-31-frames": ("frames",), "llava-6-patches": ("patches",),
+         "llava-7-patches": ("patches",)}
 
 
 def _ids(cases):
@@ -180,7 +182,7 @@ def _hold_prefill(runs, shape, key: str, pre: str, want_run,
 def test_the_rules_split_the_sequence(runs, name, shape):
     """``split_batch`` as every rank read it: the rows over a prefix of
     the axes, the sequence over the rest, "model" among them; whisper's
-    31 frames and nothing else lie whole."""
+    31 frames and llava's 6 and 7 patches lie whole, and nothing else."""
     t = tf.tag(shape)
     axes = tf.axes_of(shape)
     want_seq = ("data", "model") if len(shape) == 3 else ("model",)
@@ -189,8 +191,7 @@ def test_the_rules_split_the_sequence(runs, name, shape):
         seq = tuple(res[f"{t}/{name}/seq"])
         assert seq == want_seq and rows + seq == axes, (rows, seq)
         whole = tuple(res[f"{t}/{name}/whole"])
-        assert whole == (("frames",) if name == "whisper-31-frames"
-                         else ()), whole
+        assert whole == WHOLE.get(name, ()), whole
 
 
 @pytest.mark.parametrize("name,shape", ONE, ids=_ids(ONE))
@@ -271,21 +272,6 @@ def test_prefill_matches_jax_gspmd(runs, name, shape):
     t = f"{tf.tag(shape)}/{name}"
     _hold_prefill(runs, shape, t, f"{t}/gspmd_prefill/", runs["jax"],
                   JAX_REL)
-
-
-@pytest.mark.parametrize("name,shape", REFUSED, ids=_ids(REFUSED))
-@pytest.mark.parametrize("step", ("train", "prefill"))
-def test_whole_patches_raise_on_every_rank(runs, name, shape, step):
-    """llava with 6 patches on 4 ranks: the rules leave the patches whole
-    beside the split tokens, and 6 + 16 positions do not cut into 4
-    contiguous slices: the training and the prefill step raise on every
-    rank, naming the lengths and ROADMAP.md's item 9b (viii), before any
-    collective (the worker ran every case after them on the same group,
-    which a rank left behind would have hung)."""
-    for res in ranks(runs, shape):
-        msg = str(res[f"{tf.tag(shape)}/{name}/refused/{step}"])
-        assert "9b (viii)" in msg and "6 patches" in msg and \
-            "16 positions" in msg, msg
 
 
 @pytest.mark.parametrize("name", tf.DROPS)
