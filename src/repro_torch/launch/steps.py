@@ -6,6 +6,7 @@ import math
 
 import torch.distributed as dist
 
+from .. import telemetry
 from ..models import Model
 from ..models.common import state_whole
 from ..models.lm import kv_heads, state_parts
@@ -47,7 +48,17 @@ def make_train_step(model: Model, opt: AdamW):
     every axis for a leaf left whole, over "model" for experts fewer than
     it), the metrics over every axis, and all of them divided by the
     mesh's size, so the gradient is one process's.  AdamW's clip sums the
-    sliced leaves' norms over the axes their specs name."""
+    sliced leaves' norms over the axes their specs name.
+
+    Spans (``telemetry``): ``train.step`` (the allocator's ``mallocs``)
+    holds ``train.forward`` and ``train.backward`` (remat's recompute
+    included), ``train.reduce`` on a mesh of more than one rank of rows,
+    and ``train.optimizer`` around the optimizer's ``update`` call; the
+    forward, backward and optimizer with their stream time.  The
+    optimizer's span is opened by its caller, not inside ``AdamW``, so
+    that a profiler range a caller wraps ``update`` in stays the innermost
+    range over its kernels (the trace mirrors only the innermost range on
+    the device)."""
     mesh = model.mesh
     fsdp = mesh is not None and model.mode == "fsdp"
     axes = () if mesh is None else row_axes(mesh, model.mode)
@@ -65,26 +76,31 @@ def make_train_step(model: Model, opt: AdamW):
             t.div_(n)
 
     def train_step(state, batch):
-        batch, split = _shard(model, batch)
-        on_mesh = model.on_mesh(train=True, split=split)
-        params = state["params"]
-        for p in params.values():
-            p.grad = None
-        with on_mesh:
-            loss, metrics = model.train_loss(batch)
-            loss.backward()
-        grads = {n_: p.grad for n_, p in params.items()}
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        if fsdp:
-            reduce({**grads, **metrics}, {k: spec_axes(s) for k, s in
-                                          model.sharded.items()})
-        elif n > 1:
-            reduce({**grads, **metrics}, {})
-        om = opt.update(grads, state["opt"], params, mesh, model.sharded)
-        for p in params.values():
-            p.grad = None
-        metrics.update(om)
+        with telemetry.span("train.step", allocator=model.device):
+            batch, split = _shard(model, batch)
+            on_mesh = model.on_mesh(train=True, split=split)
+            params = state["params"]
+            for p in params.values():
+                p.grad = None
+            with on_mesh:
+                with telemetry.span("train.forward", device=model.device):
+                    loss, metrics = model.train_loss(batch)
+                with telemetry.span("train.backward", device=model.device):
+                    loss.backward()
+            grads = {n_: p.grad for n_, p in params.items()}
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            if fsdp or n > 1:
+                with telemetry.span("train.reduce"):
+                    reduce({**grads, **metrics},
+                           {k: spec_axes(s) for k, s in
+                            model.sharded.items()} if fsdp else {})
+            with telemetry.span("train.optimizer", device=model.device):
+                om = opt.update(grads, state["opt"], params, mesh,
+                                model.sharded)
+            for p in params.values():
+                p.grad = None
+            metrics.update(om)
         return state, metrics
 
     return train_step

@@ -23,6 +23,7 @@ import heapq
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..launch.steps import make_serve_step
 from ..models import Model
 from ..models.common import require_device
@@ -37,6 +38,7 @@ class Request:
     prompt: np.ndarray            # (len,) int
     max_new: int = 16
     priority: float = 0.0         # smaller = sooner
+    submitted: float | None = None  # telemetry's clock at submit, if on
 
     def __lt__(self, other: "Request") -> bool:
         return (self.priority, self.id) < (other.priority, other.id)
@@ -97,31 +99,43 @@ class ServingEngine:
         pr = float(len(prompt)) if priority is None else priority
         heapq.heappush(self._queue,
                        Request(rid, np.asarray(prompt, np.int64), max_new,
-                               pr))
+                               pr, telemetry.stamp()))
         return rid
 
     def step(self) -> list[Completion]:
         """Admit waiting requests into free slots (prefill), run one decode
-        step for all active slots, retire finished requests."""
-        self._admit()
-        out: list[Completion] = []
-        if self._active:
-            tok = torch.as_tensor(self._last_tok, device=self.device)
-            next_tok, self.cache = self._decode(tok, self.cache)
-            nxt = next_tok.cpu().numpy()
-            for slot, st in list(self._active.items()):
-                t = int(nxt[slot, 0])
-                st["tokens"].append(t)
-                if len(st["tokens"]) >= st["req"].max_new:
-                    out.append(Completion(st["req"].id, st["tokens"]))
-                    self._retire(slot)
-                else:
-                    self._last_tok[slot, 0] = t
-            # free slots decode too (lock-step batch) and their output is
-            # dropped; rewind them so their cache writes stay inside max_len
-            if self._free:
-                self.cache["pos"][self._free] = 0
-        self._done.extend(out)
+        step for all active slots, retire finished requests.
+
+        Spans (``telemetry``): ``engine.step`` (queued, active and free
+        slots as it starts; the allocator's ``mallocs``) holds one
+        ``engine.admit`` a request, ``engine.decode`` (``rows``, stream
+        time), ``engine.read`` (the host waiting for the step's tokens)
+        and one ``engine.retire`` a finished request."""
+        with telemetry.span("engine.step", allocator=self.device,
+                            queued=len(self._queue), active=len(self._active),
+                            free=len(self._free)):
+            self._admit()
+            out: list[Completion] = []
+            if self._active:
+                tok = torch.as_tensor(self._last_tok, device=self.device)
+                with telemetry.span("engine.decode", device=self.device,
+                                    rows=len(self._active)):
+                    next_tok, self.cache = self._decode(tok, self.cache)
+                with telemetry.span("engine.read"):
+                    nxt = next_tok.cpu().numpy()
+                for slot, st in list(self._active.items()):
+                    t = int(nxt[slot, 0])
+                    st["tokens"].append(t)
+                    if len(st["tokens"]) >= st["req"].max_new:
+                        out.append(self._retire(slot))
+                    else:
+                        self._last_tok[slot, 0] = t
+                # free slots decode too (lock-step batch) and their output
+                # is dropped; rewind them so their cache writes stay inside
+                # max_len
+                if self._free:
+                    self.cache["pos"][self._free] = 0
+            self._done.extend(out)
         return out
 
     def run_until_drained(self, max_steps: int = 10_000) -> list[Completion]:
@@ -140,19 +154,26 @@ class ServingEngine:
         while self._free and self._queue:
             req = heapq.heappop(self._queue)
             slot = self._free.pop()
-            # prefill the single request, then splice its cache row into
-            # the batch cache at `slot` (the COP analogue: preparing the
-            # slot overlaps with other slots' decoding at engine level)
-            tokens = torch.as_tensor(req.prompt[None, :], device=self.device)
-            logits, cache1 = self.model.prefill({"tokens": tokens},
-                                                pad_to=self.max_len)
-            self._splice(slot, cache1)
-            first = int(self.model.greedy(logits)[0])
-            self._last_tok[slot, 0] = first
-            self._active[slot] = {"req": req, "tokens": [first]}
-            if req.max_new <= 1:
-                self._done.append(Completion(req.id, [first]))
-                self._retire(slot)
+            with telemetry.span("engine.admit", req=req.id,
+                                prompt_tokens=len(req.prompt),
+                                queue_wait_s=telemetry.since(req.submitted)):
+                # prefill the single request, then splice its cache row
+                # into the batch cache at `slot` (the COP analogue:
+                # preparing the slot overlaps with other slots' decoding at
+                # engine level)
+                tokens = torch.as_tensor(req.prompt[None, :],
+                                         device=self.device)
+                with telemetry.span("model.prefill"):
+                    logits, cache1 = self.model.prefill({"tokens": tokens},
+                                                        pad_to=self.max_len)
+                with telemetry.span("engine.splice"):
+                    self._splice(slot, cache1)
+                with telemetry.span("engine.read"):
+                    first = int(self.model.greedy(logits)[0])
+                self._last_tok[slot, 0] = first
+                self._active[slot] = {"req": req, "tokens": [first]}
+                if req.max_new <= 1:
+                    self._done.append(self._retire(slot))
 
     def _splice(self, slot: int, cache1) -> None:
         """Copy a one-row prefill cache into row ``slot``: axis 1 of k/v and
@@ -171,6 +192,10 @@ class ServingEngine:
             else:
                 big[:, slot:slot + 1] = cache1[key]
 
-    def _retire(self, slot: int) -> None:
-        self._active.pop(slot, None)
-        self._free.append(slot)
+    def _retire(self, slot: int) -> Completion:
+        """Free ``slot``; the completion of the request it held."""
+        st = self._active.pop(slot)
+        with telemetry.span("engine.retire", req=st["req"].id,
+                            tokens=len(st["tokens"])):
+            self._free.append(slot)
+        return Completion(st["req"].id, st["tokens"])

@@ -14,6 +14,7 @@ import time
 
 import torch
 
+from .. import telemetry
 from ..data import PrefetchingLoader, SyntheticCorpus
 from ..launch.steps import make_train_step
 from ..models import ArchConfig, Model
@@ -37,27 +38,36 @@ def make_accum_train_step(model: Model, opt: AdamW, n_micro: int):
     """Gradient accumulation over ``n_micro`` equal microbatches: each
     microbatch's gradients are added into f32 buffers, as the reference's
     f32 carry does (``repro/runtime/trainer.py:54-57``), and their mean
-    takes one optimizer step.  The metric "loss" is the microbatches' mean."""
+    takes one optimizer step.  The metric "loss" is the microbatches' mean.
+    Its spans are ``make_train_step``'s, a forward and a backward for each
+    microbatch (attribute ``micro``)."""
     def train_step(state, batch):
-        params = state["params"]
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for n, p in params.items()}
-        losses = []
-        for p in params.values():
-            p.grad = None
-        for i in range(n_micro):
-            mb = {k: v.reshape(n_micro, v.shape[0] // n_micro,
-                               *v.shape[1:])[i] for k, v in batch.items()}
-            loss, _ = model.train_loss(mb)
-            loss.backward()
-            for n, p in params.items():
-                acc[n] += p.grad
+        with telemetry.span("train.step", allocator=model.device):
+            params = state["params"]
+            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for n, p in params.items()}
+            losses = []
+            for p in params.values():
                 p.grad = None
-            losses.append(loss.detach())
-        for g in acc.values():
-            g /= n_micro
-        om = opt.update(acc, state["opt"], params)
-        om["loss"] = torch.stack(losses).mean()
+            for i in range(n_micro):
+                mb = {k: v.reshape(n_micro, v.shape[0] // n_micro,
+                                   *v.shape[1:])[i] for k, v in batch.items()}
+                with telemetry.span("train.forward", device=model.device,
+                                    micro=i):
+                    loss, _ = model.train_loss(mb)
+                with telemetry.span("train.backward", device=model.device,
+                                    micro=i):
+                    loss.backward()
+                for n, p in params.items():
+                    acc[n] += p.grad
+                    p.grad = None
+                losses.append(loss.detach())
+            for g in acc.values():
+                g /= n_micro
+            with telemetry.span("train.optimizer", device=model.device):
+                om = opt.update(acc, state["opt"], params)
+            om["loss"] = torch.stack(losses).mean()
         return state, om
 
     return train_step
